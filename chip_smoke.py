@@ -21,6 +21,22 @@ Phases (any failure ends the run with a non-zero exit):
              then run again on fresh state (``WINDOWS`` in all) and the
              median and spread of its items/s are printed.
 
+5. one_shot  the one-shot ingest kernel against its plain version,
+             bitwise on every output field, at [2, 3, 1,048,576] and
+             524,288-item chunks: filling, replacement (counts above
+             random capacities), a frontier crossing an interval boundary
+             with every slot reset, late items, an all-masked chunk and a
+             ragged one;
+6. paths     the same deployment on a disordered stream (30% of items
+             shifted back by U(0, 0.75) s): (a) pipelined fused, (b)
+             pipelined onekernel, (c) batched onekernel, (d) pipelined
+             masked, all on cadence, and (e) pipelined and (f) batched
+             onekernel under watermark emission. (b)-(d) end in (a)'s
+             state bit for bit and (b), (c) emit (a)'s emissions; (e) and
+             (f) close the same intervals once each with the same answers;
+             every answer lies within 3 sigma of the exact value over the
+             items the script itself finds accepted.
+
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -36,6 +52,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
@@ -47,6 +65,13 @@ RATE = 1_048_576.0                 # items per event-time second
 SPAN, LATENESS = 5.0, 0.5          # 10 s window sliding by 5 s
 CHUNKS, EMIT_EVERY = 24, 4
 WINDOWS = 7                        # timed runs of the 24-chunk window
+PATH_WINDOWS = 3                   # timed runs of each path in phase paths
+SHIFT_P, SHIFT_MAX = 0.3, 0.75     # disorder: share shifted back, by U(0, s)
+# The disordered stream starts a quarter second into event time. Were its
+# chunk boundaries on interval boundaries, the watermark before the chunk
+# after a crossing would trail the boundary by under one item's spacing
+# (the lateness equals the chunk span), and no item could be late.
+DISORDER_T0 = 0.25
 THRESHOLD = 5000.0                 # count(x > 5000)
 STATS_RTOL = 1e-5                  # kernel vs f64-accumulated plain sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
@@ -255,6 +280,30 @@ def phase_stats(torch, gen):
                 library_ms=library_ms)
 
 
+def live_intervals(em) -> list:
+    """The intervals a cadence emission's merged window holds."""
+    return [i for i in range(em.open_interval - K + 1,
+                             em.open_interval + 1) if i >= 0]
+
+
+def check_answers(tag, em, intervals, exact_at) -> None:
+    """Every answer within 3 sigma (+ f32 rounding) of the exact float64
+    value over ``intervals`` of the snapshot ``exact_at``."""
+    cnt, tot, big = (float(exact_at[f][intervals].sum()) for f in range(3))
+    want = {"sum": tot, "mean": tot / cnt, "count": big}
+    for name, est in em.results.items():
+        v, var = float(est.value), float(est.variance)
+        sigma = math.sqrt(max(var, 0.0))
+        err_ = abs(v - want[name])
+        ok = err_ <= 3 * sigma + ANSWER_RTOL * abs(want[name])
+        log(f"[{tag}] emission {em.index} (interval {em.interval}) {name}: "
+            f"{v:.9g} exact {want[name]:.9g} |err| {err_:.4g} sigma "
+            f"{sigma:.4g} {'ok' if ok else 'OUTSIDE 3 sigma'}")
+        if not ok:
+            fail(f"{tag} emission {em.index} {name} outside its 3-sigma "
+                 "bound")
+
+
 def make_stream(torch, seed: int, dev):
     """The §5.1 Gaussian stream, stamped in order, made on the card in
     bulk (set-up), with the exact per-interval float64 aggregates."""
@@ -309,21 +358,8 @@ def phase_main(torch, seed: int, dev):
     if len(emissions) != CHUNKS // EMIT_EVERY:
         fail(f"{len(emissions)} emissions, expected {CHUNKS // EMIT_EVERY}")
     for em in emissions:
-        acc = exact[(em.index + 1) * EMIT_EVERY - 1]
-        live = [i for i in range(em.open_interval - K + 1,
-                                 em.open_interval + 1) if i >= 0]
-        cnt, tot, big = (float(acc[f][live].sum()) for f in range(3))
-        want = {"sum": tot, "mean": tot / cnt, "count": big}
-        for name, est in em.results.items():
-            v, var = float(est.value), float(est.variance)
-            sigma = math.sqrt(max(var, 0.0))
-            dev_ = abs(v - want[name])
-            ok = dev_ <= 3 * sigma + ANSWER_RTOL * abs(want[name])
-            log(f"[main] emission {em.index} {name}: {v:.9g} exact "
-                f"{want[name]:.9g} |err| {dev_:.4g} sigma {sigma:.4g} "
-                f"{'ok' if ok else 'OUTSIDE 3 sigma'}")
-            if not ok:
-                fail(f"emission {em.index} {name} outside its 3-sigma bound")
+        check_answers("main", em, live_intervals(em),
+                      exact[(em.index + 1) * EMIT_EVERY - 1])
     m = ex.state.metrics
     ing, acc_, drop = (t.tolist() for t in (m.ingested, m.accepted,
                                             m.dropped))
@@ -423,6 +459,377 @@ def phase_profile(torch, seed: int, dev) -> None:
         log(f"[profile]   {t / 1e3:9.4f} ms {c:6d}x  {name[:90]}")
 
 
+def one_shot_case(torch, gen, m, *, counts, capacity, adopt, slot_interval,
+                  max_time, open_interval, t_lo, t_hi, mask_p=0.97):
+    """Full-shape inputs of one one-shot call: ``(items, state)``."""
+    dev = gen.device
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def rand(n):
+        return torch.rand(n, generator=gen, device=dev)
+    items = dict(
+        times=t_lo + (t_hi - t_lo) * rand(m),
+        stratum_ids=torch.randint(0, S, (m,), generator=gen, **i32),
+        payload=torch.randn(m, generator=gen, device=dev) * 100.0,
+        mask=rand(m) < mask_p, u_accept=rand(m), u_slot=rand(m))
+    state = dict(
+        max_time=torch.tensor(max_time, dtype=torch.float32, device=dev),
+        open_interval=torch.tensor(open_interval, **i32),
+        on_time=torch.tensor(5, **i32), late=torch.tensor(7, **i32),
+        dropped=torch.tensor(11, **i32), chunks=torch.tensor(3, **i32),
+        items=torch.tensor(99, **i32),
+        slot_interval=torch.tensor(slot_interval, **i32), adopt=adopt,
+        counts=counts, capacity=capacity,
+        values=torch.randn((K, S, N_MAX), generator=gen, device=dev),
+        counters=torch.randint(0, 1000, (6, S), generator=gen, **i32))
+    return items, state
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (f32 compared as its int32 words)."""
+    if a.dtype == torch.float32:
+        a, b = a.reshape(-1).view(torch.int32), b.reshape(-1).view(
+            torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def phase_one_shot(torch, gen):
+    """The one-shot kernel against its plain version at full shape (span
+    5, lateness 0.5). With K = 2 a chunk that moves the newest interval
+    cannot also hold late items (late means older than the pre-chunk
+    newest interval, live means at most one older than the post-chunk
+    one), so the frontier crossing and the late items are two cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.one_shot import one_shot_ingest
+    dev = gen.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    full = torch.full((K, S), N_MAX, **i32)
+    adopt_full = torch.full((S,), N_MAX, **i32)
+
+    def below(lo):
+        return torch.randint(lo, N_MAX, (S,), generator=gen, **i32)
+    cases = {
+        "filling": one_shot_case(
+            torch, gen, M, counts=torch.zeros((K, S), **i32), capacity=full,
+            adopt=adopt_full, slot_interval=[0, -1], max_time=1.0,
+            open_interval=0, t_lo=0.6, t_hi=4.9),
+        "replacement": one_shot_case(
+            torch, gen, M,
+            counts=torch.randint(2_000_000, 3_000_000, (K, S),
+                                 generator=gen, **i32),
+            capacity=torch.randint(1, N_MAX + 1, (K, S), generator=gen,
+                                   **i32),
+            adopt=below(1), slot_interval=[0, 1], max_time=6.0,
+            open_interval=1, t_lo=5.6, t_hi=9.9),
+        "crossing": one_shot_case(
+            torch, gen, M,
+            counts=torch.randint(0, 500_000, (K, S), generator=gen, **i32),
+            capacity=full, adopt=below(N_MAX // 4), slot_interval=[-4, -3],
+            max_time=9.9, open_interval=1, t_lo=9.0, t_hi=10.6),
+        "late": one_shot_case(
+            torch, gen, M,
+            counts=torch.randint(0, 3_000_000, (K, S), generator=gen,
+                                 **i32),
+            capacity=full, adopt=below(N_MAX // 4), slot_interval=[2, 1],
+            max_time=10.3, open_interval=2, t_lo=9.0, t_hi=11.0),
+        "all_masked": one_shot_case(
+            torch, gen, M, counts=torch.zeros((K, S), **i32), capacity=full,
+            adopt=adopt_full, slot_interval=[0, -1], max_time=1.0,
+            open_interval=0, t_lo=0.6, t_hi=4.9, mask_p=0.0),
+        "ragged": one_shot_case(
+            torch, gen, M - 77,
+            counts=torch.full((K, S), N_MAX - M // 20, **i32),
+            capacity=full, adopt=adopt_full, slot_interval=[0, 1],
+            max_time=6.0, open_interval=1, t_lo=5.2, t_hi=9.9),
+    }
+    kw = dict(span=SPAN, allowed_lateness=LATENESS)
+    fields = ("values", "counts", "capacity", "slot_interval", "max_time",
+              "open_interval", "on_time", "late", "dropped", "chunks",
+              "items", "counters")
+    worst = 0.0
+    for name, (items, state) in cases.items():
+        sk = {k: v.clone() for k, v in state.items()}
+        sp = {k: v.clone() for k, v in state.items()}
+        one_shot_ingest(**items, **kw, **sk)
+        ref.one_shot_ingest(**items, **kw, **sp)
+        torch.cuda.synchronize()
+        bad = [f for f in fields if not same_bits(torch, sk[f], sp[f])]
+        worst = max(worst, float((sk["values"] - sp["values"]).abs().max()))
+        d = {f: int(sk[f]) - int(state[f])
+             for f in ("on_time", "late", "dropped", "items")}
+        resets = int((sk["slot_interval"] != state["slot_interval"]).sum())
+        log(f"[one_shot] {name}: M={items['times'].numel()} bitwise="
+            f"{not bad} added {d} slots reset {resets} open "
+            f"{int(state['open_interval'])}->{int(sk['open_interval'])} "
+            f"counts {sk['counts'].view(-1).tolist()}")
+        if bad:
+            fail(f"one-shot kernel differs from its plain version ({name}): "
+                 f"{bad}")
+        if name == "crossing" and (resets != K or d["dropped"] == 0):
+            fail("crossing case did not reset every slot and drop items")
+        if name == "late" and (d["late"] == 0 or d["dropped"] == 0):
+            fail("late case has no late or no dropped items")
+
+    # Timing at the main path's steady state: a replacement chunk.
+    items, state = cases["replacement"]
+    ms = time_ms(lambda: one_shot_ingest(**items, **kw, **state), torch)
+    plain_ms = time_ms(lambda: ref.one_shot_ingest(**items, **kw, **state),
+                       torch, reps=5, warm=1)
+    probe = dict(state, values=torch.full((K, S, N_MAX), float("nan"),
+                                          device=dev))
+    one_shot_ingest(**items, **kw, **probe)
+    written = int((~torch.isnan(probe["values"])).sum())
+    m = items["times"].numel()
+    nbytes = 21 * m + 4 * written + 4 * (4 * K * S + 7 * S + K + 7)
+    n_ops = 20 * m                     # ~twenty integer/f32 ops per item
+    bound = max(nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+    log(f"[one_shot] replacement chunk: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} B, {written} "
+        "cells written); no single PyTorch call does the fused ingest")
+    split = device_split(lambda: one_shot_ingest(**items, **kw, **state),
+                         torch)
+    log_split("one_shot", split, ms)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                >= n_ops / F32_OPS_PER_S else "operations", library_ms=None)
+
+
+def make_disordered_stream(torch, seed: int, dev):
+    """The §5.1 stream from DISORDER_T0 s on, with SHIFT_P of the items
+    shifted back by U(0, SHIFT_MAX) s (made on the card from a seeded
+    generator), and the script's own verdict on every item, chunk by
+    chunk, from the chunk times, the pre-chunk watermark and ring
+    eviction: the exact float64 per-(interval, stratum) count, sum and
+    count(x > THRESHOLD) over the accepted items after each chunk, and the
+    accepted / on-time / late / dropped totals."""
+    from repro_torch.runtime.records import TimestampedChunk
+    from repro_torch.stream.sources import GaussianSource
+    src = GaussianSource()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    recip = float(np.float32(1.0) / np.float32(SPAN))
+    n_iv = int((DISORDER_T0 + CHUNKS * M / RATE) // SPAN) + 1
+    acc = torch.zeros((3, n_iv, S), dtype=torch.float64, device=dev)
+    totals = dict(on_time=0, late=0, dropped=0)
+    frontier, open_iv = np.float32(-3.0e38), 0
+    chunks, exact = [], []
+    for e in range(CHUNKS):
+        vals, sid = src.chunk(gen, M)
+        base = (torch.arange(M, dtype=torch.float32, device=dev)
+                / float(np.float32(RATE))
+                + float(np.float32(DISORDER_T0 + e * M / RATE)))
+        shift = torch.where(
+            torch.rand(M, generator=gen, device=dev) < SHIFT_P,
+            torch.rand(M, generator=gen, device=dev) * SHIFT_MAX, 0.0)
+        t = torch.clamp(base - shift, min=0.0)
+        chunks.append(TimestampedChunk(
+            values=vals, stratum_ids=sid, times=t,
+            mask=torch.ones(M, dtype=torch.bool, device=dev)))
+        tgt = torch.floor(t * recip).to(torch.int32)
+        wmark = float(frontier - np.float32(LATENESS))   # pre-chunk, f32
+        new_open = max(open_iv, int(tgt.max()))
+        ok = ~(t < wmark) & (tgt >= new_open - K + 1)
+        totals["late"] += int((ok & (tgt < open_iv)).sum())
+        totals["on_time"] += int((ok & (tgt >= open_iv)).sum())
+        totals["dropped"] += int((~ok).sum())
+        cell = (tgt.long() * S + sid.long())[ok]
+        v = vals[ok].double()
+        acc[0].view(-1).index_add_(0, cell, torch.ones_like(v))
+        acc[1].view(-1).index_add_(0, cell, v)
+        acc[2].view(-1).index_add_(0, cell, (v > THRESHOLD).double())
+        exact.append(acc.clone())
+        frontier = max(frontier, np.float32(float(t.max())))
+        open_iv = new_open
+    accepted = [int(c) for c in acc[0].sum(dim=0).tolist()]
+    return chunks, exact, accepted, totals
+
+
+
+
+def state_bits(state) -> dict:
+    """The state as numpy, less the wall-clock controller leaves."""
+    from repro_torch.runtime import convert
+    d = convert.state_to_numpy(state)
+    d["ctrl"].pop("latency_ema")
+    d["ctrl"].pop("pressure")
+    return d
+
+
+def same_state(a, b, path="state") -> list:
+    if isinstance(a, dict):
+        return [bad for k in a for bad in same_state(a[k], b[k],
+                                                      f"{path}.{k}")]
+    return [] if a.tobytes() == b.tobytes() else [path]
+
+
+def device_ms_per_call(fn, torch, calls: int) -> float:
+    """Profiler device time of ``fn`` (which makes ``calls`` calls), per
+    call: every kernel and memset it ran, summed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    return busy / calls / 1e3
+
+
+def phase_paths(torch, seed: int, dev) -> dict:
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.executor import (BatchedExecutor,
+                                              PipelinedExecutor,
+                                              RuntimeConfig, _ingest_chunk)
+    from repro_torch.runtime.registry import QueryRegistry
+    chunks, exact, accepted, totals = make_disordered_stream(torch, seed,
+                                                             dev)
+    log(f"[paths] disordered stream: script's verdict {totals}, accepted "
+        f"per stratum {accepted}")
+    if min(totals.values()) == 0:
+        fail(f"the disordered stream lacks on-time, late or dropped items: "
+             f"{totals}")
+    paths = {
+        "a": (PipelinedExecutor, "fused", "cadence"),
+        "b": (PipelinedExecutor, "onekernel", "cadence"),
+        "c": (BatchedExecutor, "onekernel", "cadence"),
+        "d": (PipelinedExecutor, "masked", "cadence"),
+        "e": (PipelinedExecutor, "onekernel", "watermark"),
+        "f": (BatchedExecutor, "onekernel", "watermark"),
+    }
+    runs, execs = {}, {}
+    for tag, (cls, ingest, emission) in paths.items():
+        cfg = RuntimeConfig(num_strata=S, capacity=N_MAX, num_intervals=K,
+                            interval_span=SPAN, allowed_lateness=LATENESS,
+                            emit_every=EMIT_EVERY, batch_chunks=EMIT_EVERY,
+                            ingest=ingest, emission=emission)
+        reg = (QueryRegistry().register("sum", "sum")
+               .register("mean", "mean")
+               .register("count", "count",
+                         predicate=lambda x: x > THRESHOLD))
+        ex = cls(cfg, reg, prng.PRNGKey(seed), device=dev)
+        ex.run(chunks[:EMIT_EVERY])        # warm-up
+        ex.reset(prng.PRNGKey(seed))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ems = ex.run(chunks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        runs[tag] = dict(ems=ems, launches=launches, walls=[wall],
+                         state=state_bits(ex.state),
+                         mirror_wait_s=ex.mirror_wait_s, cfg=cfg)
+        execs[tag] = ex
+        m = ex.state.metrics
+        log(f"[paths] ({tag}) {cls.__name__} ingest={ingest} emission="
+            f"{emission}: {len(ems)} emissions, launches {launches}, "
+            f"accepted {m.accepted.tolist()} late {m.late.tolist()} "
+            f"dropped {m.dropped.tolist()}")
+        if m.accepted.tolist() != accepted:
+            fail(f"path {tag}: runtime accepted {m.accepted.tolist()} != "
+                 f"script's {accepted}")
+        wm_ = ex.state.wm
+        got = dict(on_time=int(wm_.on_time), late=int(wm_.late),
+                   dropped=int(wm_.dropped))
+        if got != totals:
+            fail(f"path {tag}: watermark accounting {got} != script's "
+                 f"{totals}")
+        one = launches["one_shot_ingest"]
+        if ingest == "onekernel" and (one == 0
+                                      or launches["reservoir_fold"] != 0):
+            fail(f"path {tag} did not run the one-shot kernel alone: "
+                 f"{launches}")
+        if ingest != "onekernel" and (one != 0
+                                      or launches["reservoir_fold"] == 0):
+            fail(f"path {tag} did not run the fold kernel: {launches}")
+        for em in ems:
+            if emission == "cadence":
+                check_answers(f"paths ({tag})", em, live_intervals(em),
+                              exact[(em.index + 1) * EMIT_EVERY - 1])
+            else:
+                check_answers(f"paths ({tag})", em, [em.interval], exact[-1])
+
+    ref_state = runs["a"]["state"]
+    for tag in "bcd":
+        bad = same_state(ref_state, runs[tag]["state"])
+        log(f"[paths] ({tag}) state bitwise equal to (a): {not bad}")
+        if bad:
+            fail(f"path {tag} state differs from (a): {bad[:5]}")
+    for tag in "bc":
+        a, b = runs["a"]["ems"], runs[tag]["ems"]
+        if len(a) != len(b):
+            fail(f"path {tag}: {len(b)} emissions, (a) has {len(a)}")
+        for x, y in zip(a, b):
+            for f in ("index", "watermark", "open_interval", "on_time",
+                      "late", "dropped", "items", "interval"):
+                if getattr(x, f) != getattr(y, f):
+                    fail(f"path {tag} emission {x.index} field {f}")
+            if not (x.capacity == y.capacity).all():
+                fail(f"path {tag} emission {x.index} capacity")
+            for q in x.results:
+                for f in ("value", "variance"):
+                    if not same_bits(torch, getattr(x.results[q], f),
+                                     getattr(y.results[q], f)):
+                        fail(f"path {tag} emission {x.index} {q}.{f} bits")
+        log(f"[paths] ({tag}) {len(b)} emissions equal to (a)'s, answers "
+            "bit for bit")
+    ivs = {t: [em.interval for em in runs[t]["ems"]] for t in "ef"}
+    log(f"[paths] (e) closes {ivs['e']}, (f) closes {ivs['f']}")
+    if ivs["e"] != ivs["f"] or ivs["e"] != list(range(len(ivs["e"]))) \
+            or not ivs["e"]:
+        fail(f"watermark paths closed different intervals: {ivs}")
+    for x, y in zip(runs["e"]["ems"], runs["f"]["ems"]):
+        for q in x.results:
+            for f in ("value", "variance"):
+                if not same_bits(torch, getattr(x.results[q], f),
+                                 getattr(y.results[q], f)):
+                    fail(f"watermark paths differ on interval {x.interval} "
+                         f"{q}.{f}")
+    log("[paths] (e) and (f) answers equal bit for bit")
+
+    # Throughput of (a), (b), (c): PATH_WINDOWS windows each, in turns.
+    for _ in range(PATH_WINDOWS - 1):
+        for tag in "abc":
+            ex = execs[tag]
+            ex.reset(prng.PRNGKey(seed))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.run(chunks)
+            torch.cuda.synchronize()
+            runs[tag]["walls"].append(time.perf_counter() - t0)
+    rates = {}
+    for tag in "abc":
+        r = sorted(CHUNKS * M / w for w in runs[tag]["walls"])
+        rates[tag] = r[len(r) // 2]
+        log(f"[paths] ({tag}) median {rates[tag]:.6g} items/s over "
+            f"{len(r)} windows (all {[round(x) for x in r]})")
+
+    # Device time of the ingest alone per chunk, (a) and (b), profiler.
+    ingest_dev = {}
+    for tag in "ab":
+        ex = execs[tag]
+        ex.reset(prng.PRNGKey(seed))
+        box = [ex.state]
+
+        def ingest_all():
+            for ch in chunks[:8]:
+                box[0] = _ingest_chunk(runs[tag]["cfg"], box[0], ch)
+        ingest_all()                       # warm
+        ex.reset(prng.PRNGKey(seed))
+        box[0] = ex.state
+        ingest_dev[tag] = device_ms_per_call(ingest_all, torch, 8)
+    wait_ms = runs["e"]["mirror_wait_s"] / CHUNKS * 1e3
+    log(f"[paths] ingest device ms per chunk (profiler, 8 chunks): "
+        f"(a) fused {ingest_dev['a']:.4f}, (b) onekernel "
+        f"{ingest_dev['b']:.4f}; (e) host wait on the mirror event "
+        f"{wait_ms:.4f} ms per chunk")
+    return dict(launches=runs["b"]["launches"], rates=rates,
+                ingest_dev=ingest_dev, wait_ms=wait_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -450,6 +857,8 @@ def main(argv=None) -> int:
     fold = phase_fold(torch, gen)
     stats = phase_stats(torch, gen)
     launches = phase_main(torch, args.seed, dev)
+    one_shot = phase_one_shot(torch, gen)
+    paths = phase_paths(torch, args.seed, dev)
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -462,6 +871,10 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/stratified_stats.cu",
              replaces="src/repro/kernels/stratified_stats.py:31",
              launches=launches["stratified_stats"], **stats),
+        dict(name="one_shot_ingest", route="cuda",
+             source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
+             replaces="src/repro/kernels/reservoir.py:146",
+             launches=paths["launches"]["one_shot_ingest"], **one_shot),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -4,9 +4,9 @@ Route: ``nvcc`` by hand into a shared library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 Each ``csrc/*.cu`` is compiled to an object by its own ``nvcc``, all
 started together, and the objects are linked into one ``.so`` whose name
-carries a hash of the sources and flags. The build happens at first use,
-into ``kernels/build/`` (listed in ``.gitignore``); nothing is built
-when this module is imported.
+carries a hash of the sources, headers and flags. The build happens at
+first use, into ``kernels/build/`` (listed in ``.gitignore``); nothing is
+built when this module is imported.
 """
 from __future__ import annotations
 
@@ -65,8 +65,9 @@ def _sources() -> list[Path]:
 
 
 def _tag(sources: list[Path]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -125,6 +126,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_stratified_stats.restype = i
     lib.sa_stats_tile_items.argtypes = []
     lib.sa_stats_tile_items.restype = i
+    lib.sa_one_shot_workspace_words.argtypes = [i, i, i]
+    lib.sa_one_shot_workspace_words.restype = ll
+    lib.sa_one_shot_ingest.argtypes = ([p] * 20 + [i] * 4
+                                       + [ctypes.c_float] * 2 + [p])
+    lib.sa_one_shot_ingest.restype = i
 
 
 def check(status: int, name: str) -> None:

@@ -1,0 +1,111 @@
+"""CUDA wrapper of the one-shot ingest (``csrc/one_shot_ingest.cu``).
+
+Counterpart of the reference's ``kernels/reservoir.py::one_shot_ingest``
+with the same keyword surface: one chunk's watermark routing, ring-slot
+reset, (slot, stratum) cell assignment, Vitter fold and obs counter rows
+in one call. Every carried tensor (the ring, cell counts and capacities,
+the slot table, the watermark scalars, the chunk/item totals and the
+``[6, S]`` counter rows) is updated IN PLACE, and the returned
+:class:`~repro_torch.kernels.ref.OneShotResult` holds those same tensors.
+Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
+plain version in ``kernels/ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import OneShotResult, check_one_shot_payload
+
+#: The rank pass keeps 8 warps x (K*S + 1) int32 counts in shared memory.
+MAX_CELLS = 1024
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"one_shot_ingest: {name} has dtype {t.dtype}, "
+                        f"expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"one_shot_ingest: {name} has shape "
+                         f"{tuple(t.shape)}, expected {shape}")
+    if t.device != device:
+        raise ValueError(f"one_shot_ingest: {name} is on {t.device}, "
+                         f"values on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"one_shot_ingest: {name} is not contiguous")
+
+
+def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
+                    max_time, open_interval, on_time, late, dropped, chunks,
+                    items, slot_interval, adopt, counts, capacity, values,
+                    counters, span: float,
+                    allowed_lateness: float) -> OneShotResult:
+    """Ingest one ``[M]`` chunk on the card, in place.
+
+    ``adopt`` is the ``[S]`` capacity a reset slot adopts, already clamped
+    to ``N_max`` by the caller, as the reference's wrapper takes it.
+    """
+    check_one_shot_payload(payload, values)
+    if not values.is_cuda:
+        raise ValueError("one_shot_ingest kernel needs CUDA tensors; "
+                         "kernels.ops dispatches CPU tensors")
+    k, s_cnt, n_max = values.shape
+    m = times.shape[0]
+    dev = values.device
+    i32, f32 = torch.int32, torch.float32
+    _check("values", values, (f32, i32), (k, s_cnt, n_max), dev)
+    _check("times", times, f32, (m,), dev)
+    _check("stratum_ids", stratum_ids, i32, (m,), dev)
+    _check("payload", payload, values.dtype, (m,), dev)
+    _check("mask", mask, torch.bool, (m,), dev)
+    _check("u_accept", u_accept, f32, (m,), dev)
+    _check("u_slot", u_slot, f32, (m,), dev)
+    _check("max_time", max_time, f32, (), dev)
+    for name, t in (("open_interval", open_interval), ("on_time", on_time),
+                    ("late", late), ("dropped", dropped),
+                    ("chunks", chunks), ("items", items)):
+        _check(name, t, i32, (), dev)
+    _check("slot_interval", slot_interval, i32, (k,), dev)
+    _check("adopt", adopt, i32, (s_cnt,), dev)
+    _check("counts", counts, i32, (k, s_cnt), dev)
+    _check("capacity", capacity, i32, (k, s_cnt), dev)
+    _check("counters", counters, i32, (6, s_cnt), dev)
+    cells = k * s_cnt
+    if not 1 <= cells <= MAX_CELLS:
+        raise ValueError(f"K*S = {cells} outside [1, {MAX_CELLS}] (shared "
+                         "memory of the rank pass)")
+    if cells * n_max + 1 >= 2**31:
+        raise ValueError(f"K*S*N_max+1 = {cells * n_max + 1} does not fit "
+                         "the kernel's int32 ring index")
+    if m >= 2**31:
+        raise ValueError(f"M = {m} does not fit an int32 item index")
+    lib = _build.build().lib
+    workspace = torch.empty(
+        max(lib.sa_one_shot_workspace_words(m, cells, n_max), 1), dtype=i32,
+        device=dev)
+    recip = np.float32(1.0) / np.float32(span)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = lib.sa_one_shot_ingest(
+            times.data_ptr(), stratum_ids.data_ptr(), payload.data_ptr(),
+            mask.data_ptr(), u_accept.data_ptr(), u_slot.data_ptr(),
+            max_time.data_ptr(), open_interval.data_ptr(),
+            on_time.data_ptr(), late.data_ptr(), dropped.data_ptr(),
+            chunks.data_ptr(), items.data_ptr(), slot_interval.data_ptr(),
+            adopt.data_ptr(), counts.data_ptr(), capacity.data_ptr(),
+            values.data_ptr(), counters.data_ptr(), workspace.data_ptr(),
+            m, k, s_cnt, n_max, ctypes.c_float(float(recip)),
+            ctypes.c_float(float(np.float32(allowed_lateness))), stream)
+    _build.check(status, "one_shot_ingest")
+    one_shot_ingest.launches += 1
+    return OneShotResult(
+        values=values, counts=counts, capacity=capacity,
+        slot_interval=slot_interval, max_time=max_time,
+        open_interval=open_interval, on_time=on_time, late=late,
+        dropped=dropped, chunks=chunks, items=items, counters=counters)
+
+
+one_shot_ingest.launches = 0

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import one_shot as _one_shot
 from repro_torch.kernels import ref
 from repro_torch.kernels import reservoir as _reservoir
 from repro_torch.kernels import stratified_stats as _stats
@@ -39,12 +40,26 @@ def stratified_stats(values, stratum_ids, mask, num_strata: int):
     return _stats.stratified_stats(values, stratum_ids, mask, num_strata)
 
 
+def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot,
+                    **state) -> ref.OneShotResult:
+    """The whole ingest of one chunk, in place on the carried tensors."""
+    if _on_cpu(state["values"], "one_shot_ingest"):
+        return ref.one_shot_ingest(times, stratum_ids, payload, mask,
+                                   u_accept, u_slot, **state)
+    return _one_shot.one_shot_ingest(times, stratum_ids, payload, mask,
+                                     u_accept, u_slot, **state)
+
+
+_WRAPPERS = {"reservoir_fold": _reservoir.reservoir_fold,
+             "stratified_stats": _stats.stratified_stats,
+             "one_shot_ingest": _one_shot.one_shot_ingest}
+
+
 def launch_counts() -> dict:
     """Launches of each kernel wrapper since the last reset."""
-    return {"reservoir_fold": _reservoir.reservoir_fold.launches,
-            "stratified_stats": _stats.stratified_stats.launches}
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    _reservoir.reservoir_fold.launches = 0
-    _stats.stratified_stats.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

@@ -14,6 +14,9 @@ mirrors and the event log) comes in a later slice.
   replacement phase);
 * ``occupancy[s]`` — gauge: items resident across the stratum's cells;
 * ``chunks``/``items`` — scalar stream totals.
+
+The one-shot ingest kernel takes the per-stratum rows as one ``[6, S]``
+tile (``stack_counters`` / ``unstack_counters``).
 """
 from __future__ import annotations
 
@@ -74,3 +77,24 @@ def ingest_update(m: MetricsState, num_strata: int,
         occupancy=torch.sum(filled1, dim=0, dtype=i32),
         chunks=m.chunks + 1,
         items=m.items + torch.sum(mask, dtype=i32))
+
+
+#: Row order of the ``[6, S]`` counter tile the one-shot ingest kernel
+#: updates in place: the per-stratum fields, scalars excluded.
+COUNTER_FIELDS = ("ingested", "accepted", "late", "dropped",
+                  "replaced", "occupancy")
+
+
+def stack_counters(m: MetricsState) -> torch.Tensor:
+    """``[6, S]`` row-stack of the per-stratum counters (a new tensor)."""
+    return torch.stack([getattr(m, name) for name in COUNTER_FIELDS])
+
+
+def unstack_counters(rows: torch.Tensor, chunks: torch.Tensor,
+                     items: torch.Tensor) -> MetricsState:
+    """A :class:`MetricsState` from the ``[6, S]`` tile and the scalar
+    totals. Each row gets its own buffer (``clone``): the state is updated
+    in place later, so no two fields may share one allocation."""
+    fields = {name: rows[idx].clone()
+              for idx, name in enumerate(COUNTER_FIELDS)}
+    return MetricsState(chunks=chunks, items=items, **fields)

@@ -73,3 +73,22 @@ def update(ctrl: ControllerState, cfg: ControllerConfig,
         cap = torch.clamp(cap, max=cfg.budget.max_per_stratum)
     return ControllerState(capacity=cap, base_capacity=ctrl.base_capacity,
                            latency_ema=ema, pressure=pressure)
+
+
+def next_batch_chunks(batch_chunks: int, pressure: float,
+                      max_batch_chunks: int,
+                      closes_per_batch: int = 0) -> int:
+    """Host-side micro-batch sizing from the pressure signal (batched).
+
+    Pressure > 1 doubles the micro-batch, pressure < 1/2 halves it, in
+    powers of two. Under watermark emission, more than one interval closed
+    by one micro-batch means the batch barrier, not the watermark, paces
+    the emissions, so the micro-batch halves regardless of pressure.
+    """
+    if closes_per_batch > 1 and batch_chunks > 1:
+        return batch_chunks // 2
+    if pressure > 1.0 and batch_chunks < max_batch_chunks:
+        return min(batch_chunks * 2, max_batch_chunks)
+    if pressure < 0.5 and batch_chunks > 1:
+        return batch_chunks // 2
+    return batch_chunks

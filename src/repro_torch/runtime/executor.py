@@ -1,42 +1,59 @@
-"""The pipelined (Flink-mode) streaming executor.
+"""The streaming executors: batched (Spark mode) and pipelined (Flink mode).
 
-Counterpart of the reference's ``runtime/executor.py`` for its main path:
-``PipelinedExecutor`` with ``ingest="fused"``, one shard and cadence
-emission. Every chunk flows through the ingest as it arrives: watermark
-routing, ring-slot reset, one route-once reservoir fold over the
-flattened ``[K·S]`` (ring slot × stratum) cells, and the device counters.
-Nothing in ``push`` reads a value back to the host; every ``emit_every``
-chunks an emission synchronises the device, answers the standing queries
-from one shared stats pass and updates the capacity controller.
+Counterpart of the reference's ``runtime/executor.py`` for one shard.
+Both executors share one ingest core (``_ingest_chunk``: watermark
+routing, ring-slot reset, the reservoir fold over the flattened
+``[K·S]`` (ring slot × stratum) cells and the device counters), so their
+sampling trajectories are identical chunk for chunk; they differ only in
+when the core runs and where the host waits:
 
-Where the reference's jitted steps donate the state, this executor
-updates the ``[K, S, N_max]`` ring IN PLACE: the fold writes into the
-ring tensor, which the next state shares with the previous one.
+* :class:`BatchedExecutor` — chunks accumulate on the host; every
+  ``batch_chunks`` arrivals a flush ingests them in order, answers the
+  standing queries and applies the controller, then waits once (the
+  micro-batch barrier).
+* :class:`PipelinedExecutor` — every chunk is ingested as it arrives and
+  ``push`` reads no device value back; every ``emit_every`` chunks an
+  emission waits, answers the queries and updates the controller.
 
-Not ported in this slice (each raises :class:`UnsupportedConfigError`):
-``num_shards > 1`` and ``placement="mesh"`` (ROADMAP Queue 1 item 9),
-``emission="watermark"`` and ``ingest`` other than ``"fused"``
-(Queue 1 item 6). ``BatchedExecutor`` comes with item 6 too.
+The ingest has the reference's three paths (``RuntimeConfig.ingest``),
+bitwise interchangeable: ``"fused"`` (one fold over the ``K·S`` cells),
+``"masked"`` (one fold per ring slot, the proof harness) and
+``"onekernel"`` (the whole ingest in one call of the one-shot kernel).
+Emission is on chunk cadence or on the watermark (``emission``): under
+``"watermark"`` interval ``j`` is answered exactly once, when a host
+mirror of the event-time frontier says the watermark passed its close.
+
+Where the reference's compiled steps donate the state, these executors
+update the ``[K, S, N_max]`` ring IN PLACE, and the one-shot kernel also
+the cell counters, slot table, watermark scalars and counter rows.
+
+Not ported (each raises :class:`UnsupportedConfigError`):
+``num_shards > 1`` and ``placement="mesh"`` (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import distributed as dist
 from repro_torch.core import error as err
 from repro_torch.core import oasrs
 from repro_torch.core import window as win
+from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obm
 from repro_torch.runtime import controller as ctl
 from repro_torch.runtime import watermark as wmk
 from repro_torch.runtime.records import TimestampedChunk
 from repro_torch.runtime.registry import QueryRegistry, Result
 from repro_torch.utils import DeviceLike, resolve_device
+
+INGEST_PATHS = ("fused", "masked", "onekernel")
+EMISSION_MODES = ("cadence", "watermark")
 
 
 class UnsupportedConfigError(NotImplementedError):
@@ -46,7 +63,7 @@ class UnsupportedConfigError(NotImplementedError):
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Static description of one runtime instance (the reference's
-    fields; the port runs the ones its slice covers)."""
+    fields; the port runs the ones its slices cover)."""
     num_strata: int
     capacity: int                      # per-stratum reservoir capacity N_i
     num_intervals: int = 4             # ring size K (window = K intervals)
@@ -57,29 +74,24 @@ class RuntimeConfig:
     placement: str = "vmap"
     controller: ctl.ControllerConfig = ctl.ControllerConfig()
     accuracy_query: Optional[str] = None
-    batch_chunks: int = 4
+    batch_chunks: int = 4              # batched: chunks per flush
     max_batch_chunks: int = 32
-    emit_every: int = 4                # chunks per emission
+    emit_every: int = 4                # pipelined cadence: chunks/emission
     backend: Optional[str] = None      # see check_supported
-    ingest: str = "fused"
-    emission: str = "cadence"
+    ingest: str = "fused"              # one of INGEST_PATHS
+    emission: str = "cadence"          # one of EMISSION_MODES
 
 
 def check_supported(cfg: RuntimeConfig) -> None:
-    """Raise on a configuration outside this slice of the port."""
+    """Raise on a configuration outside the port's slices."""
     if cfg.num_shards != 1 or cfg.placement != "vmap":
         raise UnsupportedConfigError(
             f"num_shards={cfg.num_shards}, placement={cfg.placement!r}: "
             "the port runs one shard; sharded placements come with ROADMAP "
             "Queue 1 item 9")
-    if cfg.emission != "cadence":
-        raise UnsupportedConfigError(
-            f"emission={cfg.emission!r}: the port emits on cadence; "
-            "watermark emission comes with ROADMAP Queue 1 item 6")
-    if cfg.ingest != "fused":
-        raise UnsupportedConfigError(
-            f"ingest={cfg.ingest!r}: the port runs the fused ingest; the "
-            "others come with ROADMAP Queue 1 item 6")
+    if cfg.ingest not in INGEST_PATHS:
+        raise ValueError(f"unknown ingest path {cfg.ingest!r}; one of "
+                         f"{INGEST_PATHS}")
     # The reference's ``backend`` forces its fold ("jnp" | "pallas") or
     # leaves the choice to the platform (None | "auto"). The port always
     # chooses by the tensors' device: the CUDA kernel on the card, the
@@ -115,8 +127,10 @@ class Emission:
     late: int
     dropped: int
     capacity: np.ndarray          # [S] i32 controller capacity after update
-    latency_s: float              # measured per-chunk latency fed back
+    latency_s: float              # measured latency fed back
     items: int                    # items pushed since previous emission
+    interval: Optional[int] = None  # watermark emission: the interval it
+    #                                 closed (None under cadence)
 
 
 def init_state(cfg: RuntimeConfig, key: torch.Tensor,
@@ -188,8 +202,27 @@ def _finish_ingest(cfg: RuntimeConfig, state: RuntimeState,
                         ctrl=state.ctrl, metrics=metrics)
 
 
+def _draw_uniforms(iv: oasrs.OASRSState, m: int):
+    """The fold's key schedule on the ring's lead key: split three ways,
+    two ``[M]`` uniforms; returns the ring keys with the lead advanced."""
+    keys = prng.split(iv.key[0], 3)
+    u_accept = prng.uniform(keys[1], m)
+    u_slot = prng.uniform(keys[2], m)
+    return torch.cat([keys[0][None], iv.key[1:]]), u_accept, u_slot
+
+
 def _ingest_chunk(cfg: RuntimeConfig, state: RuntimeState,
                   chunk: TimestampedChunk) -> RuntimeState:
+    """Fold one chunk by the configured ingest path."""
+    if cfg.ingest == "masked":
+        return _ingest_chunk_masked(cfg, state, chunk)
+    if cfg.ingest == "onekernel":
+        return _ingest_chunk_onekernel(cfg, state, chunk)
+    return _ingest_chunk_fused(cfg, state, chunk)
+
+
+def _ingest_chunk_fused(cfg: RuntimeConfig, state: RuntimeState,
+                        chunk: TimestampedChunk) -> RuntimeState:
     """Fold one chunk: route, reset slots, one fold over ``K·S`` cells.
 
     Each accepted item is routed once to its (slot, stratum) cell: its
@@ -217,6 +250,69 @@ def _ingest_chunk(cfg: RuntimeConfig, state: RuntimeState,
     return _finish_ingest(cfg, state, chunk, r, iv, desired, counts_before)
 
 
+def _ingest_chunk_masked(cfg: RuntimeConfig, state: RuntimeState,
+                         chunk: TimestampedChunk) -> RuntimeState:
+    """One fold per ring slot over the slot's masked view of the chunk (K
+    folds of M items), with the fused path's uniforms: each item is
+    masked into exactly one slot, so the state is bitwise the fused
+    path's. Each slot's ``[S, N_max]`` reservoir is a view of the ring,
+    written in place."""
+    r, iv, desired = _route_and_reset(cfg, state, chunk)
+    counts_before = iv.counts
+    keys, u_accept, u_slot = _draw_uniforms(iv, chunk.stratum_ids.shape[0])
+    counts = []
+    for j in range(cfg.num_intervals):
+        slot = oasrs.OASRSState(values=iv.values[j], counts=iv.counts[j],
+                                capacity=iv.capacity[j], key=iv.key[j])
+        slot_mask = r.accept & (r.target_interval == desired[j])
+        counts.append(oasrs.apply_chunk_uniforms(
+            slot, chunk.stratum_ids, chunk.values, slot_mask, u_accept,
+            u_slot).counts)
+    iv = dataclasses.replace(iv, counts=torch.stack(counts), key=keys)
+    return _finish_ingest(cfg, state, chunk, r, iv, desired, counts_before)
+
+
+def _ingest_chunk_onekernel(cfg: RuntimeConfig, state: RuntimeState,
+                            chunk: TimestampedChunk) -> RuntimeState:
+    """The whole ingest in one call of the one-shot kernel (its plain
+    version on the CPU), with the fused path's key schedule: bitwise the
+    fused path's state.
+
+    The call updates IN PLACE the ring, cell counts and capacities, the
+    slot table, the watermark scalars, the chunk/item totals and a
+    ``[6, S]`` stack of the counter rows, which is then split into rows
+    of their own.
+    """
+    k = cfg.num_intervals
+    iv = state.window.intervals
+    keys, u_accept, u_slot = _draw_uniforms(iv, chunk.stratum_ids.shape[0])
+    adopt = torch.clamp(state.ctrl.capacity, max=iv.max_capacity)
+    out = ops.one_shot_ingest(
+        chunk.times, chunk.stratum_ids.to(torch.int32), chunk.values,
+        chunk.mask, u_accept, u_slot,
+        max_time=state.wm.max_time, open_interval=state.open_interval,
+        on_time=state.wm.on_time, late=state.wm.late,
+        dropped=state.wm.dropped, chunks=state.metrics.chunks,
+        items=state.metrics.items, slot_interval=state.slot_interval,
+        adopt=adopt, counts=iv.counts, capacity=iv.capacity,
+        values=iv.values, counters=obm.stack_counters(state.metrics),
+        span=cfg.interval_span, allowed_lateness=cfg.allowed_lateness)
+    if out.values.data_ptr() != iv.values.data_ptr():
+        raise RuntimeError("one-shot ingest did not write the ring in place")
+    window = win.WindowState(
+        intervals=oasrs.OASRSState(values=out.values, counts=out.counts,
+                                   capacity=out.capacity, key=keys),
+        cursor=torch.remainder(out.open_interval + 1, k),
+        filled=torch.clamp(out.open_interval + 1, max=k))
+    wm = wmk.WatermarkState(max_time=out.max_time, on_time=out.on_time,
+                            late=out.late, dropped=out.dropped)
+    metrics = obm.unstack_counters(out.counters, chunks=out.chunks,
+                                   items=out.items)
+    return RuntimeState(window=window, slot_interval=out.slot_interval,
+                        open_interval=out.open_interval, wm=wm,
+                        ctrl=state.ctrl, metrics=metrics)
+
+
 # ---------------------------------------------------------------------------
 # The emission.
 # ---------------------------------------------------------------------------
@@ -235,6 +331,30 @@ def _evaluate(cfg: RuntimeConfig, registry: QueryRegistry,
     return registry.evaluate_view(view, stats), stats
 
 
+def _interval_cell_mask(cfg: RuntimeConfig, state: RuntimeState,
+                        interval: int) -> torch.Tensor:
+    """``[K·S]`` cell mask of one event interval in the merged view's
+    order: slot ``interval mod K``, and only while the slot still HOLDS
+    that interval (a recycled slot never leaks its new occupant)."""
+    k, s = cfg.num_intervals, cfg.num_strata
+    slot = interval % k
+    cells = torch.arange(k * s, dtype=torch.int32,
+                         device=state.slot_interval.device)
+    return ((cells // s) == slot) & (state.slot_interval[slot] == interval)
+
+
+def _evaluate_interval(cfg: RuntimeConfig, registry: QueryRegistry,
+                       state: RuntimeState, interval: int):
+    """Watermark emission body: every standing query on the CLOSED
+    interval's cells only. The linear kinds draw no random numbers, so
+    the executors' emission base key is carried but not folded here."""
+    view = win.restrict_view(win.sample_view(state.window),
+                             _interval_cell_mask(cfg, state, interval))
+    stats = err.stratum_stats_from_sample(view.values, view.counts,
+                                          view.taken, view.slot_mask())
+    return registry.evaluate_view(view, stats), stats
+
+
 def _pooled_stats(cfg: RuntimeConfig,
                   stats: err.StratumStats) -> err.StratumStats:
     """Pool the interval × stratum cells per stratum (``[K·S] → [S]``)."""
@@ -249,26 +369,29 @@ def _pooled_stats(cfg: RuntimeConfig,
 
 
 def _apply_controller(cfg: RuntimeConfig, state: RuntimeState, results,
-                      stats: err.StratumStats,
-                      latency_s: torch.Tensor) -> RuntimeState:
+                      stats: err.StratumStats, latency_s: torch.Tensor,
+                      intervals: Optional[int] = None) -> RuntimeState:
+    """One controller step; ``intervals`` (default K) turns the window's
+    allocation into the per-interval capacity."""
     realized = None
     if cfg.controller.budget is not None:
         realized = (results[cfg.accuracy_query] if cfg.accuracy_query
                     else err.estimate_mean(stats))
+    k = cfg.num_intervals if intervals is None else intervals
     ctrl = ctl.update(state.ctrl, cfg.controller, _pooled_stats(cfg, stats),
-                      realized, latency_s, intervals=cfg.num_intervals)
+                      realized, latency_s, intervals=k)
     return dataclasses.replace(state, ctrl=ctrl)
 
 
-class PipelinedExecutor:
-    """Pipelined executor (Flink analog), one shard, cadence emission.
+# ---------------------------------------------------------------------------
+# The executors.
+# ---------------------------------------------------------------------------
 
-    ``push`` only enqueues device work; every ``emit_every`` chunks an
-    emission answers the registry and feeds the controller the measured
-    per-chunk latency since the previous emission.
-    """
+class _ExecutorBase:
+    """Shared plumbing: state, emission bookkeeping, the watermark mirror,
+    ad hoc queries."""
 
-    mode = "pipelined"
+    mode = "base"
 
     def __init__(self, cfg: RuntimeConfig, registry: QueryRegistry,
                  key: torch.Tensor, device: DeviceLike = None):
@@ -276,14 +399,43 @@ class PipelinedExecutor:
         check_supported(cfg)
         if len(registry) == 0:
             raise ValueError("register at least one standing query")
-        if cfg.accuracy_query is not None and not any(
-                q.name == cfg.accuracy_query for q in registry.queries):
+        if cfg.emission not in EMISSION_MODES:
+            raise ValueError(f"unknown emission mode {cfg.emission!r}; "
+                             f"expected one of {EMISSION_MODES}")
+        if cfg.emission == "watermark" and (
+                cfg.allowed_lateness
+                >= (cfg.num_intervals - 1) * cfg.interval_span):
             raise ValueError(
-                f"accuracy_query {cfg.accuracy_query!r} is not registered")
+                "emission='watermark' needs allowed_lateness < "
+                "(num_intervals - 1) * interval_span (got lateness="
+                f"{cfg.allowed_lateness} vs "
+                f"{(cfg.num_intervals - 1) * cfg.interval_span}): an "
+                "interval must close while its slot is still in the ring, "
+                "or its answers would be evicted before they were emitted")
+        if cfg.accuracy_query is not None:
+            match = [q for q in registry.queries
+                     if q.name == cfg.accuracy_query]
+            if not match:
+                raise ValueError(f"accuracy_query {cfg.accuracy_query!r} "
+                                 "is not registered")
+            if match[0].kind not in ("sum", "mean", "count"):
+                raise ValueError(
+                    f"accuracy_query {cfg.accuracy_query!r} has kind "
+                    f"{match[0].kind!r}; the controller's feedback needs a "
+                    "scalar linear estimate (sum/mean/count)")
+            if match[0].window != "merged":
+                raise ValueError(
+                    f"accuracy_query {cfg.accuracy_query!r} has window "
+                    f"{match[0].window!r}; the controller's feedback needs "
+                    "a scalar estimate")
         self.cfg = cfg
         self.registry = registry
         registry.freeze()
         self.reset(key)
+
+    @property
+    def _watermark_mode(self) -> bool:
+        return self.cfg.emission == "watermark"
 
     def reset(self, key: torch.Tensor) -> None:
         """Restart on a fresh stream."""
@@ -292,41 +444,277 @@ class PipelinedExecutor:
         self.chunks_pushed = 0
         self._emission_cursor = 0
         self._items_since_emit = 0
-        self._chunks_since_emit = 0
-        self._emit_t0 = time.perf_counter()
+        self._last_latency = 0.0
+        # Watermark emission, host side: the per-interval base key, the
+        # frontier mirror (advanced from chunk times, never from the
+        # in-flight state) and the exactly-once emitted-through cursor.
+        self._emit_base_key = prng.fold_in(key.to(self.device), 0xE31)
+        self._host_frontier = np.full((1,), wmk.NEG_TIME, np.float32)
+        self._emitted_through = -1
+        self.mirror_wait_s = 0.0      # host time spent on the mirror read
+        if self.device.type == "cuda":
+            self._mirror_host = torch.empty((), dtype=torch.float32,
+                                            pin_memory=True)
+            self._mirror_event = torch.cuda.Event()
 
     def resume(self, state: RuntimeState, chunks_pushed: int,
-               emissions_done: int) -> None:
-        """Continue a stream from a state carried over at an emission
-        boundary (e.g. converted from the reference by
-        ``runtime/convert.py``): the next emission gets index
-        ``emissions_done``."""
+               emissions_done: int, *, emitted_through: int = -1,
+               emit_base_key=None, items_since_emit: int = 0,
+               last_latency: float = 0.0) -> None:
+        """Continue a stream from a state carried over at a chunk boundary
+        (an emission boundary under cadence, a flush boundary for the
+        batched executor), e.g. converted from the reference by
+        ``runtime/convert.py``: the next emission gets index
+        ``emissions_done``. Under watermark emission ``emitted_through``
+        and ``emit_base_key`` (two u32 words) carry the host cursors; the
+        frontier mirror restarts from the state's frontier, as the
+        reference's restore does."""
         self.state = state
         self.chunks_pushed = chunks_pushed
         self._emission_cursor = emissions_done
-        self._items_since_emit = 0
-        self._chunks_since_emit = 0
+        self._items_since_emit = items_since_emit
+        self._last_latency = last_latency
+        self._emitted_through = emitted_through
+        if emit_base_key is not None:
+            self._emit_base_key = torch.as_tensor(
+                np.asarray(emit_base_key, np.int64), device=self.device)
+        # A copy: on the CPU ``numpy()`` shares the state's buffer, which
+        # the one-shot ingest updates in place.
+        self._host_frontier = state.wm.max_time.cpu().numpy().reshape(
+            1).copy()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def run(self, chunks: Iterable[TimestampedChunk]) -> List[Emission]:
+        for c in chunks:
+            self.push(c)
+        return self.finalize()
+
+    def push(self, chunk: TimestampedChunk) -> None:
+        raise NotImplementedError
+
+    def finalize(self) -> List[Emission]:
+        raise NotImplementedError
+
+    def query(self) -> Dict[str, Result]:
+        """Every standing query on the current state (ad hoc: no
+        controller feedback, no emission record)."""
+        return _evaluate(self.cfg, self.registry, self.state)[0]
+
+    # -- the watermark mirror ------------------------------------------------
+
+    @staticmethod
+    def _chunk_max(chunk: TimestampedChunk) -> Optional[torch.Tensor]:
+        """The chunk's masked max event time, enqueued on its device
+        (``None`` for an empty chunk). Max is exact, so the mirror built
+        from it is bitwise ``host_frontier`` over the chunk's times."""
+        if chunk.times.numel() == 0:
+            return None
+        return torch.max(torch.where(chunk.mask, chunk.times,
+                                     float(wmk.NEG_TIME)))
+
+    def _advance_frontier(self, chunk_max: Optional[torch.Tensor]) -> None:
+        """Fold one chunk's max into the host mirror (one value read)."""
+        t = (wmk.NEG_TIME if chunk_max is None
+             else np.float32(chunk_max.item()))
+        self._host_frontier = wmk.host_frontier(
+            self._host_frontier, np.array([t], np.float32),
+            np.ones(1, bool))
+
+    def _closed_through(self) -> int:
+        return wmk.host_closed_through(self._host_frontier,
+                                       self.cfg.allowed_lateness,
+                                       self.cfg.interval_span)
+
+    def _emit_closed(self, latency_s: float) -> int:
+        """Emit every newly closed interval, oldest first; returns how
+        many. Exactly once: the host cursor ``_emitted_through``."""
+        cfg = self.cfg
+        closed = self._closed_through()
+        open_iv = wmk.host_open_interval(self._host_frontier,
+                                         cfg.interval_span)
+        emitted = 0
+        while self._emitted_through < closed:
+            j = self._emitted_through + 1
+            if j <= open_iv - cfg.num_intervals:
+                raise RuntimeError(
+                    f"interval {j} left the ring before the watermark "
+                    f"closed it (open interval {open_iv}, ring holds "
+                    f"{cfg.num_intervals}): one arrival unit advanced the "
+                    "frontier across a whole window, so the closed "
+                    "interval's sample was recycled unemitted; grow "
+                    "num_intervals or shorten the chunk/micro-batch event "
+                    "span")
+            results, stats = _evaluate_interval(cfg, self.registry,
+                                                 self.state, j)
+            lat = torch.tensor(latency_s, dtype=torch.float32,
+                               device=self.device)
+            # Per-window pressure: the closed interval's own widths, and
+            # a capacity sized for one pane (intervals=1).
+            self.state = _apply_controller(cfg, self.state, results, stats,
+                                           lat, intervals=1)
+            self._sync()
+            self._record(results, latency_s, interval=j)
+            self._emitted_through = j
+            emitted += 1
+        return emitted
+
+    def _record(self, results, latency_s: float,
+                interval: Optional[int] = None) -> Emission:
+        st = self.state
+        ints = torch.stack([st.open_interval, st.wm.on_time, st.wm.late,
+                            st.wm.dropped]).tolist()
+        em = Emission(
+            index=self._emission_cursor, results=results,
+            watermark=float(wmk.watermark(st.wm, self.cfg.allowed_lateness)),
+            open_interval=ints[0], on_time=ints[1], late=ints[2],
+            dropped=ints[3], capacity=st.ctrl.capacity.cpu().numpy(),
+            latency_s=latency_s, items=self._items_since_emit,
+            interval=interval)
+        self.emissions.append(em)
+        self._emission_cursor += 1
+        self._items_since_emit = 0
+        return em
+
+
+class BatchedExecutor(_ExecutorBase):
+    """Micro-batch executor (Spark Streaming analog).
+
+    Every ``batch_chunks`` arrivals a flush ingests the pending chunks in
+    order (no wait between them). Under cadence emission it then answers
+    the registry and applies the controller with the PREVIOUS flush's
+    measured latency (one step delayed, as the reference's pure window
+    step takes it), and waits once. Under watermark emission the flush is
+    ingest only; it waits, advances the frontier mirror over the flushed
+    chunks and emits every interval they closed. With a latency budget
+    the pressure signal resizes the micro-batch between flushes.
+    """
+
+    mode = "batched"
+
+    def reset(self, key: torch.Tensor) -> None:
+        super().reset(key)
+        self.batch_chunks = self.cfg.batch_chunks
+        self._pending: List[TimestampedChunk] = []
+
+    def resume(self, state: RuntimeState, chunks_pushed: int,
+               emissions_done: int, *, batch_chunks: Optional[int] = None,
+               **cursors) -> None:
+        """As :meth:`_ExecutorBase.resume`, at a flush boundary: nothing
+        is pending."""
+        super().resume(state, chunks_pushed, emissions_done, **cursors)
+        self._pending = []
+        if batch_chunks is not None:
+            self.batch_chunks = batch_chunks
+
+    def push(self, chunk: TimestampedChunk) -> None:
+        self._pending.append(chunk)
+        self._items_since_emit += chunk.values.numel()
+        self.chunks_pushed += 1
+        if len(self._pending) >= self.batch_chunks:
+            self._flush()
+
+    def _resize(self, closes: int = 0) -> None:
+        if self.cfg.controller.latency_budget_s is not None:
+            self.batch_chunks = ctl.next_batch_chunks(
+                self.batch_chunks, float(self.state.ctrl.pressure),
+                self.cfg.max_batch_chunks, closes_per_batch=closes)
+
+    def _flush(self) -> None:
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        t0 = time.perf_counter()
+        for ch in pending:
+            self.state = _ingest_chunk(self.cfg, self.state, ch)
+        if self._watermark_mode:
+            self._sync()                     # the micro-batch barrier
+            self._last_latency = time.perf_counter() - t0
+            for ch in pending:
+                self._advance_frontier(self._chunk_max(ch))
+            self._resize(self._emit_closed(self._last_latency))
+            return
+        results, stats = _evaluate(self.cfg, self.registry, self.state)
+        lat = torch.tensor(self._last_latency, dtype=torch.float32,
+                           device=self.device)
+        self.state = _apply_controller(self.cfg, self.state, results, stats,
+                                       lat)
+        self._sync()                         # the micro-batch barrier
+        self._last_latency = time.perf_counter() - t0
+        self._record(results, self._last_latency)
+        self._resize()
+
+    def finalize(self) -> List[Emission]:
+        self._flush()
+        return self.emissions
+
+
+class PipelinedExecutor(_ExecutorBase):
+    """Pipelined executor (Flink analog).
+
+    ``push`` only enqueues device work. Under cadence emission every
+    ``emit_every`` chunks an emission answers the registry and feeds the
+    controller the measured per-chunk latency since the previous one.
+    Under watermark emission ``push`` reads back exactly one value, the
+    chunk's max event time for the frontier mirror; on the card it is
+    copied to pinned memory behind a CUDA event recorded BEFORE the
+    chunk's ingest is enqueued, so the host waits at most for the
+    previous chunk's ingest, never for this one.
+    """
+
+    mode = "pipelined"
+
+    def reset(self, key: torch.Tensor) -> None:
+        super().reset(key)
+        self._chunks_since_emit = 0
+        self._emit_t0 = time.perf_counter()
+
+    def resume(self, state: RuntimeState, chunks_pushed: int,
+               emissions_done: int, **cursors) -> None:
+        super().resume(state, chunks_pushed, emissions_done, **cursors)
+        self._chunks_since_emit = 0
+        self._emit_t0 = time.perf_counter()
+
     def push(self, chunk: TimestampedChunk) -> None:
         if self._chunks_since_emit == 0:
             # The period's latency clock starts at its FIRST arrival.
             self._emit_t0 = time.perf_counter()
+        chunk_max = None
+        if self._watermark_mode:
+            chunk_max = self._chunk_max(chunk)
+            if chunk_max is not None and self.device.type == "cuda":
+                self._mirror_host.copy_(chunk_max, non_blocking=True)
+                self._mirror_event.record()
+                chunk_max = self._mirror_host
         self.state = _ingest_chunk(self.cfg, self.state, chunk)
         self._items_since_emit += chunk.values.numel()
         self._chunks_since_emit += 1
         self.chunks_pushed += 1
-        if self._chunks_since_emit >= self.cfg.emit_every:
+        if self._watermark_mode:
+            if chunk_max is not None and self.device.type == "cuda":
+                t0 = time.perf_counter()
+                self._mirror_event.synchronize()
+                self.mirror_wait_s += time.perf_counter() - t0
+            self._advance_frontier(chunk_max)
+            if self._closed_through() > self._emitted_through:
+                self._sync()                 # emission boundary
+                elapsed = time.perf_counter() - self._emit_t0
+                per_chunk = elapsed / max(self._chunks_since_emit, 1)
+                self._last_latency = per_chunk
+                self._emit_closed(per_chunk)
+                self._chunks_since_emit = 0
+                self._emit_t0 = time.perf_counter()
+        elif self._chunks_since_emit >= self.cfg.emit_every:
             self._emit_now()
 
     def _emit_now(self) -> None:
-        # Emission boundary: the only place the pipeline touches the host.
+        # Emission boundary: the only place the pipeline waits.
         self._sync()
         elapsed = time.perf_counter() - self._emit_t0
         per_chunk = elapsed / max(self._chunks_since_emit, 1)
+        self._last_latency = per_chunk
         results, stats = _evaluate(self.cfg, self.registry, self.state)
         lat = torch.tensor(per_chunk, dtype=torch.float32,
                            device=self.device)
@@ -337,32 +725,13 @@ class PipelinedExecutor:
         self._chunks_since_emit = 0
         self._emit_t0 = time.perf_counter()
 
-    def _record(self, results, latency_s: float) -> Emission:
-        st = self.state
-        ints = torch.stack([st.open_interval, st.wm.on_time, st.wm.late,
-                            st.wm.dropped]).tolist()
-        em = Emission(
-            index=self._emission_cursor, results=results,
-            watermark=float(wmk.watermark(st.wm, self.cfg.allowed_lateness)),
-            open_interval=ints[0], on_time=ints[1], late=ints[2],
-            dropped=ints[3], capacity=st.ctrl.capacity.cpu().numpy(),
-            latency_s=latency_s, items=self._items_since_emit)
-        self.emissions.append(em)
-        self._emission_cursor += 1
-        self._items_since_emit = 0
-        return em
-
     def finalize(self) -> List[Emission]:
-        if self._chunks_since_emit:
+        # Watermark emission fires only at frontier closes, never at the
+        # end of the stream: unclosed intervals stay unemitted (ad hoc
+        # ``query()`` answers them), so a resumed stream closes them once.
+        if not self._watermark_mode and self._chunks_since_emit:
             self._emit_now()
         return self.emissions
 
-    def run(self, chunks: Iterable[TimestampedChunk]) -> List[Emission]:
-        for c in chunks:
-            self.push(c)
-        return self.finalize()
 
-    def query(self) -> Dict[str, Result]:
-        """Every standing query on the current state (ad hoc: no
-        controller feedback, no emission record)."""
-        return _evaluate(self.cfg, self.registry, self.state)[0]
+Executor = Union[BatchedExecutor, PipelinedExecutor]

@@ -1,11 +1,12 @@
 """Event-time watermarks with bounded out-of-order arrival.
 
-Counterpart of the reference's ``runtime/watermark.py`` (device side).
-The frontier ``max_time`` gives the watermark ``max_time −
-allowed_lateness``; interval ``j`` covers ``[j·span, (j+1)·span)``; an
-item is on time (newest open interval), late (older, above the
-watermark, still in the ring) or dropped. All in f32 and int32 on the
-state's device, so routing never reads a value back to the host.
+Counterpart of the reference's ``runtime/watermark.py``: the device
+routing and the host mirror of the frontier. The frontier ``max_time``
+gives the watermark ``max_time − allowed_lateness``; interval ``j``
+covers ``[j·span, (j+1)·span)``; an item is on time (newest open
+interval), late (older, above the watermark, still in the ring) or
+dropped. The routing runs in f32 and int32 on the state's device, so it
+never reads a value back to the host.
 """
 from __future__ import annotations
 
@@ -17,6 +18,47 @@ import torch
 #: f32 −inf stand-in that survives f32 arithmetic (the reference's _NEG).
 NEG_TIME = np.float32(-3.0e38)
 _IMIN = -(2 ** 31) + 1
+
+
+# ---------------------------------------------------------------------------
+# The host mirror of the frontier (watermark-driven emission).
+#
+# The reference's numpy arithmetic, copied literally: the closes divide by
+# the span (true division), as the reference's host decides them, even
+# though the device routing multiplies by its reciprocal. Emitting on the
+# reference's schedule is what parity needs.
+# ---------------------------------------------------------------------------
+
+def host_frontier(prev: np.ndarray, times, mask) -> np.ndarray:
+    """Advance a host-side ``[W]`` frontier mirror with one chunk: the
+    masked max of its times, in f32 (``route_chunk``'s frontier update)."""
+    t = np.asarray(times, np.float32)
+    m = np.asarray(mask, bool)
+    if t.ndim == 1:
+        t, m = t[None, :], m[None, :]
+    chunk_max = np.max(np.where(m, t, NEG_TIME), axis=1).astype(np.float32)
+    return np.maximum(prev, chunk_max)
+
+
+def host_closed_through(frontier: np.ndarray, allowed_lateness: float,
+                        span: float) -> int:
+    """Newest event interval the watermark has CLOSED: interval ``j``
+    closes when the watermark reaches ``(j+1)·span``. f32 throughout."""
+    w = np.float32(np.min(frontier)) - np.float32(allowed_lateness)
+    return int(np.floor(w / np.float32(span))) - 1
+
+
+def staleness(watermark: float, interval: int, span: float) -> float:
+    """How far the watermark had moved past ``interval``'s close
+    ``(interval+1)·span`` when its answer surfaced (f32)."""
+    close = np.float32((interval + 1) * span)
+    return float(np.float32(watermark) - close)
+
+
+def host_open_interval(frontier: np.ndarray, span: float) -> int:
+    """Newest event interval seen, from the host frontier mirror."""
+    return max(0, int(np.floor(np.float32(np.max(frontier))
+                               / np.float32(span))))
 
 
 @dataclasses.dataclass

@@ -12,6 +12,7 @@ from repro.kernels.reservoir import reservoir_fold as pallas_fold
 from repro.kernels.stratified_stats import stratified_stats as pallas_stats
 from repro_torch.kernels import ops, ref, reservoir, stratified_stats
 from test_torch_cuda import PHASES, fold_inputs as _fold_inputs
+from test_torch_cuda import one_shot_inputs
 from test_torch_cuda import stats_inputs as _stats_inputs
 
 
@@ -104,5 +105,11 @@ def test_cpu_dispatch_counts_no_kernel_launch():
     vals, sid, mask = _stats_inputs(1, 64)
     ops.stratified_stats(torch.from_numpy(vals), torch.from_numpy(sid),
                          torch.from_numpy(mask), 4)
+    items, state = one_shot_inputs(1, m=64)
+    ops.one_shot_ingest(
+        **{k: torch.from_numpy(np.array(v)) for k, v in items.items()},
+        **{k: torch.from_numpy(np.array(v)) for k, v in state.items()},
+        span=1.0, allowed_lateness=0.5)
     assert ops.launch_counts() == {"reservoir_fold": 0,
-                                   "stratified_stats": 0}
+                                   "stratified_stats": 0,
+                                   "one_shot_ingest": 0}

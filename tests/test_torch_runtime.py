@@ -250,11 +250,31 @@ def test_push_never_reads_back_a_device_value(monkeypatch):
     assert set(te.query()) == {"total", "avg", "big"}
     assert len(te.finalize()) == 1
 
+    # Watermark emission reads back exactly one value per push, the
+    # chunk's max event time for the frontier mirror (the four chunks
+    # close no interval, so no emission reads the state either).
+    te = tex.PipelinedExecutor(
+        tex.RuntimeConfig(**dict(cfg_kw, emission="watermark",
+                                 ingest="onekernel")),
+        tr, prng.PRNGKey(0), device="cpu")
+    reads = []
+    item = torch.Tensor.item
+
+    def counted_item(t):
+        reads.append(t.shape)
+        return item(t)
+    for name in ("tolist", "__bool__", "__int__", "__float__", "numpy",
+                 "cpu"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch.Tensor, "item", counted_item)
+    for c in chunks[:4]:
+        te.push(_tchunk(c))
+    monkeypatch.undo()
+    assert reads == [torch.Size([])] * 4 and not te.emissions
+
 
 @pytest.mark.parametrize("change", [
-    dict(num_shards=2), dict(placement="mesh"),
-    dict(emission="watermark"), dict(ingest="masked"),
-    dict(ingest="onekernel")])
+    dict(num_shards=2), dict(placement="mesh")])
 def test_unported_configurations_raise(change):
     cfg = tex.RuntimeConfig(num_strata=3, capacity=8, **change)
     _, tr = _registries()

@@ -74,3 +74,33 @@ def test_init_fresh_buffers():
     assert a.max_time.data_ptr() != b.max_time.data_ptr()
     assert float(a.max_time) == float(jwm.NEG_TIME)
     assert a.on_time.dtype == torch.int32
+
+
+@pytest.mark.parametrize("span,lateness", [(1.0, 0.5), (5.0, 2.0),
+                                           (3.0, 0.5), (0.3, 0.1)])
+def test_host_mirror_matches_reference(span, lateness):
+    """The host frontier mirror, its closes, open interval and staleness
+    are the reference's numpy arithmetic, true division included."""
+    tf = jf = np.full((1,), wm.NEG_TIME, np.float32)
+    assert wm.NEG_TIME == jwm.NEG_TIME
+    for times, mask in _disordered(4, 12, 100, span):
+        tf = wm.host_frontier(tf, times, mask)
+        jf = jwm.host_frontier(jf, times, mask)
+        assert tf.dtype == jf.dtype and tf.tobytes() == jf.tobytes()
+        closed = wm.host_closed_through(tf, lateness, span)
+        assert closed == jwm.host_closed_through(jf, lateness, span)
+        assert wm.host_open_interval(tf, span) == \
+            jwm.host_open_interval(jf, span)
+        w = float(tf[0]) - lateness
+        assert wm.staleness(w, closed, span) == \
+            jwm.staleness(w, closed, span)
+
+
+def test_next_batch_chunks_matches_reference():
+    from repro.runtime import controller as jctl
+    from repro_torch.runtime import controller as ctl
+    for b in (1, 2, 4, 32):
+        for p in (0.1, 0.5, 0.9, 1.0, 1.5):
+            for closes in (0, 1, 2, 5):
+                assert ctl.next_batch_chunks(b, p, 32, closes) == \
+                    jctl.next_batch_chunks(b, p, 32, closes)
