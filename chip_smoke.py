@@ -36,6 +36,22 @@ Phases (any failure ends the run with a non-zero exit):
              (f) close the same intervals once each with the same answers;
              every answer lies within 3 sigma of the exact value over the
              items the script itself finds accepted.
+7. weighted_hist
+             the weighted-histogram kernel against its plain version at
+             the emission's shape ([6 x 1,048,576] slots): uniform and
+             log2 edges, all masked, collapsed edges, values on the edges,
+             ragged M, the largest G*B (counts bit for bit, mass within
+             rtol of f64, the same bits on a second run), then its times;
+8. nonlinear the paper's §6.1 network-traffic deployment (NetFlow stream,
+             3 protocols) at phase main's ring size, 12 chunks, with sum,
+             per-protocol and session sums, both quantile methods, a
+             per-protocol quantile, a log2 histogram, top-8 heavy hitters
+             and distinct count: (1) pipelined fused, (2) pipelined
+             onekernel, (3) batched onekernel on cadence, (4) pipelined
+             onekernel on the watermark. (2), (3) end in (1)'s state and
+             answers bit for bit; every answer is checked against the
+             exact window the script keeps on the card; the emission
+             latency of this registry and of phase main's.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -73,6 +89,16 @@ SHIFT_P, SHIFT_MAX = 0.3, 0.75     # disorder: share shifted back, by U(0, s)
 # (the lateness equals the chunk span), and no item could be late.
 DISORDER_T0 = 0.25
 THRESHOLD = 5000.0                 # count(x > 5000)
+NL_CHUNKS = 12                     # phase nonlinear: 6 s of events
+NL_QS = (0.5, 0.9, 0.99)           # merged quantile levels
+NL_KEY_QS = (0.5, 0.99)            # per-protocol quantile levels
+LOG2_EDGES = tuple(float(2 ** i) for i in range(25))   # 2^0 ... 2^24
+SESSION_GAP = 5.0                  # one interval
+TOP_K = 8
+Q_SLACK = 0.005                    # quantile ranks checked at q ± 0.005
+REFINE_BINS, REFINE_STEPS = 32, 4  # quantile_refine's defaults
+HIST_LAUNCHES = 1 + len(NL_QS) * REFINE_STEPS   # weighted_hist/emission
+LATENCY_REPS = 3                   # timed evaluations per registry
 STATS_RTOL = 1e-5                  # kernel vs f64-accumulated plain sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
 ANSWER_RTOL = 1e-5                 # f32 rounding beside the 3-sigma bound
@@ -830,6 +856,438 @@ def phase_paths(torch, seed: int, dev) -> dict:
                 ingest_dev=ingest_dev, wait_ms=wait_ms)
 
 
+def whist_inputs(torch, gen, case):
+    """Inputs of one weighted-histogram call at the emission's shape: the
+    flattened ``[6, 1,048,576]`` view (cell = row, per-cell HT weight,
+    slot mask from a per-cell sample size) of floored log-normal flow
+    sizes, and the edges of a quantile round over the sample's range
+    (``"uniform"``, 32 bins) or the histogram query's ``2^0 ... 2^24``
+    (``"log2"``, 24 bins). ``(x, cell, w, mask, edges, G)``."""
+    from repro_torch.core.quantile import _unit_edges
+    from repro_torch.kernels.weighted_hist import MAX_CELLS_BINS
+    dev = gen.device
+    g, m = K * S, K * S * N_MAX
+    if case == "ragged":
+        m -= 77
+    x = torch.floor(torch.exp(7.5 + 1.8 * torch.randn(
+        m, generator=gen, device=dev)))
+    slot = torch.arange(m, device=dev)
+    if case == "max_cells_bins":
+        g = MAX_CELLS_BINS // REFINE_BINS
+        cell = torch.randint(0, g, (m,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    else:
+        cell = (slot // N_MAX).to(torch.int32)
+    w = (1.0 + 3.0 * torch.rand(g, generator=gen, device=dev))[cell.long()]
+    taken = torch.randint(N_MAX // 2, N_MAX + 1, (g,), generator=gen,
+                          device=dev)
+    mask = (slot % N_MAX) < taken[cell.long()]
+    if case == "log2":
+        edges = torch.tensor(LOG2_EDGES, dtype=torch.float32, device=dev)
+    elif case == "collapsed":
+        x = torch.full_like(x, 1480.0)
+        edges = torch.full((REFINE_BINS + 1,), 1480.0, device=dev)
+    else:
+        lo, hi = float(x[mask].min()), float(x[mask].max())
+        edges = lo + (hi - lo) * _unit_edges(REFINE_BINS, dev)
+    if case == "on_edges":
+        pool = torch.cat([edges, edges[:1] - 1.0, edges[-1:] + 1.0])
+        x = pool[torch.randint(0, pool.numel(), (m,), generator=gen,
+                               device=dev)]
+    if case == "all_masked":
+        mask = torch.zeros_like(mask)
+    return x, cell, w, mask, edges, g
+
+
+def phase_weighted_hist(torch, gen):
+    """The weighted-histogram kernel against its plain version (counts
+    bit for bit, mass within STATS_RTOL of the f64-summed plain version,
+    the same bits on a second run), then its times at the emission's
+    shape beside its bound and the nearest PyTorch composition."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import weighted_hist as wk
+    dev = gen.device
+    worst = 0.0
+    for case in ("uniform", "log2", "all_masked", "collapsed", "on_edges",
+                 "ragged", "max_cells_bins"):
+        x, cell, w, mask, edges, g = whist_inputs(torch, gen, case)
+        kh, kc = wk.weighted_hist(x, cell, w, mask, edges, g)
+        ph, pc = ref.weighted_hist(x, cell, w, mask, edges, g)
+        kh2, kc2 = wk.weighted_hist(x, cell, w, mask, edges, g)
+        torch.cuda.synchronize()
+        rel = float(((kh - ph).abs() / ph.abs().clamp(min=1e-30)).max())
+        worst = max(worst, float((kh - ph).abs().max()))
+        again = same_bits(torch, kh2, kh) and same_bits(torch, kc2, kc)
+        log(f"[weighted_hist] {case}: M={x.numel()} G={g} "
+            f"B={edges.numel() - 1} counts bitwise={torch.equal(kc, pc)} "
+            f"mass rel err {rel:.3e} (rtol {STATS_RTOL}) second run "
+            f"same bits={again} in-bin items {int(kc.sum())}")
+        if not torch.equal(kc, pc):
+            fail(f"weighted_hist counts differ from the plain version "
+                 f"({case})")
+        if rel > STATS_RTOL:
+            fail(f"weighted_hist mass outside rtol ({case})")
+        if not again:
+            fail(f"weighted_hist is not deterministic ({case})")
+        if case == "collapsed" and (float(kc[:, :-1].sum()) != 0.0 or
+                                    float(kc.sum()) != float(mask.sum())):
+            fail("collapsed edges: not every value in the last bin")
+        if case == "all_masked" and float(kc.sum()) != 0.0:
+            fail("all-masked call counted items")
+
+    # Times at the emission's shape: one round of quantile refinement.
+    x, cell, w, mask, edges, g = whist_inputs(torch, gen, "uniform")
+    nb = edges.numel() - 1
+
+    def kernel():
+        return wk.weighted_hist(x, cell, w, mask, edges, g)
+    ms = time_ms(kernel, torch)
+    plain_ms = time_ms(lambda: ref.weighted_hist(x, cell, w, mask, edges, g),
+                       torch, reps=3, warm=1)
+    acc = torch.zeros(g * nb, device=dev)
+    key_base = cell.long() * nb
+    w_live = torch.where(mask, w, 0.0)
+
+    def library():
+        b = torch.bucketize(x, edges, right=True) - 1
+        acc.zero_().index_add_(0, key_base + b.clamp(0, nb - 1), w_live)
+    library_ms = time_ms(library, torch)
+    m = x.numel()
+    nbytes = 13 * m + 4 * (nb + 1) + 8 * g * nb
+    n_ops = (math.ceil(math.log2(nb)) + 4) * m   # search, range, one add
+    bound = max(nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+    log(f"[weighted_hist] [{g} x {N_MAX}], B={nb}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bucketize + index_add_ {library_ms:.4f} "
+        f"ms, bound {bound:.4f} ms ({nbytes} B)")
+    log_split("weighted_hist", device_split(kernel, torch), ms)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                >= n_ops / F32_OPS_PER_S else "operations",
+                library_ms=library_ms)
+
+
+def nonlinear_registry():
+    """The §6.1 network-traffic standing queries."""
+    from repro_torch.runtime.registry import QueryRegistry
+    return (QueryRegistry()
+            .register("sum", "sum")
+            .register("bytes_per_protocol", "sum", window="per_key")
+            .register("session_bytes", "sum", window="session",
+                      session_gap=SESSION_GAP)
+            .register("q_sort", "quantile", qs=NL_QS)
+            .register("q_hist", "quantile", qs=NL_QS, method="hist")
+            .register("q_protocol", "quantile", qs=NL_KEY_QS,
+                      window="per_key")
+            .register("hist_log2", "histogram", edges=LOG2_EDGES)
+            .register("top", "heavy_hitters", k=TOP_K)
+            .register("distinct", "distinct"))
+
+
+def make_netflow_stream(torch, seed: int, dev):
+    """The §6.1 NetFlow stream (TCP/UDP/ICMP at 0.85/0.13/0.02, log-normal
+    bytes), flow sizes floored to whole bytes, stamped in order at RATE,
+    made on the card from the seed."""
+    from repro_torch.runtime.records import stamp
+    from repro_torch.stream.sources import NetflowSource
+    src = NetflowSource()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    chunks = []
+    for e in range(NL_CHUNKS):
+        vals, sid = src.chunk(gen, M)
+        chunks.append(stamp(torch.floor(vals), sid, e * M / RATE, RATE))
+    return chunks
+
+
+def sampled_window(ex, em):
+    """The emission's own sample, read right after it: the valid slot
+    values of the view it answered (the closed interval's cells under
+    watermark emission) and its largest HT weight."""
+    from repro_torch.core import window as win
+    from repro_torch.runtime.executor import _interval_cell_mask
+    view = win.sample_view(ex.state.window)
+    if em.interval is not None:
+        view = win.restrict_view(view, _interval_cell_mask(
+            ex.cfg, ex.state, em.interval))
+    return view.values[view.slot_mask()], float(view.weights().max())
+
+
+class Checker:
+    """Every answer of one emission against the exact window the script
+    keeps on the card; counts the checks and logs one line per query."""
+
+    def __init__(self, torch, tag, em):
+        self.torch, self.tag, self.em = torch, tag, em
+
+    def near(self, name, est, exact, weight=None) -> None:
+        """Each entry within 3 sigma (+ f32 rounding) of ``exact``.
+
+        For a count (``weight`` = the view's largest HT weight W) sigma is
+        the larger of the estimate's own and ``sqrt(n (W - 1))``, which
+        bounds the sampling sd of an HT count of ``n`` items: a bin or key
+        with a handful of items may have none sampled, and then its Eq. 6
+        variance is 0 while its count is not."""
+        torch = self.torch
+        v = est.value.double().reshape(-1)
+        var = est.variance.double().clamp(min=0).reshape(-1)
+        want = torch.as_tensor(exact, dtype=torch.float64,
+                               device=v.device).reshape(-1)
+        if weight is not None:
+            var = torch.maximum(var, want * (weight - 1.0))
+        sig = var.sqrt()
+        slack = 3 * sig + ANSWER_RTOL * want.abs()
+        ratio = float(((v - want).abs() / slack.clamp(min=1e-30)).max())
+        ok = bool(((v - want).abs() <= slack).all())
+        log(f"[{self.tag}] emission {self.em.index} {name}: {v.numel()} "
+            f"entries, worst |err| / (3 sigma + rtol) {ratio:.4f} "
+            f"{'ok' if ok else 'OUTSIDE'}")
+        if not ok:
+            fail(f"{self.tag} emission {self.em.index} {name}: "
+                 f"{v.tolist()} vs exact {want.tolist()}, sigma "
+                 f"{sig.tolist()}")
+
+    def quantiles(self, name, value, xs_sorted, qs, slack=0.0) -> None:
+        """Each level inside the exact window's quantiles at q ± Q_SLACK
+        (``slack`` more for the histogram method)."""
+        n = xs_sorted.numel()
+
+        def at(p):
+            i = min(max(math.ceil(p * n) - 1, 0), n - 1)
+            return float(xs_sorted[i])
+        got = value.reshape(-1).tolist()
+        bad = [(q, v, at(q - Q_SLACK), at(q + Q_SLACK))
+               for q, v in zip(qs, got)
+               if not at(q - Q_SLACK) - slack <= v <= at(q + Q_SLACK) + slack]
+        log(f"[{self.tag}] emission {self.em.index} {name}: "
+            f"{[round(v, 3) for v in got]} at {list(qs)} "
+            f"{'ok' if not bad else 'OUTSIDE'}")
+        if bad:
+            fail(f"{self.tag} emission {self.em.index} {name} outside the "
+                 f"exact quantiles at q +- {Q_SLACK}: {bad}")
+
+
+def session_of(intervals_with_items, gap: int) -> list:
+    """A key's current session: its active intervals, newest first, while
+    consecutive ones are at most ``gap`` apart."""
+    out = []
+    for iv in sorted(intervals_with_items, reverse=True):
+        if out and out[-1] - iv > gap:
+            break
+        out.append(iv)
+    return out
+
+
+def check_nonlinear(torch, tag, em, chunks, upto, sampled) -> None:
+    """The emission's answers against the exact window over the first
+    ``upto`` chunks (an in-order stream: every item is accepted);
+    ``sampled`` is :func:`sampled_window`'s."""
+    sample, weight = sampled
+    from repro_torch.runtime.watermark import interval_of
+    dev = chunks[0].values.device
+    vals = torch.cat([c.values for c in chunks[:upto]])
+    sid = torch.cat([c.stratum_ids for c in chunks[:upto]]).long()
+    iv = interval_of(torch.cat([c.times for c in chunks[:upto]]), SPAN)
+    live = [i for i in range(em.open_interval - K + 1,
+                             em.open_interval + 1) if i >= 0]
+    base = [em.interval] if em.interval is not None else live
+    sel = torch.isin(iv, torch.tensor(base, device=dev, dtype=iv.dtype))
+    x, s = vals[sel], sid[sel]
+    r, c = em.results, Checker(torch, tag, em)
+    c.near("sum", r["sum"], x.double().sum())
+    c.near("bytes_per_protocol", r["bytes_per_protocol"],
+           [x[s == k].double().sum() for k in range(S)])
+    ring = [i for i in live if em.interval is None or i <= em.interval]
+    gap = max(1, math.ceil(SESSION_GAP / SPAN))
+    sess = []
+    for k in range(S):
+        ivs = session_of([i for i in ring if bool(((iv == i)
+                                                   & (sid == k)).any())],
+                         gap)
+        pick = (sid == k) & torch.isin(iv, torch.tensor(
+            ivs or [-1], device=dev, dtype=iv.dtype))
+        sess.append(vals[pick].double().sum())
+    c.near("session_bytes", r["session_bytes"], sess)
+    e = torch.tensor(LOG2_EDGES, dtype=torch.float32, device=dev)
+    b = torch.bucketize(x, e, right=True) - 1
+    b = torch.where(x == e[-1], len(LOG2_EDGES) - 2, b)   # right-closed
+    inside = (b >= 0) & (b < len(LOG2_EDGES) - 1)
+    c.near("hist_log2", r["hist_log2"],
+           torch.bincount(b[inside], minlength=len(LOG2_EDGES) - 1),
+           weight=weight)
+    xs = torch.sort(x).values
+    c.quantiles("q_sort", r["q_sort"].value, xs, NL_QS)
+    lo0, hi0 = float(sample.min()), float(sample.max())
+    c.quantiles("q_hist", r["q_hist"].value, xs, NL_QS,
+                slack=(hi0 - lo0) / REFINE_BINS ** REFINE_STEPS)
+    for k in range(S):
+        c.quantiles(f"q_protocol[{k}]", r["q_protocol"].value[k],
+                    torch.sort(x[s == k]).values, NL_KEY_QS)
+    uniq, cnt = torch.unique(x, return_counts=True)
+    kth = float(torch.topk(cnt, TOP_K).values[-1])
+    hh = r["top"]
+    pos = torch.searchsorted(uniq, hh.keys).clamp(max=uniq.numel() - 1)
+    exact = torch.where(uniq[pos] == hh.keys, cnt[pos], 0)
+    c.near("top (estimates)", hh.estimate, exact, weight=weight)
+    sig = torch.maximum(hh.estimate.variance.double().clamp(min=0),
+                        exact.double() * (weight - 1.0)).sqrt()
+    short = exact.double() < kth - 3 * sig
+    log(f"[{tag}] emission {em.index} top keys {hh.keys.tolist()} exact "
+        f"counts {exact.tolist()}, exact 8th-largest count {kth:.0f}")
+    if bool(short.any()):
+        fail(f"{tag} emission {em.index}: a reported heavy hitter's exact "
+             "count is below the exact 8th-largest less 3 sigma")
+    d = r["distinct"]
+    seen = torch.unique(sample).numel()
+    log(f"[{tag}] emission {em.index} distinct: Chao1 {float(d.value):.1f} "
+        f"sd {math.sqrt(max(float(d.variance), 0.0)):.1f}, sampled "
+        f"{seen}, exact {uniq.numel()}")
+    if not math.isfinite(float(d.value)) or float(d.value) < seen:
+        fail(f"{tag} emission {em.index}: Chao1 {float(d.value)} not "
+             f"finite or below the sampled distinct count {seen}")
+
+
+def profile_emission(torch, fn, wall_ms: float) -> None:
+    """Device time of one nonlinear emission by kernel name (profiler):
+    the busy share and the top kernels in the log, the whole table in
+    chiprun_out/chip_smoke_nonlinear_profile.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    busy = sum(t for t, _ in by_name.values())
+    launches = sum(c for _, c in by_name.values())
+    log(f"[nonlinear] one nonlinear emission: device busy {busy:.4f} ms of "
+        f"{wall_ms:.4f} ms, {launches} device activities (profiler)")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (t, c) in ranked[:8]:
+        log(f"[nonlinear]   {t:10.4f} ms {c:7d}x  {name[:100]}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_nonlinear_profile.txt").write_text("\n".join(
+        f"{t:.4f} ms {c}x {name}" for name, (t, c) in ranked))
+
+
+def results_bits(torch, results) -> dict:
+    from repro_torch.runtime import convert
+    return {name: {f: a.tobytes() for f, a in r.items()}
+            for name, r in convert.results_to_numpy(results).items()}
+
+
+def phase_nonlinear(torch, seed: int, dev) -> dict:
+    """The §6.1 network-traffic deployment at phase main's ring size
+    through four paths; every answer against the exact window."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.executor import (BatchedExecutor,
+                                              PipelinedExecutor,
+                                              RuntimeConfig, _evaluate)
+    from repro_torch.runtime.registry import QueryRegistry
+    chunks = make_netflow_stream(torch, seed, dev)
+    paths = {
+        "1": (PipelinedExecutor, "fused", "cadence"),
+        "2": (PipelinedExecutor, "onekernel", "cadence"),
+        "3": (BatchedExecutor, "onekernel", "cadence"),
+        "4": (PipelinedExecutor, "onekernel", "watermark"),
+    }
+    runs = {}
+    for tag, (cls, ingest, emission) in paths.items():
+        cfg = RuntimeConfig(num_strata=S, capacity=N_MAX, num_intervals=K,
+                            interval_span=SPAN, allowed_lateness=LATENESS,
+                            emit_every=EMIT_EVERY, batch_chunks=EMIT_EVERY,
+                            ingest=ingest, emission=emission)
+        ex = cls(cfg, nonlinear_registry(), prng.PRNGKey(seed), device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        upto, samples = [], []
+        for i, ch in enumerate(chunks):
+            before = len(ex.emissions)
+            ex.push(ch)
+            for em in ex.emissions[before:]:
+                upto.append(i + 1)
+                samples.append(sampled_window(ex, em))
+        ems = ex.finalize()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        log(f"[nonlinear] ({tag}) {cls.__name__} ingest={ingest} emission="
+            f"{emission}: {len(ems)} emissions (intervals "
+            f"{[em.interval for em in ems]}), launches {launches}")
+        want = len(ems) * HIST_LAUNCHES
+        if not ems or launches["weighted_hist"] != want:
+            fail(f"path {tag}: weighted_hist launched "
+                 f"{launches['weighted_hist']} times, expected {want}")
+        kernel = "one_shot_ingest" if ingest == "onekernel" else \
+            "reservoir_fold"
+        if launches[kernel] == 0:
+            fail(f"path {tag} did not run {kernel}: {launches}")
+        tname = f"nonlinear ({tag})"
+        for em, n, smp in zip(ems, upto, samples):
+            check_nonlinear(torch, tname, em, chunks, n, smp)
+        runs[tag] = dict(ems=ems, launches=launches, ex=ex, cfg=cfg,
+                         state=state_bits(ex.state))
+    if [em.interval for em in runs["4"]["ems"]] != [0]:
+        fail("watermark path did not close interval 0 exactly once")
+    for tag in "23":
+        bad = same_state(runs["1"]["state"], runs[tag]["state"])
+        if bad:
+            fail(f"nonlinear path {tag} state differs from (1): {bad[:5]}")
+        a, b = runs["1"]["ems"], runs[tag]["ems"]
+        if len(a) != len(b):
+            fail(f"nonlinear path {tag}: {len(b)} emissions, (1) {len(a)}")
+        for x, y in zip(a, b):
+            if results_bits(torch, x.results) != \
+                    results_bits(torch, y.results):
+                fail(f"nonlinear path {tag} emission {x.index}: answers "
+                     "differ in their bits from (1)")
+        log(f"[nonlinear] ({tag}) state and all {len(b)} emissions' answers "
+            "bit for bit equal to (1)")
+
+    # Emission latency on one state: this registry against phase main's.
+    ex, cfg = runs["2"]["ex"], runs["2"]["cfg"]
+    linear = (QueryRegistry().register("sum", "sum").register("mean", "mean")
+              .register("count", "count", predicate=lambda x: x > THRESHOLD))
+    lat = {}
+    for name, reg in (("linear", linear), ("nonlinear", ex.registry)):
+        walls = []
+        for _ in range(LATENCY_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _evaluate(cfg, reg, ex.state)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        lat[name] = sorted(walls)[len(walls) // 2]
+        log(f"[nonlinear] {name} registry: one emission's evaluation "
+            f"{lat[name]:.4f} ms (median of {[round(w, 4) for w in walls]})")
+    profile_emission(torch, lambda: _evaluate(cfg, ex.registry, ex.state),
+                     lat["nonlinear"])
+
+    # What the bootstrap's draws and sorts cost, at the view's shape.
+    g, n = K * S, N_MAX
+    key = prng.PRNGKey(seed, device=dev)
+    top = torch.full((g, 1), n, dtype=torch.int32, device=dev)
+    draw_ms = time_ms(lambda: prng.randint(key, (g, n), 0, top), torch,
+                      reps=5, warm=1)
+    xs = torch.rand(g * n, device=dev)
+    sort_ms = time_ms(lambda: torch.argsort(xs, stable=True), torch, reps=5,
+                      warm=1)
+    reps = 32
+    draws = reps * (3 + S)                    # q_sort, q_hist, distinct, keys
+    sorts = (1 + reps) * (2 + S) + reps + 2   # quantiles, chao1, top-k
+    share = (draws * draw_ms + sorts * sort_ms) / lat["nonlinear"]
+    log(f"[nonlinear] per emission {draws} randint draws of [{g} x {n}] at "
+        f"{draw_ms:.4f} ms and {sorts} stable sorts of {g * n} at "
+        f"{sort_ms:.4f} ms: {share:.4f} of the emission; weighted_hist "
+        f"launches per emission {HIST_LAUNCHES}")
+    return dict(launches=runs["1"]["launches"], latency=lat, share=share)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -859,6 +1317,8 @@ def main(argv=None) -> int:
     launches = phase_main(torch, args.seed, dev)
     one_shot = phase_one_shot(torch, gen)
     paths = phase_paths(torch, args.seed, dev)
+    whist = phase_weighted_hist(torch, gen)
+    nonlinear = phase_nonlinear(torch, args.seed, dev)
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -875,6 +1335,10 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
              replaces="src/repro/kernels/reservoir.py:146",
              launches=paths["launches"]["one_shot_ingest"], **one_shot),
+        dict(name="weighted_hist", route="cuda",
+             source="src/repro_torch/kernels/csrc/weighted_hist.cu",
+             replaces="src/repro/kernels/weighted_hist.py:35",
+             launches=nonlinear["launches"]["weighted_hist"], **whist),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -118,6 +118,81 @@ def estimate_mean(stats: StratumStats) -> Estimate:
                     variance=var_mean(stats))
 
 
+def estimate_counts(n: torch.Tensor, counts: torch.Tensor,
+                    taken: torch.Tensor) -> Estimate:
+    """Vectorized per-cell COUNT estimates (Eqs. 2-3, 6 on indicators).
+
+    ``n [S, B]`` is the number of sampled items of stratum ``s`` falling
+    in cell ``b`` (a histogram bin, a candidate key, ...). Each cell is a
+    linear query on its 0/1 indicator, whose per-stratum moments are
+    ``sums = sumsqs = n``; returns ``[B]`` values and Eq. 6 variances.
+    """
+    n = n.to(torch.float32)
+    c = counts.to(torch.float32)[:, None]
+    y = torch.clamp(taken, min=1).to(torch.float32)[:, None]
+    w = torch.where(counts[:, None] > taken[:, None], c / y, 1.0)
+    value = torch.sum(w * n, dim=0)
+    # Indicator variance: ss = Σ1² − Y·mean² = n − n²/Y (Eq. 7 on 0/1s).
+    ss = torch.clamp(n - n * n / y, min=0.0)
+    s2 = torch.where(taken[:, None] > 1, ss / torch.clamp(y - 1.0, min=1.0),
+                     0.0)
+    per = c * torch.clamp(c - y, min=0.0) * s2 / y
+    return Estimate(value=value, variance=torch.sum(per, dim=0))
+
+
+def _group_sum(x: torch.Tensor, group_ids: torch.Tensor,
+               num_groups: int) -> torch.Tensor:
+    """``out[g] = Σ x[i]`` over ``group_ids[i] == g``, ``[num_groups]``.
+
+    A masked dense sum over the ``[num_groups, G]`` membership table (the
+    cells number a few thousand at most): a fixed-order reduction on the
+    device, where a float scatter-add would sum in atomic order and give
+    other bits from run to run. Nothing is read back to the host.
+    """
+    groups = torch.arange(num_groups, dtype=group_ids.dtype,
+                          device=x.device)
+    member = group_ids[None, :] == groups[:, None]
+    return torch.sum(torch.where(member, x[None, :], 0), dim=1,
+                     dtype=x.dtype)
+
+
+def estimate_sum_grouped(stats: StratumStats, group_ids: torch.Tensor,
+                         num_groups: int) -> Estimate:
+    """Per-group SUM estimates (Eqs. 2-3, 6) over a partition of cells.
+
+    ``group_ids [G]`` assigns each cell to one of ``num_groups`` disjoint
+    windows (e.g. the per-key windows: cells grouped by stratum key);
+    each group is its own stratified estimate. Returns ``[num_groups]``.
+    """
+    c = stats.counts.to(torch.float32)
+    y = torch.clamp(stats.taken, min=1).to(torch.float32)
+    w = torch.where(stats.counts > stats.taken, c / y, 1.0)
+    per_var = c * torch.clamp(c - y, min=0.0) * stats.s2() / y
+    return Estimate(value=_group_sum(w * stats.sums, group_ids, num_groups),
+                    variance=_group_sum(per_var, group_ids, num_groups))
+
+
+def estimate_mean_grouped(stats: StratumStats, group_ids: torch.Tensor,
+                          num_groups: int) -> Estimate:
+    """Per-group MEAN estimates (Eq. 4 / Eq. 8 with Eq. 9 variance).
+
+    The weights ``ω_i = C_i / C_group`` are normalized within each group,
+    so each entry equals :func:`estimate_mean` on that group's cells
+    alone. Groups with no arrivals report 0 ± 0.
+    """
+    c = stats.counts.to(torch.float32)
+    tot = torch.clamp(_group_sum(c, group_ids, num_groups), min=1.0)
+    omega = c / tot[group_ids.long()]
+    y = torch.clamp(stats.taken, min=1).to(torch.float32)
+    w = torch.where(stats.counts > stats.taken, c / y, 1.0)
+    value = _group_sum(w * stats.sums, group_ids, num_groups) / tot
+    fpc = torch.where(c > 0, torch.clamp(c - y, min=0.0)
+                      / torch.clamp(c, min=1.0), 0.0)
+    per = omega * omega * stats.s2() / y * fpc
+    return Estimate(value=value,
+                    variance=_group_sum(per, group_ids, num_groups))
+
+
 def merge_stats(*stats: StratumStats) -> StratumStats:
     """Concatenate independent stratum summaries (Eq. 5: variances add)."""
     return StratumStats(

@@ -131,6 +131,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_one_shot_ingest.argtypes = ([p] * 20 + [i] * 4
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
+    lib.sa_whist_blocks.argtypes = [ll]
+    lib.sa_whist_blocks.restype = i
+    lib.sa_weighted_hist.argtypes = [p] * 5 + [ll, i, i] + [p] * 5
+    lib.sa_weighted_hist.restype = i
 
 
 def check(status: int, name: str) -> None:

@@ -13,6 +13,7 @@ from repro_torch.kernels import one_shot as _one_shot
 from repro_torch.kernels import ref
 from repro_torch.kernels import reservoir as _reservoir
 from repro_torch.kernels import stratified_stats as _stats
+from repro_torch.kernels import weighted_hist as _whist
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -50,9 +51,20 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot,
                                      u_accept, u_slot, **state)
 
 
+def weighted_histogram(values, stratum_ids, weights, mask, edges,
+                       num_strata: int):
+    """Per-(cell, bin) ``(whist, counts)``, both f32 ``[G, B]``."""
+    if _on_cpu(values, "weighted_histogram"):
+        return ref.weighted_hist(values, stratum_ids, weights, mask, edges,
+                                 num_strata)
+    return _whist.weighted_hist(values, stratum_ids, weights, mask, edges,
+                                num_strata)
+
+
 _WRAPPERS = {"reservoir_fold": _reservoir.reservoir_fold,
              "stratified_stats": _stats.stratified_stats,
-             "one_shot_ingest": _one_shot.one_shot_ingest}
+             "one_shot_ingest": _one_shot.one_shot_ingest,
+             "weighted_hist": _whist.weighted_hist}
 
 
 def launch_counts() -> dict:

@@ -84,6 +84,36 @@ def stratified_stats(values: torch.Tensor, stratum_ids: torch.Tensor,
     return out[0], out[1], out[2]
 
 
+def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
+                  weights: torch.Tensor, mask: torch.Tensor,
+                  edges: torch.Tensor, num_strata: int):
+    """Per-(cell, bin) HT-weighted mass and sampled-item count, both f32
+    ``[G, B]`` with ``G = num_strata`` cells (the reference's
+    ``weighted_hist_ref``).
+
+    Bin ``b`` is ``[edges[b], edges[b+1])`` and the last bin is
+    right-closed: the comparisons ``x >= lo``, then ``x < hi``, then
+    ``x <= hi`` on the last bin, literally, over an ``[M, B]`` membership
+    table. Masked-out items add nothing. The mass is summed in f64 and
+    rounded once and the counts in int64, so this is the better-rounded
+    of the two versions and the kernel is held to it by rtol.
+    """
+    b = edges.shape[0] - 1
+    x = values.to(torch.float32)[:, None]
+    lo, hi = edges[:b][None, :], edges[1:][None, :]
+    closed = (torch.arange(b, device=values.device) == b - 1)[None, :]
+    in_bin = (x >= lo) & torch.where(closed, x <= hi, x < hi)
+    in_bin &= mask[:, None]
+    cell = torch.where(mask, stratum_ids, 0).long()
+    whist = torch.zeros((num_strata, b), dtype=torch.float64,
+                        device=values.device)
+    counts = torch.zeros((num_strata, b), dtype=torch.int64,
+                         device=values.device)
+    whist.index_add_(0, cell, in_bin * weights.double()[:, None])
+    counts.index_add_(0, cell, in_bin.long())
+    return whist.to(torch.float32), counts.to(torch.float32)
+
+
 @dataclasses.dataclass
 class OneShotResult:
     """What one ingest call leaves behind (the reference's

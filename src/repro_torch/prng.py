@@ -18,6 +18,9 @@ The schedule matches ``jax._src.prng`` as installed beside the reference:
   counters ``(hi(i), lo(i))``.
 * ``uniform(key, shape)`` — ``((bits >> 9) | 0x3F800000)`` viewed as f32,
   minus 1.
+* ``randint(key, shape, minval, maxval)`` — int32 ``_randint``: split the
+  key in two, draw a high and a low word per element, and reduce both
+  modulo the span in u32 arithmetic.
 """
 from __future__ import annotations
 
@@ -73,10 +76,14 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for a Python int ``data``."""
-    x = torch.tensor([0, int(data) & _MASK], dtype=torch.int64,
-                     device=key.device)
-    b0, b1 = threefry2x32(key, x[:1], x[1:])
+    """``jax.random.fold_in(key, data)`` for a Python int ``data``.
+
+    The counter is filled on the key's device (no host-to-device copy,
+    which on the card would wait for the stream)."""
+    hi = torch.zeros(1, dtype=torch.int64, device=key.device)
+    lo = torch.full((1,), int(data) & _MASK, dtype=torch.int64,
+                    device=key.device)
+    b0, b1 = threefry2x32(key, hi, lo)
     return torch.cat([b0, b1])
 
 
@@ -97,3 +104,34 @@ def uniform(key: torch.Tensor,
     """f32 uniforms in ``[0, 1)`` (``jax.random.uniform``, defaults)."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
+            minval, maxval) -> torch.Tensor:
+    """int32 draws in ``[minval, maxval)`` (``jax.random.randint``).
+
+    ``minval``/``maxval`` are ints or int32 tensors broadcastable to
+    ``shape``; where ``maxval <= minval`` the draw is ``minval``. Two
+    32-bit words per element (``k1``, ``k2`` from ``split(key)``) are
+    reduced as ``((hi % span) * mult + lo % span) % span`` with ``mult =
+    ((2**16 % span)**2) % span``, every product and sum wrapped to 32 bits
+    as the reference's u32 lanes wrap (so ``mult`` is 0 for spans above
+    2**16, where the square is 2**32).
+    """
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    k1, k2 = split(key, 2)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+
+    def bound(v) -> torch.Tensor:
+        # A Python int is filled on the device: a host-to-device copy
+        # would wait for the stream on every draw.
+        if isinstance(v, torch.Tensor):
+            return v.to(key.device).long()
+        return torch.full((), int(v), dtype=torch.int64, device=key.device)
+    lo_v, hi_v = bound(minval), bound(maxval)
+    span = torch.where(hi_v <= lo_v, 1, (hi_v - lo_v) & _MASK)
+    mult = torch.remainder(torch.remainder(2 ** 16, span) ** 2 & _MASK, span)
+    off = (torch.remainder(hi, span) * mult) & _MASK
+    off = (off + torch.remainder(lo, span)) & _MASK
+    off = torch.remainder(off, span)
+    return ((lo_v + off) & _MASK).to(torch.int32)

@@ -12,7 +12,11 @@ with the reference's field names::
                  "occupancy", "chunks", "items"}}
 
 PRNG keys stay raw u32 words (numpy uint32 on the reference's side,
-int64 tensors here). This module never sees an object of the reference.
+int64 tensors here). Query results travel as a dict of numpy arrays per
+query name: ``{"value", "variance"}`` for an estimate, plus ``"keys"``
+and ``"sample_weight"`` for heavy hitters. :func:`results_to_numpy`
+reads either package's results by their (shared) field names; this
+module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ import torch
 
 from repro_torch.core import adaptive, oasrs
 from repro_torch.core import window as win
+from repro_torch.core.error import Estimate
+from repro_torch.core.sketches import HeavyHitters
 from repro_torch.obs import metrics as obm
 from repro_torch.runtime import controller as ctl
 from repro_torch.runtime import watermark as wmk
@@ -110,3 +116,42 @@ def config_from_dict(d: Dict[str, Any]) -> RuntimeConfig:
 def config_to_dict(cfg: RuntimeConfig) -> Dict[str, Any]:
     """The inverse of :func:`config_from_dict`."""
     return dataclasses.asdict(cfg)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.array(x)
+
+
+def results_to_numpy(results: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """One emission's answers as numpy, from the port's results or the
+    reference's (an estimate has ``value``/``variance``; heavy hitters
+    add ``keys``, ``estimate`` and ``sample_weight``)."""
+    out = {}
+    for name, r in results.items():
+        if hasattr(r, "estimate"):
+            out[name] = {"keys": _np(r.keys),
+                         "value": _np(r.estimate.value),
+                         "variance": _np(r.estimate.variance),
+                         "sample_weight": _np(r.sample_weight)}
+        else:
+            out[name] = {"value": _np(r.value), "variance": _np(r.variance)}
+    return out
+
+
+def results_from_numpy(d: Dict[str, Dict[str, Any]],
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """The inverse of :func:`results_to_numpy`: the port's
+    :class:`Estimate` / :class:`HeavyHitters` on ``device``."""
+    dev = resolve_device(device)
+    out = {}
+    for name, r in d.items():
+        est = Estimate(value=_tensor(r["value"], dev),
+                       variance=_tensor(r["variance"], dev))
+        out[name] = (HeavyHitters(keys=_tensor(r["keys"], dev),
+                                  estimate=est,
+                                  sample_weight=_tensor(r["sample_weight"],
+                                                        dev))
+                     if "keys" in r else est)
+    return out

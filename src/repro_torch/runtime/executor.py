@@ -49,7 +49,8 @@ from repro_torch.obs import metrics as obm
 from repro_torch.runtime import controller as ctl
 from repro_torch.runtime import watermark as wmk
 from repro_torch.runtime.records import TimestampedChunk
-from repro_torch.runtime.registry import QueryRegistry, Result
+from repro_torch.runtime.registry import (EmissionContext,
+                                          QueryRegistry, Result)
 from repro_torch.utils import DeviceLike, resolve_device
 
 INGEST_PATHS = ("fused", "masked", "onekernel")
@@ -325,10 +326,29 @@ def _merged_view(cfg: RuntimeConfig, state: RuntimeState):
     return view, stats
 
 
+def _emission_key(state: RuntimeState) -> torch.Tensor:
+    """The bootstrap key of a cadence emission: the ring's lead key folded
+    with ``0xE717`` (the reference's ``_emission_key``)."""
+    return prng.fold_in(state.window.intervals.key[0], 0xE717)
+
+
+def _window_ctx(cfg: RuntimeConfig, state: RuntimeState,
+                view) -> EmissionContext:
+    """The cell structure the per-key and session windows evaluate
+    against: the slots' event intervals and the live cells with items."""
+    return EmissionContext(
+        num_strata=cfg.num_strata, num_shards=cfg.num_shards,
+        interval_span=cfg.interval_span,
+        slot_interval=state.slot_interval,
+        activity=win.activity_mask(state.window), view=view)
+
+
 def _evaluate(cfg: RuntimeConfig, registry: QueryRegistry,
               state: RuntimeState):
     view, stats = _merged_view(cfg, state)
-    return registry.evaluate_view(view, stats), stats
+    results = registry.evaluate_view(view, stats, _emission_key(state),
+                                     ctx=_window_ctx(cfg, state, view))
+    return results, stats
 
 
 def _interval_cell_mask(cfg: RuntimeConfig, state: RuntimeState,
@@ -344,15 +364,29 @@ def _interval_cell_mask(cfg: RuntimeConfig, state: RuntimeState,
 
 
 def _evaluate_interval(cfg: RuntimeConfig, registry: QueryRegistry,
-                       state: RuntimeState, interval: int):
+                       state: RuntimeState, interval: int,
+                       base_key: torch.Tensor):
     """Watermark emission body: every standing query on the CLOSED
-    interval's cells only. The linear kinds draw no random numbers, so
-    the executors' emission base key is carried but not folded here."""
-    view = win.restrict_view(win.sample_view(state.window),
-                             _interval_cell_mask(cfg, state, interval))
-    stats = err.stratum_stats_from_sample(view.values, view.counts,
-                                          view.taken, view.slot_mask())
-    return registry.evaluate_view(view, stats), stats
+    interval's cells (merged kinds and per-key panes restrict to it;
+    session windows read the full ring through the context, limited to
+    intervals up to the closing one, since open intervals still fill).
+
+    ``base_key`` is folded with the interval id, not with the ring's lead
+    key, whose fold count depends on how many chunks an executor had
+    ingested when it emitted: both executors draw the same bootstrap
+    bits for the same interval.
+    """
+    view = win.sample_view(state.window)
+    ctx = _window_ctx(cfg, state, view)
+    ctx.activity = ctx.activity & (ctx.slot_interval <= interval)[:, None]
+    iview = win.restrict_view(view, _interval_cell_mask(cfg, state,
+                                                        interval))
+    istats = err.stratum_stats_from_sample(iview.values, iview.counts,
+                                           iview.taken, iview.slot_mask())
+    results = registry.evaluate_view(iview, istats,
+                                     prng.fold_in(base_key, interval),
+                                     ctx=ctx)
+    return results, istats
 
 
 def _pooled_stats(cfg: RuntimeConfig,
@@ -445,7 +479,8 @@ class _ExecutorBase:
         self._emission_cursor = 0
         self._items_since_emit = 0
         self._last_latency = 0.0
-        # Watermark emission, host side: the per-interval base key, the
+        # Watermark emission, host side: the per-interval base key (folded
+        # with each closed interval's id for its bootstrap draws), the
         # frontier mirror (advanced from chunk times, never from the
         # in-flight state) and the exactly-once emitted-through cursor.
         self._emit_base_key = prng.fold_in(key.to(self.device), 0xE31)
@@ -548,7 +583,8 @@ class _ExecutorBase:
                     "num_intervals or shorten the chunk/micro-batch event "
                     "span")
             results, stats = _evaluate_interval(cfg, self.registry,
-                                                 self.state, j)
+                                                 self.state, j,
+                                                 self._emit_base_key)
             lat = torch.tensor(latency_s, dtype=torch.float32,
                                device=self.device)
             # Per-window pressure: the closed interval's own widths, and

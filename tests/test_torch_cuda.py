@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import (one_shot, ops, ref, reservoir,
-                                 stratified_stats)
+                                 stratified_stats, weighted_hist)
 from repro_torch.runtime import convert
 from repro_torch.runtime import executor as tex
 from repro_torch.runtime import registry as treg
@@ -114,6 +114,53 @@ def stats_inputs(seed, m, s=4, mask_p=0.8):
     return vals, sid, rng.random(m) < mask_p
 
 
+#: Weighted-histogram cases: overrides of ``whist_inputs``' defaults.
+WHIST_CASES = {
+    "uniform": {},
+    "log2": dict(edges="log2"),
+    "all_masked": dict(mask_p=0.0),
+    "collapsed": dict(edges="collapsed"),
+    "on_edges": dict(values="on_edges"),
+    "duplicate_edges": dict(edges="duplicates", values="on_edges"),
+    "ragged": dict(ragged=True),
+    "max_cells_bins": dict(g=100),
+}
+
+
+def whist_inputs(seed, m, g=6, edges="uniform", values="spread",
+                 mask_p=0.9, ragged=False):
+    """numpy ``(values, cell_ids, weights, mask, edges)`` of one weighted
+    histogram over ``g`` cells (32 bins; 24 with ``edges="log2"``).
+
+    ``edges``: ``"uniform"`` (33 edges over [10, 90]), ``"log2"``
+    (``2^0 ... 2^24``, values log-normal flow sizes floored to whole
+    bytes), ``"collapsed"`` (all 33 edges and every value equal, as the
+    refinement's bracket of a window of one repeated value), or
+    ``"duplicates"`` (uniform with interior edges repeated). ``values``:
+    ``"spread"`` or ``"on_edges"`` (every value exactly an edge, ``e_B``
+    included, plus some outside the edges)."""
+    rng = np.random.default_rng(seed)
+    if ragged:
+        m = m * 97 // 96 + 13
+    if edges == "log2":
+        e = 2.0 ** np.arange(25, dtype=np.float32)
+        x = np.floor(rng.lognormal(7.5, 1.8, m)).astype(np.float32)
+    elif edges == "collapsed":
+        e = np.full(33, 1480.0, np.float32)
+        x = np.full(m, 1480.0, np.float32)
+    else:
+        e = np.linspace(10.0, 90.0, 33).astype(np.float32)
+        if edges == "duplicates":
+            e[[5, 6, 20]] = e[[4, 4, 19]]
+        x = rng.uniform(0.0, 100.0, m).astype(np.float32)
+    if values == "on_edges":
+        x = rng.choice(np.concatenate([e, [e[0] - 1.0, e[-1] + 1.0]]),
+                       m).astype(np.float32)
+    w = rng.uniform(1.0, 5.0, g).astype(np.float32)
+    cell = rng.integers(0, g, m).astype(np.int32)
+    return (x, cell, w[cell], rng.random(m) < mask_p, e)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -181,7 +228,8 @@ def test_cuda_executor_matches_cpu_executor(cuda_device):
         runs[str(dev)] = (ex.finalize(), convert.state_to_numpy(ex.state))
     assert ops.launch_counts() == {"reservoir_fold": 12,
                                    "stratified_stats": 6,
-                                   "one_shot_ingest": 0}
+                                   "one_shot_ingest": 0,
+                                   "weighted_hist": 0}
     (ce, cs), (ge, gs) = runs["cpu"], runs[str(cuda_device)]
     for part in ("window", "slot_interval", "open_interval", "wm",
                  "metrics"):
@@ -262,6 +310,7 @@ def test_cuda_onekernel_executor_matches_cpu(cuda_device, mode, emission):
         runs[str(dev)] = (ex.finalize(), convert.state_to_numpy(ex.state),
                           ops.launch_counts())
     (ce, cs, cl), (ge, gs, gl) = runs["cpu"], runs[str(cuda_device)]
+    print(cl, gl)
     assert cl["one_shot_ingest"] == 0 and gl["one_shot_ingest"] == 12
     assert gl["reservoir_fold"] == 0
     for part in ("window", "slot_interval", "open_interval", "wm",
@@ -275,3 +324,135 @@ def test_cuda_onekernel_executor_matches_cpu(cuda_device, mode, emission):
             np.testing.assert_allclose(float(b.results[name].value),
                                        float(a.results[name].value),
                                        rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WHIST_CASES))
+@pytest.mark.parametrize("m", [1000, 200_003])
+def test_cuda_weighted_hist_matches_plain(cuda_device, case, m):
+    """Counts bit for bit, mass within rtol of the f64-summed plain
+    version, and the same bits on a second run."""
+    kw = dict(WHIST_CASES[case])
+    g = kw.get("g", 6)
+    x, cell, w, mask, e = (torch.from_numpy(a).to(cuda_device)
+                           for a in whist_inputs(11, m, **kw))
+    before = weighted_hist.weighted_hist.launches
+    kh, kc = weighted_hist.weighted_hist(x, cell, w, mask, e, g)
+    ph, pc = ref.weighted_hist(x, cell, w, mask, e, g)
+    again = weighted_hist.weighted_hist(x, cell, w, mask, e, g)
+    torch.cuda.synchronize()
+    assert weighted_hist.weighted_hist.launches == before + 2
+    assert torch.equal(kc, pc)
+    torch.testing.assert_close(kh, ph, rtol=1e-5, atol=0.0)
+    assert torch.equal(again[0].view(torch.int32), kh.view(torch.int32))
+    assert torch.equal(again[1], kc)
+    if case == "collapsed":
+        assert float(kc[:, :-1].sum()) == 0.0 and float(kc.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_weighted_hist_too_many_cells_bins_raises(cuda_device):
+    x, cell, w, mask, e = (torch.from_numpy(a).to(cuda_device)
+                           for a in whist_inputs(1, 100, g=101))
+    with pytest.raises(ValueError, match="MAX_CELLS_BINS"):
+        weighted_hist.weighted_hist(x, cell, w, mask, e, 101)
+
+
+def _above_500(x):
+    return x > 500.0
+
+
+#: Every kind under every window it takes: ``(name, kind, keywords)``.
+NONLINEAR_QUERIES = (
+    ("total", "sum", {}),
+    ("per_key", "sum", dict(window="per_key")),
+    ("session", "sum", dict(window="session", session_gap=1.0)),
+    ("avg_key", "mean", dict(window="per_key")),
+    ("avg_session", "mean", dict(window="session", session_gap=3.0)),
+    ("big_key", "count", dict(window="per_key", predicate=_above_500)),
+    ("big_session", "count", dict(window="session", session_gap=2.0,
+                                  predicate=_above_500)),
+    ("q_sort", "quantile", dict(qs=(0.5, 0.9), num_replicates=8)),
+    ("q_hist", "quantile", dict(qs=(0.25, 0.9), method="hist",
+                                num_replicates=8)),
+    ("q_key", "quantile", dict(qs=(0.5,), window="per_key",
+                               num_replicates=4)),
+    ("q_session", "quantile", dict(qs=(0.9,), window="session",
+                                   session_gap=1.0, method="hist",
+                                   num_replicates=4)),
+    ("hist", "histogram", dict(edges=(0.0, 10.0, 50.0, 100.0, 500.0,
+                                      1000.0, 2000.0))),
+    ("top", "heavy_hitters", dict(k=4)),
+    ("distinct", "distinct", dict(num_replicates=8)),
+)
+
+
+def nonlinear_registry(module=treg):
+    """``NONLINEAR_QUERIES`` registered in ``module``'s registry (the
+    port's by default; the parity tests pass the reference's)."""
+    reg = module.QueryRegistry()
+    for name, kind, kw in NONLINEAR_QUERIES:
+        reg.register(name, kind, **kw)
+    return reg
+
+
+def nonlinear_chunks(seed, n, m=256):
+    """numpy chunks of a disordered 3-stratum stream (a quarter interval
+    each at span 1) with values floored to tens, so keys repeat."""
+    rng = np.random.default_rng(seed)
+    chunks = []
+    for e in range(n):
+        sid = rng.integers(0, 3, m).astype(np.int32)
+        vals = np.floor(np.array([10.0, 100.0, 1000.0])[sid]
+                        * (1 + 0.2 * rng.standard_normal(m)) / 10.0) * 10.0
+        t = ((e * m + np.arange(m)) / (4.0 * m)
+             - (rng.random(m) < 0.3) * rng.random(m)).clip(0)
+        chunks.append((vals.astype(np.float32), sid, t.astype(np.float32),
+                       rng.random(m) > 0.05))
+    return chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ingest,emission", [("fused", "cadence"),
+                                             ("onekernel", "watermark")])
+def test_cuda_nonlinear_registry_matches_cpu(cuda_device, ingest, emission):
+    """The nonlinear registry on the card (through the weighted_hist
+    kernel) and on the CPU: the same state bit for bit, the same heavy
+    hitter keys and bootstrap answers. Capacity 16 makes every HT weight
+    C/16 dyadic, so the cumulative weights are exact on both devices."""
+    cfg = tex.RuntimeConfig(num_strata=3, capacity=16, num_intervals=3,
+                            interval_span=1.0, allowed_lateness=0.5,
+                            emit_every=4, max_capacity=32, ingest=ingest,
+                            emission=emission)
+    chunks = nonlinear_chunks(8, 12)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        ops.reset_launch_counts()
+        ex = tex.PipelinedExecutor(cfg, nonlinear_registry(), prng.PRNGKey(5),
+                                   device=dev)
+        for c in chunks:
+            ex.push(TimestampedChunk(*(torch.from_numpy(a).to(dev)
+                                       for a in c)))
+        ems = ex.finalize()
+        runs.append(([convert.results_to_numpy(em.results) for em in ems],
+                     convert.state_to_numpy(ex.state), ops.launch_counts()))
+    (ce, cs, cl), (ge, gs, gl) = runs
+    # Per emission: one histogram, and Q * num_steps per key holding
+    # the hist quantiles (2 merged levels, 1 session level for 3 keys).
+    assert cl["weighted_hist"] == 0
+    assert gl["weighted_hist"] == len(ge) * (1 + 2 * 4 + 3 * 4) > 0
+    for part in ("window", "slot_interval", "open_interval", "wm",
+                 "metrics"):
+        np.testing.assert_equal(gs[part], cs[part])
+    assert len(ce) == len(ge)
+    for a, b in zip(ce, ge):
+        assert a.keys() == b.keys()
+        for name in a:
+            if "keys" in a[name]:
+                np.testing.assert_array_equal(b[name]["keys"],
+                                              a[name]["keys"])
+            np.testing.assert_allclose(b[name]["value"], a[name]["value"],
+                                       rtol=1e-5)
+            np.testing.assert_allclose(b[name]["variance"],
+                                       a[name]["variance"], rtol=1e-3,
+                                       atol=1e-6)

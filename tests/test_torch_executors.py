@@ -156,3 +156,39 @@ def test_config_converts_new_modes():
         assert (tcfg.ingest, tcfg.emission) == (ingest, emission)
         tex.BatchedExecutor(tcfg, _registries()[1], prng.PRNGKey(0),
                             device="cpu")
+
+
+NONLINEAR_CASES = list(itertools.product(MODES, ("fused", "onekernel"),
+                                         EMISSIONS))
+
+
+@pytest.mark.parametrize("mode,ingest,emission", NONLINEAR_CASES)
+def test_nonlinear_registry_matches_reference(mode, ingest, emission):
+    """Every kind under every window it takes (histogram, both quantile
+    methods, heavy hitters, distinct, per-key and session sums, means,
+    counts and quantiles), answered by both executors: the same emissions
+    and state bit for bit, the same heavy-hitter keys, answers within
+    ``test_torch_registry``'s tolerances. Under watermark emission the
+    bootstrap key is the base key folded with the closed interval."""
+    from test_torch_cuda import nonlinear_chunks, nonlinear_registry
+    from test_torch_registry import assert_results_close
+    from repro.runtime import registry as jreg
+    kw = dict(CONFIGS["k3"], ingest=ingest, emission=emission)
+    chunks = nonlinear_chunks(3, 14)
+    jcls = jex.PipelinedExecutor if mode == "pipelined" else \
+        jex.BatchedExecutor
+    tcls = tex.PipelinedExecutor if mode == "pipelined" else \
+        tex.BatchedExecutor
+    je = jcls(jex.RuntimeConfig(**kw), nonlinear_registry(jreg),
+              jax.random.PRNGKey(7))
+    te = tcls(tex.RuntimeConfig(**kw), nonlinear_registry(),
+              prng.PRNGKey(7), device="cpu")
+    jems = je.run(_jchunk(c) for c in chunks)
+    tems = te.run(_tchunk(c) for c in chunks)
+    assert len(jems) == len(tems) > 0
+    for a, b in zip(jems, tems):
+        for f in ("index", "interval", "watermark", "open_interval",
+                  "on_time", "late", "dropped", "items"):
+            assert getattr(a, f) == getattr(b, f), (a.index, f)
+        assert_results_close(a.results, b.results)
+    _assert_state_bitwise(je.state, te.state)

@@ -110,6 +110,10 @@ def test_cpu_dispatch_counts_no_kernel_launch():
         **{k: torch.from_numpy(np.array(v)) for k, v in items.items()},
         **{k: torch.from_numpy(np.array(v)) for k, v in state.items()},
         span=1.0, allowed_lateness=0.5)
+    ops.weighted_histogram(torch.from_numpy(vals), torch.from_numpy(sid),
+                           torch.ones(64), torch.from_numpy(mask),
+                           torch.linspace(0.0, 1000.0, 9), 4)
     assert ops.launch_counts() == {"reservoir_fold": 0,
                                    "stratified_stats": 0,
-                                   "one_shot_ingest": 0}
+                                   "one_shot_ingest": 0,
+                                   "weighted_hist": 0}

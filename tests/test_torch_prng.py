@@ -1,7 +1,10 @@
-"""The port's threefry keys and uniforms are bit for bit ``jax.random``."""
+"""The port's threefry keys, uniforms and int draws are bit for bit
+``jax.random``."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import utils as jutils
 from repro_torch import prng, utils
@@ -54,3 +57,27 @@ def test_uniform_multidimensional_and_bits():
     bits = np.asarray(jax.random.bits(jk, (9,), dtype=np.uint32))
     np.testing.assert_array_equal(bits.astype(np.int64),
                                   prng.random_bits(tk, 9).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_bitwise(seed):
+    """int32 draws with an array ``maxval``, as the bootstrap makes them
+    (``maxval = max(taken, 1)[:, None]`` over ``[G, N]``), spans on both
+    sides of 2**16 (where the reference's u32 multiplier wraps to 0)."""
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    taken = np.array([0, 1, 5, 100, 65535, 65536, 65537, 70000, 2**20,
+                      1_000_003, 2**31 - 1], np.int32)
+    hi = np.maximum(taken, 1)[:, None]
+    a = jax.random.randint(jk, (11, 37), 0, jnp.asarray(hi))
+    b = prng.randint(tk, (11, 37), 0, torch.from_numpy(hi))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert b.dtype == torch.int32
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 1), (-5, 3), (3, -5), (7, 7),
+                                   (-2**31, 2**31 - 1), (0, 6)])
+def test_randint_scalar_bounds(lo, hi):
+    jk, tk = jax.random.PRNGKey(11), prng.PRNGKey(11)
+    a = jax.random.randint(jk, (257,), lo, hi)
+    b = prng.randint(tk, 257, lo, hi)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(a))

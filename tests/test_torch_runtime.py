@@ -284,13 +284,25 @@ def test_unported_configurations_raise(change):
         tex.init_state(cfg, prng.PRNGKey(0), device="cpu")
 
 
-@pytest.mark.parametrize("kind,kw", [
-    ("histogram", {}), ("quantile", {}), ("heavy_hitters", {}),
-    ("distinct", {}), ("sum", {"window": "per_key"}),
-    ("mean", {"window": "session"})])
-def test_unported_query_kinds_raise(kind, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.QueryRegistry().register("q", kind, **kw)
+@pytest.mark.parametrize("kind,kw,error", [
+    ("count", {}, "needs predicate"),
+    ("quantile", {}, "needs qs"),
+    ("histogram", {}, "needs edges"),
+    ("sum", {"window": "session"}, "needs session_gap"),
+    ("mean", {"window": "session", "session_gap": 0.0}, "must be > 0"),
+    ("sum", {"window": "per_key", "session_gap": -1.0}, "must be > 0"),
+    ("heavy_hitters", {"window": "per_key"}, "only the merged window"),
+    ("distinct", {"window": "per_key"}, "only the merged window"),
+    ("heavy_hitters", {"window": "session", "session_gap": 1.0},
+     "only the merged window"),
+    ("median", {}, "unknown query kind"),
+    ("sum", {"window": "sliding"}, "unknown window kind")])
+def test_standing_query_errors_match_reference(kind, kw, error):
+    """The port's ``StandingQuery`` refuses what the reference's refuses,
+    with the same message."""
+    for reg in (jreg.QueryRegistry(), treg.QueryRegistry()):
+        with pytest.raises(ValueError, match=error):
+            reg.register("q", kind, **kw)
 
 
 def test_registry_validation():
