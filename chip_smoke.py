@@ -7,7 +7,11 @@ Phases (any failure ends the run with a non-zero exit):
 2. fold      the reservoir-fold kernel against its plain version,
              bitwise, at the main path's shape ([6, 1,048,576] ring,
              524,288-item chunks): filling, replacement, all-masked and
-             ragged chunks;
+             ragged chunks, and a sequence of four replacement chunks
+             into one ring (bitwise after each, the kernel's scratch
+             clean after each); then its times at a replacement chunk,
+             its kernels and memsets per call, and its bound from the
+             bytes the function needs at that chunk;
 3. stats     the stats kernel against its plain version on [6 x 1,048,576]
              slots (counts exact, sums within rtol), and its s2 against
              float64;
@@ -25,8 +29,11 @@ Phases (any failure ends the run with a non-zero exit):
              bitwise on every output field, at [2, 3, 1,048,576] and
              524,288-item chunks: filling, replacement (counts above
              random capacities), a frontier crossing an interval boundary
-             with every slot reset, late items, an all-masked chunk and a
-             ragged one;
+             with every slot reset, late items, an all-masked chunk, a
+             ragged one, and a sequence of four replacement chunks
+             through one carried state; then, as for the fold, its
+             times, kernels, memsets and bound at a replacement chunk in
+             which every masked-in item is live;
 6. paths     the same deployment on a disordered stream (30% of items
              shifted back by U(0, 0.75) s): (a) pipelined fused, (b)
              pipelined onekernel, (c) batched onekernel, (d) pipelined
@@ -79,6 +86,7 @@ N_MAX = 1_048_576                  # capacity per stratum per interval
 M = 524_288                        # items per chunk (0.5 s of events)
 RATE = 1_048_576.0                 # items per event-time second
 SPAN, LATENESS = 5.0, 0.5          # 10 s window sliding by 5 s
+ONE_SHOT_KW = dict(span=SPAN, allowed_lateness=LATENESS)
 CHUNKS, EMIT_EVERY = 24, 4
 WINDOWS = 7                        # timed runs of the 24-chunk window
 PATH_WINDOWS = 3                   # timed runs of each path in phase paths
@@ -99,6 +107,7 @@ Q_SLACK = 0.005                    # quantile ranks checked at q ± 0.005
 REFINE_BINS, REFINE_STEPS = 32, 4  # quantile_refine's defaults
 HIST_LAUNCHES = 1 + len(NL_QS) * REFINE_STEPS   # weighted_hist/emission
 LATENCY_REPS = 3                   # timed evaluations per registry
+TIMING_SEED = 14                   # inputs of the fold's and one-shot's timing
 STATS_RTOL = 1e-5                  # kernel vs f64-accumulated plain sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
 ANSWER_RTOL = 1e-5                 # f32 rounding beside the 3-sigma bound
@@ -127,9 +136,9 @@ def time_ms(fn, torch, reps: int = 20, warm: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_split(fn, torch, reps: int = 10) -> dict:
-    """Device time per call of each kernel and memset that ``fn`` runs,
-    from a ``torch.profiler`` trace of ``reps`` calls: ``{name: ms}``."""
+def device_profile(fn, torch, reps: int = 10) -> dict:
+    """Per call of ``fn``, from a ``torch.profiler`` trace of ``reps``
+    calls: ``{name: (device ms, launches)}`` of each kernel and memset."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -144,8 +153,51 @@ def device_split(fn, torch, reps: int = 10) -> dict:
         if e.device_type == DeviceType.CUDA:
             name = ("memset" if "Memset" in e.name else e.name.replace(
                 "(anonymous namespace)::", "").split("(")[0])
-            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us()
-    return {k: v / reps / 1e3 for k, v in split.items()}
+            us, n = split.get(name, (0.0, 0))
+            split[name] = (us + e.time_range.elapsed_us(), n + 1)
+    return {k: (us / reps / 1e3, n / reps) for k, (us, n) in split.items()}
+
+
+def device_split(fn, torch, reps: int = 10) -> dict:
+    """Device time per call of each kernel and memset that ``fn`` runs:
+    ``{name: ms}``."""
+    return {k: v[0] for k, v in device_profile(fn, torch, reps).items()}
+
+
+def log_launches(tag: str, prof: dict) -> None:
+    """Log the kernels and memsets per call of a profile."""
+    memsets = sum(n for k, (_, n) in prof.items() if k == "memset")
+    kernels = sum(n for k, (_, n) in prof.items() if k != "memset")
+    names = ", ".join(f"{k} x{n:g}" for k, (_, n) in sorted(prof.items()))
+    log(f"[{tag}] per call: {kernels:g} kernels, {memsets:g} memsets "
+        f"({names}); device ms {sum(v[0] for v in prof.values()):.4f}")
+
+
+def claim_tiles(m: int) -> int:
+    """Tiles (blocks of each launch) of a fold or one-shot call."""
+    from repro_torch.kernels import _build, _workspace
+    return _workspace.tiles(_build.build().lib, m)
+
+
+def listed_items(torch, m: int) -> int:
+    """Accepted items of the last fold or one-shot call of ``m`` items:
+    the entries of the per-warp lists its claim pass wrote."""
+    from repro_torch.kernels import _build, _workspace
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
+    lists = _build.build().lib.sa_fold_tile_lists()
+    return int(ws.list_n[:claim_tiles(m) * lists].sum())
+
+
+def workspace_clean(torch) -> bool:
+    """The kernels' kept scratch is as the next call needs it: the winner
+    table all -1, the look-back words and the counters all 0."""
+    from repro_torch.kernels import _workspace
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    return bool((ws.winner == -1).all()) and not bool(
+        ws.status.any()) and not bool(ws.counters.any())
 
 
 def log_split(tag: str, split: dict, event_ms: float) -> None:
@@ -220,25 +272,101 @@ def phase_fold(torch, gen):
         if not same:
             fail(f"fold kernel differs from its plain version ({name})")
 
-    # Timing at the main path's steady state: a replacement chunk.
-    inp = cases["replacement"]
+    if not workspace_clean(torch):
+        fail("fold kernel left its winner table or look-back words dirty")
+
+    # Four successive replacement chunks into one ring, each on the counts
+    # the last one left.
+    rep = cases["replacement"]
+    start = torch.randn((cells, N_MAX), generator=gen, device=dev)
+    v_kernel, v_plain = start.clone(), start.clone()
+    c_kernel = c_plain = rep["counts"]
+    for i in range(4):
+        inp = fold_inputs(torch, gen, M, cells, c_kernel, rep["capacity"])
+        c_kernel = reservoir.reservoir_fold(values=v_kernel, **inp)
+        c_plain = ref.reservoir_fold(values=v_plain, **dict(inp,
+                                                           counts=c_plain))
+        same = (same_bits(torch, v_kernel, v_plain)
+                and torch.equal(c_kernel, c_plain))
+        clean = workspace_clean(torch)
+        log(f"[fold] sequence chunk {i}: bitwise={same} scratch clean="
+            f"{clean} counts={c_kernel.tolist()}")
+        if not (same and clean):
+            fail(f"fold kernel differs from its plain version (sequence "
+                 f"chunk {i}) or left its scratch dirty")
+
+    t = fold_timing(torch, dev)
+    need = fold_need(torch, t["inputs"])
+    n_ops = 12 * M                     # ~a dozen integer/f32 ops per item
+    bound = max(need["bytes"] / HBM_BYTES_PER_S,
+                n_ops / F32_OPS_PER_S) * 1e3
+    log(f"[fold] replacement chunk: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({need['bytes']} B "
+        f"the function needs: {need['live']} live, {need['tested']} past "
+        f"capacity, {need['accepted']} accepted, {need['won']} cells won)")
+    log_split("fold", {k: v[0] for k, v in t["prof"].items()}, t["ms"])
+    log_launches("fold", t["prof"])
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bound,
+                bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
+                >= n_ops / F32_OPS_PER_S else "operations", library_ms=None)
+
+
+def fold_timing(torch, dev, seed: int = TIMING_SEED) -> dict:
+    """Times the fold at the main path's steady state, a replacement
+    chunk (counts 2-3 M above random capacities), made from ``seed``:
+    CUDA events around back-to-back calls, the plain version, and the
+    profiler's kernels and memsets per call. Only the wrapper and the
+    plain version are called, so the same inputs time any tree's kernel.
+    ``counts`` is not updated in place, so every call does the same work.
+    """
+    from repro_torch.kernels import ref, reservoir
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cells = K * S
+    i32 = dict(dtype=torch.int32, device=dev)
+    inp = fold_inputs(
+        torch, gen, M, cells,
+        torch.randint(2_000_000, 3_000_000, (cells,), generator=gen, **i32),
+        torch.randint(1, N_MAX + 1, (cells,), generator=gen, **i32))
     ring = torch.randn((cells, N_MAX), generator=gen, device=dev)
     ms = time_ms(lambda: reservoir.reservoir_fold(values=ring, **inp), torch)
     plain_ms = time_ms(lambda: ref.reservoir_fold(values=ring, **inp),
                        torch, reps=5, warm=1)
-    probe = torch.full((cells, N_MAX), float("nan"), device=dev)
-    reservoir.reservoir_fold(values=probe, **inp)
-    written = int((~torch.isnan(probe)).sum())
-    nbytes = 17 * M + 4 * written + 12 * cells
-    ops = 12 * M                       # ~a dozen integer/f32 ops per item
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    log(f"[fold] replacement chunk: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, bound {bound:.4f} ms ({nbytes} B, {written} cells written)")
-    log_split("fold", device_split(
-        lambda: reservoir.reservoir_fold(values=ring, **inp), torch), ms)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                >= ops / F32_OPS_PER_S else "operations", library_ms=None)
+    prof = device_profile(
+        lambda: reservoir.reservoir_fold(values=ring, **inp), torch)
+    return dict(ms=ms, plain_ms=plain_ms, prof=prof, inputs=inp)
+
+
+def item_needs(torch, base, new_counts, capacity) -> dict:
+    """Of a fold's live items: ``live``, ``fill`` (arrival index within
+    capacity: accepted into slot c - 1, no uniform read) and ``tested``
+    (past capacity: u_accept read), from the counts before and after."""
+    base, new, cap = (t.long() for t in (base, new_counts, capacity))
+    fill = int((torch.minimum(new, cap) - base).clamp(min=0).sum())
+    live = int((new - base).sum())
+    return dict(live=live, fill=fill, tested=live - fill)
+
+
+def fold_need(torch, inp) -> dict:
+    """Bytes the fold of ``inp`` must move, from one probe call of the
+    kernel: the mask of every item; the stratum of each live item; u_accept
+    of each item past capacity; u_slot of each such item accepted; the
+    payload and the ring word of each cell won; counts in and out and
+    capacity. Scattered words count at their 4 bytes, though DRAM moves a
+    32-byte sector for each."""
+    from repro_torch.kernels import reservoir
+    m = inp["stratum_ids"].numel()
+    cells = inp["counts"].numel()
+    probe = torch.full((cells, N_MAX), float("nan"),
+                       device=inp["counts"].device)
+    new_counts = reservoir.reservoir_fold(values=probe, **inp)
+    won = int((~torch.isnan(probe)).sum())
+    accepted = listed_items(torch, m)
+    need = item_needs(torch, inp["counts"], new_counts, inp["capacity"])
+    nbytes = (m + 4 * need["live"] + 4 * need["tested"]
+              + 4 * (accepted - need["fill"]) + 8 * won + 12 * cells)
+    return dict(need, bytes=nbytes, accepted=accepted, won=won)
 
 
 def phase_stats(torch, gen):
@@ -568,7 +696,7 @@ def phase_one_shot(torch, gen):
             capacity=full, adopt=adopt_full, slot_interval=[0, 1],
             max_time=6.0, open_interval=1, t_lo=5.2, t_hi=9.9),
     }
-    kw = dict(span=SPAN, allowed_lateness=LATENESS)
+    kw = ONE_SHOT_KW
     fields = ("values", "counts", "capacity", "slot_interval", "max_time",
               "open_interval", "on_time", "late", "dropped", "chunks",
               "items", "counters")
@@ -596,28 +724,120 @@ def phase_one_shot(torch, gen):
         if name == "late" and (d["late"] == 0 or d["dropped"] == 0):
             fail("late case has no late or no dropped items")
 
-    # Timing at the main path's steady state: a replacement chunk.
-    items, state = cases["replacement"]
-    ms = time_ms(lambda: one_shot_ingest(**items, **kw, **state), torch)
-    plain_ms = time_ms(lambda: ref.one_shot_ingest(**items, **kw, **state),
-                       torch, reps=5, warm=1)
-    probe = dict(state, values=torch.full((K, S, N_MAX), float("nan"),
-                                          device=dev))
-    one_shot_ingest(**items, **kw, **probe)
-    written = int((~torch.isnan(probe["values"])).sum())
-    m = items["times"].numel()
-    nbytes = 21 * m + 4 * written + 4 * (4 * K * S + 7 * S + K + 7)
-    n_ops = 20 * m                     # ~twenty integer/f32 ops per item
-    bound = max(nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
-    log(f"[one_shot] replacement chunk: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} B, {written} "
-        "cells written); no single PyTorch call does the fused ingest")
-    split = device_split(lambda: one_shot_ingest(**items, **kw, **state),
-                         torch)
-    log_split("one_shot", split, ms)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+    if not workspace_clean(torch):
+        fail("one-shot kernel left its winner table or look-back words "
+             "dirty")
+
+    # Four successive replacement chunks through one carried state, in
+    # event-time order (1.2 s each) inside interval 1.
+    rep_state = cases["replacement"][1]
+    sk = {k: v.clone() for k, v in rep_state.items()}
+    sp = {k: v.clone() for k, v in rep_state.items()}
+    for i in range(4):
+        items = one_shot_case(
+            torch, gen, M, counts=sk["counts"], capacity=sk["capacity"],
+            adopt=sk["adopt"], slot_interval=[0, 1], max_time=6.0,
+            open_interval=1, t_lo=5.0 + 1.2 * i, t_hi=6.2 + 1.2 * i)[0]
+        one_shot_ingest(**items, **kw, **sk)
+        ref.one_shot_ingest(**items, **kw, **sp)
+        bad = [f for f in fields if not same_bits(torch, sk[f], sp[f])]
+        clean = workspace_clean(torch)
+        log(f"[one_shot] sequence chunk {i}: bitwise={not bad} scratch "
+            f"clean={clean} counts {sk['counts'].view(-1).tolist()}")
+        if bad or not clean:
+            fail(f"one-shot kernel differs from its plain version (sequence "
+                 f"chunk {i}): {bad}, or left its scratch dirty")
+
+    t = one_shot_timing(torch, dev)
+    need = one_shot_need(torch, t["items"], t["state"])
+    n_ops = 20 * M                     # ~twenty integer/f32 ops per item
+    bound = max(need["bytes"] / HBM_BYTES_PER_S,
+                n_ops / F32_OPS_PER_S) * 1e3
+    log(f"[one_shot] steady replacement chunk: kernel {t['ms']:.4f} ms "
+        f"(the counts put back before each call included), plain "
+        f"{t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({need['bytes']} B "
+        f"the function needs: {need['masked_in']} masked in, "
+        f"{need['live']} live, {need['tested']} past capacity, "
+        f"{need['accepted']} accepted, {need['won']} cells won); no single "
+        "PyTorch call does the fused ingest")
+    log_split("one_shot", {k: v[0] for k, v in t["prof"].items()}, t["ms"])
+    log_launches("one_shot", t["prof"])
+    log(f"[one_shot] the counts' restore before each call: "
+        f"{t['restore']} (left out of the split above)")
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bound,
+                bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
                 >= n_ops / F32_OPS_PER_S else "operations", library_ms=None)
+
+
+def one_shot_timing(torch, dev, seed: int = TIMING_SEED) -> dict:
+    """Times the one-shot at the main path's steady state, a replacement
+    chunk made from ``seed``: counts 2-3 M above random capacities, the
+    frontier at 9.9 s and the items in [9.45, 9.85) s, so every masked-in
+    item is live and the frontier does not move. The counts are put back
+    before each call (one 24-byte copy, shown apart from the kernels), so
+    every call does the same work. Only the wrapper and the plain version
+    are called, so the same inputs time any tree's kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.one_shot import one_shot_ingest
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    items, state = one_shot_case(
+        torch, gen, M,
+        counts=torch.randint(2_000_000, 3_000_000, (K, S), generator=gen,
+                             **i32),
+        capacity=torch.randint(1, N_MAX + 1, (K, S), generator=gen, **i32),
+        adopt=torch.randint(1, N_MAX, (S,), generator=gen, **i32),
+        slot_interval=[0, 1], max_time=9.9, open_interval=1, t_lo=9.45,
+        t_hi=9.85)
+    counts0 = state["counts"].clone()
+
+    def steady(fn):
+        def call():
+            state["counts"].copy_(counts0)
+            fn(**items, **ONE_SHOT_KW, **state)
+        return call
+    ms = time_ms(steady(one_shot_ingest), torch)
+    plain_ms = time_ms(steady(ref.one_shot_ingest), torch, reps=5, warm=1)
+    prof = device_profile(steady(one_shot_ingest), torch)
+    restore = {k: prof.pop(k) for k in list(prof) if "Memcpy" in k}
+    state["counts"].copy_(counts0)
+    return dict(ms=ms, plain_ms=plain_ms, prof=prof, restore=restore,
+                items=items, state=state)
+
+
+def one_shot_need(torch, items, state) -> dict:
+    """Bytes the one-shot of ``items`` into ``state`` must move, from one
+    probe call of the kernel on a copy of the state: the mask of every
+    item; the time and stratum of each masked-in item (the frontier, the
+    verdict and the counter rows need them); then as the fold's need
+    (``fold_need``) over the live items; the carried state (counts,
+    capacities, slot table, counter rows, scalars), and the adopted
+    capacities of reset slots."""
+    from repro_torch.kernels.one_shot import one_shot_ingest
+    m = items["times"].numel()
+    probe = dict({k: v.clone() for k, v in state.items()},
+                 values=torch.full((K, S, N_MAX), float("nan"),
+                                   device=state["counts"].device))
+    one_shot_ingest(**items, **ONE_SHOT_KW, **probe)
+    won = int((~torch.isnan(probe["values"])).sum())
+    accepted = listed_items(torch, m)
+    reset = (probe["slot_interval"] != state["slot_interval"])[:, None]
+    base = torch.where(reset, 0, state["counts"])
+    need = item_needs(torch, base, probe["counts"], probe["capacity"])
+    live = int((probe["counters"][1] - state["counters"][1]).sum())
+    if live != need["live"]:
+        fail(f"one-shot probe: {live} accepted by the counter row, "
+             f"{need['live']} by the counts")
+    masked_in = int(items["mask"].sum())
+    resets = int(reset.sum())
+    nbytes = (m + 8 * masked_in + 4 * need["tested"]
+              + 4 * (accepted - need["fill"]) + 8 * won
+              + 4 * (3 * K * S + 11 * S + 2 * K + 14)
+              + 4 * (resets * S + (S if resets else 0)))
+    return dict(need, bytes=nbytes, masked_in=masked_in, accepted=accepted,
+                won=won)
 
 
 def make_disordered_stream(torch, seed: int, dev):

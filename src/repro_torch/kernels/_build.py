@@ -120,15 +120,17 @@ def build() -> _Library:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sa_reservoir_fold.argtypes = [p] * 13 + [i, i, i, p]
+    lib.sa_fold_tile_items.argtypes = []
+    lib.sa_fold_tile_items.restype = i
+    lib.sa_fold_tile_lists.argtypes = []
+    lib.sa_fold_tile_lists.restype = i
+    lib.sa_reservoir_fold.argtypes = [p] * 14 + [i, i, i, p]
     lib.sa_reservoir_fold.restype = i
     lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p, p, p]
     lib.sa_stratified_stats.restype = i
     lib.sa_stats_tile_items.argtypes = []
     lib.sa_stats_tile_items.restype = i
-    lib.sa_one_shot_workspace_words.argtypes = [i, i, i]
-    lib.sa_one_shot_workspace_words.restype = ll
-    lib.sa_one_shot_ingest.argtypes = ([p] * 20 + [i] * 4
+    lib.sa_one_shot_ingest.argtypes = ([p] * 25 + [i] * 4
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
     lib.sa_whist_blocks.argtypes = [ll]

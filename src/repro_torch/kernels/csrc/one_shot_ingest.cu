@@ -9,29 +9,47 @@
 // the cell counters and the counter rows pinned in VMEM. Neither maps to
 // this card: blocks run in parallel and in no order, and the ring of the
 // main path ([2, 3, 1,048,576] f32 = 25,165,824 B) is a hundred times
-// what one block's shared memory holds. So the call is a chain of
-// launches on one stream, every intermediate in a caller-allocated
-// workspace:
+// what one block's shared memory holds.
 //
-//   1. osi_frontier   per-block masked maxima of t and floor(t * 1/span);
-//   2. osi_prologue   (one block) the final maxima -> new frontier and
-//                     newest interval; the desired occupant of each slot;
-//                     the per-cell reset of counts and capacity IN PLACE;
-//                     a copy c0 of the post-reset counts;
-//   3. osi_route      each item's verdict against the PRE-chunk watermark
-//                     and the POST-chunk oldest live interval, its cell
-//                     (tgt mod K)*S + sid, the per-tile cell counts of live
-//                     items, and per-block per-stratum histograms of the
-//                     ingested/accepted/late/dropped rows and the
-//                     on-time/late/dropped/item totals, added to the state
-//                     with one integer atomicAdd per (block, stratum, row):
-//                     integer atomics, so the result is the same every run;
-//   4-6. the fold's own kernels (fold_device.cuh) over the K·S cells:
-//                     fold_tile_scan (new counts written in place),
-//                     fold_decide, fold_write (ring written in place);
-//   7. osi_finalize   (one block) the replaced and occupancy rows from
-//                     c0 and the post-fold counts, the new frontier and
-//                     newest interval, chunks + 1.
+// What bounds it on this card: memory. The function must read the mask of
+// every item, the time and stratum of each masked-in item, then what the
+// fold needs of the live ones (fold_device.cuh), and write each ring cell
+// won: 7,621,632 B at the steady replacement chunk that chip_smoke.py
+// times (524,288 items, 508,473 live, 84,918 accepted, 81,965 cells won,
+// into [2, 3, 1,048,576]), 0.0023 ms at 3.35 TB/s; at that size the
+// latency of dependent trips to memory weighs more than the bytes. The
+// call has two real grid-wide dependencies (the frontier maxima before
+// any verdict, every claim before any write), so it is three launches on
+// one stream, every intermediate in scratch the wrapper keeps:
+//
+//   1. osi_frontier    per-block masked maxima of t and floor(t * 1/span),
+//                      folded into two words of scratch by integer
+//                      atomicMax on order-preserving encodings;
+//   2. osi_route_claim every tile reads those two words and the carried
+//                      slot table, counts and capacities, and works out the
+//                      slot reset itself (tiny, so each does it rather than
+//                      wait on one block); then each item's verdict against
+//                      the PRE-chunk watermark and the POST-chunk oldest
+//                      live interval, its cell (tgt mod K)*S + sid, and the
+//                      fold's single-pass look-back scan and claim over the
+//                      K·S cells (fold_device.cuh). Per-block per-stratum
+//                      counts of the ingested/accepted/late/dropped rows
+//                      (per-warp rows in shared memory, no atomics there)
+//                      and the on-time/late/dropped/item totals go out by
+//                      one integer atomicAdd per (block, stratum, row), so
+//                      the result is the same every run. The tile that
+//                      comes last writes the new counts to scratch, the
+//                      replaced and occupancy rows, and chunks + 1;
+//   3. osi_write       the winners' payloads into the ring, in place; its
+//                      block 0 writes the carried state that launch 2 still
+//                      read (counts, capacities, slot table, frontier,
+//                      newest interval) and leaves the scratch as the next
+//                      call needs it.
+//
+// No memset and no pass over the ring: the winner table is self-clearing
+// (fold_device.cuh), kept by the wrapper, which assumes the calls sharing
+// it are ordered on one stream and drops it if a launch fails. Each item
+// is read once for the frontier (times, mask) and once for the rest.
 //
 // Every watermark scalar stays on the device: the pre-chunk values are
 // read through their pointers and the new ones written in place.
@@ -42,18 +60,10 @@
 // max_time - f32(lateness) (__fsub_rn); the fold's verdicts are its own
 // __fmul_rn products. The library is built with -fmad=false.
 //
-// What bounds it on this card: memory. Per item it must read 21 bytes
-// (times, sid, payload, two uniforms, mask) and it writes 4 bytes per ring
-// cell that an accepted item wins: about 11.5 MB at M = 524,288, or
-// 0.0034 ms at 3.35 TB/s. This first version is simple, not fast: it
-// re-reads its per-item cell words between launches and, like the fold,
-// clears a winner table of 4 bytes per ring cell with one memset per chunk
-// (25,165,824 B at [2, 3, 1,048,576]; the fold's memset of the same table
-// took 0.0088 ms of device time on an H100).
-//
-// Limits: K*S <= 1024 (the rank pass keeps 8 warps x (K*S + 1) int32
-// counts in shared memory, 32.8 KB at the limit) and K*S*N_max + 1 < 2^31
-// (int32 ring index); the wrapper checks both.
+// Limits: K*S <= 1024 (so S <= 1024; the claim keeps 16 x (K*S + 1) +
+// 4 K*S int32 and the per-warp rows 32 S + 4 int32 in shared memory,
+// 208 KB of the 227 KB a block may have at K = 1, S = 1024) and
+// K*S*N_max + 1 < 2^31 (int32 ring index); the wrapper checks them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,11 +74,29 @@ namespace {
 
 constexpr float kNegTime = -3.0e38f;          // the reference's _NEG
 constexpr int32_t kIMin = -2147483647;        // -(2^31) + 1, its _IMIN
-constexpr int kOneBlock = 1024;
 
-// Workspace header written by osi_prologue (int32 words; two hold f32).
-constexpr int kHdrWmark = 0, kHdrNewMax = 1, kHdrOpenBefore = 2,
-              kHdrNewOpen = 3, kHdrWords = 4;
+// Scratch counters: the tile counter, then the chunk's frontier maxima as
+// order-preserving unsigned encodings (0, below every encoding, when no
+// item is masked in). All three are 0 between calls.
+constexpr int kCtrTile = 0, kCtrTime = 1, kCtrInterval = 2;
+
+__device__ __forceinline__ unsigned enc_time(float t) {
+  const unsigned u = __float_as_uint(t);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float dec_time(unsigned u) {
+  return u == 0 ? kNegTime
+                : __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ unsigned enc_interval(int32_t v) {
+  return (unsigned)v ^ 0x80000000u;
+}
+
+__device__ __forceinline__ int32_t dec_interval(unsigned u) {
+  return u == 0 ? kIMin : (int32_t)(u ^ 0x80000000u);
+}
 
 __device__ __forceinline__ int32_t interval_of(float t, float recip) {
   return __float2int_rz(floorf(__fmul_rn(t, recip)));
@@ -79,288 +107,365 @@ __device__ __forceinline__ int32_t pymod(int32_t a, int32_t k) {
   return r < 0 ? r + k : r;
 }
 
+// The interval ring slot `slot` holds once the newest is `open`.
+__device__ __forceinline__ int32_t desired_interval(int32_t open, int slot,
+                                                    int k) {
+  return open - pymod(open - slot, k);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int d = 16; d > 0; d >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, d));
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, d));
   return v;
 }
 
 __device__ __forceinline__ int32_t warp_max(int32_t v) {
   for (int d = 16; d > 0; d >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, d));
+    v = max(v, __shfl_xor_sync(kFull, v, d));
   return v;
 }
 
-// Block-wide max of (t, iv); the result is valid in thread 0.
-__device__ void block_max(float& t, int32_t& iv) {
-  __shared__ float wt[32];
-  __shared__ int32_t wi[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(kThreads)
+    osi_frontier(const float* __restrict__ times,
+                 const uint8_t* __restrict__ mask, int m, float recip,
+                 unsigned* __restrict__ ctrs) {
+  __shared__ float wt[kWarps];
+  __shared__ int32_t wi[kWarps];
+  float t = kNegTime;
+  int32_t iv = kIMin;
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {    // all loads independent: one trip
+    const long long j =
+        (long long)blockIdx.x * kTile + r * kThreads + threadIdx.x;
+    bool mk = false;
+    float tj = kNegTime;
+    if (j < m) {
+      mk = mask[j] != 0;
+      tj = times[j];
+    }
+    if (mk) {
+      t = fmaxf(t, tj);
+      iv = max(iv, interval_of(tj, recip));
+      any = true;
+    }
+  }
   t = warp_max(t);
   iv = warp_max(iv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
     wt[warp] = t;
     wi[warp] = iv;
   }
-  __syncthreads();
+  if (!__syncthreads_or(any)) return;   // nothing masked in this block
   if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    t = lane < n_warps ? wt[lane] : kNegTime;
-    iv = lane < n_warps ? wi[lane] : kIMin;
-    t = warp_max(t);
-    iv = warp_max(iv);
-  }
-}
-
-__global__ void osi_frontier(const float* __restrict__ times,
-                             const uint8_t* __restrict__ mask, int m,
-                             float recip, float* __restrict__ part_t,
-                             int32_t* __restrict__ part_i) {
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  float t = kNegTime;
-  int32_t iv = kIMin;
-  if (j < m && mask[j]) {
-    t = times[j];
-    iv = interval_of(t, recip);
-  }
-  block_max(t, iv);
-  if (threadIdx.x == 0) {
-    part_t[blockIdx.x] = t;
-    part_i[blockIdx.x] = iv;
-  }
-}
-
-__global__ void osi_prologue(const float* __restrict__ part_t,
-                             const int32_t* __restrict__ part_i, int n_parts,
-                             const float* __restrict__ max_time,
-                             const int32_t* __restrict__ open_interval,
-                             float lateness,
-                             int32_t* __restrict__ slot_interval,
-                             const int32_t* __restrict__ adopt,
-                             int32_t* __restrict__ counts,
-                             int32_t* __restrict__ capacity,
-                             int32_t* __restrict__ c0,
-                             int32_t* __restrict__ hdr, int k, int s) {
-  __shared__ int32_t new_open_s;
-  float t = kNegTime;
-  int32_t iv = kIMin;
-  for (int b = threadIdx.x; b < n_parts; b += blockDim.x) {
-    t = fmaxf(t, part_t[b]);
-    iv = max(iv, part_i[b]);
-  }
-  block_max(t, iv);
-  if (threadIdx.x == 0) {
-    const float before = max_time[0];
-    const int32_t open_before = open_interval[0];
-    const int32_t new_open = max(open_before, iv);
-    float* hdr_f = reinterpret_cast<float*>(hdr);
-    hdr_f[kHdrWmark] = __fsub_rn(before, lateness);   // PRE-chunk watermark
-    hdr_f[kHdrNewMax] = fmaxf(before, t);
-    hdr[kHdrOpenBefore] = open_before;
-    hdr[kHdrNewOpen] = new_open;
-    new_open_s = new_open;
-  }
-  __syncthreads();
-  const int32_t new_open = new_open_s;
-  for (int c = threadIdx.x; c < k * s; c += blockDim.x) {
-    const int slot = c / s;
-    const int32_t desired = new_open - pymod(new_open - slot, k);
-    const bool reset = desired != slot_interval[slot];
-    const int32_t cnt = reset ? 0 : counts[c];
-    counts[c] = cnt;
-    c0[c] = cnt;
-    if (reset) capacity[c] = adopt[c - slot * s];
-  }
-  __syncthreads();                 // every read of slot_interval is done
-  for (int slot = threadIdx.x; slot < k; slot += blockDim.x)
-    slot_interval[slot] = new_open - pymod(new_open - slot, k);
-}
-
-__global__ void osi_route(const float* __restrict__ times,
-                          const int32_t* __restrict__ sid,
-                          const uint8_t* __restrict__ mask, int m,
-                          float recip, const int32_t* __restrict__ hdr, int k,
-                          int s, int n_tiles, int32_t* __restrict__ cell_of,
-                          int32_t* __restrict__ tile_counts,
-                          int32_t* __restrict__ rows,
-                          int32_t* __restrict__ on_time,
-                          int32_t* __restrict__ late,
-                          int32_t* __restrict__ dropped,
-                          int32_t* __restrict__ items) {
-  extern __shared__ int32_t sm[];  // [K*S + 1] cells, [4][S] rows, [4] totals
-  const int cells = k * s;
-  int32_t* cnt = sm;
-  int32_t* hist = sm + cells + 1;
-  int32_t* tot = hist + 4 * s;
-  for (int i = threadIdx.x; i < cells + 1 + 4 * s + 4; i += blockDim.x)
-    sm[i] = 0;
-  __syncthreads();
-  const float wmark = reinterpret_cast<const float*>(hdr)[kHdrWmark];
-  const int32_t open_before = hdr[kHdrOpenBefore];
-  const int32_t oldest_live = hdr[kHdrNewOpen] - k + 1;
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  int cell = cells;                // sentinel: no cell
-  if (j < m) {
-    const bool mk = mask[j] != 0;
-    const float t = times[j];
-    const int32_t tgt = interval_of(t, recip);
-    const int st = sid[j];
-    const bool live = mk && !(t < wmark) && !(tgt < oldest_live);
-    const bool late_v = live && tgt < open_before;
-    const bool valid = st >= 0 && st < s;
-    if (live && valid) cell = pymod(tgt, k) * s + st;
-    if (valid) {
-      if (mk) atomicAdd(&hist[st], 1);                 // ingested
-      if (live) atomicAdd(&hist[s + st], 1);           // accepted
-      if (late_v) atomicAdd(&hist[2 * s + st], 1);     // late
-      if (mk && !live) atomicAdd(&hist[3 * s + st], 1);  // dropped
+    t = warp_max(lane < kWarps ? wt[lane] : kNegTime);
+    iv = warp_max(lane < kWarps ? wi[lane] : kIMin);
+    if (lane == 0) {
+      atomicMax(ctrs + kCtrTime, enc_time(t));
+      atomicMax(ctrs + kCtrInterval, enc_interval(iv));
     }
-    if (live && !late_v) atomicAdd(&tot[0], 1);
-    if (late_v) atomicAdd(&tot[1], 1);
-    if (mk && !live) atomicAdd(&tot[2], 1);
-    if (mk) atomicAdd(&tot[3], 1);
-    cell_of[j] = cell;
   }
-  atomicAdd(&cnt[cell], 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    osi_route_claim(const float* __restrict__ times,
+                    const int32_t* __restrict__ sid,
+                    const uint8_t* __restrict__ mask,
+                    const float* __restrict__ u_accept,
+                    const float* __restrict__ u_slot, int m, float recip,
+                    float lateness, int k, int s, int n_max, int n_tiles,
+                    const float* __restrict__ max_time,
+                    const int32_t* __restrict__ open_interval,
+                    const int32_t* __restrict__ slot_interval,
+                    const int32_t* __restrict__ adopt,
+                    const int32_t* __restrict__ counts,
+                    const int32_t* __restrict__ capacity,
+                    int32_t* __restrict__ new_counts,
+                    int32_t* __restrict__ winner,
+                    unsigned long long* __restrict__ status,
+                    int2* __restrict__ lists, int32_t* __restrict__ list_n,
+                    unsigned* __restrict__ ctrs,
+                    int32_t* __restrict__ rows,
+                    int32_t* __restrict__ on_time,
+                    int32_t* __restrict__ late,
+                    int32_t* __restrict__ dropped,
+                    int32_t* __restrict__ items,
+                    int32_t* __restrict__ chunks) {
+  const int cells = k * s;
+  extern __shared__ int32_t sm[];
+  int32_t* wrun = sm;
+  int32_t* agg = wrun + kWarps * (cells + 1);
+  int32_t* base = agg + cells;
+  int32_t* cap = base + cells;
+  int32_t* c0 = cap + cells;       // post-reset counts
+  int32_t* tot = c0 + cells;       // on-time, late, dropped, items
+  int32_t* rows_w = tot + 4;       // [kWarps][2][S]: ingested, late
+  __shared__ float wmark_s;
+  __shared__ int32_t open_before_s, new_open_s;
+  const int tile = take_tile(reinterpret_cast<int32_t*>(ctrs + kCtrTile));
+  // What the last tile updates, read now so that its finalize does not
+  // wait on memory (the rows of strata beyond kThreads are read then).
+  int32_t replaced = 0, n_chunks = 0;
+  if (tile == n_tiles - 1) {
+    if ((int)threadIdx.x < s) replaced = rows[4 * s + threadIdx.x];
+    if (threadIdx.x == 0) n_chunks = chunks[0];
+  }
+
+  float tv[kItems], ua[kItems], us[kItems];
+  int st[kItems];
+  bool mk[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {    // all loads independent: one trip
+    const long long j = item_index(tile, r);
+    mk[r] = false;
+    st[r] = -1;
+    tv[r] = ua[r] = us[r] = 0.0f;
+    if (j < m) {
+      mk[r] = mask[j] != 0;
+      tv[r] = times[j];
+      st[r] = sid[j];
+      ua[r] = u_accept[j];
+      us[r] = u_slot[j];
+    }
+  }
+  // The carried state as launch 1 left it (the pre-chunk values), beside
+  // the items: slot table in base, adopt in agg until the reset below.
+  for (int c = threadIdx.x; c < cells; c += kThreads) {
+    const int slot = c / s;
+    c0[c] = counts[c];
+    cap[c] = capacity[c];
+    base[c] = slot_interval[slot];
+    agg[c] = adopt[c - slot * s];
+  }
+  for (int i = threadIdx.x; i < 4 + 2 * kWarps * s; i += kThreads) tot[i] = 0;
+  if (threadIdx.x == 0) {
+    const int32_t open_before = open_interval[0];
+    wmark_s = __fsub_rn(max_time[0], lateness);      // PRE-chunk watermark
+    open_before_s = open_before;
+    new_open_s = max(open_before, dec_interval(ctrs[kCtrInterval]));
+  }
   __syncthreads();
-  for (int c = threadIdx.x; c < cells; c += blockDim.x)
-    tile_counts[(int64_t)c * n_tiles + blockIdx.x] = cnt[c];
-  for (int i = threadIdx.x; i < 4 * s; i += blockDim.x)
-    if (hist[i] != 0) atomicAdd(&rows[i], hist[i]);
+  const float wmark = wmark_s;
+  const int32_t open_before = open_before_s, new_open = new_open_s;
+  const int32_t oldest_live = new_open - k + 1;
+  const int32_t open_slot = pymod(new_open, k);
+  for (int c = threadIdx.x; c < cells; c += kThreads) {   // the slot reset
+    if (desired_interval(new_open, c / s, k) != base[c]) {
+      c0[c] = 0;
+      cap[c] = agg[c];
+    }
+    base[c] = c0[c];
+  }
+
+  const int lane = threadIdx.x & 31;
+  int32_t* my_rows = rows_w + (threadIdx.x >> 5) * 2 * s;
+  int cell[kItems], rank[kItems];
+  int32_t n_on_time = 0, n_late = 0, n_dropped = 0, n_items = 0;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int32_t tgt = interval_of(tv[r], recip);
+    const bool live = mk[r] && !(tv[r] < wmark) && !(tgt < oldest_live);
+    const bool late_v = live && tgt < open_before;
+    const int sr = st[r] >= 0 && st[r] < s ? st[r] : -1;
+    // A live item is at most k - 1 intervals before the newest, so its
+    // slot pymod(tgt, k) comes without a division.
+    const int32_t back = new_open - tgt;
+    const int slot = back <= open_slot ? open_slot - back : open_slot - back + k;
+    cell[r] = live && sr >= 0 ? slot * s + sr : cells;
+    // Ingested and late per stratum: the leader of each stratum's lanes
+    // adds them to its warp's own rows (no other writer, no atomics).
+    // Accepted per stratum is the rank pass's per-cell totals; dropped is
+    // ingested less accepted.
+    const unsigned grp = __match_any_sync(kFull, sr);
+    const unsigned b_in = __ballot_sync(kFull, mk[r]);
+    const unsigned b_live = __ballot_sync(kFull, live);
+    const unsigned b_late = __ballot_sync(kFull, late_v);
+    if (sr >= 0 && lane == __ffs(grp) - 1) {
+      my_rows[sr] += __popc(b_in & grp);
+      my_rows[s + sr] += __popc(b_late & grp);
+    }
+    __syncwarp();
+    n_on_time += __popc(b_live & ~b_late);
+    n_late += __popc(b_late);
+    n_dropped += __popc(b_in & ~b_live);
+    n_items += __popc(b_in);
+  }
+  if (lane == 0) {
+    if (n_on_time) atomicAdd(&tot[0], n_on_time);
+    if (n_late) atomicAdd(&tot[1], n_late);
+    if (n_dropped) atomicAdd(&tot[2], n_dropped);
+    if (n_items) atomicAdd(&tot[3], n_items);
+  }
+
+  tile_ranks(cell, rank, cells, tile, n_tiles, wrun, agg,
+             status);                     // syncs: the rows are in
+  for (int sr = threadIdx.x; sr < s; sr += kThreads) {
+    int32_t n_in = 0, n_live = 0, n_lt = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      n_in += rows_w[w * 2 * s + sr];
+      n_lt += rows_w[w * 2 * s + s + sr];
+    }
+    for (int slot = 0; slot < k; ++slot) n_live += agg[slot * s + sr];
+    if (n_in) atomicAdd(&rows[sr], n_in);                  // ingested
+    if (n_live) atomicAdd(&rows[s + sr], n_live);          // accepted
+    if (n_lt) atomicAdd(&rows[2 * s + sr], n_lt);          // late
+    if (n_in - n_live) atomicAdd(&rows[3 * s + sr], n_in - n_live);
+  }
   if (threadIdx.x == 0) {
     if (tot[0]) atomicAdd(on_time, tot[0]);
     if (tot[1]) atomicAdd(late, tot[1]);
     if (tot[2]) atomicAdd(dropped, tot[2]);
     if (tot[3]) atomicAdd(items, tot[3]);
   }
-}
-
-__global__ void osi_finalize(const int32_t* __restrict__ c0,
-                             const int32_t* __restrict__ counts,
-                             const int32_t* __restrict__ capacity,
-                             const int32_t* __restrict__ hdr, int k, int s,
-                             int32_t* __restrict__ rows,
-                             float* __restrict__ max_time,
-                             int32_t* __restrict__ open_interval,
-                             int32_t* __restrict__ chunks) {
-  for (int st = threadIdx.x; st < s; st += blockDim.x) {
-    int32_t repl = 0, occ = 0;
-    for (int slot = 0; slot < k; ++slot) {
-      const int c = slot * s + st;
-      const int32_t a = c0[c], b = counts[c], cap = capacity[c];
-      const int32_t f0 = min(a, cap), f1 = min(b, cap);
-      repl += (b - a) - (f1 - f0);
-      occ += f1;
+  tile_lookback(tile, n_tiles, cells, agg, base, status);
+  claim_items(tile, m, cells, n_max, cell, rank, ua, us, base, cap, winner,
+              lists, list_n);
+  if (tile == n_tiles - 1) {
+    // The new counts (to scratch: other tiles still read the carried
+    // ones), then the replaced and occupancy rows from c0 and them.
+    for (int c = threadIdx.x; c < cells; c += kThreads) {
+      agg[c] += base[c];
+      new_counts[c] = agg[c];
     }
-    rows[4 * s + st] += repl;      // replaced
-    rows[5 * s + st] = occ;        // occupancy gauge
+    __syncthreads();
+    for (int sr = threadIdx.x; sr < s; sr += kThreads) {
+      int32_t repl = 0, occ = 0;
+      for (int slot = 0; slot < k; ++slot) {
+        const int c = slot * s + sr;
+        const int32_t a = c0[c], b = agg[c], n = cap[c];
+        const int32_t f0 = min(a, n), f1 = min(b, n);
+        repl += (b - a) - (f1 - f0);
+        occ += f1;
+      }
+      rows[4 * s + sr] =                    // replaced
+          (sr == (int)threadIdx.x ? replaced : rows[4 * s + sr]) + repl;
+      rows[5 * s + sr] = occ;               // occupancy gauge
+    }
+    if (threadIdx.x == 0) chunks[0] = n_chunks + 1;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    osi_write(const int2* __restrict__ lists,
+              const int32_t* __restrict__ list_n,
+              const uint32_t* __restrict__ payload,
+              int32_t* __restrict__ winner, uint32_t* __restrict__ values,
+              unsigned long long* __restrict__ status, int k, int s,
+              const int32_t* __restrict__ new_counts,
+              const int32_t* __restrict__ adopt, float* __restrict__ max_time,
+              int32_t* __restrict__ open_interval,
+              int32_t* __restrict__ slot_interval,
+              int32_t* __restrict__ counts, int32_t* __restrict__ capacity,
+              unsigned* __restrict__ ctrs) {
+  const int tile = blockIdx.x;
+  const int cells = k * s;
+  // Block 0 writes the carried state, now that no route tile reads it;
+  // it reads what it needs before its share of the winners.
+  __shared__ int32_t new_open_s;
+  int32_t cnt = 0, adopted = 0, held = 0, open_before = 0;
+  unsigned t_enc = 0, iv_enc = 0;
+  float before = 0.0f;
+  const int c_own = threadIdx.x;   // the cell this thread finalizes first
+  if (tile == 0) {
+    if (threadIdx.x == 0) {
+      open_before = open_interval[0];
+      before = max_time[0];
+      t_enc = ctrs[kCtrTime];
+      iv_enc = ctrs[kCtrInterval];
+    }
+    if (c_own < cells) {
+      cnt = new_counts[c_own];
+      adopted = adopt[c_own % s];
+      held = slot_interval[c_own / s];
+    }
+  }
+  write_winners(tile, lists, list_n, payload, winner, values);
+  for (int c = threadIdx.x; c < cells; c += kThreads)
+    status[(size_t)c * gridDim.x + tile] = 0;
+  if (tile != 0) return;
   if (threadIdx.x == 0) {
-    max_time[0] = reinterpret_cast<const float*>(hdr)[kHdrNewMax];
-    open_interval[0] = hdr[kHdrNewOpen];
-    chunks[0] += 1;
+    const int32_t new_open = max(open_before, dec_interval(iv_enc));
+    max_time[0] = fmaxf(before, dec_time(t_enc));
+    open_interval[0] = new_open;
+    new_open_s = new_open;
+    ctrs[kCtrTile] = ctrs[kCtrTime] = ctrs[kCtrInterval] = 0;
   }
+  __syncthreads();
+  const int32_t new_open = new_open_s;
+  for (int c = threadIdx.x; c < cells; c += kThreads) {
+    const int slot = c / s;
+    const bool own = c == c_own;
+    if (desired_interval(new_open, slot, k) !=
+        (own ? held : slot_interval[slot]))
+      capacity[c] = own ? adopted : adopt[c - slot * s];
+    counts[c] = own ? cnt : new_counts[c];
+  }
+  __syncthreads();                 // every read of slot_interval is done
+  for (int slot = threadIdx.x; slot < k; slot += kThreads)
+    slot_interval[slot] = desired_interval(new_open, slot, k);
 }
 
-struct Workspace {
-  float* part_t;
-  int32_t* part_i;
-  int32_t* hdr;
-  int32_t* c0;
-  int32_t* tile_counts;
-  int32_t* tile_offsets;
-  int32_t* cell_of;
-  int32_t* cell;
-  int32_t* winner;
-  long long words;
-};
-
-Workspace carve(int32_t* base, int m, int cells, int n_max) {
-  const long long n_tiles = m > 0 ? (m + kTile - 1) / kTile : 0;
-  Workspace w;
-  long long off = 0;
-  auto take = [&](long long n) {
-    int32_t* p = base == nullptr ? nullptr : base + off;
-    off += n;
-    return p;
-  };
-  w.part_t = reinterpret_cast<float*>(take(n_tiles));
-  w.part_i = take(n_tiles);
-  w.hdr = take(kHdrWords);
-  w.c0 = take(cells);
-  w.tile_counts = take(cells * n_tiles);
-  w.tile_offsets = take(cells * n_tiles);
-  w.cell_of = take(m);
-  w.cell = take(m);
-  w.winner = take((long long)cells * n_max);
-  w.words = off;
-  return w;
-}
+int tiles_of(int m) { return m > 0 ? (m + kTile - 1) / kTile : 1; }
 
 }  // namespace
-
-// int32 words of workspace one call needs.
-extern "C" long long sa_one_shot_workspace_words(int m, int cells,
-                                                 int n_max) {
-  return carve(nullptr, m, cells, n_max).words;
-}
 
 // Pointers: times f32[M], sid i32[M], payload 4-byte words [M], mask
 // u8[M], u_accept/u_slot f32[M]; the state, updated in place: max_time
 // f32[], open_interval/on_time/late/dropped/chunks/items i32[],
 // slot_interval i32[K], counts/capacity i32[K, S], values [K, S, N_max]
-// 4-byte words, counters i32[6, S]; adopt i32[S] (read only, <= N_max);
-// workspace of sa_one_shot_workspace_words(m, K*S, n_max) int32 words.
+// 4-byte words, counters i32[6, S]; adopt i32[S] (read only, <= N_max).
+// Scratch kept by the caller between calls, as for sa_reservoir_fold
+// (winner i32[K*S*N_max] all -1, status u64[K*S*n_tiles] all 0, ctrs
+// i32[3] all 0, lists, list_n), and aux i32[K*S] (the new counts).
 extern "C" int sa_one_shot_ingest(
     const void* times, const void* sid, const void* payload, const void* mask,
     const void* u_accept, const void* u_slot, void* max_time,
     void* open_interval, void* on_time, void* late, void* dropped,
     void* chunks, void* items, void* slot_interval, const void* adopt,
     void* counts, void* capacity, void* values, void* counters,
-    void* workspace, int m, int k, int s, int n_max, float recip,
-    float lateness, void* stream_ptr) {
+    void* winner, void* status, void* lists, void* list_n, void* ctrs,
+    void* aux, int m, int k, int s, int n_max, float recip, float lateness,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int cells = k * s;
-  const int n_tiles = m > 0 ? (m + kTile - 1) / kTile : 0;
-  Workspace w = carve(static_cast<int32_t*>(workspace), m, cells, n_max);
-  auto* times_p = static_cast<const float*>(times);
+  const int n_tiles = tiles_of(m);
   auto* mask_p = static_cast<const uint8_t*>(mask);
+  auto* times_p = static_cast<const float*>(times);
+  auto* adopt_p = static_cast<const int32_t*>(adopt);
   auto* counts_p = static_cast<int32_t*>(counts);
   auto* cap_p = static_cast<int32_t*>(capacity);
-  auto* rows = static_cast<int32_t*>(counters);
-  if (n_tiles > 0) {
-    cudaMemsetAsync(w.winner, 0xFF, sizeof(int32_t) * (size_t)cells * n_max,
-                    stream);
-    osi_frontier<<<n_tiles, kTile, 0, stream>>>(times_p, mask_p, m, recip,
-                                                w.part_t, w.part_i);
-  }
-  osi_prologue<<<1, kOneBlock, 0, stream>>>(
-      w.part_t, w.part_i, n_tiles, static_cast<const float*>(max_time),
-      static_cast<const int32_t*>(open_interval), lateness,
-      static_cast<int32_t*>(slot_interval),
-      static_cast<const int32_t*>(adopt), counts_p, cap_p, w.c0, w.hdr, k, s);
-  if (n_tiles > 0) {
-    const size_t route_smem = sizeof(int32_t) * (cells + 1 + 4 * s + 4);
-    osi_route<<<n_tiles, kTile, route_smem, stream>>>(
-        times_p, static_cast<const int32_t*>(sid), mask_p, m, recip, w.hdr, k,
-        s, n_tiles, w.cell_of, w.tile_counts, rows,
-        static_cast<int32_t*>(on_time), static_cast<int32_t*>(late),
-        static_cast<int32_t*>(dropped), static_cast<int32_t*>(items));
-    fold_tile_scan<<<cells, kScanThreads, 0, stream>>>(
-        w.tile_counts, n_tiles, w.c0, w.tile_offsets, counts_p);
-    fold_decide<<<n_tiles, kTile, sizeof(int32_t) * kWarps * (cells + 1),
-                  stream>>>(w.cell_of, nullptr,
-                            static_cast<const float*>(u_accept),
-                            static_cast<const float*>(u_slot), m, cells,
-                            n_max, n_tiles, w.c0, cap_p, w.tile_offsets,
-                            w.cell, w.winner);
-    fold_write<<<n_tiles, kTile, 0, stream>>>(
-        static_cast<const uint32_t*>(payload), m, w.cell, w.winner,
-        static_cast<uint32_t*>(values));
-  }
-  osi_finalize<<<1, kOneBlock, 0, stream>>>(
-      w.c0, counts_p, cap_p, w.hdr, k, s, rows,
-      static_cast<float*>(max_time), static_cast<int32_t*>(open_interval),
+  auto* win_p = static_cast<int32_t*>(winner);
+  auto* status_p = static_cast<unsigned long long*>(status);
+  auto* lists_p = static_cast<int2*>(lists);
+  auto* list_n_p = static_cast<int32_t*>(list_n);
+  auto* ctrs_p = static_cast<unsigned*>(ctrs);
+  auto* new_counts = static_cast<int32_t*>(aux);
+  auto* max_time_p = static_cast<float*>(max_time);
+  auto* open_p = static_cast<int32_t*>(open_interval);
+  auto* slot_iv = static_cast<int32_t*>(slot_interval);
+  osi_frontier<<<n_tiles, kThreads, 0, stream>>>(times_p, mask_p, m, recip,
+                                                 ctrs_p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int smem = (int)sizeof(int32_t) *
+                   (claim_smem_words(cells) + cells + 4 + 2 * kWarps * s);
+  err = allow_smem(osi_route_claim, smem);
+  if (err != cudaSuccess) return (int)err;
+  osi_route_claim<<<n_tiles, kThreads, smem, stream>>>(
+      times_p, static_cast<const int32_t*>(sid), mask_p,
+      static_cast<const float*>(u_accept), static_cast<const float*>(u_slot),
+      m, recip, lateness, k, s, n_max, n_tiles, max_time_p, open_p, slot_iv,
+      adopt_p, counts_p, cap_p, new_counts, win_p, status_p, lists_p,
+      list_n_p, ctrs_p, static_cast<int32_t*>(counters),
+      static_cast<int32_t*>(on_time), static_cast<int32_t*>(late),
+      static_cast<int32_t*>(dropped), static_cast<int32_t*>(items),
       static_cast<int32_t*>(chunks));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  osi_write<<<n_tiles, kThreads, 0, stream>>>(
+      lists_p, list_n_p, static_cast<const uint32_t*>(payload), win_p,
+      static_cast<uint32_t*>(values), status_p, k, s, new_counts, adopt_p,
+      max_time_p, open_p, slot_iv, counts_p, cap_p, ctrs_p);
   return (int)cudaGetLastError();
 }

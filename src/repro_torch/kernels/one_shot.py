@@ -1,14 +1,28 @@
 """CUDA wrapper of the one-shot ingest (``csrc/one_shot_ingest.cu``).
 
 Counterpart of the reference's ``kernels/reservoir.py::one_shot_ingest``
-with the same keyword surface: one chunk's watermark routing, ring-slot
-reset, (slot, stratum) cell assignment, Vitter fold and obs counter rows
-in one call. Every carried tensor (the ring, cell counts and capacities,
-the slot table, the watermark scalars, the chunk/item totals and the
-``[6, S]`` counter rows) is updated IN PLACE, and the returned
+(the TPU kernel ``_one_shot_kernel``) with the same keyword surface: one
+chunk's watermark routing, ring-slot reset, (slot, stratum) cell
+assignment, Vitter fold and obs counter rows in one call. Every carried
+tensor (the ring, cell counts and capacities, the slot table, the
+watermark scalars, the chunk/item totals and the ``[6, S]`` counter
+rows) is updated IN PLACE, and the returned
 :class:`~repro_torch.kernels.ref.OneShotResult` holds those same tensors.
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version in ``kernels/ref.py``.
+
+The ingest is bound by memory: it must read the mask of every item, the
+time and stratum of each masked-in item, and then what the fold needs
+(``kernels/reservoir``) of the live ones. The kernel is three launches,
+one per real grid-wide dependency: the frontier maxima; the routing with
+the fold's single-pass look-back scan and claims, in which every tile
+works out the slot reset itself and the last tile writes the new counts
+to scratch, the replaced and occupancy rows and ``chunks``; and the write
+of the winners, whose block 0 writes the carried counts, capacities,
+slot table, frontier and newest interval. Its scratch, the 4 B per ring
+cell winner table included, is kept per device and stream in
+``kernels/_workspace`` and never cleared per call; it is dropped if a
+launch reports an error.
 """
 from __future__ import annotations
 
@@ -17,10 +31,11 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _workspace
 from repro_torch.kernels.ref import OneShotResult, check_one_shot_payload
 
-#: The rank pass keeps 8 warps x (K*S + 1) int32 counts in shared memory.
+#: The route-and-claim launch keeps 16 warps x (K*S + 1) + 4 K*S int32
+#: and per-warp counter rows of 32 S + 4 int32 in shared memory.
 MAX_CELLS = 1024
 
 
@@ -76,18 +91,17 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     cells = k * s_cnt
     if not 1 <= cells <= MAX_CELLS:
         raise ValueError(f"K*S = {cells} outside [1, {MAX_CELLS}] (shared "
-                         "memory of the rank pass)")
+                         "memory of the claim)")
     if cells * n_max + 1 >= 2**31:
         raise ValueError(f"K*S*N_max+1 = {cells * n_max + 1} does not fit "
                          "the kernel's int32 ring index")
     if m >= 2**31:
         raise ValueError(f"M = {m} does not fit an int32 item index")
     lib = _build.build().lib
-    workspace = torch.empty(
-        max(lib.sa_one_shot_workspace_words(m, cells, n_max), 1), dtype=i32,
-        device=dev)
     recip = np.float32(1.0) / np.float32(span)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _workspace.for_call(lib, dev, stream, m=m, cells=cells,
+                             table=cells * n_max, aux=cells)
     with torch.cuda.device(dev):
         status = lib.sa_one_shot_ingest(
             times.data_ptr(), stratum_ids.data_ptr(), payload.data_ptr(),
@@ -96,9 +110,13 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
             on_time.data_ptr(), late.data_ptr(), dropped.data_ptr(),
             chunks.data_ptr(), items.data_ptr(), slot_interval.data_ptr(),
             adopt.data_ptr(), counts.data_ptr(), capacity.data_ptr(),
-            values.data_ptr(), counters.data_ptr(), workspace.data_ptr(),
-            m, k, s_cnt, n_max, ctypes.c_float(float(recip)),
+            values.data_ptr(), counters.data_ptr(), ws.winner.data_ptr(),
+            ws.status.data_ptr(), ws.lists.data_ptr(), ws.list_n.data_ptr(),
+            ws.counters.data_ptr(), ws.aux.data_ptr(), m, k, s_cnt, n_max,
+            ctypes.c_float(float(recip)),
             ctypes.c_float(float(np.float32(allowed_lateness))), stream)
+    if status != 0:
+        _workspace.drop(dev, stream)
     _build.check(status, "one_shot_ingest")
     one_shot_ingest.launches += 1
     return OneShotResult(

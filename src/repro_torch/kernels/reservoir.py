@@ -1,19 +1,30 @@
 """CUDA wrapper of the reservoir fold (``csrc/reservoir_fold.cu``).
 
 Counterpart of the reference's ``kernels/reservoir.py::reservoir_fold``
-with the same signature: pre-drawn uniforms in, ``values [S, N_max]``
-updated in place. Takes CUDA tensors only; ``kernels/ops.py`` sends CPU
-tensors to the plain version in ``kernels/ref.py``.
+(the TPU kernel ``_fold_kernel``) with the same signature: pre-drawn
+uniforms in, ``values [S, N_max]`` updated in place. Takes CUDA tensors
+only; ``kernels/ops.py`` sends CPU tensors to the plain version in
+``kernels/ref.py``.
+
+The fold is bound by memory: it must read the mask of every item, the
+stratum of each live item, ``u_accept`` of each live item past its
+cell's capacity, ``u_slot`` of each such item accepted and the payload
+of each ring cell won, and write that cell. The kernel is two launches:
+a single-pass look-back scan that ranks, decides and claims ring cells
+with ``atomicMax`` (it reads the stratum, mask and both uniforms of
+every item once), and a write of the winners. Its winner table (4 B per
+ring cell) is never cleared per call: it is all -1 between calls, kept
+with the rest of the scratch in ``kernels/_workspace`` per device and
+stream, and dropped if a launch reports an error.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _workspace
 
-#: Shared memory of the rank pass holds 8 warps x (S + 1) int32 counts.
+#: The claim keeps 16 warps x (S + 1) + 3 S int32 in shared memory.
 MAX_STRATA = 1024
-_TILE = 256
 
 
 def _check(name, t, dtype, shape, device):
@@ -66,23 +77,22 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
         raise ValueError(f"M = {m} does not fit an int32 item index")
     if not 1 <= s_cnt <= MAX_STRATA:
         raise ValueError(f"S = {s_cnt} outside [1, {MAX_STRATA}] "
-                         "(shared memory of the rank pass)")
-    n_tiles = -(-m // _TILE)
-    i32 = dict(dtype=torch.int32, device=dev)
-    counts_out = torch.empty(s_cnt, **i32)
-    tile_counts = torch.empty((s_cnt, max(n_tiles, 1)), **i32)
-    tile_offsets = torch.empty((s_cnt, max(n_tiles, 1)), **i32)
-    cell = torch.empty(max(m, 1), **i32)
-    winner = torch.empty(s_cnt * n_max, **i32)
+                         "(shared memory of the claim)")
     lib = _build.build().lib
+    counts_out = torch.empty(s_cnt, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _workspace.for_call(lib, dev, stream, m=m, cells=s_cnt,
+                             table=s_cnt * n_max)
     with torch.cuda.device(dev):
         status = lib.sa_reservoir_fold(
             stratum_ids.data_ptr(), payload.data_ptr(), u_accept.data_ptr(),
             u_slot.data_ptr(), mask.data_ptr(), counts.data_ptr(),
             capacity.data_ptr(), values.data_ptr(), counts_out.data_ptr(),
-            tile_counts.data_ptr(), tile_offsets.data_ptr(),
-            cell.data_ptr(), winner.data_ptr(), m, s_cnt, n_max, stream)
+            ws.winner.data_ptr(), ws.status.data_ptr(), ws.lists.data_ptr(),
+            ws.list_n.data_ptr(), ws.counters.data_ptr(), m, s_cnt, n_max,
+            stream)
+    if status != 0:
+        _workspace.drop(dev, stream)
     _build.check(status, "reservoir_fold")
     reservoir_fold.launches += 1
     return counts_out

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch import prng
-from repro_torch.kernels import (one_shot, ops, ref, reservoir,
+from repro_torch.kernels import (_workspace, one_shot, ops, ref, reservoir,
                                  stratified_stats, weighted_hist)
 from repro_torch.runtime import convert
 from repro_torch.runtime import executor as tex
@@ -324,6 +324,161 @@ def test_cuda_onekernel_executor_matches_cpu(cuda_device, mode, emission):
             np.testing.assert_allclose(float(b.results[name].value),
                                        float(a.results[name].value),
                                        rtol=1e-5)
+
+
+#: Many-tile fold cases at M = 200,003 (98 tiles of the claim, the last
+#: ragged): ``(S, N_max, counts, capacity)``. "collisions" folds the chunk
+#: into a [4, 64] ring in replacement, so thousands of items race per cell.
+BIG_FOLD = {
+    "filling": (4, 65_536, [0, 0, 0, 0], [65_536, 40_000, 20_000, 100]),
+    "replacement": (4, 65_536, [100_000, 400_000, 70_000, 9],
+                    [65_536, 30_000, 5, 64]),
+    "collisions": (4, 64, [1_000, 5_000, 64, 0], [64, 64, 64, 64]),
+}
+
+#: Many-tile one-shot cases at M = 200,003: overrides of
+#: ``one_shot_inputs``' defaults ("collisions": a [2, 2, 64] ring).
+BIG_ONE_SHOT = {
+    "filling": dict(counts_hi=1, cap=4096, n_max=4096),
+    "replacement": dict(counts_hi=400_000, cap=None, n_max=4096),
+    "collisions": dict(k=2, s=2, n_max=64, counts_hi=5000, cap=None),
+    "crossing": dict(n_max=4096, max_time=3.2, open_interval=3, t_lo=2.6,
+                     t_hi=4.4),
+}
+
+BIG_M = 200_003
+
+
+def _to(dev, arrays):
+    return {k: torch.from_numpy(np.array(v)).to(dev)
+            for k, v in arrays.items()}
+
+
+def assert_workspace_clean(dev):
+    """The scratch the kernels keep is as the next call needs it: the
+    winner table all -1, the look-back words and counters all 0."""
+    torch.cuda.synchronize()
+    ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
+    assert bool((ws.winner == -1).all())
+    assert not bool(ws.status.any())
+    assert not bool(ws.counters.any())
+
+
+def assert_same_bits(a, b, name=""):
+    assert a.dtype == b.dtype and a.shape == b.shape, name
+    if a.dtype == torch.float32:
+        a, b = a.reshape(-1).view(torch.int32), b.reshape(-1).view(
+            torch.int32)
+    assert torch.equal(a, b), name
+
+
+def _fold_both(inp, ring_k, ring_p):
+    ck = reservoir.reservoir_fold(values=ring_k, **inp)
+    cp = ref.reservoir_fold(values=ring_p, **inp)
+    assert_same_bits(ring_k, ring_p, "values")
+    assert torch.equal(ck, cp)
+    return ck
+
+
+def _one_shot_both(items, sk, sp, span=1.0):
+    one_shot.one_shot_ingest(**items, span=span, allowed_lateness=0.5, **sk)
+    ref.one_shot_ingest(**items, span=span, allowed_lateness=0.5, **sp)
+    for f in ONE_SHOT_FIELDS:
+        assert_same_bits(sk[f], sp[f], f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BIG_FOLD))
+def test_cuda_fold_many_tiles_matches_plain(cuda_device, case):
+    s, n_max, counts, capacity = BIG_FOLD[case]
+    inp = _to(cuda_device, fold_inputs(21, BIG_M, counts, capacity, s=s,
+                                       n_max=n_max))
+    ring_p = inp.pop("values")
+    _fold_both(inp, ring_p.clone(), ring_p)
+    assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BIG_ONE_SHOT))
+def test_cuda_one_shot_many_tiles_matches_plain(cuda_device, case):
+    items, state = one_shot_inputs(23, m=BIG_M, **BIG_ONE_SHOT[case])
+    it = _to(cuda_device, items)
+    _one_shot_both(it, _to(cuda_device, state), _to(cuda_device, state))
+    assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_fold_sequence_matches_plain(cuda_device):
+    """Four chunks into one ring, each folded on the counts the last one
+    left: bitwise after each call, the scratch clean after each."""
+    inp = _to(cuda_device, fold_inputs(25, BIG_M, [50_000] * 4,
+                                       [4096, 1000, 64, 7], n_max=4096))
+    ring_k, ring_p = inp["values"].clone(), inp.pop("values")
+    for i in range(4):
+        inp["counts"] = _fold_both(inp, ring_k, ring_p)
+        assert_workspace_clean(cuda_device)
+        nxt = _to(cuda_device, fold_inputs(26 + i, BIG_M, [0] * 4,
+                                           [1] * 4, n_max=4096))
+        for k in ("stratum_ids", "payload", "u_accept", "u_slot", "mask"):
+            inp[k] = nxt[k]
+
+
+@pytest.mark.cuda
+def test_cuda_one_shot_sequence_matches_plain(cuda_device):
+    """Four successive chunks through one carried state (the frontier
+    moving on by an interval each chunk): bitwise after each call."""
+    _, state = one_shot_inputs(27, m=8, n_max=4096, counts_hi=400_000,
+                               cap=None)
+    sk, sp = _to(cuda_device, state), _to(cuda_device, state)
+    for i in range(4):
+        items, _ = one_shot_inputs(28 + i, m=BIG_M, n_max=4096,
+                                   t_lo=0.5 + i, t_hi=1.6 + i)
+        _one_shot_both(_to(cuda_device, items), sk, sp)
+        assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_fold_and_one_shot_interleaved(cuda_device):
+    """A fold on a [4, 65,536] ring and a one-shot ingest on a
+    [3, 4, 1024] ring, in turns, share one scratch: bitwise after each."""
+    inp = _to(cuda_device, fold_inputs(29, BIG_M, [100_000] * 4,
+                                       [65_536, 100, 7, 30_000],
+                                       n_max=65_536))
+    ring_k, ring_p = inp["values"].clone(), inp.pop("values")
+    _, state = one_shot_inputs(30, m=8, n_max=1024, counts_hi=50_000,
+                               cap=None)
+    sk, sp = _to(cuda_device, state), _to(cuda_device, state)
+    for i in range(3):
+        inp["counts"] = _fold_both(inp, ring_k, ring_p)
+        items, _ = one_shot_inputs(31 + i, m=BIG_M // 2 + i, n_max=1024,
+                                   t_lo=0.2 + i, t_hi=1.4 + i)
+        _one_shot_both(_to(cuda_device, items), sk, sp)
+        assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_path_folds_on_ring_views(cuda_device):
+    """The masked ingest's K folds per chunk, each into the [S, N_max]
+    view of one ring slot with that slot's mask: bitwise after each."""
+    k, s, n_max = 3, 4, 4096
+    rng = np.random.default_rng(32)
+    base = _to(cuda_device, fold_inputs(33, BIG_M, [0] * s, [1] * s, s=s,
+                                        n_max=n_max))
+    slot = torch.from_numpy(rng.integers(0, k, BIG_M)).to(cuda_device)
+    ring = torch.from_numpy(rng.normal(size=(k, s, n_max)).astype(
+        np.float32)).to(cuda_device)
+    ring_k, ring_p = ring.clone(), ring.clone()
+    counts = torch.from_numpy(rng.integers(0, 20_000, (k, s)).astype(
+        np.int32)).to(cuda_device)
+    capacity = torch.from_numpy(rng.integers(1, n_max + 1, (k, s)).astype(
+        np.int32)).to(cuda_device)
+    for j in range(k):
+        inp = dict(base, mask=base["mask"] & (slot == j), counts=counts[j],
+                   capacity=capacity[j])
+        inp.pop("values")
+        _fold_both(inp, ring_k[j], ring_p[j])
+        assert_same_bits(ring_k, ring_p, "ring")
+        assert_workspace_clean(cuda_device)
 
 
 @pytest.mark.cuda

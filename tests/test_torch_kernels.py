@@ -10,7 +10,8 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels import ref as jref
 from repro.kernels.reservoir import reservoir_fold as pallas_fold
 from repro.kernels.stratified_stats import stratified_stats as pallas_stats
-from repro_torch.kernels import ops, ref, reservoir, stratified_stats
+from repro_torch.kernels import (_workspace, ops, ref, reservoir,
+                                 stratified_stats)
 from test_torch_cuda import PHASES, fold_inputs as _fold_inputs
 from test_torch_cuda import one_shot_inputs
 from test_torch_cuda import stats_inputs as _stats_inputs
@@ -117,3 +118,75 @@ def test_cpu_dispatch_counts_no_kernel_launch():
                                    "stratified_stats": 0,
                                    "one_shot_ingest": 0,
                                    "weighted_hist": 0}
+
+
+@pytest.mark.parametrize("table,tiles,cells", [(10, 2, 3), (4096, 98, 6)])
+def test_workspace_starts_clean_and_grows(table, tiles, cells):
+    """A new workspace holds a winner table of -1 and zeroed look-back
+    words and counters; growing keeps those fills, and a smaller request
+    keeps the tensors it has."""
+    dev = torch.device("cpu")
+    _workspace.drop(dev, 7)
+    ws = _workspace.get(dev, 7).reserve(table=table, tiles=tiles,
+                                        cells=cells, tile_items=4,
+                                        tile_lists=2, aux=5)
+    assert ws.winner.dtype == torch.int32 and ws.winner.numel() >= table
+    assert bool((ws.winner == -1).all())
+    assert ws.status.dtype == torch.int64
+    assert ws.status.numel() >= tiles * cells and not bool(ws.status.any())
+    assert ws.counters.tolist() == [0, 0, 0]
+    assert ws.lists.numel() >= 2 * tiles * 4
+    assert ws.list_n.numel() >= 2 * tiles
+    assert ws.aux.numel() >= 5
+    kept = (ws.winner, ws.status, ws.lists)
+    ws.reserve(table=table - 1, tiles=1, cells=1, tile_items=4,
+               tile_lists=2)
+    assert all(a is b for a, b in zip(kept, (ws.winner, ws.status,
+                                             ws.lists)))
+    ws.reserve(table=2 * table, tiles=2 * tiles, cells=cells, tile_items=4,
+               tile_lists=2)
+    assert ws.winner.numel() >= 2 * table
+    assert bool((ws.winner == -1).all()) and not bool(ws.status.any())
+    _workspace.drop(dev, 7)
+
+
+def test_workspace_one_per_stream_and_dropped():
+    dev = torch.device("cpu")
+    a, b = _workspace.get(dev, 11), _workspace.get(dev, 12)
+    assert a is not b and _workspace.get(dev, 11) is a
+    _workspace.drop(dev, 11)
+    assert _workspace.get(dev, 11) is not a
+    assert _workspace.get(dev, 12) is b
+    _workspace.drop(dev, 11)
+    _workspace.drop(dev, 12)
+    _workspace.drop(dev, 12)        # dropping twice is harmless
+
+
+class _FakeLayout:
+    """The library's two layout answers, as the kernels give them."""
+
+    @staticmethod
+    def sa_fold_tile_items():
+        return 2048
+
+    @staticmethod
+    def sa_fold_tile_lists():
+        return 16
+
+
+@pytest.mark.parametrize("m,tiles", [(0, 1), (1, 1), (2048, 1), (2049, 2),
+                                     (524_288, 256)])
+def test_workspace_for_call_sizes_by_tiles(m, tiles):
+    """A call's scratch is sized by its tiles: look-back words per
+    (cell, tile), a list entry per item of each tile, a count per list."""
+    dev = torch.device("cpu")
+    _workspace.drop(dev, 9)
+    assert _workspace.tiles(_FakeLayout, m) == tiles
+    ws = _workspace.for_call(_FakeLayout, dev, 9, m=m, cells=6, table=640,
+                             aux=6)
+    assert ws is _workspace.get(dev, 9)
+    assert ws.status.numel() >= 6 * tiles
+    assert ws.lists.numel() >= 2 * 2048 * tiles
+    assert ws.list_n.numel() >= 16 * tiles
+    assert ws.winner.numel() >= 640 and ws.aux.numel() >= 6
+    _workspace.drop(dev, 9)
