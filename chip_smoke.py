@@ -13,8 +13,13 @@ Phases (any failure ends the run with a non-zero exit):
              its kernels and memsets per call, and its bound from the
              bytes the function needs at that chunk;
 3. stats     the stats kernel against its plain version on [6 x 1,048,576]
-             slots (counts exact, sums within rtol), and its s2 against
-             float64;
+             slots: the emission's input, all masked, views that start
+             off a 16-byte boundary, 512 random strata over a ragged M
+             (counts bit for bit, sums within rtol, the same bits on a
+             second call, the tickets 0 after it), the emission's s2
+             against float64; then its times at the emission's input
+             (``stats_timing``), one kernel and no memset per call, and
+             its bound from the bytes the function needs there;
 4. main      ``PipelinedExecutor`` on the card: the paper's §5.1 Gaussian
              stream (3 strata), a 10 s window sliding by 5 s, 1,048,576
              items per event-time second, sampling fraction 0.6
@@ -45,10 +50,14 @@ Phases (any failure ends the run with a non-zero exit):
              items the script itself finds accepted.
 7. weighted_hist
              the weighted-histogram kernel against its plain version at
-             the emission's shape ([6 x 1,048,576] slots): uniform and
-             log2 edges, all masked, collapsed edges, values on the edges,
+             the emission's shape ([6 x 1,048,576] slots): uniform, log2
+             and narrow edges (a later refinement round: most items
+             outside), all masked, collapsed edges, values on the edges,
              ragged M, the largest G*B (counts bit for bit, mass within
-             rtol of f64, the same bits on a second run), then its times;
+             rtol of f64, the same bits on a second call, the tickets 0
+             after it); then its times at the uniform, log2 and narrow
+             inputs (``whist_timing``), one kernel and no memset per
+             call, and each bound from the bytes the function needs;
 8. nonlinear the paper's §6.1 network-traffic deployment (NetFlow stream,
              3 protocols) at phase main's ring size, 12 chunks, with sum,
              per-protocol and session sums, both quantile methods, a
@@ -107,7 +116,8 @@ Q_SLACK = 0.005                    # quantile ranks checked at q ± 0.005
 REFINE_BINS, REFINE_STEPS = 32, 4  # quantile_refine's defaults
 HIST_LAUNCHES = 1 + len(NL_QS) * REFINE_STEPS   # weighted_hist/emission
 LATENCY_REPS = 3                   # timed evaluations per registry
-TIMING_SEED = 14                   # inputs of the fold's and one-shot's timing
+TIMING_SEED = 14                   # inputs of every kernel's timing
+PROFILE_TRIES = 5                  # traces of one window, as needed
 STATS_RTOL = 1e-5                  # kernel vs f64-accumulated plain sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
 ANSWER_RTOL = 1e-5                 # f32 rounding beside the 3-sigma bound
@@ -138,39 +148,51 @@ def time_ms(fn, torch, reps: int = 20, warm: int = 3) -> float:
 
 def device_profile(fn, torch, reps: int = 10) -> dict:
     """Per call of ``fn``, from a ``torch.profiler`` trace of ``reps``
-    calls: ``{name: (device ms, launches)}`` of each kernel and memset."""
+    calls: ``{name: (device ms, launches)}`` of each kernel and memset.
+    ``fn`` launches the same work every call, so each name's count is a
+    whole multiple of ``reps``; the tracer now and then drops events (a
+    window with no device activity, or one kernel in ten missing), and
+    such a window is profiled again, up to ``PROFILE_TRIES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = ("memset" if "Memset" in e.name else e.name.replace(
-                "(anonymous namespace)::", "").split("(")[0])
-            us, n = split.get(name, (0.0, 0))
-            split[name] = (us + e.time_range.elapsed_us(), n + 1)
+    for _ in range(PROFILE_TRIES):
+        split = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = ("memset" if "Memset" in e.name else e.name.replace(
+                    "(anonymous namespace)::", "").split("(")[0])
+                us, n = split.get(name, (0.0, 0))
+                split[name] = (us + e.time_range.elapsed_us(), n + 1)
+        if split and all(n % reps == 0 for _, n in split.values()):
+            break
+        log(f"[profile] trace of {reps} calls dropped device events "
+            f"({', '.join(f'{k} x{n}' for k, (_, n) in split.items())}); "
+            f"profiling again")
     return {k: (us / reps / 1e3, n / reps) for k, (us, n) in split.items()}
 
 
-def device_split(fn, torch, reps: int = 10) -> dict:
-    """Device time per call of each kernel and memset that ``fn`` runs:
-    ``{name: ms}``."""
-    return {k: v[0] for k, v in device_profile(fn, torch, reps).items()}
-
-
-def log_launches(tag: str, prof: dict) -> None:
-    """Log the kernels and memsets per call of a profile."""
+def log_launches(tag: str, prof: dict) -> tuple:
+    """Log the kernels and memsets per call of a profile; returns them."""
     memsets = sum(n for k, (_, n) in prof.items() if k == "memset")
     kernels = sum(n for k, (_, n) in prof.items() if k != "memset")
     names = ", ".join(f"{k} x{n:g}" for k, (_, n) in sorted(prof.items()))
     log(f"[{tag}] per call: {kernels:g} kernels, {memsets:g} memsets "
         f"({names}); device ms {sum(v[0] for v in prof.values()):.4f}")
+    return kernels, memsets
+
+
+def one_launch(tag: str, prof: dict) -> None:
+    """Log a profile's kernels and memsets per call; fail unless they are
+    one kernel and no memset."""
+    if log_launches(tag, prof) != (1, 0):
+        fail(f"{tag}: not one kernel and no memset per call")
 
 
 def claim_tiles(m: int) -> int:
@@ -191,13 +213,15 @@ def listed_items(torch, m: int) -> int:
 
 def workspace_clean(torch) -> bool:
     """The kernels' kept scratch is as the next call needs it: the winner
-    table all -1, the look-back words and the counters all 0."""
+    table all -1, the look-back words, the counters and the tickets all
+    0."""
     from repro_torch.kernels import _workspace
     dev = torch.device("cuda", torch.cuda.current_device())
     ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
     return bool((ws.winner == -1).all()) and not bool(
-        ws.status.any()) and not bool(ws.counters.any())
+        ws.status.any()) and not bool(ws.counters.any()) and not bool(
+        ws.tickets.any())
 
 
 def log_split(tag: str, split: dict, event_ms: float) -> None:
@@ -369,8 +393,16 @@ def fold_need(torch, inp) -> dict:
     return dict(need, bytes=nbytes, accepted=accepted, won=won)
 
 
-def phase_stats(torch, gen):
-    from repro_torch.kernels import ref, stratified_stats as sk
+def stats_inputs(torch, gen, case):
+    """Inputs of one stats call, ``(x, sid, mask, S)``. ``"emission"``:
+    the emission's shared stats pass over the flattened ``[6 x 1,048,576]``
+    ring (row ids as strata, a per-row sample size as the slot mask), the
+    paper's §5.1 Gaussian sub-streams; ``"all_masked"``: the same with
+    every slot masked out; ``"offset"``: the same slots seen through views
+    that start 1 (values, mask) and 2 (strata) elements into their
+    buffers; ``"max_strata"``: ``MAX_STRATA`` random strata over a ragged
+    M."""
+    from repro_torch.kernels.stratified_stats import MAX_STRATA
     dev = gen.device
     g = K * S
     mus = torch.tensor([10.0, 1000.0, 10000.0] * K, device=dev)
@@ -384,34 +416,104 @@ def phase_stats(torch, gen):
     x = vals.reshape(-1)
     sid = torch.arange(g, dtype=torch.int32, device=dev)[:, None].expand(
         g, N_MAX).reshape(-1)
-    kc, ks, kq = sk.stratified_stats(x, sid, mask, g)
-    pc, ps, pq = ref.stratified_stats(x, sid, mask, g)
-    torch.cuda.synchronize()
-    if not torch.equal(kc, pc):
-        fail(f"stats counts differ: {kc.tolist()} vs {pc.tolist()}")
-    rel_s = float(((ks - ps).abs() / ps.abs()).max())
-    rel_q = float(((kq - pq).abs() / pq.abs()).max())
-    err = max(float((ks - ps).abs().max()), float((kq - pq).abs().max()))
-    # s2 from the kernel's f32 moments against float64 on the same slots.
-    from repro_torch.core.error import StratumStats
-    y = taken.to(torch.int32)
-    s2 = StratumStats(counts=y, taken=y, sums=ks, sumsqs=kq).s2().double()
-    xd = torch.where(mask, x.double(), 0.0).reshape(g, N_MAX)
-    mean = xd.sum(1) / taken
-    s2_ref = ((xd - mean[:, None]) ** 2 * mask.reshape(g, N_MAX)).sum(1) \
-        / (taken - 1)
-    rel_s2 = float(((s2 - s2_ref).abs() / s2_ref).max())
-    log(f"[stats] counts exact; sums rel err {rel_s:.3e}, sumsqs rel err "
-        f"{rel_q:.3e} (rtol {STATS_RTOL}); s2 rel err vs f64 {rel_s2:.3e} "
-        f"(rtol {S2_RTOL})")
-    if rel_s > STATS_RTOL or rel_q > STATS_RTOL:
-        fail("stats sums outside rtol")
-    if rel_s2 > S2_RTOL:
-        fail("stats s2 outside rtol of float64")
-    again = sk.stratified_stats(x, sid, mask, g)
-    if not all(torch.equal(a, b) for a, b in zip(again, (kc, ks, kq))):
-        fail("stats kernel is not deterministic from run to run")
+    if case == "all_masked":
+        mask = torch.zeros_like(mask)
+    elif case == "offset":
+        x = torch.cat([x[:1], x])[1:]
+        mask = torch.cat([mask[:1], mask])[1:]
+        sid = torch.cat([sid[:2], sid])[2:]
+    elif case == "max_strata":
+        m = g * N_MAX - 77
+        g = MAX_STRATA
+        x, mask = x[:m], mask[:m]
+        sid = torch.randint(0, g, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    return x, sid, mask, g
 
+
+def phase_stats(torch, gen):
+    """The stats kernel against its plain version in every case of
+    ``stats_inputs`` (counts bit for bit, sums within STATS_RTOL of the
+    f64-summed plain version, the same bits on a second call, the tickets
+    0 after it), the s2 of the emission's input against float64, then its
+    times at the emission's input (``stats_timing``)."""
+    from repro_torch.kernels import ref, stratified_stats as sk
+    dev = gen.device
+    worst = 0.0
+    for case in ("emission", "all_masked", "offset", "max_strata"):
+        x, sid, mask, g = stats_inputs(torch, gen, case)
+        kc, ks, kq = sk.stratified_stats(x, sid, mask, g)
+        pc, ps, pq = ref.stratified_stats(x, sid, mask, g)
+        again = sk.stratified_stats(x, sid, mask, g)
+        torch.cuda.synchronize()
+        rel_s = float(((ks - ps).abs() / ps.abs().clamp(min=1e-30)).max())
+        rel_q = float(((kq - pq).abs() / pq.abs().clamp(min=1e-30)).max())
+        worst = max(worst, float((ks - ps).abs().max()),
+                    float((kq - pq).abs().max()))
+        same = all(same_bits(torch, a, b)
+                   for a, b in zip(again, (kc, ks, kq)))
+        clean = workspace_clean(torch)
+        log(f"[stats] {case}: M={x.numel()} S={g} counts bitwise="
+            f"{torch.equal(kc, pc)} sums rel err {rel_s:.3e}, sumsqs rel "
+            f"err {rel_q:.3e} (rtol {STATS_RTOL}) second call same bits="
+            f"{same} tickets clean={clean} live {int(kc.sum())}")
+        if not torch.equal(kc, pc):
+            fail(f"stats counts differ ({case}): {kc.tolist()[:8]} vs "
+                 f"{pc.tolist()[:8]}")
+        if rel_s > STATS_RTOL or rel_q > STATS_RTOL:
+            fail(f"stats sums outside rtol ({case})")
+        if not same:
+            fail(f"stats kernel is not deterministic from call to call "
+                 f"({case})")
+        if not clean:
+            fail(f"stats kernel left a ticket dirty ({case})")
+        if case == "all_masked" and float(kc.sum()) != 0.0:
+            fail("all-masked stats call counted items")
+        if case == "emission":
+            # s2 from the kernel's f32 moments against float64.
+            from repro_torch.core.error import StratumStats
+            taken = kc.to(torch.int32)
+            s2 = StratumStats(counts=taken, taken=taken, sums=ks,
+                              sumsqs=kq).s2().double()
+            xd = torch.where(mask, x.double(), 0.0).reshape(g, N_MAX)
+            live = mask.reshape(g, N_MAX)
+            mean = xd.sum(1) / taken
+            s2_ref = ((xd - mean[:, None]) ** 2 * live).sum(1) / (taken - 1)
+            rel_s2 = float(((s2 - s2_ref).abs() / s2_ref).max())
+            log(f"[stats] emission: s2 rel err vs f64 {rel_s2:.3e} (rtol "
+                f"{S2_RTOL})")
+            if rel_s2 > S2_RTOL:
+                fail("stats s2 outside rtol of float64")
+
+    t = stats_timing(torch, dev)
+    need = stats_need(torch, *t["inputs"])
+    bound = max(need["bytes"] / HBM_BYTES_PER_S,
+                need["ops"] / F32_OPS_PER_S) * 1e3
+    log(f"[stats] emission [{K * S} x {N_MAX}]: kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} "
+        f"ms, bound {bound:.4f} ms ({need['bytes']} B the function needs: "
+        f"{need['slots']} mask bytes, {need['live']} live slots x 8 B, "
+        f"{need['strata']} strata x 12 B)")
+    log_split("stats", {k: v[0] for k, v in t["prof"].items()}, t["ms"])
+    one_launch("stats", t["prof"])
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bound,
+                bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
+                >= need["ops"] / F32_OPS_PER_S else "operations",
+                library_ms=t["library_ms"])
+
+
+def stats_timing(torch, dev, seed: int = TIMING_SEED) -> dict:
+    """Times the stats kernel at the emission's input made from ``seed``
+    (``stats_inputs``' ``"emission"``): CUDA events around back-to-back
+    calls, the plain version, one ``index_add_`` of the same moments, and
+    the profiler's kernels and memsets per call. Only the wrapper and the
+    plain version are called, so the same inputs time any tree's kernel.
+    """
+    from repro_torch.kernels import ref, stratified_stats as sk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x, sid, mask, g = stats_inputs(torch, gen, "emission")
     ms = time_ms(lambda: sk.stratified_stats(x, sid, mask, g), torch)
     plain_ms = time_ms(lambda: ref.stratified_stats(x, sid, mask, g), torch,
                        reps=5, warm=1)
@@ -420,18 +522,21 @@ def phase_stats(torch, gen):
     acc = torch.zeros((g, 3), device=dev)
     library_ms = time_ms(lambda: acc.zero_().index_add_(0, sid, stacked),
                          torch)
-    n = g * N_MAX
-    nbytes = 9 * n + 12 * g
-    ops = 4 * n
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    log(f"[stats] [{g} x {N_MAX}]: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, index_add_ {library_ms:.4f} ms, bound {bound:.4f} ms")
-    log_split("stats", device_split(
-        lambda: sk.stratified_stats(x, sid, mask, g), torch), ms)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                >= ops / F32_OPS_PER_S else "operations",
-                library_ms=library_ms)
+    prof = device_profile(lambda: sk.stratified_stats(x, sid, mask, g),
+                          torch)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, prof=prof,
+                inputs=(x, sid, mask, g))
+
+
+def stats_need(torch, x, sid, mask, g) -> dict:
+    """Bytes the stats pass of ``(x, sid, mask)`` over ``g`` strata must
+    move: every mask byte, the value and stratum id of each live slot, and
+    the three f32 outputs per stratum; and its operations (a multiply and
+    three adds per live slot)."""
+    slots = x.numel()
+    live = int(mask.sum())
+    return dict(bytes=slots + 8 * live + 12 * g, ops=4 * live, slots=slots,
+                live=live, strata=g)
 
 
 def live_intervals(em) -> list:
@@ -1076,13 +1181,20 @@ def phase_paths(torch, seed: int, dev) -> dict:
                 ingest_dev=ingest_dev, wait_ms=wait_ms)
 
 
+WHIST_CASES = ("uniform", "log2", "narrow", "all_masked", "collapsed",
+               "on_edges", "ragged", "max_cells_bins")
+WHIST_TIMED = ("uniform", "log2", "narrow")
+
+
 def whist_inputs(torch, gen, case):
     """Inputs of one weighted-histogram call at the emission's shape: the
     flattened ``[6, 1,048,576]`` view (cell = row, per-cell HT weight,
     slot mask from a per-cell sample size) of floored log-normal flow
-    sizes, and the edges of a quantile round over the sample's range
-    (``"uniform"``, 32 bins) or the histogram query's ``2^0 ... 2^24``
-    (``"log2"``, 24 bins). ``(x, cell, w, mask, edges, G)``."""
+    sizes, and the edges of a first quantile round over the sample's
+    range (``"uniform"``, 32 bins), of a later round's bracket between the
+    live values' 0.50 and 0.51 quantiles (``"narrow"``, 32 bins, most
+    items outside), or the histogram query's ``2^0 ... 2^24`` (``"log2"``,
+    24 bins). ``(x, cell, w, mask, edges, G)``."""
     from repro_torch.core.quantile import _unit_edges
     from repro_torch.kernels.weighted_hist import MAX_CELLS_BINS
     dev = gen.device
@@ -1107,6 +1219,11 @@ def whist_inputs(torch, gen, case):
     elif case == "collapsed":
         x = torch.full_like(x, 1480.0)
         edges = torch.full((REFINE_BINS + 1,), 1480.0, device=dev)
+    elif case == "narrow":
+        live = x[mask].sort().values
+        lo, hi = (float(live[int(q * (live.numel() - 1))])
+                  for q in (0.50, 0.51))
+        edges = lo + (hi - lo) * _unit_edges(REFINE_BINS, dev)
     else:
         lo, hi = float(x[mask].min()), float(x[mask].max())
         edges = lo + (hi - lo) * _unit_edges(REFINE_BINS, dev)
@@ -1120,16 +1237,17 @@ def whist_inputs(torch, gen, case):
 
 
 def phase_weighted_hist(torch, gen):
-    """The weighted-histogram kernel against its plain version (counts
-    bit for bit, mass within STATS_RTOL of the f64-summed plain version,
-    the same bits on a second run), then its times at the emission's
-    shape beside its bound and the nearest PyTorch composition."""
+    """The weighted-histogram kernel against its plain version in every
+    case of ``WHIST_CASES`` (counts bit for bit, mass within STATS_RTOL of
+    the f64-summed plain version, the same bits on a second call, the
+    tickets 0 after it), then its times at the ``WHIST_TIMED`` inputs
+    (``whist_timing``) beside their bounds and the nearest PyTorch
+    composition."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import weighted_hist as wk
     dev = gen.device
     worst = 0.0
-    for case in ("uniform", "log2", "all_masked", "collapsed", "on_edges",
-                 "ragged", "max_cells_bins"):
+    for case in WHIST_CASES:
         x, cell, w, mask, edges, g = whist_inputs(torch, gen, case)
         kh, kc = wk.weighted_hist(x, cell, w, mask, edges, g)
         ph, pc = ref.weighted_hist(x, cell, w, mask, edges, g)
@@ -1138,10 +1256,12 @@ def phase_weighted_hist(torch, gen):
         rel = float(((kh - ph).abs() / ph.abs().clamp(min=1e-30)).max())
         worst = max(worst, float((kh - ph).abs().max()))
         again = same_bits(torch, kh2, kh) and same_bits(torch, kc2, kc)
+        clean = workspace_clean(torch)
         log(f"[weighted_hist] {case}: M={x.numel()} G={g} "
             f"B={edges.numel() - 1} counts bitwise={torch.equal(kc, pc)} "
-            f"mass rel err {rel:.3e} (rtol {STATS_RTOL}) second run "
-            f"same bits={again} in-bin items {int(kc.sum())}")
+            f"mass rel err {rel:.3e} (rtol {STATS_RTOL}) second call "
+            f"same bits={again} tickets clean={clean} in-bin items "
+            f"{int(kc.sum())}")
         if not torch.equal(kc, pc):
             fail(f"weighted_hist counts differ from the plain version "
                  f"({case})")
@@ -1149,14 +1269,49 @@ def phase_weighted_hist(torch, gen):
             fail(f"weighted_hist mass outside rtol ({case})")
         if not again:
             fail(f"weighted_hist is not deterministic ({case})")
+        if not clean:
+            fail(f"weighted_hist left a ticket dirty ({case})")
         if case == "collapsed" and (float(kc[:, :-1].sum()) != 0.0 or
                                     float(kc.sum()) != float(mask.sum())):
             fail("collapsed edges: not every value in the last bin")
         if case == "all_masked" and float(kc.sum()) != 0.0:
             fail("all-masked call counted items")
 
-    # Times at the emission's shape: one round of quantile refinement.
-    x, cell, w, mask, edges, g = whist_inputs(torch, gen, "uniform")
+    for case in WHIST_TIMED:
+        t = whist_timing(torch, dev, case)
+        need = whist_need(torch, *t["inputs"])
+        bound = max(need["bytes"] / HBM_BYTES_PER_S,
+                    need["ops"] / F32_OPS_PER_S) * 1e3
+        log(f"[weighted_hist] {case} [{K * S} x {N_MAX}], B={need['bins']}:"
+            f" kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bucketize + index_add_ {t['library_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms ({need['bytes']} B the function needs: "
+            f"{need['slots']} mask bytes, {need['live']} live x 4 B, "
+            f"{need['in_bin']} in a bin x 8 B, edges and [G, B] x 2 out)")
+        log_split(f"weighted_hist {case}",
+                  {k: v[0] for k, v in t["prof"].items()}, t["ms"])
+        one_launch(f"weighted_hist {case}", t["prof"])
+        if case == "uniform":        # the kernels line: a first round
+            uniform = dict(
+                max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bound,
+                bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
+                >= need["ops"] / F32_OPS_PER_S else "operations",
+                library_ms=t["library_ms"])
+    return uniform
+
+
+def whist_timing(torch, dev, case: str, seed: int = TIMING_SEED) -> dict:
+    """Times the histogram kernel at ``whist_inputs``' ``case`` made from
+    ``seed``: CUDA events around back-to-back calls, the plain version,
+    ``bucketize`` + ``index_add_`` of the same mass, and the profiler's
+    kernels and memsets per call. Only the wrapper and the plain version
+    are called, so the same inputs time any tree's kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import weighted_hist as wk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x, cell, w, mask, edges, g = whist_inputs(torch, gen, case)
     nb = edges.numel() - 1
 
     def kernel():
@@ -1172,18 +1327,27 @@ def phase_weighted_hist(torch, gen):
         b = torch.bucketize(x, edges, right=True) - 1
         acc.zero_().index_add_(0, key_base + b.clamp(0, nb - 1), w_live)
     library_ms = time_ms(library, torch)
-    m = x.numel()
-    nbytes = 13 * m + 4 * (nb + 1) + 8 * g * nb
-    n_ops = (math.ceil(math.log2(nb)) + 4) * m   # search, range, one add
-    bound = max(nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
-    log(f"[weighted_hist] [{g} x {N_MAX}], B={nb}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bucketize + index_add_ {library_ms:.4f} "
-        f"ms, bound {bound:.4f} ms ({nbytes} B)")
-    log_split("weighted_hist", device_split(kernel, torch), ms)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                >= n_ops / F32_OPS_PER_S else "operations",
-                library_ms=library_ms)
+    prof = device_profile(kernel, torch)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, prof=prof,
+                inputs=(x, cell, w, mask, edges, g))
+
+
+def whist_need(torch, x, cell, w, mask, edges, g) -> dict:
+    """Bytes the histogram of ``(x, cell, w, mask)`` over ``edges`` and
+    ``g`` cells must move: every mask byte, the value of each live slot,
+    the cell id and weight of each item in a bin (the plain version's
+    counts), the edges, and the two f32 ``[G, B]`` outputs; and its
+    operations (the bin search, the range test and one add per live
+    slot)."""
+    from repro_torch.kernels import ref
+    nb = edges.numel() - 1
+    slots = x.numel()
+    live = int(mask.sum())
+    in_bin = int(ref.weighted_hist(x, cell, w, mask, edges, g)[1].sum())
+    nbytes = slots + 4 * live + 8 * in_bin + 4 * (nb + 1) + 8 * g * nb
+    ops = (math.ceil(math.log2(nb)) + 4) * live
+    return dict(bytes=nbytes, ops=ops, slots=slots, live=live,
+                in_bin=in_bin, bins=nb)
 
 
 def nonlinear_registry():

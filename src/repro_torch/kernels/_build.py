@@ -126,15 +126,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_fold_tile_lists.restype = i
     lib.sa_reservoir_fold.argtypes = [p] * 14 + [i, i, i, p]
     lib.sa_reservoir_fold.restype = i
-    lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p, p, p]
+    lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p]
     lib.sa_stratified_stats.restype = i
-    lib.sa_stats_tile_items.argtypes = []
-    lib.sa_stats_tile_items.restype = i
+    lib.sa_stats_scratch_words.argtypes = [ll, i]
+    lib.sa_stats_scratch_words.restype = ll
     lib.sa_one_shot_ingest.argtypes = ([p] * 25 + [i] * 4
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
-    lib.sa_whist_blocks.argtypes = [ll]
-    lib.sa_whist_blocks.restype = i
+    lib.sa_whist_scratch_words.argtypes = [ll, i]
+    lib.sa_whist_scratch_words.restype = ll
+    lib.sa_reduce_zeroed.argtypes = [i]
+    lib.sa_reduce_zeroed.restype = i
     lib.sa_weighted_hist.argtypes = [p] * 5 + [ll, i, i] + [p] * 5
     lib.sa_weighted_hist.restype = i
 

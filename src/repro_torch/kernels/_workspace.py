@@ -1,7 +1,7 @@
-"""Scratch that the fold and one-shot kernels keep from call to call.
+"""Scratch that the kernels keep from call to call.
 
 A call leaves behind what the next one must find, so nothing of the
-ring's size is cleared per call:
+ring's size is cleared per call. The fold and the one-shot keep:
 
 * ``winner``: int32, one word per ring cell, all -1 between calls. The
   claim pass raises the cells that accepted items reach with
@@ -14,12 +14,22 @@ ring's size is cleared per call:
 * ``lists``, ``list_n`` and ``aux`` are written before they are read in
   every call and hold no state.
 
+The stats and histogram kernels (one launch each) keep:
+
+* ``tickets``: int32, one per group of blocks and one for the final sum,
+  then one count total per key, all 0 between calls (the blocks that
+  take the last tickets put them back, and the last one reads and clears
+  the totals).
+* ``rows``: f32 block and group rows of partial sums, written before
+  they are read in every call.
+
 So the table is filled once, when it is made or grown. There is one
 workspace per (device, stream): calls on one stream run in the order they
 were issued, so no two calls use a workspace at once, and a call on
 another stream gets its own. A launch that reports an error may have
-stopped between the claim and the write, so the wrapper drops the
-workspace (:func:`drop`) and the next call makes a fresh one.
+stopped between the claim and the write, or with a ticket taken, so the
+wrapper drops the workspace (:func:`drop`) and the next call makes a
+fresh one.
 """
 from __future__ import annotations
 
@@ -40,6 +50,8 @@ class Workspace:
         self.lists = self._make(0)
         self.list_n = self._make(0)
         self.aux = self._make(0)
+        self.tickets = self._make(0, 0)
+        self.rows = self._make(0, dtype=torch.float32)
 
     def _make(self, n: int, fill=None, dtype=_I32) -> torch.Tensor:
         if fill is None:
@@ -63,6 +75,15 @@ class Workspace:
             self.list_n = self._make(tiles * tile_lists)
         if self.aux.numel() < aux:
             self.aux = self._make(aux)
+        return self
+
+    def reserve_rows(self, *, words: int, tickets: int) -> "Workspace":
+        """Grow to hold ``words`` f32 words of partial-sum rows and
+        ``tickets`` zeroed words (new ones are 0)."""
+        if self.rows.numel() < words:
+            self.rows = self._make(words, dtype=torch.float32)
+        if self.tickets.numel() < tickets:
+            self.tickets = self._make(tickets, 0)
         return self
 
 
@@ -94,6 +115,15 @@ def for_call(lib, device: torch.device, stream: int, *, m: int, cells: int,
         table=table, tiles=tiles(lib, m), cells=cells,
         tile_items=lib.sa_fold_tile_items(),
         tile_lists=lib.sa_fold_tile_lists(), aux=aux)
+
+
+def for_reduce(lib, device: torch.device, stream: int, *, words: int,
+               keys: int) -> Workspace:
+    """The workspace of ``(device, stream)``, grown for a stats or
+    histogram call over ``keys`` keys whose block rows take ``words``
+    words."""
+    return get(device, stream).reserve_rows(
+        words=words, tickets=lib.sa_reduce_zeroed(keys))
 
 
 def drop(device: torch.device, stream: int) -> None:

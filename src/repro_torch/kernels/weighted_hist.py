@@ -6,23 +6,34 @@ with its flat signature: ``values [M]``, ``stratum_ids [M]`` (the cell of
 each slot), ``weights [M]``, ``mask [M]``, ``edges [B+1]``, ``G`` →
 ``(whist, counts)``, both f32 ``[G, B]``. Edges are non-decreasing, as the
 reference's are. Takes CUDA tensors only; ``kernels/ops.py`` sends CPU
-tensors to the plain version in ``kernels/ref.py``.
+tensors to the plain version in ``kernels/ref.py``. The inputs may be
+views that start on any element. One launch per call: the block rows of
+partial sums, the tickets of the cross-block sum and the count totals
+are kept in ``kernels/_workspace`` per device and stream (tickets and
+totals 0 between calls), not allocated per call.
+
+The order of the f32 sums is fixed by ``M`` and by where ``values``
+starts within 16 bytes (the kernel's 4-item vectors are aligned to that
+address): the same data at the same 16-byte phase gives the same bits on
+any H100, while a copy at another phase may differ in the last bits.
+The port's callers pass whole flattened tensors, so a run and its repeat
+see the same phase.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _workspace
 
-#: 8 warps x G*B (int, f32) accumulators and the edges must fit the
-#: 227 KB of shared memory a block can use.
+#: 8 warps' rows of G*B f32 sums, G*B int32 counts, the bin table and
+#: the edges in the shared memory of a block.
 MAX_CELLS_BINS = 3200
 
 
 def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
                   weights: torch.Tensor, mask: torch.Tensor,
                   edges: torch.Tensor, num_strata: int):
-    """Deterministic two-pass weighted histogram on the card."""
+    """Deterministic one-launch weighted histogram on the card."""
     if not values.is_cuda:
         raise ValueError("weighted_hist kernel needs CUDA tensors; "
                          "kernels.ops dispatches CPU tensors")
@@ -51,20 +62,20 @@ def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
     if num_strata < 1 or keys > MAX_CELLS_BINS:
         raise ValueError(f"G*B = {num_strata}*{nb} = {keys} outside "
                          f"[1, MAX_CELLS_BINS = {MAX_CELLS_BINS}] (shared "
-                         "memory of the partials pass)")
+                         "memory of a block)")
     lib = _build.build().lib
-    n_blocks = max(lib.sa_whist_blocks(m), 1)
-    part_cnt = torch.empty((keys, n_blocks), dtype=torch.int32, device=dev)
-    part_mass = torch.empty((keys, n_blocks), dtype=torch.float32,
-                            device=dev)
     out = torch.empty((2, num_strata, nb), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _workspace.for_reduce(
+        lib, dev, stream, words=lib.sa_whist_scratch_words(m, keys), keys=keys)
     with torch.cuda.device(dev):
         status = lib.sa_weighted_hist(
             values.data_ptr(), stratum_ids.data_ptr(), weights.data_ptr(),
             mask.data_ptr(), edges.data_ptr(), m, num_strata, nb,
-            part_cnt.data_ptr(), part_mass.data_ptr(), out[0].data_ptr(),
+            ws.rows.data_ptr(), ws.tickets.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), stream)
+    if status != 0:
+        _workspace.drop(dev, stream)
     _build.check(status, "weighted_hist")
     weighted_hist.launches += 1
     return out[0], out[1]

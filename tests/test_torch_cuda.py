@@ -124,6 +124,8 @@ WHIST_CASES = {
     "duplicate_edges": dict(edges="duplicates", values="on_edges"),
     "ragged": dict(ragged=True),
     "max_cells_bins": dict(g=100),
+    "narrow": dict(edges="narrow"),
+    "outside": dict(edges="outside"),
 }
 
 
@@ -136,7 +138,10 @@ def whist_inputs(seed, m, g=6, edges="uniform", values="spread",
     (``2^0 ... 2^24``, values log-normal flow sizes floored to whole
     bytes), ``"collapsed"`` (all 33 edges and every value equal, as the
     refinement's bracket of a window of one repeated value), or
-    ``"duplicates"`` (uniform with interior edges repeated). ``values``:
+    ``"duplicates"`` (uniform with interior edges repeated), ``"narrow"``
+    (33 edges over [50, 50.5], a later refinement round's bracket: most
+    values outside) or ``"outside"`` (33 edges over [200, 300], above
+    every value). ``values``:
     ``"spread"`` or ``"on_edges"`` (every value exactly an edge, ``e_B``
     included, plus some outside the edges)."""
     rng = np.random.default_rng(seed)
@@ -149,7 +154,9 @@ def whist_inputs(seed, m, g=6, edges="uniform", values="spread",
         e = np.full(33, 1480.0, np.float32)
         x = np.full(m, 1480.0, np.float32)
     else:
-        e = np.linspace(10.0, 90.0, 33).astype(np.float32)
+        lo, hi = {"narrow": (50.0, 50.5), "outside": (200.0, 300.0)}.get(
+            edges, (10.0, 90.0))
+        e = np.linspace(lo, hi, 33).astype(np.float32)
         if edges == "duplicates":
             e[[5, 6, 20]] = e[[4, 4, 19]]
         x = rng.uniform(0.0, 100.0, m).astype(np.float32)
@@ -195,6 +202,7 @@ def test_cuda_stats_matches_plain(cuda_device, m, mask_p):
     assert torch.equal(kc, pc)
     torch.testing.assert_close(ks, ps, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(kq, pq, rtol=1e-6, atol=0.0)
+    assert_workspace_clean(cuda_device)
 
 
 @pytest.mark.cuda
@@ -354,14 +362,17 @@ def _to(dev, arrays):
             for k, v in arrays.items()}
 
 
-def assert_workspace_clean(dev):
+def assert_workspace_clean(dev, stream=None):
     """The scratch the kernels keep is as the next call needs it: the
-    winner table all -1, the look-back words and counters all 0."""
+    winner table all -1, the look-back words, counters and tickets all
+    0 (the workspace of ``stream``, by default the current one)."""
     torch.cuda.synchronize()
-    ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
+    stream = stream or torch.cuda.current_stream(dev)
+    ws = _workspace.get(dev, stream.cuda_stream)
     assert bool((ws.winner == -1).all())
     assert not bool(ws.status.any())
     assert not bool(ws.counters.any())
+    assert not bool(ws.tickets.any())
 
 
 def assert_same_bits(a, b, name=""):
@@ -501,8 +512,11 @@ def test_cuda_weighted_hist_matches_plain(cuda_device, case, m):
     torch.testing.assert_close(kh, ph, rtol=1e-5, atol=0.0)
     assert torch.equal(again[0].view(torch.int32), kh.view(torch.int32))
     assert torch.equal(again[1], kc)
+    assert_workspace_clean(cuda_device)
     if case == "collapsed":
         assert float(kc[:, :-1].sum()) == 0.0 and float(kc.sum()) > 0
+    if case == "outside":
+        assert float(kc.sum()) == 0.0 and float(kh.abs().sum()) == 0.0
 
 
 @pytest.mark.cuda
@@ -511,6 +525,180 @@ def test_cuda_weighted_hist_too_many_cells_bins_raises(cuda_device):
                            for a in whist_inputs(1, 100, g=101))
     with pytest.raises(ValueError, match="MAX_CELLS_BINS"):
         weighted_hist.weighted_hist(x, cell, w, mask, e, 101)
+
+
+#: Flat-input layouts the stats and histogram kernels take: ``(M,
+#: element offsets of (values, ids, weights, mask))``. An offset of 1 to 3
+#: starts a view off a 16-byte boundary (a mask view off a 4-byte one);
+#: M = 2**22 + 13 takes more tiles than the grid has blocks (512 blocks
+#: of 2,048 items), so the blocks walk the tiles with a grid stride.
+LAYOUTS = {
+    "ragged": (200_003, (0, 0, 0, 0)),
+    "ragged_2e20": (2**20 + 77, (0, 0, 0, 0)),
+    "offset_1": (200_003, (1, 1, 1, 1)),
+    "offset_2": (2**20 + 77, (2, 2, 2, 2)),
+    "offset_3": (2**20 + 77, (3, 3, 3, 3)),
+    "offset_mixed": (200_003, (1, 3, 2, 0)),
+    "mask_offset": (4099, (0, 0, 0, 1)),
+    "tiny": (3, (1, 2, 3, 1)),
+    "grid_stride": (2**22 + 13, (0, 1, 0, 2)),
+}
+
+
+def at_offset(dev, a, off):
+    """numpy ``a`` on ``dev`` as a view ``off`` elements into its buffer."""
+    buf = np.concatenate([np.zeros(off, a.dtype), a])
+    return torch.from_numpy(buf).to(dev)[off:]
+
+
+def _stats_call(vals, sid, mask, s, calls=2):
+    """``calls`` back-to-back stats calls against one plain call: counts
+    bit for bit, sums within rtol 1e-5 of the f64-summed plain version,
+    every call the first one's bits, the tickets 0 after them."""
+    before = stratified_stats.stratified_stats.launches
+    runs = [stratified_stats.stratified_stats(vals, sid, mask, s)
+            for _ in range(calls)]
+    pc, ps, pq = ref.stratified_stats(vals, sid, mask, s)
+    assert stratified_stats.stratified_stats.launches == before + calls
+    kc, ks, kq = runs[0]
+    assert torch.equal(kc, pc)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(kq, pq, rtol=1e-5, atol=0.0)
+    for run in runs[1:]:
+        for a, b, name in zip(run, runs[0], ("counts", "sums", "sumsqs")):
+            assert_same_bits(a, b, name)
+    assert_workspace_clean(vals.device)
+    return runs[0]
+
+
+def _whist_call(x, cell, w, mask, e, g, calls=2):
+    """As ``_stats_call``, for the weighted histogram."""
+    before = weighted_hist.weighted_hist.launches
+    runs = [weighted_hist.weighted_hist(x, cell, w, mask, e, g)
+            for _ in range(calls)]
+    ph, pc = ref.weighted_hist(x, cell, w, mask, e, g)
+    assert weighted_hist.weighted_hist.launches == before + calls
+    kh, kc = runs[0]
+    assert torch.equal(kc, pc)
+    torch.testing.assert_close(kh, ph, rtol=1e-5, atol=0.0)
+    for run in runs[1:]:
+        assert_same_bits(run[0], kh, "whist")
+        assert_same_bits(run[1], kc, "counts")
+    assert_workspace_clean(x.device)
+    return runs[0]
+
+
+def rows_stats_inputs(seed, m, s=4, mask_p=0.8):
+    """``stats_inputs`` with the strata in runs, as the emission's
+    flattened ``[S, N]`` view has them (row ids)."""
+    vals, sid, mask = stats_inputs(seed, m, s, mask_p)
+    return vals, np.sort(sid), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strata", ["random", "rows"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_cuda_stats_layouts_match_plain(cuda_device, layout, strata):
+    """Views off a 16-byte boundary, ragged M and a grid-stride M."""
+    m, (ov, oi, _, om) = LAYOUTS[layout]
+    make = stats_inputs if strata == "random" else rows_stats_inputs
+    vals, sid, mask = make(41, m)
+    _stats_call(at_offset(cuda_device, vals, ov),
+                at_offset(cuda_device, sid, oi),
+                at_offset(cuda_device, mask, om), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edges", ["uniform", "narrow", "outside"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_cuda_weighted_hist_layouts_match_plain(cuda_device, layout, edges):
+    """Views off a 16-byte boundary, ragged M and a grid-stride M, with
+    most items in a bin, few, and none."""
+    m, offsets = LAYOUTS[layout]
+    x, cell, w, mask, e = whist_inputs(43, m, edges=edges)
+    views = [at_offset(cuda_device, a, o)
+             for a, o in zip((x, cell, w, mask), offsets)]
+    kh, kc = _whist_call(*views, torch.from_numpy(e).to(cuda_device), 6)
+    if edges == "outside":
+        assert float(kc.sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["max_strata", "all_masked"])
+@pytest.mark.parametrize("m", [1000, 200_003])
+def test_cuda_stats_limits_match_plain(cuda_device, case, m):
+    """S = MAX_STRATA strata, and a call with every slot masked out."""
+    rng = np.random.default_rng(45)
+    s = stratified_stats.MAX_STRATA if case == "max_strata" else 4
+    vals = rng.normal(100.0, 10.0, m).astype(np.float32)
+    sid = rng.integers(0, s, m).astype(np.int32)
+    mask = rng.random(m) < (0.8 if case == "max_strata" else 0.0)
+    kc, _, _ = _stats_call(*(torch.from_numpy(a).to(cuda_device)
+                             for a in (vals, sid, mask)), s)
+    assert float(kc.sum()) == float(mask.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["stats", "weighted_hist"])
+def test_cuda_fifty_calls_give_the_same_bits(cuda_device, kernel):
+    """50 back-to-back calls over 2**21 + 5 items (all 512 blocks, their
+    last tickets taken in whatever order they finish): one result."""
+    m = 2**21 + 5
+    if kernel == "stats":
+        _stats_call(*(torch.from_numpy(a).to(cuda_device)
+                      for a in stats_inputs(47, m)), 4, calls=50)
+    else:
+        x, cell, w, mask, e = (torch.from_numpy(a).to(cuda_device)
+                               for a in whist_inputs(47, m, edges="log2"))
+        _whist_call(x, cell, w, mask, e, 6, calls=50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["stats", "weighted_hist"])
+def test_cuda_same_phase_gives_the_same_bits(cuda_device, kernel):
+    """The same data at element offsets 1 and 5 (one 16-byte phase, in
+    two buffers): the same bits, as the wrappers state."""
+    m = 300_007
+    if kernel == "stats":
+        arrays, extra = stats_inputs(51, m), (4,)
+        run = stratified_stats.stratified_stats
+    else:
+        x, cell, w, mask, e = whist_inputs(51, m, edges="log2")
+        arrays, extra = (x, cell, w, mask), (
+            torch.from_numpy(e).to(cuda_device), 6)
+        run = weighted_hist.weighted_hist
+    a = run(*(at_offset(cuda_device, v, 1) for v in arrays), *extra)
+    b = run(*(at_offset(cuda_device, v, 5) for v in arrays), *extra)
+    for got, want in zip(b, a):
+        assert_same_bits(got, want)
+    assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_reductions_on_two_streams(cuda_device):
+    """Stats and histogram calls issued on two streams at once, each
+    stream with its own workspace: the bits of calls on the current
+    stream, and every workspace's tickets 0 afterwards."""
+    sv = [torch.from_numpy(a).to(cuda_device)
+          for a in stats_inputs(49, 300_007)]
+    hv = [torch.from_numpy(a).to(cuda_device)
+          for a in whist_inputs(49, 300_007, edges="log2")]
+    want = (stratified_stats.stratified_stats(*sv, 4),
+            weighted_hist.weighted_hist(*hv, 6))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    got = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append((stratified_stats.stratified_stats(*sv, 4),
+                            weighted_hist.weighted_hist(*hv, 6)))
+    torch.cuda.synchronize()
+    for stats, hist in got:
+        for a, b in zip(stats + hist, want[0] + want[1]):
+            assert_same_bits(a, b)
+    for st in streams + [None]:
+        assert_workspace_clean(cuda_device, st)
 
 
 def _above_500(x):
