@@ -68,6 +68,23 @@ Phases (any failure ends the run with a non-zero exit):
              answers bit for bit; every answer is checked against the
              exact window the script keeps on the card; the emission
              latency of this registry and of phase main's.
+9. recovery  exactly-once recovery at phase main's width: (a) pipelined
+             fused on cadence, (b) pipelined onekernel on the watermark
+             (phase paths' disordered stream), (c) batched onekernel on
+             cadence, each with a checkpoint every 5 chunks (inside the
+             4-chunk emission periods) and one at offset 0, killed after
+             chunks 6, 12 and 21 (only the payload's bytes survive),
+             restored into an executor built with another key and
+             replayed from the payload's offset: the deduped emissions
+             and the final state bit for bit the uninterrupted run's;
+             then the payload's bytes, a capture's device-to-host copy
+             and serialization, a restore's deserialization and
+             host-to-device copy, the replay times and items/s of (a)
+             with no checkpointer, every 4 chunks and every chunk, in
+             turns; save and restore events in
+             ``chiprun_out/chip_smoke_recovery_events.jsonl``, reduced by
+             ``obs.export.checkpoint_stats``; and phase nonlinear's path
+             (2) killed after chunk 6, its emissions bit for bit.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -121,6 +138,9 @@ PROFILE_TRIES = 5                  # traces of one window, as needed
 STATS_RTOL = 1e-5                  # kernel vs f64-accumulated plain sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
 ANSWER_RTOL = 1e-5                 # f32 rounding beside the 3-sigma bound
+RECOVERY_EVERY = 5                 # checkpoint cadence: inside periods of 4
+RECOVERY_CRASHES = (6, 12, 21)     # chunks pushed before each crash
+RECOVERY_REPS = 3                  # timed captures/restores, runs per cadence
 
 
 def log(msg: str) -> None:
@@ -1669,7 +1689,247 @@ def phase_nonlinear(torch, seed: int, dev) -> dict:
         f"{draw_ms:.4f} ms and {sorts} stable sorts of {g * n} at "
         f"{sort_ms:.4f} ms: {share:.4f} of the emission; weighted_hist "
         f"launches per emission {HIST_LAUNCHES}")
-    return dict(launches=runs["1"]["launches"], latency=lat, share=share)
+    return dict(launches=runs["1"]["launches"], latency=lat, share=share,
+                path2=dict(ex=runs["2"]["ex"], ems=runs["2"]["ems"],
+                           chunks=chunks))
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return smi.stdout.strip()
+
+
+def emission_bits(torch, em) -> tuple:
+    """Everything of an emission but its wall-clock latency, as bytes."""
+    return (em.index, em.interval, em.watermark, em.open_interval,
+            em.on_time, em.late, em.dropped, em.items,
+            em.capacity.tobytes(), results_bits(torch, em.results))
+
+
+def crash_and_recover(torch, victim, recovery, chunks, crash_after, key):
+    """Run ``victim`` with a cadence checkpointer (and a bootstrap save at
+    offset 0), kill it after ``crash_after`` chunks: only the latest
+    payload's bytes survive. Restore ``recovery`` (built with another key)
+    from them and replay the chunks from the payload's offset. Returns
+    the deduped output (pre-crash emissions below the payload's cursor,
+    then the recovered ones), the checkpoint, the payload's bytes, the
+    restore and replay wall ms, and the replay's kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Checkpointer
+    victim.reset(key)
+    victim.checkpointer = Checkpointer(every_chunks=RECOVERY_EVERY)
+    victim.checkpointer.save(victim)
+    for ch in chunks[:crash_after]:
+        victim.push(ch)
+    payload = victim.checkpointer.latest
+    victim.checkpointer = None
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ckpt = recovery.restore(payload)
+    t1 = time.perf_counter()
+    for ch in chunks[ckpt.stream_offset:]:
+        recovery.push(ch)
+    recovered = recovery.finalize()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = victim.emissions[:ckpt.emissions_done] + recovered
+    return (out, ckpt, len(payload), (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+            ops.launch_counts())
+
+
+def check_exactly_once(torch, tag, reference, out, final, state) -> None:
+    """The deduped output and the final state bit for bit the
+    uninterrupted run's."""
+    got = [emission_bits(torch, em) for em in out]
+    if [g[0] for g in got] != list(range(len(reference))):
+        fail(f"{tag}: emission indices {[g[0] for g in got]} after "
+             f"recovery, expected 0..{len(reference) - 1}")
+    for want, have in zip(reference, got):
+        if want != have:
+            fail(f"{tag}: emission {want[0]} differs from the "
+                 "uninterrupted run's")
+    bad = same_state(final, state_bits(state))
+    if bad:
+        fail(f"{tag}: final state differs from the uninterrupted run's: "
+             f"{bad[:5]}")
+
+
+def phase_recovery(torch, seed: int, dev, nonlinear: dict) -> dict:
+    """Exactly-once recovery at phase main's width: three paths killed
+    after chunks 6, 12 and 21 and restored from the payload's bytes into
+    an executor built with another key; the cost of a checkpoint and of a
+    recovery; items/s with and without checkpointing; and phase
+    nonlinear's path (2) killed after chunk 6."""
+    from repro_torch import prng
+    from repro_torch.obs import EventLog, Telemetry, read_events
+    from repro_torch.obs import export as obx
+    from repro_torch.runtime import Checkpointer
+    from repro_torch.runtime import checkpoint as ckp
+    from repro_torch.runtime.executor import (BatchedExecutor,
+                                              PipelinedExecutor,
+                                              RuntimeConfig)
+    from repro_torch.runtime.registry import QueryRegistry
+    where = card()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    log_path = out_dir / "chip_smoke_recovery_events.jsonl"
+    if log_path.exists():
+        log_path.unlink()
+    events = EventLog(str(log_path))
+    in_order = make_stream(torch, seed, dev)[0]
+    disordered = make_disordered_stream(torch, seed, dev)[0]
+    paths = {
+        "a": (PipelinedExecutor, "fused", "cadence", in_order),
+        "b": (PipelinedExecutor, "onekernel", "watermark", disordered),
+        "c": (BatchedExecutor, "onekernel", "cadence", in_order),
+    }
+    key, other = prng.PRNGKey(seed), prng.PRNGKey(seed + 1000)
+    execs, replay_ms, restore_ms, sizes = {}, {}, {}, []
+    for tag, (cls, ingest, emission, chunks) in paths.items():
+        cfg = RuntimeConfig(num_strata=S, capacity=N_MAX, num_intervals=K,
+                            interval_span=SPAN, allowed_lateness=LATENESS,
+                            emit_every=EMIT_EVERY, batch_chunks=EMIT_EVERY,
+                            ingest=ingest, emission=emission)
+
+        def make(k):
+            reg = (QueryRegistry().register("sum", "sum")
+                   .register("mean", "mean")
+                   .register("count", "count",
+                             predicate=lambda x: x > THRESHOLD))
+            return cls(cfg, reg, k, device=dev,
+                       telemetry=Telemetry(events))
+        victim, recovery = make(key), make(other)
+        reference = [emission_bits(torch, em) for em in victim.run(chunks)]
+        final = state_bits(victim.state)
+        kernel = "one_shot_ingest" if ingest == "onekernel" else \
+            "reservoir_fold"
+        for k in RECOVERY_CRASHES:
+            out, ckpt, nbytes, r_ms, p_ms, launches = crash_and_recover(
+                torch, victim, recovery, chunks, k, key)
+            check_exactly_once(torch, f"recovery ({tag}) crash after {k}",
+                               reference, out, final, recovery.state)
+            if launches[kernel] == 0 or launches["stratified_stats"] == 0:
+                fail(f"recovery ({tag}): the replay after crash {k} did "
+                     f"not run {kernel} and stratified_stats: {launches}")
+            sizes.append(nbytes)
+            replay = CHUNKS - ckpt.stream_offset
+            restore_ms[(tag, k)] = r_ms
+            replay_ms[(tag, k)] = p_ms
+            log(f"[recovery] on {where}: ({tag}) {cls.__name__} "
+                f"ingest={ingest} "
+                f"emission={emission}, crash after chunk {k}: payload at "
+                f"offset {ckpt.stream_offset} ({nbytes} B, "
+                f"{ckpt.emissions_done} emissions done, "
+                f"{ckpt.chunks_since_emit} chunks into the period), "
+                f"restore {r_ms:.4f} ms, replay of {replay} chunks "
+                f"{p_ms:.4f} ms ({p_ms / replay:.4f} ms per chunk), "
+                f"launches {launches}; {len(out)} emissions and the final "
+                "state bit for bit the uninterrupted run's")
+        execs[tag] = (victim, recovery, chunks)
+
+    # The parts of one capture and one restore, at path (a)'s full state.
+    victim, recovery, chunks = execs["a"]
+    victim.reset(key)
+    victim.run(chunks)
+    parts = {"d2h": [], "serialize": [], "deserialize": [], "h2d": []}
+    for _ in range(RECOVERY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = ckp.capture(victim)
+        t1 = time.perf_counter()
+        payload = ckp.to_bytes(snap)
+        t2 = time.perf_counter()
+        back = ckp.from_bytes(payload, recovery.state)
+        t3 = time.perf_counter()
+        ckp.restore_into(recovery, back)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for name, a, b in (("d2h", t0, t1), ("serialize", t1, t2),
+                           ("deserialize", t2, t3), ("h2d", t3, t4)):
+            parts[name].append((b - a) * 1e3)
+        if same_state(state_bits(victim.state), state_bits(recovery.state)):
+            fail("recovery: a restored state differs from its capture")
+    med = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    nbytes = len(payload)
+    events.close()
+    stats = obx.checkpoint_stats(str(log_path))
+    restores = read_events(str(log_path), type="checkpoint_restore")
+    log(f"[recovery] on {where}: payload {nbytes} B (the crashes' "
+        f"{min(sizes)} to {max(sizes)} B: the header's length varies); "
+        "capture: device to "
+        f"host {med['d2h']:.4f} ms + serialize {med['serialize']:.4f} ms; "
+        f"restore: deserialize {med['deserialize']:.4f} ms + host to "
+        f"device {med['h2d']:.4f} ms (medians of {RECOVERY_REPS}: "
+        f"{ {k: [round(x, 4) for x in v] for k, v in parts.items()} }); "
+        f"copy rate {nbytes / med['d2h'] / 1e6:.4f} GB/s to the host, "
+        f"{nbytes / med['h2d'] / 1e6:.4f} GB/s to the card")
+    log(f"[recovery] on {where}: event log "
+        f"chiprun_out/{log_path.name} by obs.export.checkpoint_stats: "
+        f"{stats['saves']} saves, {stats['bytes_total']} B, capture and "
+        f"serialize {stats['serialize_s_mean'] * 1e3:.4f} ms mean per save, "
+        f"drift max {stats['drift_chunks_max']} chunks; "
+        f"{stats['restores']} restores, "
+        f"{[round(ev['restore_s'] * 1e3, 4) for ev in restores]} ms "
+        "(deserialize, host to device, each)")
+
+    # Items/s of path (a): no checkpointer, every 4 and every chunk, in turns.
+    cadences = (None, 4, 1)
+    rates = {c: [] for c in cadences}
+    victim.telemetry = None
+    for _ in range(RECOVERY_REPS):
+        for every in cadences:
+            victim.reset(key)
+            victim.checkpointer = (None if every is None
+                                   else Checkpointer(every_chunks=every))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            victim.run(chunks)
+            torch.cuda.synchronize()
+            rates[every].append(CHUNKS * M / (time.perf_counter() - t0))
+    victim.checkpointer = None
+    summary = {}
+    for every, r in rates.items():
+        r = sorted(r)
+        name = "none" if every is None else f"every_{every}"
+        summary[name] = r
+        log(f"[recovery] on {where}: path (a) with "
+            f"{'no checkpointer' if every is None else f'every_chunks={every}'}"
+            f": median {r[len(r) // 2]:.6g} items/s (min {r[0]:.6g}, max "
+            f"{r[-1]:.6g}; all {[round(x) for x in r]})")
+
+    # Phase nonlinear's path (2), killed after chunk 6.
+    ex2, ems2, nl_chunks = (nonlinear["path2"][k]
+                            for k in ("ex", "ems", "chunks"))
+    reference = [emission_bits(torch, em) for em in ems2]
+    final = state_bits(ex2.state)
+    rec2 = PipelinedExecutor(ex2.cfg, nonlinear_registry(), other,
+                             device=dev)
+    out, ckpt, _, r_ms, p_ms, launches = crash_and_recover(
+        torch, ex2, rec2, nl_chunks, 6, prng.PRNGKey(seed))
+    check_exactly_once(torch, "recovery (nonlinear 2) crash after 6",
+                       reference, out, final, rec2.state)
+    if launches["weighted_hist"] == 0 or launches["one_shot_ingest"] == 0:
+        fail(f"recovery (nonlinear 2): the replay did not run the "
+             f"histogram and one-shot kernels: {launches}")
+    log(f"[recovery] on {where}: (nonlinear 2) crash after chunk 6: "
+        "payload at offset "
+        f"{ckpt.stream_offset}, replay of {NL_CHUNKS - ckpt.stream_offset} "
+        f"chunks {p_ms:.4f} ms, launches {launches}; {len(out)} emissions "
+        "and the final state bit for bit the uninterrupted run's")
+    result = dict(card=where, payload_bytes=nbytes, parts_ms=parts,
+                  replay_ms={f"{t}{k}": v for (t, k), v in replay_ms.items()},
+                  restore_ms={f"{t}{k}": v
+                              for (t, k), v in restore_ms.items()},
+                  checkpoint_stats=stats, items_per_s=summary,
+                  nonlinear_replay_ms=p_ms)
+    (out_dir / "chip_smoke_recovery.json").write_text(
+        json.dumps(result, indent=1))
+    return result
 
 
 def main(argv=None) -> int:
@@ -1703,6 +1963,7 @@ def main(argv=None) -> int:
     paths = phase_paths(torch, args.seed, dev)
     whist = phase_weighted_hist(torch, gen)
     nonlinear = phase_nonlinear(torch, args.seed, dev)
+    phase_recovery(torch, args.seed, dev, nonlinear)
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -1725,11 +1986,7 @@ def main(argv=None) -> int:
              launches=nonlinear["launches"]["weighted_hist"], **whist),
     ]
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
-    print(smi.stdout.strip())
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -139,7 +139,7 @@ def check_one_shot_payload(payload, values) -> None:
             not isinstance(values, torch.Tensor):
         raise NotImplementedError(
             "one_shot_ingest takes one payload tensor; values plus "
-            "heavy-hitter keys come with ROADMAP Queue 1 item 8")
+            "heavy-hitter keys come with ROADMAP Queue 1 item 2b")
     if payload.dtype not in (torch.float32, torch.int32) or \
             values.dtype != payload.dtype:
         raise TypeError(f"one_shot_ingest: payload {payload.dtype} and "

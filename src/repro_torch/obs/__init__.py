@@ -1,1 +1,24 @@
-"""Observability: device counters folded inside the ingest."""
+"""Observability without host waits on the hot loop.
+
+Counterpart of the reference's ``obs`` package, less its retrace
+sentinel (the port compiles nothing):
+
+* :mod:`repro_torch.obs.metrics` — device counters folded inside the
+  ingest, and the host :class:`~repro_torch.obs.metrics.Telemetry` hub
+  that reads them only where the host already waits (emissions,
+  checkpoints, micro-batch flushes);
+* :mod:`repro_torch.obs.events` — the append-only JSONL event log, the
+  reference's schema;
+* :mod:`repro_torch.obs.export` — Prometheus text and the event-log
+  reductions behind ``python -m repro_torch.obs.summarize``.
+"""
+from repro_torch.obs import events, metrics
+from repro_torch.obs.events import (SCHEMA_VERSION, EventLog, read_events,
+                                    validate_event)
+from repro_torch.obs.metrics import MetricsState, Telemetry
+
+__all__ = [
+    "events", "metrics",
+    "SCHEMA_VERSION", "EventLog", "read_events", "validate_event",
+    "MetricsState", "Telemetry",
+]

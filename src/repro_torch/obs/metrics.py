@@ -1,9 +1,13 @@
-"""Device counters folded inside the ingest.
+"""Device counters folded inside the ingest, and the host telemetry hub.
 
-Counterpart of the reference's ``obs/metrics.py`` (device side):
+Counterpart of the reference's ``obs/metrics.py``. Device side:
 cumulative per-stratum counters, updated on the device with every chunk
-and never read back except at an emission. ``Telemetry`` (the host-side
-mirrors and the event log) comes in a later slice.
+and never read back except at an emission or a checkpoint. Host side:
+:class:`Telemetry` keeps the mirrors that are only observable where the
+host already waits (emission, checkpoint and micro-batch boundaries) and
+writes the event log (``obs/events.py``). ``export`` feeds the
+checkpoint manifest; ``from_export`` is kept for parity with the
+reference's API only (only the tests call it).
 
 * ``ingested[s]``  — masked arrivals of stratum ``s``;
 * ``accepted[s]``  — arrivals that survived watermark and ring eviction;
@@ -21,7 +25,9 @@ tile (``stack_counters`` / ``unstack_counters``).
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.utils import bincount
@@ -98,3 +104,167 @@ def unstack_counters(rows: torch.Tensor, chunks: torch.Tensor,
     fields = {name: rows[idx].clone()
               for idx, name in enumerate(COUNTER_FIELDS)}
     return MetricsState(chunks=chunks, items=items, **fields)
+
+
+def export(m: MetricsState) -> dict:
+    """Plain-Python view (checkpoint manifest, JSON events)."""
+    return {f.name: getattr(m, f.name).tolist()
+            for f in dataclasses.fields(MetricsState)}
+
+
+def from_export(d: dict, device) -> MetricsState:
+    """A :class:`MetricsState` on ``device`` from :func:`export`."""
+    return MetricsState(**{
+        f.name: torch.tensor(d[f.name], dtype=torch.int32, device=device)
+        for f in dataclasses.fields(MetricsState)})
+
+
+def counters(m: MetricsState) -> dict:
+    """Host snapshot: per-stratum numpy rows, ``chunks``/``items`` as
+    ints. Reads the state back; call it at a boundary that already
+    synchronized."""
+    out = {}
+    for f in dataclasses.fields(MetricsState):
+        a = getattr(m, f.name).cpu().numpy().copy()   # not a live view
+        out[f.name] = int(a) if f.name in ("chunks", "items") else a
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host-side telemetry hub.
+# ---------------------------------------------------------------------------
+
+def _percentiles(xs: List[float]) -> dict:
+    if not xs:
+        return {"p50": 0.0, "p95": 0.0, "p99": 0.0}
+    a = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(a, 50)),
+            "p95": float(np.percentile(a, 95)),
+            "p99": float(np.percentile(a, 99))}
+
+
+class Telemetry:
+    """Host-side observability hub an executor reports into.
+
+    Pass one as ``telemetry=`` to an executor (or through
+    ``executor.attach_telemetry``). Every hook fires where the host
+    already waited for the card (emission, checkpoint, micro-batch
+    flush), so attaching one adds no read-back to the pipelined hot loop.
+
+    ``log`` is an optional :class:`repro_torch.obs.events.EventLog`;
+    without one the hub still keeps the in-memory mirrors behind
+    :meth:`summary`. :meth:`on_retrace` writes the schema's ``retrace``
+    event; the port compiles nothing, so nothing calls it yet.
+    """
+
+    def __init__(self, log=None):
+        self.log = log
+        self.latencies: List[float] = []       # per-emission step latency
+        self.batch_sizes: List[int] = []       # batched micro-batch knob
+        self.capacity_traj: List[list] = []    # [S] capacity per emission
+        self.watermark_lag: List[float] = []   # frontier - watermark
+        self.staleness: List[float] = []       # close emissions only
+        self.emissions = 0
+        self.checkpoint_saves = 0
+        self.checkpoint_restores = 0
+        self.checkpoint_bytes = 0
+        self.last_recovery_s: Optional[float] = None
+
+    # -- executor hooks (each fires at an existing host-sync boundary) --
+
+    def on_run_meta(self, ex) -> None:
+        if self.log is None:
+            return
+        from repro_torch.runtime.registry import describe
+        cfg = ex.cfg
+        self.log.emit("run_meta", mode=ex.mode, emission=cfg.emission,
+                      num_strata=cfg.num_strata,
+                      num_intervals=cfg.num_intervals,
+                      interval_span=cfg.interval_span,
+                      allowed_lateness=cfg.allowed_lateness,
+                      num_shards=cfg.num_shards,
+                      queries=describe(ex.registry))
+
+    def on_emission(self, ex, em) -> None:
+        """One emission was recorded (the host just waited for it)."""
+        from repro_torch.runtime import controller as ctl
+        from repro_torch.runtime import watermark as wmk
+        from repro_torch.runtime.registry import result_summary
+        self.emissions += 1
+        self.latencies.append(float(em.latency_s))
+        self.capacity_traj.append(np.asarray(em.capacity).tolist())
+        frontier = float(np.max(ex._host_frontier))
+        if frontier > float(wmk.NEG_TIME):
+            self.watermark_lag.append(frontier - em.watermark)
+        stale = None
+        if em.interval is not None:
+            stale = wmk.staleness(em.watermark, em.interval,
+                                  ex.cfg.interval_span)
+            self.staleness.append(stale)
+        if self.log is None:
+            return
+        fields = dict(
+            index=em.index, interval=em.interval,
+            watermark=float(em.watermark),
+            open_interval=int(em.open_interval),
+            on_time=int(em.on_time), late=int(em.late),
+            dropped=int(em.dropped), items=int(em.items),
+            latency_s=float(em.latency_s),
+            capacity=np.asarray(em.capacity).tolist(),
+            results=result_summary(em.results))
+        if stale is not None:
+            fields["staleness"] = stale
+        self.log.emit("emission", **fields)
+        if em.interval is not None:
+            self.log.emit("watermark_close", interval=int(em.interval),
+                          watermark=float(em.watermark), staleness=stale)
+        self.log.emit("controller", **ctl.telemetry(ex.state.ctrl))
+
+    def on_flush(self, ex, batch_chunks: int) -> None:
+        """Batched micro-batch boundary (the flush barrier)."""
+        if not self.batch_sizes or self.batch_sizes[-1] != batch_chunks:
+            if self.log is not None:
+                self.log.emit("batch_resize", batch_chunks=batch_chunks)
+        self.batch_sizes.append(batch_chunks)
+
+    def on_checkpoint_save(self, stream_offset: int, num_bytes: int,
+                           serialize_s: float, drift_chunks: int) -> None:
+        self.checkpoint_saves += 1
+        self.checkpoint_bytes += num_bytes
+        if self.log is not None:
+            self.log.emit("checkpoint_save", stream_offset=stream_offset,
+                          bytes=num_bytes, serialize_s=serialize_s,
+                          drift_chunks=drift_chunks)
+
+    def on_checkpoint_restore(self, stream_offset: int,
+                              restore_s: float) -> None:
+        self.checkpoint_restores += 1
+        self.last_recovery_s = restore_s
+        if self.log is not None:
+            self.log.emit("checkpoint_restore",
+                          stream_offset=stream_offset, restore_s=restore_s)
+
+    def on_retrace(self, name: str, traces: int, allowed: int) -> None:
+        if self.log is not None:
+            self.log.emit("retrace", step=name, traces=traces,
+                          allowed=allowed)
+
+    # -- read side --
+
+    def summary(self) -> dict:
+        """The host mirrors, reduced: what the Prometheus text and
+        ``repro_torch.obs.summarize`` render."""
+        return {
+            "emissions": self.emissions,
+            "latency_s": _percentiles(self.latencies),
+            "watermark_lag": _percentiles(self.watermark_lag),
+            "staleness": _percentiles(self.staleness),
+            "batch_chunks_last": (self.batch_sizes[-1]
+                                  if self.batch_sizes else None),
+            "capacity_last": (self.capacity_traj[-1]
+                              if self.capacity_traj else None),
+            "checkpoint_saves": self.checkpoint_saves,
+            "checkpoint_restores": self.checkpoint_restores,
+            "checkpoint_bytes": self.checkpoint_bytes,
+            "last_recovery_s": self.last_recovery_s,
+        }

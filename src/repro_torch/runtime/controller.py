@@ -4,6 +4,10 @@ Counterpart of the reference's ``runtime/controller.py``: at every
 emission the measured step latency (EMA-smoothed) and the realized error
 of the accuracy query retune the per-stratum capacity that newly opened
 intervals adopt. All on the device; nothing is read back.
+
+``export`` feeds the checkpoint manifest and ``telemetry`` the
+``controller`` event; ``from_export`` is kept for parity with the
+reference's API only (only the tests call it).
 """
 from __future__ import annotations
 
@@ -40,6 +44,32 @@ def init(capacity: torch.Tensor) -> ControllerState:
     z = torch.zeros((), dtype=torch.float32, device=cap.device)
     return ControllerState(capacity=cap, base_capacity=cap.clone(),
                            latency_ema=z, pressure=z.clone())
+
+
+def export(ctrl: ControllerState) -> dict:
+    """Plain-Python view of the controller state (the checkpoint
+    manifest): capacity lists, EMA and pressure floats."""
+    return {f.name: getattr(ctrl, f.name).tolist()
+            for f in dataclasses.fields(ControllerState)}
+
+
+def telemetry(ctrl: ControllerState) -> dict:
+    """The signals of one ``controller`` event: the capacity, the
+    pressure and the latency EMA. Reads the state back; emitted only at
+    emission boundaries, which already synchronized."""
+    return {"capacity": ctrl.capacity.tolist(),
+            "pressure": float(ctrl.pressure),
+            "latency_ema": float(ctrl.latency_ema)}
+
+
+def from_export(d: dict, device) -> ControllerState:
+    """A :class:`ControllerState` on ``device`` from :func:`export`."""
+    def t(name, dtype):
+        return torch.tensor(d[name], dtype=dtype, device=device)
+    return ControllerState(capacity=t("capacity", torch.int32),
+                           base_capacity=t("base_capacity", torch.int32),
+                           latency_ema=t("latency_ema", torch.float32),
+                           pressure=t("pressure", torch.float32))
 
 
 def update(ctrl: ControllerState, cfg: ControllerConfig,

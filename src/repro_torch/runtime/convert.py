@@ -12,8 +12,11 @@ with the reference's field names::
                  "occupancy", "chunks", "items"}}
 
 PRNG keys stay raw u32 words (numpy uint32 on the reference's side,
-int64 tensors here). Query results travel as a dict of numpy arrays per
-query name: ``{"value", "variance"}`` for an estimate, plus ``"keys"``
+int64 tensors here). A checkpoint holds the state as a ``RuntimeState``
+of numpy arrays (:func:`host_state`), its leaves named and ordered as
+the reference's pytree flattens its ``RuntimeState``
+(:func:`named_leaves`). Query results travel as a dict of numpy arrays
+per query name: ``{"value", "variance"}`` for an estimate, plus ``"keys"``
 and ``"sample_weight"`` for heavy hitters. :func:`results_to_numpy`
 reads either package's results by their (shared) field names; this
 module imports nothing of the reference.
@@ -21,7 +24,7 @@ module imports nothing of the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -42,19 +45,81 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.asarray(a, order="C")
     if a.dtype == np.uint32:                        # PRNG key words
-        return torch.from_numpy(a.astype(np.int64)).to(device)
-    if a.dtype not in _DTYPES:
+        a = a.astype(np.int64)
+    elif a.dtype not in _DTYPES:
         raise TypeError(f"unexpected dtype {a.dtype} in reference state")
-    # A C-ordered copy of its own (0-dim arrays stay 0-dim): the port
-    # updates its state in place, never the caller's arrays.
-    return torch.from_numpy(np.array(a, order="C")).to(device)
+    # One C-ordered copy into a fresh allocation on ``device`` (0-dim
+    # arrays stay 0-dim): the port updates its state in place, never the
+    # caller's arrays, and a fresh allocation keeps the address phase of
+    # a fresh run.
+    return torch.tensor(a, device=device)
 
 
-def _array(t: torch.Tensor, key: bool = False) -> np.ndarray:
-    a = t.detach().cpu().numpy()
-    return a.astype(np.uint32) if key else a
+def _array(t: torch.Tensor) -> np.ndarray:
+    # A copy on every device: on the CPU ``numpy()`` shares the tensor's
+    # buffer, which the executors update in place.
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+#: The one leaf of PRNG key words (u32 in a payload, int64 here).
+KEY_LEAF = ".window.intervals.key"
+
+
+def named_leaves(state: RuntimeState) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` for every leaf of a ``RuntimeState``, named and
+    ordered as the reference's ``jax.tree_util.keystr`` paths of its
+    ``RuntimeState`` (dataclass fields, depth first), e.g.
+    ``.window.intervals.values`` first and ``.metrics.items`` last."""
+    out = []
+
+    def walk(obj, prefix):
+        for f in dataclasses.fields(obj):
+            v, path = getattr(obj, f.name), f"{prefix}.{f.name}"
+            if dataclasses.is_dataclass(v):
+                walk(v, path)
+            else:
+                out.append((path, v))
+    walk(state, "")
+    return out
+
+
+def map_leaves(state: RuntimeState,
+               fn: Callable[[str, Any], Any]) -> RuntimeState:
+    """The state rebuilt with ``fn(path, leaf)`` in place of each leaf."""
+    def walk(obj, prefix):
+        kw = {}
+        for f in dataclasses.fields(obj):
+            v, path = getattr(obj, f.name), f"{prefix}.{f.name}"
+            kw[f.name] = (walk(v, path) if dataclasses.is_dataclass(v)
+                          else fn(path, v))
+        return type(obj)(**kw)
+    return walk(state, "")
+
+
+def payload_dtype(path: str, t: torch.Tensor) -> np.dtype:
+    """The numpy dtype of the leaf ``path`` (holding ``t`` here) in the
+    reference's state and in a payload: key words as u32, every other
+    leaf as f32, i32 or bool."""
+    if path == KEY_LEAF:
+        return np.dtype(np.uint32)
+    return next(n for n, tt in _DTYPES.items() if tt == t.dtype)
+
+
+def host_state(state: RuntimeState) -> RuntimeState:
+    """A numpy copy of every leaf (:func:`payload_dtype`); on the card
+    the copies wait for the work queued on the state."""
+    return map_leaves(state, lambda p, t: _array(t).astype(
+        payload_dtype(p, t), copy=False))
+
+
+def device_state(state: RuntimeState, device: DeviceLike = None
+                 ) -> RuntimeState:
+    """The inverse of :func:`host_state`: every leaf in a fresh
+    allocation of its own on ``device``."""
+    dev = resolve_device(device)
+    return map_leaves(state, lambda _, a: _tensor(a, dev))
 
 
 def state_from_numpy(d: Dict[str, Any],
@@ -81,20 +146,14 @@ def state_from_numpy(d: Dict[str, Any],
 
 def state_to_numpy(state: RuntimeState) -> Dict[str, Any]:
     """The inverse of :func:`state_from_numpy`."""
-    def conv(obj):
-        return {f.name: _array(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
-
-    iv = conv(state.window.intervals)
-    iv["key"] = _array(state.window.intervals.key, key=True)
-    return {
-        "window": {"intervals": iv,
-                   "cursor": _array(state.window.cursor),
-                   "filled": _array(state.window.filled)},
-        "slot_interval": _array(state.slot_interval),
-        "open_interval": _array(state.open_interval),
-        "wm": conv(state.wm), "ctrl": conv(state.ctrl),
-        "metrics": conv(state.metrics)}
+    out: Dict[str, Any] = {}
+    for path, a in named_leaves(host_state(state)):
+        *parents, name = path.split(".")[1:]
+        d = out
+        for p in parents:
+            d = d.setdefault(p, {})
+        d[name] = a
+    return out
 
 
 def config_from_dict(d: Dict[str, Any]) -> RuntimeConfig:

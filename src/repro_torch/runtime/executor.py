@@ -27,6 +27,13 @@ Where the reference's compiled steps donate the state, these executors
 update the ``[K, S, N_max]`` ring IN PLACE, and the one-shot kernel also
 the cell counters, slot table, watermark scalars and counter rows.
 
+Exactly-once recovery: a ``Checkpointer`` (``runtime/checkpoint.py``)
+passed as ``checkpointer=`` snapshots the executor at the end of a push,
+after any emission; ``snapshot()`` / ``restore()`` are the hooks. A
+``Telemetry`` (``obs/metrics.py``) passed as ``telemetry=`` hears every
+emission, flush, checkpoint and restore, all where the host already
+waits.
+
 Not ported (each raises :class:`UnsupportedConfigError`):
 ``num_shards > 1`` and ``placement="mesh"`` (ROADMAP Queue 1 item 9).
 """
@@ -34,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterable, List, Optional, Union
+from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -52,6 +59,10 @@ from repro_torch.runtime.records import TimestampedChunk
 from repro_torch.runtime.registry import (EmissionContext,
                                           QueryRegistry, Result)
 from repro_torch.utils import DeviceLike, resolve_device
+
+if TYPE_CHECKING:
+    from repro_torch.runtime.checkpoint import (Checkpointer,
+                                                RuntimeCheckpoint)
 
 INGEST_PATHS = ("fused", "masked", "onekernel")
 EMISSION_MODES = ("cadence", "watermark")
@@ -428,7 +439,9 @@ class _ExecutorBase:
     mode = "base"
 
     def __init__(self, cfg: RuntimeConfig, registry: QueryRegistry,
-                 key: torch.Tensor, device: DeviceLike = None):
+                 key: torch.Tensor, device: DeviceLike = None, *,
+                 checkpointer: Optional["Checkpointer"] = None,
+                 telemetry: Optional[obm.Telemetry] = None):
         self.device = resolve_device(device)
         check_supported(cfg)
         if len(registry) == 0:
@@ -465,7 +478,12 @@ class _ExecutorBase:
         self.cfg = cfg
         self.registry = registry
         registry.freeze()
+        self.checkpointer: Optional["Checkpointer"] = None
+        self.telemetry: Optional[obm.Telemetry] = None
         self.reset(key)
+        self.checkpointer = checkpointer
+        if telemetry is not None:
+            self.attach_telemetry(telemetry)
 
     @property
     def _watermark_mode(self) -> bool:
@@ -491,17 +509,49 @@ class _ExecutorBase:
             self._mirror_host = torch.empty((), dtype=torch.float32,
                                             pin_memory=True)
             self._mirror_event = torch.cuda.Event()
+        if self.checkpointer is not None:
+            # A new stream: the old one's snapshots must not be recovered
+            # into it (the offset dedupe would even skip re-saving).
+            self.checkpointer.clear()
+
+    def attach_telemetry(self, telemetry: obm.Telemetry) -> None:
+        """Attach (or swap) the host telemetry hub; logs one ``run_meta``
+        event describing this executor."""
+        self.telemetry = telemetry
+        telemetry.on_run_meta(self)
+
+    def snapshot(self) -> "RuntimeCheckpoint":
+        """A complete checkpoint of this executor (the state copied to
+        the host and the host cursors). Waits for the card: take it at a
+        chunk boundary, like an emission."""
+        from repro_torch.runtime import checkpoint as ckp
+        return ckp.capture(self)
+
+    def restore(self, ckpt) -> "RuntimeCheckpoint":
+        """Restore a :class:`RuntimeCheckpoint` or its payload bytes, then
+        replay the chunks from ``ckpt.stream_offset``: the continuation is
+        the uninterrupted run's, bit for bit. Returns the checkpoint."""
+        from repro_torch.runtime import checkpoint as ckp
+        t0 = time.perf_counter()
+        if isinstance(ckpt, (bytes, bytearray)):
+            ckpt = ckp.from_bytes(bytes(ckpt), self.state)
+        ckp.restore_into(self, ckpt)
+        self._sync()
+        if self.telemetry is not None:
+            self.telemetry.on_checkpoint_restore(
+                ckpt.stream_offset, time.perf_counter() - t0)
+        return ckpt
 
     def resume(self, state: RuntimeState, chunks_pushed: int,
                emissions_done: int, *, emitted_through: int = -1,
                emit_base_key=None, items_since_emit: int = 0,
                last_latency: float = 0.0) -> None:
         """Continue a stream from a state carried over at a chunk boundary
-        (an emission boundary under cadence, a flush boundary for the
-        batched executor), e.g. converted from the reference by
-        ``runtime/convert.py``: the next emission gets index
-        ``emissions_done``. Under watermark emission ``emitted_through``
-        and ``emit_base_key`` (two u32 words) carry the host cursors; the
+        (a flush boundary for the batched executor), e.g. converted from
+        the reference by ``runtime/convert.py`` or restored from a
+        checkpoint: the next emission gets index ``emissions_done``.
+        Under watermark emission ``emitted_through`` and
+        ``emit_base_key`` (two u32 words) carry the host cursors; the
         frontier mirror restarts from the state's frontier, as the
         reference's restore does."""
         self.state = state
@@ -612,6 +662,8 @@ class _ExecutorBase:
         self.emissions.append(em)
         self._emission_cursor += 1
         self._items_since_emit = 0
+        if self.telemetry is not None:
+            self.telemetry.on_emission(self, em)
         return em
 
 
@@ -651,6 +703,10 @@ class BatchedExecutor(_ExecutorBase):
         self.chunks_pushed += 1
         if len(self._pending) >= self.batch_chunks:
             self._flush()
+        if self.checkpointer is not None:
+            # After the flush: a snapshot between flushes snaps to the
+            # last one (pending chunks are recovered by replay).
+            self.checkpointer.maybe(self)
 
     def _resize(self, closes: int = 0) -> None:
         if self.cfg.controller.latency_budget_s is not None:
@@ -671,6 +727,8 @@ class BatchedExecutor(_ExecutorBase):
             for ch in pending:
                 self._advance_frontier(self._chunk_max(ch))
             self._resize(self._emit_closed(self._last_latency))
+            if self.telemetry is not None:
+                self.telemetry.on_flush(self, self.batch_chunks)
             return
         results, stats = _evaluate(self.cfg, self.registry, self.state)
         lat = torch.tensor(self._last_latency, dtype=torch.float32,
@@ -681,6 +739,8 @@ class BatchedExecutor(_ExecutorBase):
         self._last_latency = time.perf_counter() - t0
         self._record(results, self._last_latency)
         self._resize()
+        if self.telemetry is not None:
+            self.telemetry.on_flush(self, self.batch_chunks)
 
     def finalize(self) -> List[Emission]:
         self._flush()
@@ -708,9 +768,13 @@ class PipelinedExecutor(_ExecutorBase):
         self._emit_t0 = time.perf_counter()
 
     def resume(self, state: RuntimeState, chunks_pushed: int,
-               emissions_done: int, **cursors) -> None:
+               emissions_done: int, *, chunks_since_emit: int = 0,
+               **cursors) -> None:
+        """As :meth:`_ExecutorBase.resume`; ``chunks_since_emit`` is the
+        position in the emission period (a checkpoint may fall inside
+        one), so the next emission falls where the original run's did."""
         super().resume(state, chunks_pushed, emissions_done, **cursors)
-        self._chunks_since_emit = 0
+        self._chunks_since_emit = chunks_since_emit
         self._emit_t0 = time.perf_counter()
 
     def push(self, chunk: TimestampedChunk) -> None:
@@ -744,6 +808,10 @@ class PipelinedExecutor(_ExecutorBase):
                 self._emit_t0 = time.perf_counter()
         elif self._chunks_since_emit >= self.cfg.emit_every:
             self._emit_now()
+        if self.checkpointer is not None:
+            # At the cadence only: the capture waits for the card, the
+            # other pushes read nothing back.
+            self.checkpointer.maybe(self)
 
     def _emit_now(self) -> None:
         # Emission boundary: the only place the pipeline waits.

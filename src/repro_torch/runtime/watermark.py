@@ -7,6 +7,9 @@ covers ``[j·span, (j+1)·span)``; an item is on time (newest open
 interval), late (older, above the watermark, still in the ring) or
 dropped. The routing runs in f32 and int32 on the state's device, so it
 never reads a value back to the host.
+
+``export`` feeds the checkpoint manifest; ``from_export`` is kept for
+parity with the reference's API only (only the tests call it).
 """
 from __future__ import annotations
 
@@ -78,6 +81,23 @@ def init(device) -> WatermarkState:
         max_time=torch.full((), float(NEG_TIME), dtype=torch.float32,
                             device=device),
         on_time=z(), late=z(), dropped=z())
+
+
+def export(wm: WatermarkState) -> dict:
+    """Plain-Python view of the frontier and counters (the checkpoint
+    manifest): floats and ints, JSON-serializable. Reads the state back;
+    call it where the host already synchronized."""
+    return {f.name: getattr(wm, f.name).tolist()
+            for f in dataclasses.fields(WatermarkState)}
+
+
+def from_export(d: dict, device) -> WatermarkState:
+    """A :class:`WatermarkState` on ``device`` from :func:`export`."""
+    return WatermarkState(
+        max_time=torch.tensor(d["max_time"], dtype=torch.float32,
+                              device=device),
+        **{f: torch.tensor(d[f], dtype=torch.int32, device=device)
+           for f in ("on_time", "late", "dropped")})
 
 
 def _f32(x: float) -> float:

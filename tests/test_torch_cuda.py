@@ -799,3 +799,152 @@ def test_cuda_nonlinear_registry_matches_cpu(cuda_device, ingest, emission):
             np.testing.assert_allclose(b[name]["variance"],
                                        a[name]["variance"], rtol=1e-3,
                                        atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint and recovery on the card.
+# ---------------------------------------------------------------------------
+
+def _device_chunks(dev, seed=8, n=12):
+    return [TimestampedChunk(*(torch.from_numpy(a).to(dev) for a in c))
+            for c in nonlinear_chunks(seed, n)]
+
+
+def _linear_registry():
+    return (treg.QueryRegistry().register("total", "sum")
+            .register("avg", "mean")
+            .register("big", "count", predicate=_above_500))
+
+
+def _recovery_cfg(ingest, emission):
+    return tex.RuntimeConfig(num_strata=3, capacity=16, num_intervals=3,
+                             interval_span=1.0, allowed_lateness=0.5,
+                             emit_every=4, batch_chunks=4, max_capacity=32,
+                             ingest=ingest, emission=emission)
+
+
+def _state_bytes(state) -> dict:
+    """Leaf bytes by path, less the wall-clock controller leaves."""
+    return {p: a.tobytes() for p, a in convert.named_leaves(
+        convert.host_state(state))
+        if p not in (".ctrl.latency_ema", ".ctrl.pressure")}
+
+
+def _emission_bytes(em) -> tuple:
+    res = {name: {f: a.tobytes() for f, a in r.items()}
+           for name, r in convert.results_to_numpy(em.results).items()}
+    return (em.index, em.interval, em.watermark, em.open_interval,
+            em.on_time, em.late, em.dropped, em.items,
+            em.capacity.tobytes(), res)
+
+
+@pytest.mark.cuda
+def test_cuda_payload_round_trip(cuda_device):
+    """A snapshot on the card, through its bytes, into a fresh executor
+    on the card (another key): every leaf on the card in an allocation
+    of its own, the same bits, and the same continuation."""
+    from repro_torch.runtime import checkpoint as ckp
+    cfg = _recovery_cfg("onekernel", "cadence")
+    chunks = _device_chunks(cuda_device)
+    a = tex.PipelinedExecutor(cfg, nonlinear_registry(), prng.PRNGKey(5),
+                              device=cuda_device)
+    for c in chunks[:6]:
+        a.push(c)
+    payload = ckp.to_bytes(a.snapshot())
+    b = tex.PipelinedExecutor(cfg, nonlinear_registry(), prng.PRNGKey(9),
+                              device=cuda_device)
+    ckpt = b.restore(payload)
+    assert (ckpt.stream_offset, ckpt.chunks_since_emit) == (6, 2)
+    leaves = convert.named_leaves(b.state)
+    assert all(t.device == cuda_device for _, t in leaves)
+    mine = {t.data_ptr() for _, t in leaves}
+    assert len(mine) == len(leaves)
+    assert not mine & {t.data_ptr() for _, t in convert.named_leaves(a.state)}
+    assert _state_bytes(a.state) == _state_bytes(b.state)
+    for c in chunks[6:]:
+        a.push(c)
+        b.push(c)
+    ea, eb = a.finalize(), b.finalize()
+    assert [_emission_bytes(e) for e in ea[1:]] == \
+        [_emission_bytes(e) for e in eb]
+    assert _state_bytes(a.state) == _state_bytes(b.state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,ingest,emission,registry", [
+    ("pipelined", "fused", "cadence", "nonlinear"),
+    ("batched", "onekernel", "cadence", "linear"),
+    ("pipelined", "onekernel", "watermark", "nonlinear"),
+    ("batched", "onekernel", "watermark", "linear")])
+def test_cuda_crash_sweep_bitwise(cuda_device, mode, ingest, emission,
+                                  registry):
+    """Kill after every chunk on the card; recovery from the payload
+    into an executor built with another key; the deduped emissions and
+    the final state bit for bit the uninterrupted card run's."""
+    from repro_torch.runtime import checkpoint as ckp
+    cfg = _recovery_cfg(ingest, emission)
+    cls = tex.PipelinedExecutor if mode == "pipelined" else \
+        tex.BatchedExecutor
+
+    def make(seed):
+        reg = (nonlinear_registry() if registry == "nonlinear"
+               else _linear_registry())
+        return cls(cfg, reg, prng.PRNGKey(seed), device=cuda_device)
+    chunks = _device_chunks(cuda_device)
+    victim, recovery = make(5), make(77)
+    reference = [_emission_bytes(e) for e in victim.run(chunks)]
+    final = _state_bytes(victim.state)
+    assert len(reference) >= 2
+    for k in range(1, len(chunks)):
+        victim.reset(prng.PRNGKey(5))
+        victim.checkpointer = ckp.Checkpointer(every_chunks=5)
+        victim.checkpointer.save(victim)
+        for c in chunks[:k]:
+            victim.push(c)
+        payload = victim.checkpointer.latest
+        victim.checkpointer = None
+        ckpt = recovery.restore(payload)
+        for c in chunks[ckpt.stream_offset:]:
+            recovery.push(c)
+        out = victim.emissions[:ckpt.emissions_done] + recovery.finalize()
+        assert [_emission_bytes(e) for e in out] == reference, k
+        assert _state_bytes(recovery.state) == final, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ingest,emission", [("fused", "cadence"),
+                                             ("onekernel", "watermark")])
+def test_cuda_reductions_see_phase_zero_values(cuda_device, monkeypatch,
+                                               ingest, emission):
+    """The stats and histogram sums' bits depend on the values' 16-byte
+    address phase: every call the emissions of a fresh executor and of
+    one restored from a payload make hands them values at phase 0."""
+    from repro_torch.runtime import checkpoint as ckp
+    phases = []
+    stats, whist = ops.stratified_stats, ops.weighted_histogram
+
+    def stats_at(values, *a, **kw):
+        phases.append(("stats", values.data_ptr() % 16))
+        return stats(values, *a, **kw)
+
+    def whist_at(values, *a, **kw):
+        phases.append(("whist", values.data_ptr() % 16))
+        return whist(values, *a, **kw)
+    monkeypatch.setattr(ops, "stratified_stats", stats_at)
+    monkeypatch.setattr(ops, "weighted_histogram", whist_at)
+    cfg = _recovery_cfg(ingest, emission)
+    chunks = _device_chunks(cuda_device)
+    fresh = tex.PipelinedExecutor(cfg, nonlinear_registry(), prng.PRNGKey(5),
+                                  device=cuda_device)
+    for c in chunks[:7]:
+        fresh.push(c)
+    payload = ckp.to_bytes(fresh.snapshot())
+    restored = tex.PipelinedExecutor(cfg, nonlinear_registry(),
+                                     prng.PRNGKey(6), device=cuda_device)
+    restored.restore(payload)
+    for c in chunks[7:]:
+        fresh.push(c)
+        restored.push(c)
+    assert fresh.finalize() and restored.finalize()
+    assert {k for k, _ in phases} == {"stats", "whist"}
+    assert [p for _, p in phases] == [0] * len(phases), phases
