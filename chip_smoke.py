@@ -85,6 +85,32 @@ Phases (any failure ends the run with a non-zero exit):
              ``chiprun_out/chip_smoke_recovery_events.jsonl``, reduced by
              ``obs.export.checkpoint_stats``; and phase nonlinear's path
              (2) killed after chunk 6, its emissions bit for bit.
+10. sharded  the paper's §5.1 deployment with its 4 workers on the card
+             (``num_shards=4``, ``placement="vmap"``): per-shard capacity
+             = N_max = 262,144, ring [4, 2, 3, 262,144] f32 (phase main's
+             bytes), chunks [4, 131,072] from ``stamp_sharded`` at
+             262,144 items/s per shard. (a) pipelined fused on cadence:
+             every answer within 3 sigma, ingested = accepted + dropped,
+             all 24 x 524,288 items ingested; one emission of the
+             histogram queries at W = 4; (b) the ingest alone: the
+             W = 4 state bit for bit four W = 1 states (each its shard's
+             rows, key ``split(key, 4)[w]``, capacity 262,144), one fold
+             launch per chunk; (c) on a disordered sharded stream,
+             pipelined fused, masked and onekernel on cadence bit for bit
+             equal, batched onekernel and pipelined fused on the
+             watermark too, with the launches per chunk (fold 1 or
+             W x K, one-shot W) and stats per emission (2). In (a), (b)
+             and (c) every kernel call is held to its plain version on
+             clones of its inputs (``HeldToPlain``): the fold over the
+             24 cells of [24, 262,144] with 524,288 items and over one
+             (shard, slot)'s [3, 262,144], the one-shot on each shard's
+             [2, 3, 262,144] with 131,072 items, stats at G = 24 and
+             the histogram at G x B = 24 x 32 over the merged view;
+             (d) items/s of W = 4 beside phase main's W = 1 in turns (5
+             windows each), device activities and host torch ops per
+             ingest chunk of both, one emission's ms at W = 4; (e) recovery at W = 4 killed after
+             chunks 6 and 21, bitwise; (f) the mesh line (no NCCL is
+             run). Figures in ``chiprun_out/chip_smoke_sharded.json``.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -94,6 +120,7 @@ and as its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -141,6 +168,12 @@ ANSWER_RTOL = 1e-5                 # f32 rounding beside the 3-sigma bound
 RECOVERY_EVERY = 5                 # checkpoint cadence: inside periods of 4
 RECOVERY_CRASHES = (6, 12, 21)     # chunks pushed before each crash
 RECOVERY_REPS = 3                  # timed captures/restores, runs per cadence
+W_SHARDS = 4                       # phase sharded: the paper's 4 workers
+M_SHARD = M // W_SHARDS            # items per shard per chunk
+RATE_SHARD = RATE / W_SHARDS       # items per event-time second per shard
+N_SHARD = -(-N_MAX // W_SHARDS)    # split_capacity(N_MAX, 4) = N_max
+SHARDED_WINDOWS = 5                # timed windows of W = 1 and W = 4, in turns
+SHARDED_CRASHES = (6, 21)          # phase sharded: chunks before each crash
 
 
 def log(msg: str) -> None:
@@ -1932,6 +1965,499 @@ def phase_recovery(torch, seed: int, dev, nonlinear: dict) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase sharded: the paper's four-worker deployment (placement="vmap").
+# ---------------------------------------------------------------------------
+
+def linear_registry():
+    from repro_torch.runtime.registry import QueryRegistry
+    return (QueryRegistry().register("sum", "sum").register("mean", "mean")
+            .register("count", "count", predicate=lambda x: x > THRESHOLD))
+
+
+def make_sharded_stream(torch, seed: int, dev, disorder: bool = False):
+    """The §5.1 Gaussian stream over W_SHARDS shards, made on the card in
+    bulk: chunk ``e`` gives every shard M_SHARD items on the same ramp
+    ``t0 + j / RATE_SHARD`` (``stamp_sharded``), RATE items per
+    event-time second in all. With ``disorder`` it starts at DISORDER_T0
+    and SHIFT_P of the items are shifted back by U(0, SHIFT_MAX) s, as
+    phase paths' stream. Returns the chunks and, for the ordered stream,
+    the exact float64 per-(interval, stratum) count, sum and
+    count(x > THRESHOLD) after each chunk (every item is on time)."""
+    from repro_torch.runtime.records import stamp_sharded
+    from repro_torch.runtime.watermark import interval_of
+    from repro_torch.stream.sources import GaussianSource
+    src = GaussianSource()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + (3 if disorder else 2))
+    t_start = DISORDER_T0 if disorder else 0.0
+    n_iv = int((t_start + CHUNKS * M / RATE) // SPAN) + 1
+    acc = torch.zeros((3, n_iv, S), dtype=torch.float64, device=dev)
+    chunks, exact = [], []
+    for e in range(CHUNKS):
+        vals, sid = src.chunk(gen, M)
+        ch = stamp_sharded(vals.view(W_SHARDS, M_SHARD),
+                           sid.view(W_SHARDS, M_SHARD),
+                           t_start + e * M_SHARD / RATE_SHARD, RATE_SHARD)
+        if disorder:
+            shift = torch.where(
+                torch.rand(ch.times.shape, generator=gen, device=dev)
+                < SHIFT_P, torch.rand(ch.times.shape, generator=gen,
+                                      device=dev) * SHIFT_MAX, 0.0)
+            ch.times = torch.clamp(ch.times - shift, min=0.0)
+        else:
+            cell = (interval_of(ch.times, SPAN).long() * S
+                    + ch.stratum_ids.long()).view(-1)
+            v = ch.values.double().view(-1)
+            acc[0].view(-1).index_add_(0, cell, torch.ones_like(v))
+            acc[1].view(-1).index_add_(0, cell, v)
+            acc[2].view(-1).index_add_(0, cell, (v > THRESHOLD).double())
+            exact.append(acc.clone())
+        chunks.append(ch)
+    return chunks, exact
+
+
+def sharded_cfg(**kw):
+    from repro_torch.runtime.executor import RuntimeConfig
+    base = dict(num_strata=S, capacity=N_MAX, num_intervals=K,
+                interval_span=SPAN, allowed_lateness=LATENESS,
+                emit_every=EMIT_EVERY, batch_chunks=EMIT_EVERY,
+                num_shards=W_SHARDS)
+    base.update(kw)
+    return RuntimeConfig(**base)
+
+
+def shard_leaves(d: dict, w=None) -> dict:
+    """A state dict's leaves by path, shard ``w``'s row of each (all of
+    it for ``w=None``), as bytes."""
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}.{k}")
+        else:
+            out[path] = (x if w is None else x[w]).tobytes()
+    walk(d, "")
+    return out
+
+
+#: Name prefixes of the hand-written kernels in a profiler trace.
+OWN_KERNELS = ("fold_", "osi_", "stats_", "whist_")
+
+
+def device_split(torch, fn, calls: int) -> tuple:
+    """From one ``torch.profiler`` trace of ``fn`` (``calls`` units of
+    work): device activities (kernels and memsets) and device ms per
+    unit, each hand-written kernel's device ms per unit by name, and the
+    host's torch ops per unit (``aten::`` calls not made inside another
+    one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events)
+    own = {}
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        if name.startswith(OWN_KERNELS):
+            own[name] = own.get(name, 0.0) + e.time_range.elapsed_us()
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU
+            and e.name.startswith("aten::") and (
+                e.cpu_parent is None
+                or not e.cpu_parent.name.startswith("aten::"))]
+    return (len(events) / calls, busy / calls / 1e3,
+            {k: v / calls / 1e3 for k, v in sorted(own.items())},
+            len(host) / calls)
+
+
+def ingest_activities(torch, cfg, state, chunks) -> tuple:
+    """:func:`device_split` of the ingest of ``chunks``, per chunk."""
+    from repro_torch.runtime.executor import _ingest_chunk
+    box = [state]
+
+    def run():
+        for ch in chunks:
+            box[0] = _ingest_chunk(cfg, box[0], ch)
+    return device_split(torch, run, len(chunks))
+
+
+class HeldToPlain:
+    """Inside ``with``, every call of the kernels' dispatch
+    (``kernels/ops``) is held against its plain version in
+    ``kernels/ref`` on clones of the same inputs, at the shapes its caller
+    gives it: the fold's ring and counts and every tensor the one-shot
+    carries bit for bit; the stats' and the histogram's counts bit for bit
+    and their sums within STATS_RTOL of the plain version's f64 sums. The
+    wrapper runs once per call on the caller's tensors, so the launch
+    counts stay the path's. ``calls`` counts the calls held per kernel
+    and shape."""
+    NAMES = ("reservoir_fold", "one_shot_ingest", "stratified_stats",
+             "weighted_histogram")
+
+    def __init__(self, torch, tag: str):
+        self.torch, self.tag, self.calls = torch, tag, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.real = {n: getattr(ops, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(ops, n, getattr(self, n))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for n, fn in self.real.items():
+            setattr(ops, n, fn)
+        return False
+
+    def _held(self, name, shape, bad):
+        if bad:
+            fail(f"{self.tag}: {name} at {shape} differs from its plain "
+                 f"version: {bad}")
+        key = (name,) + shape
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    @staticmethod
+    def _sums(kernel, plain) -> bool:
+        return float(((kernel - plain).abs()
+                      / plain.abs().clamp(min=1e-30)).max()) <= STATS_RTOL
+
+    def reservoir_fold(self, stratum_ids, payload, u_accept, u_slot, mask,
+                       counts, capacity, values):
+        from repro_torch.kernels import ref
+        plain = values.clone()
+        want = ref.reservoir_fold(stratum_ids, payload, u_accept, u_slot,
+                                  mask, counts.clone(), capacity, plain)
+        out = self.real["reservoir_fold"](stratum_ids, payload, u_accept,
+                                          u_slot, mask, counts, capacity,
+                                          values)
+        bad = [f for f, a, b in (("values", values, plain),
+                                 ("counts", out, want))
+               if not same_bits(self.torch, a, b)]
+        self._held("reservoir_fold", (tuple(values.shape),
+                                      stratum_ids.numel()), bad)
+        return out
+
+    def one_shot_ingest(self, *items, **state):
+        from repro_torch.kernels import ref
+        t = self.torch
+        plain = {k: v.clone() if isinstance(v, t.Tensor) else v
+                 for k, v in state.items()}
+        ref.one_shot_ingest(*items, **plain)
+        out = self.real["one_shot_ingest"](*items, **state)
+        bad = [k for k, v in state.items() if isinstance(v, t.Tensor)
+               and not same_bits(t, v, plain[k])]
+        self._held("one_shot_ingest", (tuple(state["values"].shape),
+                                       items[0].numel()), bad)
+        return out
+
+    def stratified_stats(self, values, stratum_ids, mask, num_strata):
+        from repro_torch.kernels import ref
+        out = self.real["stratified_stats"](values, stratum_ids, mask,
+                                            num_strata)
+        want = ref.stratified_stats(values, stratum_ids, mask, num_strata)
+        bad = [] if self.torch.equal(out[0], want[0]) else ["counts"]
+        bad += [f for f, i in (("sums", 1), ("sumsqs", 2))
+                if not self._sums(out[i], want[i])]
+        self._held("stratified_stats", (num_strata, values.numel()), bad)
+        return out
+
+    def weighted_histogram(self, values, stratum_ids, weights, mask, edges,
+                           num_strata):
+        from repro_torch.kernels import ref
+        out = self.real["weighted_histogram"](values, stratum_ids, weights,
+                                              mask, edges, num_strata)
+        want = ref.weighted_hist(values, stratum_ids, weights, mask, edges,
+                                 num_strata)
+        bad = [] if self.torch.equal(out[1], want[1]) else ["counts"]
+        bad += [] if self._sums(out[0], want[0]) else ["mass"]
+        self._held("weighted_hist", (num_strata, edges.numel() - 1,
+                                     values.numel()), bad)
+        return out
+
+    def require(self, key, n: int) -> None:
+        """Fail unless ``n`` calls were held at ``key``
+        (``(name,) + shape``)."""
+        got = self.calls.get(key, 0)
+        log(f"[sharded] {self.tag}: {got} {key[0]} calls at {key[1:]} held "
+            "to the plain version")
+        if got != n:
+            fail(f"{self.tag}: {got} {key[0]} calls held at {key[1:]}, "
+                 f"expected {n}; held {self.calls}")
+
+
+def hist_registry():
+    """The nonlinear queries that reach the histogram kernel."""
+    from repro_torch.runtime.registry import QueryRegistry
+    return (QueryRegistry()
+            .register("q_hist", "quantile", qs=NL_QS, method="hist")
+            .register("hist_log2", "histogram", edges=LOG2_EDGES))
+
+
+def phase_sharded(torch, seed: int, dev) -> dict:
+    """The paper's §5.1 deployment with its 4 workers on one card
+    (``placement="vmap"``): answers, bitwise equivalences, launches,
+    times and recovery at W = 4 (module docstring, phase 10)."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics as obm
+    from repro_torch.runtime import convert
+    from repro_torch.runtime.executor import (BatchedExecutor,
+                                              PipelinedExecutor,
+                                              _ingest_chunk, init_state)
+    from repro_torch.runtime.records import TimestampedChunk
+    key = prng.PRNGKey(seed)
+    chunks, exact = make_sharded_stream(torch, seed, dev)
+    cfg = sharded_cfg()
+    items = CHUNKS * W_SHARDS * M_SHARD
+
+    # (a) Pipelined fused on cadence with the linear registry.
+    ex4 = PipelinedExecutor(cfg, linear_registry(), key, device=dev)
+    ring = tuple(ex4.state.window.intervals.values.shape)
+    log(f"[sharded] W = {W_SHARDS}: ring {list(ring)} f32 = "
+        f"{ex4.state.window.intervals.values.numel() * 4} B, chunks "
+        f"[{W_SHARDS}, {M_SHARD}] at {RATE_SHARD:g} items/s per shard")
+    if ring != (W_SHARDS, K, S, N_SHARD):
+        fail(f"sharded ring {ring}, expected {(W_SHARDS, K, S, N_SHARD)}")
+    ex4.run(chunks[:EMIT_EVERY])           # warm-up
+    ex4.reset(key)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with HeldToPlain(torch, "(a)") as held:
+        ems = ex4.run(chunks)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    held.require(("stratified_stats", W_SHARDS * K * S,
+                  W_SHARDS * K * S * N_SHARD), 2 * len(ems))
+    if (launches["reservoir_fold"] != CHUNKS
+            or launches["stratified_stats"] != 2 * len(ems)
+            or len(ems) != CHUNKS // EMIT_EVERY):
+        fail(f"sharded (a): {len(ems)} emissions, launches {launches}")
+    for em in ems:
+        check_answers("sharded (a)", em, live_intervals(em),
+                      exact[(em.index + 1) * EMIT_EVERY - 1])
+    c = obm.counters(ex4.state.metrics)
+    ing, acc_, drop = (c[f].tolist() for f in ("ingested", "accepted",
+                                               "dropped"))
+    log(f"[sharded] (a) {len(ems)} emissions within 3 sigma; launches "
+        f"{launches}; ingested {ing} accepted {acc_} dropped {drop}")
+    if any(i != a + d for i, a, d in zip(ing, acc_, drop)) \
+            or sum(ing) != items:
+        fail(f"sharded (a): ingested {ing}, accepted {acc_}, dropped "
+             f"{drop}, expected {items} in all")
+    # The histogram kernel at W = 4: one emission of the nonlinear
+    # queries that reach it, on the merged [W·K·S, N] view.
+    exh = PipelinedExecutor(cfg, hist_registry(), key, device=dev)
+    with HeldToPlain(torch, "(a) histogram") as held:
+        em = exh.run(chunks[:EMIT_EVERY])
+    torch.cuda.synchronize()
+    g, n_view = W_SHARDS * K * S, W_SHARDS * K * S * N_SHARD
+    held.require(("weighted_hist", g, REFINE_BINS, n_view),
+                 len(NL_QS) * REFINE_STEPS)
+    held.require(("weighted_hist", g, len(LOG2_EDGES) - 1, n_view), 1)
+    answers = {f"{q}.{f}": a for q, r in convert.results_to_numpy(
+        em[0].results).items() for f, a in r.items()} if em else {}
+    if len(em) != 1 or not all(np.isfinite(a).all()
+                               for a in answers.values()):
+        fail(f"sharded (a) histogram: {len(em)} emissions, answers "
+             f"{answers}")
+    del exh
+
+    # (b) The ingest alone: the W = 4 state is four W = 1 states, each fed
+    # its shard's rows, its key split(key, 4)[w] and the per-shard
+    # capacity; one fold launch per chunk.
+    state = init_state(cfg, key, dev)
+    ops.reset_launch_counts()
+    with HeldToPlain(torch, "(b)") as held:
+        for ch in chunks:
+            state = _ingest_chunk(cfg, state, ch)
+    torch.cuda.synchronize()
+    folds = ops.launch_counts()["reservoir_fold"]
+    held.require(("reservoir_fold", (W_SHARDS * K * S, N_SHARD),
+                  W_SHARDS * M_SHARD), CHUNKS)
+    four = convert.state_to_numpy(state)
+    cfg1 = sharded_cfg(capacity=N_SHARD, num_shards=1)
+    keys = prng.split(key, W_SHARDS)
+    for w in range(W_SHARDS):
+        one = init_state(cfg1, keys[w], dev)
+        for ch in chunks:
+            one = _ingest_chunk(cfg1, one, TimestampedChunk(
+                ch.values[w], ch.stratum_ids[w], ch.times[w], ch.mask[w]))
+        mine, want = shard_leaves(four, w), shard_leaves(
+            convert.state_to_numpy(one))
+        bad = [p for p in want if mine[p] != want[p]]
+        if bad:
+            fail(f"sharded (b): shard {w} differs from a W = 1 state: {bad}")
+        del one
+    log(f"[sharded] (b) ingest alone: the W = {W_SHARDS} state after "
+        f"{CHUNKS} chunks is bit for bit {W_SHARDS} single-shard states; "
+        f"{folds} reservoir_fold launches = {folds / CHUNKS:g} per chunk")
+    if folds != CHUNKS:
+        fail(f"sharded (b): {folds} fold launches for {CHUNKS} chunks")
+    del state, four
+
+    # (c) Every path on the disordered stream.
+    dchunks, _ = make_sharded_stream(torch, seed, dev, disorder=True)
+    paths = {
+        "a": (PipelinedExecutor, "fused", "cadence"),
+        "d": (PipelinedExecutor, "masked", "cadence"),
+        "b": (PipelinedExecutor, "onekernel", "cadence"),
+        "e": (PipelinedExecutor, "fused", "watermark"),
+        "f": (BatchedExecutor, "onekernel", "watermark"),
+    }
+    runs = {}
+    held = HeldToPlain(torch, "(c)")
+    for tag, (cls, ingest, emission) in paths.items():
+        ex = cls(sharded_cfg(ingest=ingest, emission=emission),
+                 linear_registry(), key, device=dev)
+        ops.reset_launch_counts()
+        with held:
+            out = ex.run(dchunks)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        runs[tag] = dict(ems=[emission_bits(torch, em) for em in out],
+                         state=state_bits(ex.state), launches=n)
+        wm_ = ex.state.wm
+        log(f"[sharded] (c) ({tag}) {cls.__name__} ingest={ingest} "
+            f"emission={emission}: {len(out)} emissions; per chunk "
+            f"{n['reservoir_fold'] / CHUNKS:g} fold, "
+            f"{n['one_shot_ingest'] / CHUNKS:g} one-shot; "
+            f"{n['stratified_stats'] / max(len(out), 1):g} stats per "
+            f"emission; on time {int(wm_.on_time.sum())} late "
+            f"{int(wm_.late.sum())} dropped {int(wm_.dropped.sum())}")
+        want = {"fused": (CHUNKS, 0), "masked": (CHUNKS * W_SHARDS * K, 0),
+                "onekernel": (0, CHUNKS * W_SHARDS)}[ingest]
+        if (n["reservoir_fold"], n["one_shot_ingest"]) != want or \
+                n["stratified_stats"] != 2 * len(out) or not out:
+            fail(f"sharded (c) ({tag}): launches {n}, expected fold and "
+                 f"one-shot {want} and 2 stats per emission (the window's "
+                 "or the closed interval's, and count's)")
+        del ex
+    held.require(("reservoir_fold", (W_SHARDS * K * S, N_SHARD),
+                  W_SHARDS * M_SHARD), 2 * CHUNKS)
+    held.require(("reservoir_fold", (S, N_SHARD), M_SHARD),
+                 CHUNKS * W_SHARDS * K)
+    held.require(("one_shot_ingest", (K, S, N_SHARD), M_SHARD),
+                 2 * CHUNKS * W_SHARDS)
+    if not int(wm_.late.sum()) or not int(wm_.dropped.sum()):
+        fail("sharded (c): the disordered stream has no late or dropped "
+             "items")
+    for tag in "db":
+        if runs[tag]["ems"] != runs["a"]["ems"] or same_state(
+                runs["a"]["state"], runs[tag]["state"]):
+            fail(f"sharded (c): path ({tag}) differs from (a)")
+    e_, f_ = runs["e"], runs["f"]
+    if [x[1] for x in e_["ems"]] != list(range(len(e_["ems"]))) or \
+            [(x[1], x[9]) for x in e_["ems"]] != \
+            [(x[1], x[9]) for x in f_["ems"]] or \
+            same_state(e_["state"], f_["state"]):
+        fail("sharded (c): batched onekernel and pipelined fused differ "
+             "on the watermark")
+    log("[sharded] (c) (d) masked and (b) onekernel equal (a) fused bit "
+        "for bit (emissions and state); (f) batched onekernel closes "
+        f"(e) pipelined fused's intervals {[x[1] for x in e_['ems']]} "
+        "with the same answers and state")
+    del runs
+
+    # (d) Items/s of W = 4 beside phase main's W = 1, in turns; device
+    # activities per ingest chunk; one emission at W = 4.
+    chunks1, _ = make_stream(torch, seed, dev)
+    cfg_main = sharded_cfg(num_shards=1)
+    ex1 = PipelinedExecutor(cfg_main, linear_registry(), key, device=dev)
+    ex1.run(chunks1[:EMIT_EVERY])
+    walls = {1: [], W_SHARDS: []}
+    for _ in range(SHARDED_WINDOWS):
+        for w, ex, stream in ((1, ex1, chunks1), (W_SHARDS, ex4, chunks)):
+            ex.reset(key)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.run(stream)
+            torch.cuda.synchronize()
+            walls[w].append(time.perf_counter() - t0)
+    rates, act, emit = {}, {}, {}
+    for w, c_, stream, ex in ((1, cfg_main, chunks1, ex1),
+                              (W_SHARDS, cfg, chunks, ex4)):
+        r = sorted(items / x for x in walls[w])
+        rates[w] = dict(median=r[len(r) // 2], min=r[0], max=r[-1], all=r)
+        log(f"[sharded] (d) W = {w}: median {rates[w]['median']:.6g} "
+            f"items/s over {len(r)} windows (min {r[0]:.6g}, max "
+            f"{r[-1]:.6g}; all {[round(x) for x in r]})")
+        for ingest in ("fused", "onekernel"):
+            c_i = dataclasses.replace(c_, ingest=ingest)
+            st = _ingest_chunk(c_i, init_state(c_i, key, dev), stream[0])
+            act[f"{w}/{ingest}"] = a = ingest_activities(torch, c_i, st,
+                                                         stream[1:9])
+            log(f"[sharded] (d) W = {w} {ingest} ingest per chunk "
+                f"(profiler, 8 chunks): {a[0]:.1f} device activities, "
+                f"{a[3]:.1f} host torch ops, {a[1]:.4f} device ms; kernels "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in a[2].items()))
+        # One emission: host clock over 5, then a profile of one.
+        ex.reset(key)
+        for ch in stream:
+            ex.push(ch)
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ex._chunks_since_emit = 1
+            ex._emit_now()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+
+        def one_emission():
+            ex._chunks_since_emit = 1
+            ex._emit_now()
+        emit[w] = (ms,) + device_split(torch, one_emission, 1)
+        log(f"[sharded] (d) W = {w}: one emission {ms:.4f} ms (host "
+            f"clock, {reps} emissions); profiled: {emit[w][1]:.0f} device "
+            f"activities, {emit[w][4]:.0f} host torch ops, "
+            f"{emit[w][2]:.4f} device ms; kernels "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in emit[w][3].items()))
+    emit_ms = emit[W_SHARDS][0]
+    del ex1, chunks1
+
+    # (e) Recovery at W = 4, fused: killed after chunks 6 and 21.
+    victim = PipelinedExecutor(cfg, linear_registry(), key, device=dev)
+    recovery = PipelinedExecutor(cfg, linear_registry(),
+                                 prng.PRNGKey(seed + 1000), device=dev)
+    reference = [emission_bits(torch, em) for em in victim.run(chunks)]
+    final = state_bits(victim.state)
+    crashes = {}
+    for k in SHARDED_CRASHES:
+        out, ckpt, nbytes, restore_ms, replay_ms, _ = crash_and_recover(
+            torch, victim, recovery, chunks, k, key)
+        check_exactly_once(torch, f"sharded (e) crash after {k}", reference,
+                           out, final, recovery.state)
+        crashes[k] = dict(offset=ckpt.stream_offset, payload_bytes=nbytes,
+                          restore_ms=restore_ms, replay_ms=replay_ms)
+        log(f"[sharded] (e) killed after chunk {k}: restored offset "
+            f"{ckpt.stream_offset} from {nbytes} B in {restore_ms:.4f} ms, "
+            f"replay {replay_ms:.4f} ms; emissions and state bit for bit "
+            "the uninterrupted run's")
+
+    # (f) The mesh placement needs one card per shard.
+    cards = torch.cuda.device_count()
+    if cards < W_SHARDS:
+        log(f"[sharded] mesh not run: torch.cuda.device_count() = {cards} "
+            f"< {W_SHARDS}")
+    else:
+        log(f"[sharded] mesh not run: this script drives one card "
+            f"(torch.cuda.device_count() = {cards})")
+    result = dict(card=card(), rates={str(w): r for w, r in rates.items()},
+                  ingest=act, emission={str(w): e for w, e in emit.items()},
+                  emit_ms=emit_ms, crashes=crashes, launches=launches)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_sharded.json").write_text(
+        json.dumps(result, indent=1))
+    return result
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1964,6 +2490,7 @@ def main(argv=None) -> int:
     whist = phase_weighted_hist(torch, gen)
     nonlinear = phase_nonlinear(torch, args.seed, dev)
     phase_recovery(torch, args.seed, dev, nonlinear)
+    phase_sharded(torch, args.seed, dev)
     if args.profile:
         phase_profile(torch, args.seed, dev)
 

@@ -210,19 +210,21 @@ def required_sample_size_mean(counts: torch.Tensor, s2: torch.Tensor,
     """Neyman allocation solving Eq. 9 for a target CI half-width on MEAN.
 
     ``target_half_width`` and ``z`` are f32 0-dim tensors, so every step
-    rounds in f32 as the reference's does.
+    rounds in f32 as the reference's does. ``[W, S]`` counts allocate
+    each row on its own (one controller per shard).
     """
     c = counts.to(torch.float32)
-    total = torch.clamp(torch.sum(c), min=1.0)
+    total = torch.clamp(torch.sum(c, dim=-1, keepdim=True), min=1.0)
     s = torch.sqrt(torch.clamp(s2, min=0.0))
     v = target_half_width / z
     v_target = v * v
     omega = c / total
-    a = torch.sum(omega * s)
-    b = torch.sum(omega * omega * s2 / torch.clamp(c, min=1.0))
+    a = torch.sum(omega * s, dim=-1, keepdim=True)
+    b = torch.sum(omega * omega * s2 / torch.clamp(c, min=1.0), dim=-1,
+                  keepdim=True)
     n_total = (a * a) / torch.clamp(v_target + b, min=1e-20)
     alloc = n_total * torch.where(a > 0, omega * s / torch.clamp(a, min=1e-20),
-                                  1.0 / counts.shape[0])
+                                  1.0 / counts.shape[-1])
     alloc = torch.ceil(alloc).to(torch.int32)
     alloc = torch.clamp(alloc, min=min_per_stratum)
     alloc = torch.minimum(alloc, torch.clamp(counts, min=min_per_stratum))

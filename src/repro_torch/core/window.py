@@ -4,9 +4,11 @@ Counterpart of the reference's ``core/window.py``. The ring is one
 stacked :class:`OASRSState` with ``values [K, S, N_max]``,
 ``counts``/``capacity [K, S]`` and ``key [K, 2]``; merging the intervals
 is the concatenation of their ``K·S`` independently sampled cells
-(Eq. 5). Per-key and session windows are cell subsets of the same merged
-view (:func:`restrict_view`), and the nonlinear queries read the merged
-view unchanged.
+(Eq. 5). ``W`` shards' rings stack on one more leading axis, and their
+merge is the concatenation of the ``W·K·S`` cells. Per-key and session
+windows are cell subsets of the same merged view
+(:func:`restrict_view`), and the nonlinear queries read the merged view
+unchanged.
 """
 from __future__ import annotations
 
@@ -35,45 +37,57 @@ class WindowState:
 def init(num_intervals: int, num_strata: int, capacity, key: torch.Tensor,
          max_capacity: Optional[int] = None,
          device: DeviceLike = None) -> WindowState:
+    """Empty ring. ``key`` is ``[2]``, or ``[W, 2]`` for ``W`` shards'
+    rings stacked on a leading axis (``values [W, K, S, N_max]``,
+    ``cursor``/``filled [W]``); ``capacity`` an int or ``[S]`` ints.
+    Every leaf is a fresh buffer: the ring is updated in place later."""
     dev = resolve_device(device)
-    keys = prng.split(key.to(dev), num_intervals)
-    states = [oasrs.init(num_strata, capacity, k, max_capacity, device=dev)
-              for k in keys]
+    keys = prng.split(key.to(dev), num_intervals)     # [..., K, 2]
+    lead = tuple(keys.shape[:-2])
+    cap = torch.as_tensor(capacity, dtype=torch.int32)
+    if max_capacity is None:
+        max_capacity = int(cap.max())
+    shape = lead + (num_intervals, num_strata)
     intervals = oasrs.OASRSState(
-        *(torch.stack([getattr(s, f) for s in states])
-          for f in ("values", "counts", "capacity", "key")))
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
+        values=torch.zeros(shape + (max_capacity,), dtype=torch.float32,
+                           device=dev),
+        counts=torch.zeros(shape, dtype=torch.int32, device=dev),
+        capacity=cap.to(dev).expand(shape).clone(),
+        key=keys)
+    zero = torch.zeros(lead, dtype=torch.int32, device=dev)
     return WindowState(intervals=intervals, cursor=zero,
                        filled=zero.clone())
 
 
 def _live_mask(window: WindowState) -> torch.Tensor:
-    """``[K]`` bool — the ``filled`` most recent slots."""
-    k = window.intervals.counts.shape[0]
+    """``[K]`` bool — the ``filled`` most recent slots (``[W, K]``)."""
+    k = window.intervals.counts.shape[-2]
     age = torch.remainder(
         torch.arange(k, dtype=torch.int32, device=window.cursor.device)
-        - window.cursor, max(k, 1))
-    return age >= (k - window.filled)
+        - window.cursor[..., None], max(k, 1))
+    return age >= (k - window.filled[..., None])
 
 
 def sample_view(window: WindowState) -> SampleView:
-    """Merged weighted sample of all live intervals: ``K·S`` cells.
+    """Merged weighted sample of all live intervals: ``K·S`` cells, or
+    the ``W·K·S`` (shard × interval × stratum) cells of a sharded ring in
+    shard-major order (the Eq. 5 concatenation across shards).
 
     ``values`` is a view of the ring, not a copy; dead intervals get
     zero counts and so zero weight and no valid slot.
     """
     iv = window.intervals
-    k, s, n = iv.values.shape
+    n = iv.values.shape[-1]
     live = _live_mask(window)
-    counts = torch.where(live[:, None], iv.counts, 0)
+    counts = torch.where(live[..., None], iv.counts, 0)
     taken = torch.minimum(counts, iv.capacity)
-    return SampleView(values=iv.values.to(torch.float32).view(k * s, n),
+    return SampleView(values=iv.values.to(torch.float32).view(-1, n),
                       counts=counts.reshape(-1), taken=taken.reshape(-1))
 
 
 def activity_mask(window: WindowState) -> torch.Tensor:
     """``[K, S]`` — live cells that accepted at least one item."""
-    return _live_mask(window)[:, None] & (window.intervals.counts > 0)
+    return _live_mask(window)[..., None] & (window.intervals.counts > 0)
 
 
 def restrict_view(view: SampleView, cell_mask: torch.Tensor) -> SampleView:

@@ -45,9 +45,10 @@ class MetricsState:
     items: torch.Tensor       # () i32
 
 
-def init(num_strata: int, device) -> MetricsState:
+def init(num_strata: int, device, lead: tuple = ()) -> MetricsState:
+    """Zero counters; ``lead`` is the shard axis (``(W,)``) or none."""
     def z(shape=(num_strata,)):
-        return torch.zeros(shape, dtype=torch.int32, device=device)
+        return torch.zeros(lead + shape, dtype=torch.int32, device=device)
     return MetricsState(ingested=z(), accepted=z(), late=z(), dropped=z(),
                         replaced=z(), occupancy=z(), chunks=z(()),
                         items=z(()))
@@ -55,9 +56,17 @@ def init(num_strata: int, device) -> MetricsState:
 
 def _per_stratum(pred: torch.Tensor, stratum_ids: torch.Tensor,
                  num_strata: int) -> torch.Tensor:
-    """Count ``pred`` items per stratum (excluded items go to sentinel S)."""
+    """Count ``pred`` items per stratum (excluded items go to sentinel S).
+    ``[W, M]`` items count per row: row ``w`` into bins ``w·(S+1) ...``
+    of one bincount."""
     sid = torch.where(pred, stratum_ids.to(torch.int32), num_strata)
-    return bincount(sid, num_strata + 1)[:num_strata]
+    if sid.dim() == 1:
+        return bincount(sid, num_strata + 1)[:num_strata]
+    rows = sid.shape[0]
+    base = torch.arange(rows, dtype=torch.int32, device=sid.device)
+    sid = sid + (base * (num_strata + 1))[:, None]
+    return bincount(sid.reshape(-1), rows * (num_strata + 1)).view(
+        rows, num_strata + 1)[:, :num_strata]
 
 
 def ingest_update(m: MetricsState, num_strata: int,
@@ -67,9 +76,10 @@ def ingest_update(m: MetricsState, num_strata: int,
                   counts_after: torch.Tensor,
                   capacity: torch.Tensor) -> MetricsState:
     """Fold one routed chunk's accounting. ``counts_before`` are the
-    ``[K, S]`` cell counts after slot reset and before the fold."""
+    ``[K, S]`` cell counts after slot reset and before the fold. A
+    sharded state folds a ``[W, M]`` chunk into its ``[W]`` rows."""
     i32 = torch.int32
-    late = accept & (target_interval < open_before)
+    late = accept & (target_interval < open_before[..., None])
     filled0 = torch.minimum(counts_before, capacity)
     filled1 = torch.minimum(counts_after, capacity)
     repl = (counts_after - counts_before) - (filled1 - filled0)
@@ -79,10 +89,10 @@ def ingest_update(m: MetricsState, num_strata: int,
         late=m.late + _per_stratum(late, stratum_ids, num_strata),
         dropped=m.dropped + _per_stratum(mask & ~accept, stratum_ids,
                                          num_strata),
-        replaced=m.replaced + torch.sum(repl, dim=0, dtype=i32),
-        occupancy=torch.sum(filled1, dim=0, dtype=i32),
+        replaced=m.replaced + torch.sum(repl, dim=-2, dtype=i32),
+        occupancy=torch.sum(filled1, dim=-2, dtype=i32),
         chunks=m.chunks + 1,
-        items=m.items + torch.sum(mask, dtype=i32))
+        items=m.items + torch.sum(mask, dim=-1, dtype=i32))
 
 
 #: Row order of the ``[6, S]`` counter tile the one-shot ingest kernel
@@ -92,16 +102,19 @@ COUNTER_FIELDS = ("ingested", "accepted", "late", "dropped",
 
 
 def stack_counters(m: MetricsState) -> torch.Tensor:
-    """``[6, S]`` row-stack of the per-stratum counters (a new tensor)."""
-    return torch.stack([getattr(m, name) for name in COUNTER_FIELDS])
+    """``[6, S]`` row-stack of the per-stratum counters (a new tensor;
+    ``[W, 6, S]`` for a sharded state)."""
+    return torch.stack([getattr(m, name) for name in COUNTER_FIELDS],
+                       dim=-2)
 
 
 def unstack_counters(rows: torch.Tensor, chunks: torch.Tensor,
                      items: torch.Tensor) -> MetricsState:
-    """A :class:`MetricsState` from the ``[6, S]`` tile and the scalar
-    totals. Each row gets its own buffer (``clone``): the state is updated
-    in place later, so no two fields may share one allocation."""
-    fields = {name: rows[idx].clone()
+    """A :class:`MetricsState` from the ``[6, S]`` tile (``[W, 6, S]``)
+    and the scalar totals. Each row gets its own buffer (``clone``): the
+    state is updated in place later, so no two fields may share one
+    allocation."""
+    fields = {name: rows[..., idx, :].clone()
               for idx, name in enumerate(COUNTER_FIELDS)}
     return MetricsState(chunks=chunks, items=items, **fields)
 
@@ -120,13 +133,16 @@ def from_export(d: dict, device) -> MetricsState:
 
 
 def counters(m: MetricsState) -> dict:
-    """Host snapshot: per-stratum numpy rows, ``chunks``/``items`` as
-    ints. Reads the state back; call it at a boundary that already
-    synchronized."""
+    """Host snapshot, the shard axis (if any) summed away: per-stratum
+    numpy rows, ``chunks``/``items`` as ints. Reads the state back; call
+    it at a boundary that already synchronized."""
     out = {}
     for f in dataclasses.fields(MetricsState):
         a = getattr(m, f.name).cpu().numpy().copy()   # not a live view
-        out[f.name] = int(a) if f.name in ("chunks", "items") else a
+        if f.name in ("chunks", "items"):
+            out[f.name] = int(a.sum())
+        else:
+            out[f.name] = a.sum(axis=0) if a.ndim == 2 else a
     return out
 
 
@@ -218,7 +234,7 @@ class Telemetry:
         if em.interval is not None:
             self.log.emit("watermark_close", interval=int(em.interval),
                           watermark=float(em.watermark), staleness=stale)
-        self.log.emit("controller", **ctl.telemetry(ex.state.ctrl))
+        self.log.emit("controller", **ctl.telemetry(ex._ctrl_rows))
 
     def on_flush(self, ex, batch_chunks: int) -> None:
         """Batched micro-batch boundary (the flush barrier)."""

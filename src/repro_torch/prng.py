@@ -7,6 +7,13 @@ word stays in ``[0, 2**32)``: sums and shifts are masked with
 CPU and on the card with no unsigned dtype. There is no global generator:
 every draw names its key, and the tensors stay on the key's device.
 
+Keys may carry leading axes: ``split``, ``fold_in``, ``random_bits``,
+``uniform`` and ``randint`` take ``[..., 2]`` keys and give ``[..., ...]``
+draws, bit for bit what ``jax.vmap`` over the keys gives. Each key's
+counters run ``0 ... n-1`` of its own draw (not a flat index over the
+batch), so a batch of ``W`` shards' draws is one hash over ``[W, n]``
+words, one call of :func:`threefry2x32` whatever ``W``.
+
 The schedule matches ``jax._src.prng`` as installed beside the reference:
 
 * ``PRNGKey(seed)`` — the seed is taken as a 32-bit integer (x32 mode),
@@ -40,11 +47,12 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
                  x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash of counter pairs ``(x0, x1)`` under ``key``.
 
-    ``x0``/``x1`` are int64 tensors of u32 words of one shape; returns
-    the two hashed words, same shape. Twenty rounds, key injection every
-    four, exactly ``_threefry2x32_lowering``'s unrolled form.
+    ``x0``/``x1`` are int64 tensors of u32 words of one shape ``[n]``;
+    ``key`` is ``[..., 2]``. Returns the two hashed words, ``[..., n]``.
+    Twenty rounds, key injection every four, exactly
+    ``_threefry2x32_lowering``'s unrolled form.
     """
-    k0, k1 = key[0], key[1]
+    k0, k1 = key[..., 0:1], key[..., 1:2]
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -69,10 +77,10 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``[num, 2]`` new keys (``jax.random.split``, fold-like form)."""
+    """``[..., num, 2]`` new keys (``jax.random.split``, fold-like form)."""
     hi, lo = _counters(num, key.device)
     b0, b1 = threefry2x32(key, hi, lo)
-    return torch.stack([b0, b1], dim=1)
+    return torch.stack([b0, b1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
@@ -84,19 +92,19 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     lo = torch.full((1,), int(data) & _MASK, dtype=torch.int64,
                     device=key.device)
     b0, b1 = threefry2x32(key, hi, lo)
-    return torch.cat([b0, b1])
+    return torch.cat([b0, b1], dim=-1)
 
 
 def random_bits(key: torch.Tensor,
                 shape: Union[int, Sequence[int]]) -> torch.Tensor:
-    """32-bit random words (int64 tensor) of ``shape``."""
+    """32-bit random words (int64 tensor) of ``key.shape[:-1] + shape``."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = 1
     for d in shape:
         n *= d
     hi, lo = _counters(n, key.device)
     b0, b1 = threefry2x32(key, hi, lo)
-    return (b0 ^ b1).reshape(shape)
+    return (b0 ^ b1).reshape(tuple(key.shape[:-1]) + shape)
 
 
 def uniform(key: torch.Tensor,
@@ -119,8 +127,9 @@ def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
     2**16, where the square is 2**32).
     """
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    k1, k2 = split(key, 2)
-    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    keys = split(key, 2)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
 
     def bound(v) -> torch.Tensor:
         # A Python int is filled on the device: a host-to-device copy

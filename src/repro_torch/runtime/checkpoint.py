@@ -1,4 +1,4 @@
-"""Checkpoint and restore for exactly-once execution, one shard.
+"""Checkpoint and restore for exactly-once execution.
 
 Counterpart of the reference's ``runtime/checkpoint.py``, with its
 payload format: a payload either package writes loads in the other.
@@ -31,8 +31,16 @@ out: the executors update the ring in place, so a live reference would
 change under the next push. On the card that copy is the host's wait
 for the queued work, at a chunk boundary.
 
-Not ported: ``migrate`` and its helpers, the restore-time rescale across
-shard counts (ROADMAP Queue 1 item 7b, after sharding, item 9).
+A sharded executor on ``placement="vmap"`` checkpoints like one shard:
+its leaves carry the leading ``[W]`` axis under the reference's names, so
+a W-shard payload crosses between the packages both ways.
+
+Not ported (ROADMAP Queue 1 item 7b): ``migrate`` and its helpers, the
+restore-time rescale across shard counts, and checkpoints on
+``placement="mesh"``, whose payload needs every rank's shard (gathered
+to one rank, or one file per rank); the mesh executors raise
+``UnsupportedConfigError`` for a checkpointer, ``snapshot()`` and
+``restore()``.
 """
 from __future__ import annotations
 

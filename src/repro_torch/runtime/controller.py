@@ -39,9 +39,10 @@ class ControllerConfig:
 
 def init(capacity: torch.Tensor) -> ControllerState:
     """Both capacity leaves are fresh copies, distinct from each other
-    and from the caller's tensor."""
+    and from the caller's tensor. A ``[W, S]`` capacity gives one
+    controller per shard (``[W]`` EMA and pressure)."""
     cap = capacity.to(torch.int32).clone()
-    z = torch.zeros((), dtype=torch.float32, device=cap.device)
+    z = torch.zeros(cap.shape[:-1], dtype=torch.float32, device=cap.device)
     return ControllerState(capacity=cap, base_capacity=cap.clone(),
                            latency_ema=z, pressure=z.clone())
 
@@ -54,12 +55,16 @@ def export(ctrl: ControllerState) -> dict:
 
 
 def telemetry(ctrl: ControllerState) -> dict:
-    """The signals of one ``controller`` event: the capacity, the
-    pressure and the latency EMA. Reads the state back; emitted only at
-    emission boundaries, which already synchronized."""
-    return {"capacity": ctrl.capacity.tolist(),
-            "pressure": float(ctrl.pressure),
-            "latency_ema": float(ctrl.latency_ema)}
+    """The signals of one ``controller`` event: the global capacity
+    (shard capacities summed), the worst shard's pressure and latency
+    EMA. Reads the state back; emitted only at emission boundaries,
+    which already synchronized."""
+    cap = ctrl.capacity.cpu().numpy()
+    if cap.ndim == 2:
+        cap = cap.sum(axis=0)
+    return {"capacity": cap.tolist(),
+            "pressure": float(ctrl.pressure.max()),
+            "latency_ema": float(ctrl.latency_ema.max())}
 
 
 def from_export(d: dict, device) -> ControllerState:
@@ -79,7 +84,9 @@ def update(ctrl: ControllerState, cfg: ControllerConfig,
 
     ``stats`` are per-stratum ``[S]`` (window cells pooled per stratum);
     ``intervals`` turns the window-level Neyman allocation into the
-    per-interval capacity.
+    per-interval capacity. A sharded controller (``[W]`` rows) takes
+    ``[W, S]`` stats, each shard's row its own, and the one global
+    ``realized`` estimate and latency.
     """
     lat = latency_s.to(torch.float32)
     ema = torch.where(ctrl.latency_ema > 0.0,
@@ -95,9 +102,10 @@ def update(ctrl: ControllerState, cfg: ControllerConfig,
                                       dtype=torch.float32, device=lat.device)
         relief = torch.clamp(1.0 / torch.clamp(pressure, min=1.0),
                              0.125, 1.0)
-        cap = torch.ceil(cap.to(torch.float32) * relief).to(torch.int32)
+        cap = torch.ceil(cap.to(torch.float32)
+                         * relief[..., None]).to(torch.int32)
     else:
-        pressure = torch.zeros((), dtype=torch.float32, device=lat.device)
+        pressure = torch.zeros_like(ema)
     cap = torch.clamp(cap, min=cfg.min_per_stratum)
     if cfg.budget is not None:
         cap = torch.clamp(cap, max=cfg.budget.max_per_stratum)

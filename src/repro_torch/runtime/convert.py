@@ -11,7 +11,8 @@ with the reference's field names::
      "metrics": {"ingested", "accepted", "late", "dropped", "replaced",
                  "occupancy", "chunks", "items"}}
 
-PRNG keys stay raw u32 words (numpy uint32 on the reference's side,
+A sharded state has the same fields, each leaf with a leading ``[W]``
+axis. PRNG keys stay raw u32 words (numpy uint32 on the reference's side,
 int64 tensors here). A checkpoint holds the state as a ``RuntimeState``
 of numpy arrays (:func:`host_state`), its leaves named and ordered as
 the reference's pytree flattens its ``RuntimeState``

@@ -1,11 +1,11 @@
 """The streaming executors: batched (Spark mode) and pipelined (Flink mode).
 
-Counterpart of the reference's ``runtime/executor.py`` for one shard.
-Both executors share one ingest core (``_ingest_chunk``: watermark
-routing, ring-slot reset, the reservoir fold over the flattened
-``[K·S]`` (ring slot × stratum) cells and the device counters), so their
-sampling trajectories are identical chunk for chunk; they differ only in
-when the core runs and where the host waits:
+Counterpart of the reference's ``runtime/executor.py``. Both executors
+share one ingest core (``_ingest_chunk``: watermark routing, ring-slot
+reset, the reservoir fold over the flattened ``[K·S]`` (ring slot ×
+stratum) cells and the device counters), so their sampling trajectories
+are identical chunk for chunk; they differ only in when the core runs
+and where the host waits:
 
 * :class:`BatchedExecutor` — chunks accumulate on the host; every
   ``batch_chunks`` arrivals a flush ingests them in order, answers the
@@ -23,19 +23,39 @@ Emission is on chunk cadence or on the watermark (``emission``): under
 ``"watermark"`` interval ``j`` is answered exactly once, when a host
 mirror of the event-time frontier says the watermark passed its close.
 
+Sharding (``num_shards = W > 1``, paper §3.2): each shard holds
+reservoirs of ``N_i / W`` and ingests its row of a ``[W, M]`` chunk with
+no collective; an emission merges the (shard × interval × stratum)
+cells (Eq. 5). Two placements, bitwise interchangeable:
+
+* ``placement="vmap"`` — every state leaf has a leading ``[W]`` axis on
+  one device, and one code path runs over that axis: the ``fused``
+  ingest is ONE fold over the flattened ``[W·K·S]`` cells (no cell mixes
+  shards, so it is bitwise W separate folds), ``onekernel`` one call per
+  shard on that shard's views, ``masked`` one fold per (shard, slot);
+  the emission's merged view is a view of the ring. The oracle.
+* ``placement="mesh"`` — one process per shard over ``torch.distributed``
+  (``launch/mesh.make_stream_mesh``): rank ``r`` holds shard ``r`` as a
+  ``[1]``-leading state, ``push`` takes the full ``[W, M]`` chunk and
+  ingests row ``r`` with no collective, and each emission and ad hoc
+  ``query()`` performs exactly ONE all_gather (``dist.gather_cells``) of
+  the cells and of what the record needs from the other shards.
+
 Where the reference's compiled steps donate the state, these executors
 update the ``[K, S, N_max]`` ring IN PLACE, and the one-shot kernel also
 the cell counters, slot table, watermark scalars and counter rows.
 
 Exactly-once recovery: a ``Checkpointer`` (``runtime/checkpoint.py``)
 passed as ``checkpointer=`` snapshots the executor at the end of a push,
-after any emission; ``snapshot()`` / ``restore()`` are the hooks. A
-``Telemetry`` (``obs/metrics.py``) passed as ``telemetry=`` hears every
-emission, flush, checkpoint and restore, all where the host already
-waits.
+after any emission; ``snapshot()`` / ``restore()`` are the hooks, on one
+shard and on the vmap placement. A ``Telemetry`` (``obs/metrics.py``)
+passed as ``telemetry=`` hears every emission, flush, checkpoint and
+restore, all where the host already waits.
 
-Not ported (each raises :class:`UnsupportedConfigError`):
-``num_shards > 1`` and ``placement="mesh"`` (ROADMAP Queue 1 item 9).
+Not ported (each raises :class:`UnsupportedConfigError`): checkpoints on
+the mesh (with the restore-time rescale ``migrate``, ROADMAP Queue 1
+item 7b), and a ``fused`` ingest whose ``W·K·S`` cells pass the fold
+kernel's limits.
 """
 from __future__ import annotations
 
@@ -52,6 +72,10 @@ from repro_torch.core import error as err
 from repro_torch.core import oasrs
 from repro_torch.core import window as win
 from repro_torch.kernels import ops
+from repro_torch.kernels.one_shot import MAX_CELLS as ONE_SHOT_MAX_CELLS
+from repro_torch.kernels.reservoir import MAX_STRATA as FOLD_MAX_CELLS
+from repro_torch.kernels.stratified_stats import (
+    MAX_STRATA as STATS_MAX_CELLS)
 from repro_torch.obs import metrics as obm
 from repro_torch.runtime import controller as ctl
 from repro_torch.runtime import watermark as wmk
@@ -61,11 +85,13 @@ from repro_torch.runtime.registry import (EmissionContext,
 from repro_torch.utils import DeviceLike, resolve_device
 
 if TYPE_CHECKING:
+    from repro_torch.launch.mesh import StreamMesh
     from repro_torch.runtime.checkpoint import (Checkpointer,
                                                 RuntimeCheckpoint)
 
 INGEST_PATHS = ("fused", "masked", "onekernel")
 EMISSION_MODES = ("cadence", "watermark")
+PLACEMENTS = ("vmap", "mesh")
 
 
 class UnsupportedConfigError(NotImplementedError):
@@ -75,15 +101,15 @@ class UnsupportedConfigError(NotImplementedError):
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Static description of one runtime instance (the reference's
-    fields; the port runs the ones its slices cover)."""
+    fields)."""
     num_strata: int
     capacity: int                      # per-stratum reservoir capacity N_i
     num_intervals: int = 4             # ring size K (window = K intervals)
     interval_span: float = 1.0         # event-time units per interval
     allowed_lateness: float = 0.5      # watermark lag (event-time units)
     max_capacity: Optional[int] = None  # reservoir allocation N_max
-    num_shards: int = 1
-    placement: str = "vmap"
+    num_shards: int = 1                # W workers, each with N_i / W
+    placement: str = "vmap"            # one of PLACEMENTS
     controller: ctl.ControllerConfig = ctl.ControllerConfig()
     accuracy_query: Optional[str] = None
     batch_chunks: int = 4              # batched: chunks per flush
@@ -95,12 +121,17 @@ class RuntimeConfig:
 
 
 def check_supported(cfg: RuntimeConfig) -> None:
-    """Raise on a configuration outside the port's slices."""
-    if cfg.num_shards != 1 or cfg.placement != "vmap":
-        raise UnsupportedConfigError(
-            f"num_shards={cfg.num_shards}, placement={cfg.placement!r}: "
-            "the port runs one shard; sharded placements come with ROADMAP "
-            "Queue 1 item 9")
+    """Raise on a configuration outside the port."""
+    if cfg.num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {cfg.num_shards}")
+    if cfg.placement not in PLACEMENTS:
+        raise ValueError(f"unknown placement {cfg.placement!r}; expected "
+                         "'vmap' or 'mesh'")
+    if cfg.placement == "mesh" and cfg.num_shards < 2:
+        raise ValueError(
+            "placement='mesh' deploys one process per shard; it needs "
+            f"num_shards > 1 (got {cfg.num_shards}); use the default "
+            "placement='vmap' for single-shard runs")
     if cfg.ingest not in INGEST_PATHS:
         raise ValueError(f"unknown ingest path {cfg.ingest!r}; one of "
                          f"{INGEST_PATHS}")
@@ -117,9 +148,45 @@ def check_supported(cfg: RuntimeConfig) -> None:
                          "None, 'auto', 'jnp', 'pallas'")
 
 
+def _check_kernel_limits(cfg: RuntimeConfig, n_max: int) -> None:
+    """The kernels' limits per launch, checked before any state exists.
+    The CPU's plain versions have none, but the check is the same on
+    every device, so that the CPU refuses what the card cannot run: the
+    fused fold takes every cell of the state (all W shards' on the vmap
+    placement, one shard's on a mesh rank), the one-shot one shard's
+    ``K·S``, the masked fold one slot's ``S``; and every emission's stats
+    call takes the merged view's ``W·K·S`` rows as its strata, on a mesh
+    rank too (after ``gather_cells``)."""
+    cells = cfg.num_intervals * cfg.num_strata
+    limit = ONE_SHOT_MAX_CELLS
+    what = "the one-shot kernel's K·S"
+    if cfg.ingest == "fused":
+        if cfg.placement == "vmap":
+            cells *= cfg.num_shards
+        limit, what = FOLD_MAX_CELLS, "the fold kernel's W·K·S"
+    if cfg.ingest == "masked":
+        cells, limit, what = cfg.num_strata, FOLD_MAX_CELLS, "the fold's S"
+    if cells > limit:
+        raise UnsupportedConfigError(
+            f"ingest={cfg.ingest!r} over {cells} cells: {what} is limited "
+            f"to {limit} (shared memory of the claim)")
+    if cells * n_max + 1 >= 2 ** 31:
+        raise UnsupportedConfigError(
+            f"ingest={cfg.ingest!r}: {cells} cells x N_max {n_max} + 1 = "
+            f"{cells * n_max + 1} does not fit the kernel's int32 ring "
+            "index (limit 2**31)")
+    rows = cfg.num_shards * cfg.num_intervals * cfg.num_strata
+    if rows > STATS_MAX_CELLS:
+        raise UnsupportedConfigError(
+            f"{rows} cells W·K·S: each emission's stats call takes the "
+            f"merged view's rows as strata, and the stats kernel is "
+            f"limited to {STATS_MAX_CELLS} (shared memory)")
+
+
 @dataclasses.dataclass
 class RuntimeState:
-    """Device-resident runtime state."""
+    """Device-resident runtime state (every leaf with a leading shard
+    axis when sharded)."""
     window: win.WindowState       # ring of K per-interval OASRS states
     slot_interval: torch.Tensor   # [K] i32 — event interval held per slot
     open_interval: torch.Tensor   # () i32 — newest interval seen
@@ -139,6 +206,7 @@ class Emission:
     late: int
     dropped: int
     capacity: np.ndarray          # [S] i32 controller capacity after update
+    #                               (summed over shards)
     latency_s: float              # measured latency fed back
     items: int                    # items pushed since previous emission
     interval: Optional[int] = None  # watermark emission: the interval it
@@ -146,29 +214,54 @@ class Emission:
 
 
 def init_state(cfg: RuntimeConfig, key: torch.Tensor,
-               device: DeviceLike = None) -> RuntimeState:
-    """Fresh runtime state on ``device`` (``None`` means the card)."""
+               device: DeviceLike = None,
+               shard: Optional[int] = None) -> RuntimeState:
+    """Fresh runtime state on ``device`` (``None`` means the card).
+
+    Sharded, shard ``w`` starts from key ``split(key, W)[w]`` with the
+    per-shard capacity ``split_capacity(capacity, W)``; ``shard`` builds
+    that one shard as a ``[1]``-leading state (a mesh rank's), otherwise
+    all W are stacked.
+    """
     dev = resolve_device(device)
     check_supported(cfg)
-    k = cfg.num_intervals
-    cap = torch.full((cfg.num_strata,), cfg.capacity, dtype=torch.int32,
-                     device=dev)
+    k, s = cfg.num_intervals, cfg.num_strata
+    cap = torch.full((s,), cfg.capacity, dtype=torch.int32, device=dev)
+    if cfg.num_shards > 1:
+        # Paper §3.2: each of W workers holds reservoirs of N_i / W.
+        cap = dist.split_capacity(cap, cfg.num_shards)
     max_cap = cfg.max_capacity
     if max_cap is None:
-        max_cap = cfg.capacity
+        max_cap = cfg.capacity                  # the largest entry of cap
+        if cfg.num_shards > 1:
+            max_cap = max(-(-cfg.capacity // cfg.num_shards), 1)
         if cfg.controller.budget is not None:
             # The accuracy feedback may raise capacity to the budget's
             # ceiling; N_max must cover it (capacity <= N_max).
             max_cap = max(max_cap, cfg.controller.budget.max_per_stratum)
+    _check_kernel_limits(cfg, max_cap)
+    keys = key.to(dev)
+    if cfg.num_shards > 1:
+        keys = prng.split(keys, cfg.num_shards)
+        if shard is not None:
+            keys = keys[shard:shard + 1]
+    lead = tuple(keys.shape[:-1])
     slots = torch.arange(k, dtype=torch.int32, device=dev)
     return RuntimeState(
-        window=win.init(k, cfg.num_strata, cap, key, max_capacity=max_cap,
-                        device=dev),
-        slot_interval=-torch.remainder(-slots, k),   # intervals 1-K ... 0
-        open_interval=torch.zeros((), dtype=torch.int32, device=dev),
-        wm=wmk.init(dev),
-        ctrl=ctl.init(cap),
-        metrics=obm.init(cfg.num_strata, dev))
+        window=win.init(k, s, cap, keys, max_capacity=max_cap, device=dev),
+        slot_interval=(-torch.remainder(-slots, k)).expand(
+            lead + (k,)).clone(),                    # intervals 1-K ... 0
+        open_interval=torch.zeros(lead, dtype=torch.int32, device=dev),
+        wm=wmk.init(dev, lead),
+        ctrl=ctl.init(cap.expand(lead + (s,))),
+        metrics=obm.init(s, dev, lead))
+
+
+def _shards(state: RuntimeState) -> int:
+    """Shards a state holds on its leading axis (1 for an unsharded
+    state)."""
+    lead = state.slot_interval.shape[:-1]
+    return lead[0] if lead else 1
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +281,14 @@ def _route_and_reset(cfg: RuntimeConfig, state: RuntimeState,
                         chunk.mask, cfg.interval_span, cfg.allowed_lateness,
                         k)
     slots = torch.arange(k, dtype=torch.int32, device=chunk.times.device)
-    desired = r.open_interval - torch.remainder(r.open_interval - slots, k)
-    reset = (desired != state.slot_interval)[:, None]
+    new_open = r.open_interval[..., None]
+    desired = new_open - torch.remainder(new_open - slots, k)
+    reset = (desired != state.slot_interval)[..., None]
     iv = state.window.intervals
     adopt = torch.clamp(state.ctrl.capacity, max=iv.max_capacity)
     iv = dataclasses.replace(
         iv, counts=torch.where(reset, 0, iv.counts),
-        capacity=torch.where(reset, adopt[None, :], iv.capacity))
+        capacity=torch.where(reset, adopt[..., None, :], iv.capacity))
     return r, iv, desired
 
 
@@ -215,17 +309,20 @@ def _finish_ingest(cfg: RuntimeConfig, state: RuntimeState,
 
 
 def _draw_uniforms(iv: oasrs.OASRSState, m: int):
-    """The fold's key schedule on the ring's lead key: split three ways,
-    two ``[M]`` uniforms; returns the ring keys with the lead advanced."""
-    keys = prng.split(iv.key[0], 3)
-    u_accept = prng.uniform(keys[1], m)
-    u_slot = prng.uniform(keys[2], m)
-    return torch.cat([keys[0][None], iv.key[1:]]), u_accept, u_slot
+    """The fold's key schedule on each ring's lead key: split three ways,
+    two ``[M]`` uniforms per shard (one draw over every shard's keys);
+    returns the ring keys with the lead advanced."""
+    keys = prng.split(iv.key[..., 0, :], 3)
+    u_accept = prng.uniform(keys[..., 1, :], m)
+    u_slot = prng.uniform(keys[..., 2, :], m)
+    ring_keys = torch.cat([keys[..., 0:1, :], iv.key[..., 1:, :]], dim=-2)
+    return ring_keys, u_accept, u_slot
 
 
 def _ingest_chunk(cfg: RuntimeConfig, state: RuntimeState,
                   chunk: TimestampedChunk) -> RuntimeState:
-    """Fold one chunk by the configured ingest path."""
+    """Fold one chunk (``[W, M]`` for a sharded state) by the configured
+    ingest path. No path performs a collective."""
     if cfg.ingest == "masked":
         return _ingest_chunk_masked(cfg, state, chunk)
     if cfg.ingest == "onekernel":
@@ -235,93 +332,130 @@ def _ingest_chunk(cfg: RuntimeConfig, state: RuntimeState,
 
 def _ingest_chunk_fused(cfg: RuntimeConfig, state: RuntimeState,
                         chunk: TimestampedChunk) -> RuntimeState:
-    """Fold one chunk: route, reset slots, one fold over ``K·S`` cells.
+    """Fold one chunk: route, reset slots, one fold over every cell.
 
     Each accepted item is routed once to its (slot, stratum) cell: its
     rank within that cell equals its rank within the stratum of its
-    interval, so the flat fold is Algorithm 1 per cell. The ring's
-    ``[K·S, N_max]`` flat form is a VIEW of ``[K, S, N_max]``: the fold
-    writes the state's ring in place.
+    interval, so the flat fold is Algorithm 1 per cell. Sharded, the
+    cells are ``[W·K·S]``, cell ``w·K·S + slot·S + s``, and the items
+    ``[W·M]`` in shard-major order with each shard's own uniforms: no
+    cell mixes shards, so the one fold is bitwise W separate folds. The
+    ring's flat form is a VIEW of it: the fold writes the ring in place.
     """
     k, s_cnt = cfg.num_intervals, cfg.num_strata
+    w = _shards(state)
     r, iv, desired = _route_and_reset(cfg, state, chunk)
     counts_before = iv.counts
     tgt_slot = torch.remainder(r.target_interval, k)
-    live = r.accept & (desired[tgt_slot.long()] == r.target_interval)
+    live = r.accept & (torch.gather(desired, -1, tgt_slot.long())
+                       == r.target_interval)
     flat_sid = tgt_slot * s_cnt + chunk.stratum_ids.to(torch.int32)
-    ring = iv.values.view(k * s_cnt, iv.max_capacity)
+    if flat_sid.dim() > 1:
+        shard = torch.arange(w, dtype=torch.int32, device=flat_sid.device)
+        flat_sid = flat_sid + (shard * (k * s_cnt))[:, None]
+    ring = iv.values.view(w * k * s_cnt, iv.max_capacity)
     if ring.data_ptr() != iv.values.data_ptr():
         raise RuntimeError("flattened ring is not a view of the ring")
+    keys, u_accept, u_slot = _draw_uniforms(iv, chunk.times.shape[-1])
     flat = oasrs.OASRSState(values=ring, counts=iv.counts.reshape(-1),
                             capacity=iv.capacity.reshape(-1),
-                            key=iv.key[0])
-    flat = dist.local_update(flat, flat_sid, chunk.values, live)
-    iv = dataclasses.replace(
-        iv, counts=flat.counts.view(k, s_cnt),
-        key=torch.cat([flat.key[None], iv.key[1:]]))
+                            key=keys)
+    counts = oasrs.apply_chunk_uniforms(
+        flat, flat_sid.reshape(-1), chunk.values.reshape(-1),
+        live.reshape(-1), u_accept.reshape(-1), u_slot.reshape(-1)).counts
+    iv = dataclasses.replace(iv, counts=counts.view(iv.counts.shape),
+                             key=keys)
     return _finish_ingest(cfg, state, chunk, r, iv, desired, counts_before)
 
 
 def _ingest_chunk_masked(cfg: RuntimeConfig, state: RuntimeState,
                          chunk: TimestampedChunk) -> RuntimeState:
-    """One fold per ring slot over the slot's masked view of the chunk (K
-    folds of M items), with the fused path's uniforms: each item is
-    masked into exactly one slot, so the state is bitwise the fused
-    path's. Each slot's ``[S, N_max]`` reservoir is a view of the ring,
-    written in place."""
+    """One fold per (shard, ring slot) over the slot's masked view of the
+    shard's chunk row (K folds of M items per shard), with the fused
+    path's uniforms: each item is masked into exactly one slot, so the
+    state is bitwise the fused path's. Each slot's ``[S, N_max]``
+    reservoir is a view of the ring, written in place (a slot's
+    ``[W, S, N_max]`` slice is strided, so it is no one flat fold)."""
+    k, s_cnt = cfg.num_intervals, cfg.num_strata
+    w = _shards(state)
     r, iv, desired = _route_and_reset(cfg, state, chunk)
     counts_before = iv.counts
-    keys, u_accept, u_slot = _draw_uniforms(iv, chunk.stratum_ids.shape[0])
-    counts = []
-    for j in range(cfg.num_intervals):
-        slot = oasrs.OASRSState(values=iv.values[j], counts=iv.counts[j],
-                                capacity=iv.capacity[j], key=iv.key[j])
-        slot_mask = r.accept & (r.target_interval == desired[j])
-        counts.append(oasrs.apply_chunk_uniforms(
-            slot, chunk.stratum_ids, chunk.values, slot_mask, u_accept,
-            u_slot).counts)
-    iv = dataclasses.replace(iv, counts=torch.stack(counts), key=keys)
+    m = chunk.times.shape[-1]
+    keys, u_accept, u_slot = _draw_uniforms(iv, m)
+
+    def rows(t, *tail):
+        return t.reshape((w,) + tail)
+    values, counts = rows(iv.values, k, s_cnt, iv.max_capacity), rows(
+        iv.counts, k, s_cnt)
+    capacity, ring_keys = rows(iv.capacity, k, s_cnt), rows(iv.key, k, 2)
+    accept, tgt = rows(r.accept, m), rows(r.target_interval, m)
+    sid, vals = rows(chunk.stratum_ids, m), rows(chunk.values, m)
+    ua, us, want = rows(u_accept, m), rows(u_slot, m), rows(desired, k)
+    out = []
+    for i in range(w):
+        for j in range(k):
+            slot = oasrs.OASRSState(values=values[i, j], counts=counts[i, j],
+                                    capacity=capacity[i, j],
+                                    key=ring_keys[i, j])
+            slot_mask = accept[i] & (tgt[i] == want[i, j])
+            out.append(oasrs.apply_chunk_uniforms(
+                slot, sid[i], vals[i], slot_mask, ua[i], us[i]).counts)
+    iv = dataclasses.replace(
+        iv, counts=torch.stack(out).view(iv.counts.shape), key=keys)
     return _finish_ingest(cfg, state, chunk, r, iv, desired, counts_before)
 
 
 def _ingest_chunk_onekernel(cfg: RuntimeConfig, state: RuntimeState,
                             chunk: TimestampedChunk) -> RuntimeState:
-    """The whole ingest in one call of the one-shot kernel (its plain
-    version on the CPU), with the fused path's key schedule: bitwise the
-    fused path's state.
+    """The whole ingest in one call of the one-shot kernel per shard (its
+    plain version on the CPU), with the fused path's key schedule:
+    bitwise the fused path's state.
 
-    The call updates IN PLACE the ring, cell counts and capacities, the
-    slot table, the watermark scalars, the chunk/item totals and a
+    Each call updates IN PLACE its shard's ring, cell counts and
+    capacities, slot table, watermark scalars, chunk/item totals and a
     ``[6, S]`` stack of the counter rows, which is then split into rows
-    of their own.
+    of their own. The watermark scalars, slot table, counts, capacities
+    and counter rows are all per shard, so a sharded chunk is W calls on
+    each shard's views of the ``[W, ...]`` state, in stream order.
     """
-    k = cfg.num_intervals
-    iv = state.window.intervals
-    keys, u_accept, u_slot = _draw_uniforms(iv, chunk.stratum_ids.shape[0])
+    k, s_cnt = cfg.num_intervals, cfg.num_strata
+    w = _shards(state)
+    iv, wm, mt = state.window.intervals, state.wm, state.metrics
+    m = chunk.times.shape[-1]
+    keys, u_accept, u_slot = _draw_uniforms(iv, m)
     adopt = torch.clamp(state.ctrl.capacity, max=iv.max_capacity)
-    out = ops.one_shot_ingest(
-        chunk.times, chunk.stratum_ids.to(torch.int32), chunk.values,
-        chunk.mask, u_accept, u_slot,
-        max_time=state.wm.max_time, open_interval=state.open_interval,
-        on_time=state.wm.on_time, late=state.wm.late,
-        dropped=state.wm.dropped, chunks=state.metrics.chunks,
-        items=state.metrics.items, slot_interval=state.slot_interval,
-        adopt=adopt, counts=iv.counts, capacity=iv.capacity,
-        values=iv.values, counters=obm.stack_counters(state.metrics),
-        span=cfg.interval_span, allowed_lateness=cfg.allowed_lateness)
-    if out.values.data_ptr() != iv.values.data_ptr():
-        raise RuntimeError("one-shot ingest did not write the ring in place")
+    counters = obm.stack_counters(mt)
+
+    def rows(t, *tail):
+        return t.view((w,) + tail)
+    sid = chunk.stratum_ids.to(torch.int32)
+    args = [rows(t, m) for t in (chunk.times, sid, chunk.values,
+                                 chunk.mask, u_accept, u_slot)]
+    carried = dict(
+        max_time=rows(wm.max_time), open_interval=rows(state.open_interval),
+        on_time=rows(wm.on_time), late=rows(wm.late),
+        dropped=rows(wm.dropped), chunks=rows(mt.chunks),
+        items=rows(mt.items), slot_interval=rows(state.slot_interval, k),
+        adopt=rows(adopt, s_cnt), counts=rows(iv.counts, k, s_cnt),
+        capacity=rows(iv.capacity, k, s_cnt),
+        values=rows(iv.values, k, s_cnt, iv.max_capacity),
+        counters=rows(counters, 6, s_cnt))
+    for i in range(w):
+        out = ops.one_shot_ingest(
+            *(a[i] for a in args), **{n: t[i] for n, t in carried.items()},
+            span=cfg.interval_span, allowed_lateness=cfg.allowed_lateness)
+        if out.values.data_ptr() != carried["values"][i].data_ptr():
+            raise RuntimeError(
+                "one-shot ingest did not write the ring in place")
     window = win.WindowState(
-        intervals=oasrs.OASRSState(values=out.values, counts=out.counts,
-                                   capacity=out.capacity, key=keys),
-        cursor=torch.remainder(out.open_interval + 1, k),
-        filled=torch.clamp(out.open_interval + 1, max=k))
-    wm = wmk.WatermarkState(max_time=out.max_time, on_time=out.on_time,
-                            late=out.late, dropped=out.dropped)
-    metrics = obm.unstack_counters(out.counters, chunks=out.chunks,
-                                   items=out.items)
-    return RuntimeState(window=window, slot_interval=out.slot_interval,
-                        open_interval=out.open_interval, wm=wm,
+        intervals=oasrs.OASRSState(values=iv.values, counts=iv.counts,
+                                   capacity=iv.capacity, key=keys),
+        cursor=torch.remainder(state.open_interval + 1, k),
+        filled=torch.clamp(state.open_interval + 1, max=k))
+    metrics = obm.unstack_counters(counters, chunks=mt.chunks,
+                                   items=mt.items)
+    return RuntimeState(window=window, slot_interval=state.slot_interval,
+                        open_interval=state.open_interval, wm=wm,
                         ctrl=state.ctrl, metrics=metrics)
 
 
@@ -329,54 +463,175 @@ def _ingest_chunk_onekernel(cfg: RuntimeConfig, state: RuntimeState,
 # The emission.
 # ---------------------------------------------------------------------------
 
-def _merged_view(cfg: RuntimeConfig, state: RuntimeState):
-    """Shared sample pass: the merged view and its stats (one kernel)."""
-    view = win.sample_view(state.window)
-    stats = err.stratum_stats_from_sample(view.values, view.counts,
-                                          view.taken, view.slot_mask())
-    return view, stats
+@dataclasses.dataclass
+class _GatherAux:
+    """What the mesh emission needs from every shard besides its cells,
+    carried by the emission's one all_gather (the reference's
+    ``_GatherAux`` and what its host record reads from the global
+    state): ``[W]``-leading rows, shard ``w``'s in row ``w``."""
+    lead_key: torch.Tensor        # [2] shard 0's interval-0 ring key
+    slot_interval: torch.Tensor   # [W, K] i32
+    live: torch.Tensor            # [W, K] bool ring liveness
+    counts_pos: torch.Tensor      # [W, K, S] bool raw cell counts > 0
+    wm: wmk.WatermarkState        # [W] frontier and accounting
+    open_interval: torch.Tensor   # [W] i32
+    ctrl: ctl.ControllerState     # [W] rows, before this emission's step
+    latency: torch.Tensor         # [W] f32 latency each rank measured
 
 
-def _emission_key(state: RuntimeState) -> torch.Tensor:
-    """The bootstrap key of a cadence emission: the ring's lead key folded
-    with ``0xE717`` (the reference's ``_emission_key``)."""
-    return prng.fold_in(state.window.intervals.key[0], 0xE717)
+def _words(*parts: torch.Tensor) -> torch.Tensor:
+    """Flat i32 words of i32 / f32 / bool / u32-in-i64 tensors (floats by
+    their bit patterns)."""
+    out = []
+    for p in parts:
+        p = p.reshape(-1)
+        if p.dtype == torch.float32:
+            p = p.contiguous().view(torch.int32)
+        out.append(p.to(torch.int32))
+    return torch.cat(out)
 
 
-def _window_ctx(cfg: RuntimeConfig, state: RuntimeState,
-                view) -> EmissionContext:
+def _pack_aux(cfg: RuntimeConfig, state: RuntimeState,
+              latency: float) -> torch.Tensor:
+    """This rank's aux words (its state is ``[1]``-leading)."""
+    window = state.window
+    lat = torch.full((1,), latency, dtype=torch.float32,
+                     device=state.open_interval.device)
+    return _words(window.intervals.key[0, 0], state.slot_interval[0],
+                  win._live_mask(window)[0], window.intervals.counts[0] > 0,
+                  state.wm.max_time, state.wm.on_time, state.wm.late,
+                  state.wm.dropped, state.open_interval,
+                  state.ctrl.capacity[0], state.ctrl.base_capacity[0],
+                  state.ctrl.latency_ema, state.ctrl.pressure, lat)
+
+
+def _unpack_aux(cfg: RuntimeConfig, aux_all: torch.Tensor) -> _GatherAux:
+    k, s = cfg.num_intervals, cfg.num_strata
+    w = aux_all.shape[0]
+    words = aux_all.to(torch.int32)
+    at = [0]
+
+    def take(n, dtype=torch.int32):
+        part = words[:, at[0]:at[0] + n]
+        at[0] += n
+        if dtype == torch.float32:
+            return part.contiguous().view(torch.float32)
+        return part if dtype == torch.int32 else part.to(dtype)
+    lead_key = aux_all[0, :2]
+    at[0] = 2
+    slot_interval, live = take(k), take(k, torch.bool)
+    counts_pos = take(k * s, torch.bool).view(w, k, s)
+    max_time, on_time, late, dropped, open_iv = (
+        take(1, torch.float32), take(1), take(1), take(1), take(1))
+    cap, base = take(s), take(s)
+    ema, pressure, latency = (take(1, torch.float32) for _ in range(3))
+    return _GatherAux(
+        lead_key=lead_key, slot_interval=slot_interval, live=live,
+        counts_pos=counts_pos,
+        wm=wmk.WatermarkState(max_time=max_time[:, 0],
+                              on_time=on_time[:, 0], late=late[:, 0],
+                              dropped=dropped[:, 0]),
+        open_interval=open_iv[:, 0],
+        ctrl=ctl.ControllerState(capacity=cap, base_capacity=base,
+                                 latency_ema=ema[:, 0],
+                                 pressure=pressure[:, 0]),
+        latency=latency[:, 0])
+
+
+def _merged_view(cfg: RuntimeConfig, state: RuntimeState,
+                 mesh: Optional["StreamMesh"] = None, latency: float = 0.0):
+    """The merged view (the ``K·S`` cells, or the ``W·K·S`` cells of
+    every shard) and, on the mesh, the gathered aux (one all_gather),
+    else ``None``."""
+    if mesh is None:
+        return win.sample_view(state.window), None
+    view, aux_all = dist.gather_cells(
+        win.sample_view(state.window), _pack_aux(cfg, state, latency),
+        num_shards=cfg.num_shards)
+    return view, _unpack_aux(cfg, aux_all)
+
+
+def _view_stats(view) -> err.StratumStats:
+    """The shared sample pass's stats (one kernel)."""
+    return err.stratum_stats_from_sample(view.values, view.counts,
+                                         view.taken, view.slot_mask())
+
+
+def _emission_key(state: RuntimeState,
+                  aux: Optional[_GatherAux] = None) -> torch.Tensor:
+    """The bootstrap key of a cadence emission: shard 0's interval-0 ring
+    key folded with ``0xE717`` (the reference's ``_emission_key``)."""
+    lead = (aux.lead_key if aux is not None
+            else state.window.intervals.key.reshape(-1, 2)[0])
+    return prng.fold_in(lead, 0xE717)
+
+
+def _window_ctx(cfg: RuntimeConfig, state: RuntimeState, view,
+                aux: Optional[_GatherAux] = None) -> EmissionContext:
     """The cell structure the per-key and session windows evaluate
-    against: the slots' event intervals and the live cells with items."""
+    against: the slots' event intervals and the live cells with items.
+    Every shard holds the same slot table (all shards see the same
+    event-time ramp), so a sharded state reads shard 0's, with the
+    activity pooled over the shards."""
+    if cfg.num_shards == 1:
+        slot_interval = state.slot_interval
+        activity = win.activity_mask(state.window)
+    elif aux is not None:
+        slot_interval = aux.slot_interval[0]
+        activity = aux.live[0][:, None] & torch.any(aux.counts_pos, dim=0)
+    else:
+        slot_interval = state.slot_interval[0]
+        activity = win._live_mask(state.window)[0][:, None] & torch.any(
+            state.window.intervals.counts > 0, dim=0)
     return EmissionContext(
         num_strata=cfg.num_strata, num_shards=cfg.num_shards,
-        interval_span=cfg.interval_span,
-        slot_interval=state.slot_interval,
-        activity=win.activity_mask(state.window), view=view)
+        interval_span=cfg.interval_span, slot_interval=slot_interval,
+        activity=activity, view=view)
+
+
+def _evaluate_merged(cfg: RuntimeConfig, registry: QueryRegistry,
+                     state: RuntimeState,
+                     mesh: Optional["StreamMesh"] = None,
+                     latency: float = 0.0):
+    """Every standing query on the current state: ``(results, stats,
+    aux)``, ``aux`` being the mesh's gathered aux (else ``None``)."""
+    view, aux = _merged_view(cfg, state, mesh, latency)
+    stats = _view_stats(view)
+    results = registry.evaluate_view(view, stats, _emission_key(state, aux),
+                                     ctx=_window_ctx(cfg, state, view, aux))
+    return results, stats, aux
 
 
 def _evaluate(cfg: RuntimeConfig, registry: QueryRegistry,
               state: RuntimeState):
-    view, stats = _merged_view(cfg, state)
-    results = registry.evaluate_view(view, stats, _emission_key(state),
-                                     ctx=_window_ctx(cfg, state, view))
-    return results, stats
+    """Every standing query on a state of this process: ``(results,
+    stats)``."""
+    return _evaluate_merged(cfg, registry, state)[:2]
 
 
 def _interval_cell_mask(cfg: RuntimeConfig, state: RuntimeState,
-                        interval: int) -> torch.Tensor:
-    """``[K·S]`` cell mask of one event interval in the merged view's
-    order: slot ``interval mod K``, and only while the slot still HOLDS
-    that interval (a recycled slot never leaks its new occupant)."""
+                        interval: int,
+                        aux: Optional[_GatherAux] = None) -> torch.Tensor:
+    """Cell mask of one event interval in the merged view's order: slot
+    ``interval mod K``, and only while the slot still HOLDS that interval
+    (a recycled slot never leaks its new occupant), per shard."""
     k, s = cfg.num_intervals, cfg.num_strata
     slot = interval % k
     cells = torch.arange(k * s, dtype=torch.int32,
                          device=state.slot_interval.device)
-    return ((cells // s) == slot) & (state.slot_interval[slot] == interval)
+    sel = (cells // s) == slot
+    if cfg.num_shards == 1:
+        return sel & (state.slot_interval[slot] == interval)
+    table = aux.slot_interval if aux is not None else state.slot_interval
+    holds = table[:, slot] == interval                       # [W]
+    return (holds[:, None] & sel[None, :]).reshape(-1)
 
 
 def _evaluate_interval(cfg: RuntimeConfig, registry: QueryRegistry,
                        state: RuntimeState, interval: int,
-                       base_key: torch.Tensor):
+                       base_key: torch.Tensor,
+                       mesh: Optional["StreamMesh"] = None,
+                       latency: float = 0.0):
     """Watermark emission body: every standing query on the CLOSED
     interval's cells (merged kinds and per-key panes restrict to it;
     session windows read the full ring through the context, limited to
@@ -387,25 +642,28 @@ def _evaluate_interval(cfg: RuntimeConfig, registry: QueryRegistry,
     ingested when it emitted: both executors draw the same bootstrap
     bits for the same interval.
     """
-    view = win.sample_view(state.window)
-    ctx = _window_ctx(cfg, state, view)
+    view, aux = _merged_view(cfg, state, mesh, latency)
+    ctx = _window_ctx(cfg, state, view, aux)
     ctx.activity = ctx.activity & (ctx.slot_interval <= interval)[:, None]
     iview = win.restrict_view(view, _interval_cell_mask(cfg, state,
-                                                        interval))
-    istats = err.stratum_stats_from_sample(iview.values, iview.counts,
-                                           iview.taken, iview.slot_mask())
+                                                        interval, aux))
+    istats = _view_stats(iview)
     results = registry.evaluate_view(iview, istats,
                                      prng.fold_in(base_key, interval),
                                      ctx=ctx)
-    return results, istats
+    return results, istats, aux
 
 
 def _pooled_stats(cfg: RuntimeConfig,
                   stats: err.StratumStats) -> err.StratumStats:
-    """Pool the interval × stratum cells per stratum (``[K·S] → [S]``)."""
+    """Pool the interval × stratum cells per stratum (``[K·S] → [S]``;
+    sharded ``[W·K·S] → [W, S]``, each shard's own window)."""
     k, s = cfg.num_intervals, cfg.num_strata
 
     def pool(leaf):
+        if cfg.num_shards > 1:
+            return leaf.reshape(cfg.num_shards, k, s).sum(dim=1,
+                                                          dtype=leaf.dtype)
         return leaf.reshape(k, s).sum(dim=0, dtype=leaf.dtype)
 
     return err.StratumStats(counts=pool(stats.counts),
@@ -413,24 +671,35 @@ def _pooled_stats(cfg: RuntimeConfig,
                             sumsqs=pool(stats.sumsqs))
 
 
-def _apply_controller(cfg: RuntimeConfig, state: RuntimeState, results,
-                      stats: err.StratumStats, latency_s: torch.Tensor,
-                      intervals: Optional[int] = None) -> RuntimeState:
+def _controller_step(cfg: RuntimeConfig, ctrl: ctl.ControllerState,
+                     results, stats: err.StratumStats,
+                     latency_s: torch.Tensor,
+                     intervals: Optional[int] = None) -> ctl.ControllerState:
     """One controller step; ``intervals`` (default K) turns the window's
-    allocation into the per-interval capacity."""
+    allocation into the per-interval capacity. Sharded, every shard's
+    controller takes its own pooled row and the global realized width."""
     realized = None
     if cfg.controller.budget is not None:
         realized = (results[cfg.accuracy_query] if cfg.accuracy_query
                     else err.estimate_mean(stats))
     k = cfg.num_intervals if intervals is None else intervals
-    ctrl = ctl.update(state.ctrl, cfg.controller, _pooled_stats(cfg, stats),
+    return ctl.update(ctrl, cfg.controller, _pooled_stats(cfg, stats),
                       realized, latency_s, intervals=k)
-    return dataclasses.replace(state, ctrl=ctrl)
 
 
 # ---------------------------------------------------------------------------
 # The executors.
 # ---------------------------------------------------------------------------
+
+#: Why the mesh refuses checkpoints: a payload there needs every rank's
+#: state, gathered to one rank or written one file per rank, a design
+#: that comes with the restore-time rescale.
+_MESH_CHECKPOINTS = (
+    "checkpoints on placement='mesh' are not ported: a payload needs "
+    "every rank's shard (gathered to one rank, or one file per rank), "
+    "which comes with checkpoint.migrate (ROADMAP Queue 1 item 7b); "
+    "checkpoint the vmap placement")
+
 
 class _ExecutorBase:
     """Shared plumbing: state, emission bookkeeping, the watermark mirror,
@@ -442,8 +711,16 @@ class _ExecutorBase:
                  key: torch.Tensor, device: DeviceLike = None, *,
                  checkpointer: Optional["Checkpointer"] = None,
                  telemetry: Optional[obm.Telemetry] = None):
-        self.device = resolve_device(device)
         check_supported(cfg)
+        self.mesh: Optional["StreamMesh"] = None
+        if cfg.placement == "mesh":
+            if checkpointer is not None:
+                raise UnsupportedConfigError(_MESH_CHECKPOINTS)
+            from repro_torch.launch import mesh as lmesh
+            self.mesh = lmesh.make_stream_mesh(cfg.num_shards)
+            if device is None:
+                device = f"cuda:{self.mesh.rank}"
+        self.device = resolve_device(device)
         if len(registry) == 0:
             raise ValueError("register at least one standing query")
         if cfg.emission not in EMISSION_MODES:
@@ -491,22 +768,30 @@ class _ExecutorBase:
 
     def reset(self, key: torch.Tensor) -> None:
         """Restart on a fresh stream."""
-        self.state = init_state(self.cfg, key, self.device)
+        w = self.cfg.num_shards
+        self.state = init_state(self.cfg, key, self.device,
+                                None if self.mesh is None else
+                                self.mesh.rank)
         self.emissions: List[Emission] = []
         self.chunks_pushed = 0
         self._emission_cursor = 0
         self._items_since_emit = 0
         self._last_latency = 0.0
+        # The controller rows of every shard after the last emission
+        # (the mesh's come from its gather; the telemetry reads them).
+        self._ctrl_rows = self.state.ctrl
         # Watermark emission, host side: the per-interval base key (folded
         # with each closed interval's id for its bootstrap draws), the
-        # frontier mirror (advanced from chunk times, never from the
-        # in-flight state) and the exactly-once emitted-through cursor.
+        # frontier mirror (one entry per shard, advanced from chunk times,
+        # never from the in-flight state) and the exactly-once
+        # emitted-through cursor.
         self._emit_base_key = prng.fold_in(key.to(self.device), 0xE31)
-        self._host_frontier = np.full((1,), wmk.NEG_TIME, np.float32)
+        self._host_frontier = np.full((w,), wmk.NEG_TIME, np.float32)
         self._emitted_through = -1
         self.mirror_wait_s = 0.0      # host time spent on the mirror read
         if self.device.type == "cuda":
-            self._mirror_host = torch.empty((), dtype=torch.float32,
+            self._mirror_host = torch.empty(() if w == 1 else (w,),
+                                            dtype=torch.float32,
                                             pin_memory=True)
             self._mirror_event = torch.cuda.Event()
         if self.checkpointer is not None:
@@ -520,10 +805,15 @@ class _ExecutorBase:
         self.telemetry = telemetry
         telemetry.on_run_meta(self)
 
+    def _no_mesh_checkpoints(self) -> None:
+        if self.mesh is not None:
+            raise UnsupportedConfigError(_MESH_CHECKPOINTS)
+
     def snapshot(self) -> "RuntimeCheckpoint":
         """A complete checkpoint of this executor (the state copied to
         the host and the host cursors). Waits for the card: take it at a
         chunk boundary, like an emission."""
+        self._no_mesh_checkpoints()
         from repro_torch.runtime import checkpoint as ckp
         return ckp.capture(self)
 
@@ -531,6 +821,7 @@ class _ExecutorBase:
         """Restore a :class:`RuntimeCheckpoint` or its payload bytes, then
         replay the chunks from ``ckpt.stream_offset``: the continuation is
         the uninterrupted run's, bit for bit. Returns the checkpoint."""
+        self._no_mesh_checkpoints()
         from repro_torch.runtime import checkpoint as ckp
         t0 = time.perf_counter()
         if isinstance(ckpt, (bytes, bytearray)):
@@ -552,9 +843,11 @@ class _ExecutorBase:
         checkpoint: the next emission gets index ``emissions_done``.
         Under watermark emission ``emitted_through`` and
         ``emit_base_key`` (two u32 words) carry the host cursors; the
-        frontier mirror restarts from the state's frontier, as the
-        reference's restore does."""
+        frontier mirror restarts from the state's frontier (one entry
+        per shard), as the reference's restore does."""
+        self._no_mesh_checkpoints()
         self.state = state
+        self._ctrl_rows = state.ctrl
         self.chunks_pushed = chunks_pushed
         self._emission_cursor = emissions_done
         self._items_since_emit = items_since_emit
@@ -566,7 +859,7 @@ class _ExecutorBase:
         # A copy: on the CPU ``numpy()`` shares the state's buffer, which
         # the one-shot ingest updates in place.
         self._host_frontier = state.wm.max_time.cpu().numpy().reshape(
-            1).copy()
+            -1).copy()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -585,28 +878,123 @@ class _ExecutorBase:
 
     def query(self) -> Dict[str, Result]:
         """Every standing query on the current state (ad hoc: no
-        controller feedback, no emission record)."""
-        return _evaluate(self.cfg, self.registry, self.state)[0]
+        controller feedback, no emission record). On the mesh every rank
+        calls it: one all_gather."""
+        return _evaluate_merged(self.cfg, self.registry, self.state,
+                                self.mesh, self._last_latency)[0]
+
+    def _ingest(self, chunk: TimestampedChunk) -> None:
+        """Ingest one arrival unit: on the mesh, this rank's row of the
+        full ``[W, M]`` chunk (a ``[1, M]`` view)."""
+        if self.mesh is not None:
+            r = self.mesh.rank
+            chunk = TimestampedChunk(
+                *(getattr(chunk, f.name)[r:r + 1]
+                  for f in dataclasses.fields(TimestampedChunk)))
+        self.state = _ingest_chunk(self.cfg, self.state, chunk)
+
+    # -- the controller and the record --------------------------------------
+
+    def _step_controller(self, results, stats: err.StratumStats,
+                         aux: Optional[_GatherAux], latency_s: float,
+                         intervals: Optional[int] = None
+                         ) -> ctl.ControllerState:
+        """One controller step; returns every shard's controller after
+        it. On the mesh each rank steps all W controllers from the
+        gathered rows, with rank 0's latency, the same bits everywhere,
+        and keeps its own row."""
+        if aux is None:
+            lat = torch.tensor(latency_s, dtype=torch.float32,
+                               device=self.device)
+            ctrl = _controller_step(self.cfg, self.state.ctrl, results,
+                                    stats, lat, intervals)
+            self.state = dataclasses.replace(self.state, ctrl=ctrl)
+            return ctrl
+        rows = _controller_step(self.cfg, aux.ctrl, results, stats,
+                                aux.latency[0], intervals)
+        r = self.mesh.rank
+        own = ctl.ControllerState(**{
+            f.name: getattr(rows, f.name)[r:r + 1].clone()
+            for f in dataclasses.fields(ctl.ControllerState)})
+        self.state = dataclasses.replace(self.state, ctrl=own)
+        return rows
+
+    def _wm_totals(self, aux: Optional[_GatherAux]):
+        """The watermark fields of a record: sharded, the slowest shard's
+        watermark, the newest open interval and the summed accounting
+        (the mesh's from the gathered rows)."""
+        st = self.state
+        wm, open_iv = ((st.wm, st.open_interval) if aux is None
+                       else (aux.wm, aux.open_interval))
+        wmark = wmk.watermark(wm, self.cfg.allowed_lateness)
+        if self.cfg.num_shards == 1:
+            ints = torch.stack([open_iv, wm.on_time, wm.late,
+                                wm.dropped]).tolist()
+            return float(wmark), ints
+        ints = torch.stack([torch.max(open_iv), torch.sum(wm.on_time),
+                            torch.sum(wm.late),
+                            torch.sum(wm.dropped)]).tolist()
+        return float(torch.min(wmark)), ints
+
+    def _record(self, results, latency_s: float,
+                interval: Optional[int] = None,
+                aux: Optional[_GatherAux] = None,
+                ctrl: Optional[ctl.ControllerState] = None) -> Emission:
+        """Record one emission; ``ctrl`` is every shard's controller after
+        the emission's step (the capacity recorded is their sum)."""
+        ctrl = self.state.ctrl if ctrl is None else ctrl
+        self._ctrl_rows = ctrl
+        wmark, ints = self._wm_totals(aux)
+        cap = ctrl.capacity
+        if self.cfg.num_shards > 1:
+            cap = torch.sum(cap, dim=0, dtype=torch.int32)
+        em = Emission(
+            index=self._emission_cursor, results=results, watermark=wmark,
+            open_interval=ints[0], on_time=ints[1], late=ints[2],
+            dropped=ints[3], capacity=cap.cpu().numpy(),
+            latency_s=latency_s, items=self._items_since_emit,
+            interval=interval)
+        self.emissions.append(em)
+        self._emission_cursor += 1
+        self._items_since_emit = 0
+        if self.telemetry is not None:
+            self.telemetry.on_emission(self, em)
+        return em
 
     # -- the watermark mirror ------------------------------------------------
 
     @staticmethod
     def _chunk_max(chunk: TimestampedChunk) -> Optional[torch.Tensor]:
-        """The chunk's masked max event time, enqueued on its device
-        (``None`` for an empty chunk). Max is exact, so the mirror built
-        from it is bitwise ``host_frontier`` over the chunk's times."""
+        """The chunk's masked max event time (per shard row of a sharded
+        chunk), enqueued on its device (``None`` for an empty chunk). Max
+        is exact, so the mirror built from it is bitwise
+        ``host_frontier`` over the chunk's times."""
         if chunk.times.numel() == 0:
             return None
-        return torch.max(torch.where(chunk.mask, chunk.times,
-                                     float(wmk.NEG_TIME)))
+        return torch.amax(torch.where(chunk.mask, chunk.times,
+                                      float(wmk.NEG_TIME)), dim=-1)
 
     def _advance_frontier(self, chunk_max: Optional[torch.Tensor]) -> None:
-        """Fold one chunk's max into the host mirror (one value read)."""
-        t = (wmk.NEG_TIME if chunk_max is None
-             else np.float32(chunk_max.item()))
+        """Fold one chunk's maxima into the host mirror (one read)."""
+        w = self._host_frontier.shape[0]
+        if chunk_max is None:
+            t = np.full(w, wmk.NEG_TIME, np.float32)
+        elif chunk_max.dim() == 0:
+            t = np.array([chunk_max.item()], np.float32)
+        else:
+            t = np.asarray(chunk_max.tolist(), np.float32)
         self._host_frontier = wmk.host_frontier(
-            self._host_frontier, np.array([t], np.float32),
-            np.ones(1, bool))
+            self._host_frontier, t[:, None], np.ones((w, 1), bool))
+
+    def _mirror_read(self, chunk: TimestampedChunk):
+        """Enqueue the chunk's maxima for the mirror, before its ingest:
+        on the card a copy to pinned memory behind an event."""
+        chunk_max = self._chunk_max(chunk)
+        if chunk_max is not None and self.device.type == "cuda":
+            self._mirror_host.copy_(chunk_max, non_blocking=True)
+            self._mirror_event.record()
+            chunk_max = self._mirror_host
+        return chunk_max
 
     def _closed_through(self) -> int:
         return wmk.host_closed_through(self._host_frontier,
@@ -632,39 +1020,24 @@ class _ExecutorBase:
                     "interval's sample was recycled unemitted; grow "
                     "num_intervals or shorten the chunk/micro-batch event "
                     "span")
-            results, stats = _evaluate_interval(cfg, self.registry,
-                                                 self.state, j,
-                                                 self._emit_base_key)
-            lat = torch.tensor(latency_s, dtype=torch.float32,
-                               device=self.device)
+            results, stats, aux = _evaluate_interval(
+                cfg, self.registry, self.state, j, self._emit_base_key,
+                self.mesh, latency_s)
             # Per-window pressure: the closed interval's own widths, and
             # a capacity sized for one pane (intervals=1).
-            self.state = _apply_controller(cfg, self.state, results, stats,
-                                           lat, intervals=1)
+            ctrl = self._step_controller(results, stats, aux, latency_s,
+                                         intervals=1)
             self._sync()
-            self._record(results, latency_s, interval=j)
+            self._record(results, self._fed_latency(aux, latency_s),
+                         interval=j, aux=aux, ctrl=ctrl)
             self._emitted_through = j
             emitted += 1
         return emitted
 
-    def _record(self, results, latency_s: float,
-                interval: Optional[int] = None) -> Emission:
-        st = self.state
-        ints = torch.stack([st.open_interval, st.wm.on_time, st.wm.late,
-                            st.wm.dropped]).tolist()
-        em = Emission(
-            index=self._emission_cursor, results=results,
-            watermark=float(wmk.watermark(st.wm, self.cfg.allowed_lateness)),
-            open_interval=ints[0], on_time=ints[1], late=ints[2],
-            dropped=ints[3], capacity=st.ctrl.capacity.cpu().numpy(),
-            latency_s=latency_s, items=self._items_since_emit,
-            interval=interval)
-        self.emissions.append(em)
-        self._emission_cursor += 1
-        self._items_since_emit = 0
-        if self.telemetry is not None:
-            self.telemetry.on_emission(self, em)
-        return em
+    @staticmethod
+    def _fed_latency(aux: Optional[_GatherAux], latency_s: float) -> float:
+        """The latency the controllers took: the mesh's is rank 0's."""
+        return latency_s if aux is None else float(aux.latency[0])
 
 
 class BatchedExecutor(_ExecutorBase):
@@ -711,7 +1084,7 @@ class BatchedExecutor(_ExecutorBase):
     def _resize(self, closes: int = 0) -> None:
         if self.cfg.controller.latency_budget_s is not None:
             self.batch_chunks = ctl.next_batch_chunks(
-                self.batch_chunks, float(self.state.ctrl.pressure),
+                self.batch_chunks, float(self.state.ctrl.pressure.max()),
                 self.cfg.max_batch_chunks, closes_per_batch=closes)
 
     def _flush(self) -> None:
@@ -720,7 +1093,7 @@ class BatchedExecutor(_ExecutorBase):
         pending, self._pending = self._pending, []
         t0 = time.perf_counter()
         for ch in pending:
-            self.state = _ingest_chunk(self.cfg, self.state, ch)
+            self._ingest(ch)
         if self._watermark_mode:
             self._sync()                     # the micro-batch barrier
             self._last_latency = time.perf_counter() - t0
@@ -730,14 +1103,13 @@ class BatchedExecutor(_ExecutorBase):
             if self.telemetry is not None:
                 self.telemetry.on_flush(self, self.batch_chunks)
             return
-        results, stats = _evaluate(self.cfg, self.registry, self.state)
-        lat = torch.tensor(self._last_latency, dtype=torch.float32,
-                           device=self.device)
-        self.state = _apply_controller(self.cfg, self.state, results, stats,
-                                       lat)
+        fed = self._last_latency
+        results, stats, aux = _evaluate_merged(self.cfg, self.registry,
+                                               self.state, self.mesh, fed)
+        ctrl = self._step_controller(results, stats, aux, fed)
         self._sync()                         # the micro-batch barrier
         self._last_latency = time.perf_counter() - t0
-        self._record(results, self._last_latency)
+        self._record(results, self._last_latency, aux=aux, ctrl=ctrl)
         self._resize()
         if self.telemetry is not None:
             self.telemetry.on_flush(self, self.batch_chunks)
@@ -753,11 +1125,11 @@ class PipelinedExecutor(_ExecutorBase):
     ``push`` only enqueues device work. Under cadence emission every
     ``emit_every`` chunks an emission answers the registry and feeds the
     controller the measured per-chunk latency since the previous one.
-    Under watermark emission ``push`` reads back exactly one value, the
-    chunk's max event time for the frontier mirror; on the card it is
-    copied to pinned memory behind a CUDA event recorded BEFORE the
-    chunk's ingest is enqueued, so the host waits at most for the
-    previous chunk's ingest, never for this one.
+    Under watermark emission ``push`` reads back exactly one value per
+    shard, the chunk's max event time for the frontier mirror; on the
+    card it is copied to pinned memory behind a CUDA event recorded
+    BEFORE the chunk's ingest is enqueued, so the host waits at most for
+    the previous chunk's ingest, never for this one.
     """
 
     mode = "pipelined"
@@ -783,12 +1155,8 @@ class PipelinedExecutor(_ExecutorBase):
             self._emit_t0 = time.perf_counter()
         chunk_max = None
         if self._watermark_mode:
-            chunk_max = self._chunk_max(chunk)
-            if chunk_max is not None and self.device.type == "cuda":
-                self._mirror_host.copy_(chunk_max, non_blocking=True)
-                self._mirror_event.record()
-                chunk_max = self._mirror_host
-        self.state = _ingest_chunk(self.cfg, self.state, chunk)
+            chunk_max = self._mirror_read(chunk)
+        self._ingest(chunk)
         self._items_since_emit += chunk.values.numel()
         self._chunks_since_emit += 1
         self.chunks_pushed += 1
@@ -819,13 +1187,13 @@ class PipelinedExecutor(_ExecutorBase):
         elapsed = time.perf_counter() - self._emit_t0
         per_chunk = elapsed / max(self._chunks_since_emit, 1)
         self._last_latency = per_chunk
-        results, stats = _evaluate(self.cfg, self.registry, self.state)
-        lat = torch.tensor(per_chunk, dtype=torch.float32,
-                           device=self.device)
-        self.state = _apply_controller(self.cfg, self.state, results, stats,
-                                       lat)
+        results, stats, aux = _evaluate_merged(self.cfg, self.registry,
+                                               self.state, self.mesh,
+                                               per_chunk)
+        ctrl = self._step_controller(results, stats, aux, per_chunk)
         self._sync()
-        self._record(results, per_chunk)
+        self._record(results, self._fed_latency(aux, per_chunk), aux=aux,
+                     ctrl=ctrl)
         self._chunks_since_emit = 0
         self._emit_t0 = time.perf_counter()
 

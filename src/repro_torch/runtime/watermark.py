@@ -73,12 +73,13 @@ class WatermarkState:
     dropped: torch.Tensor    # i32 — items below watermark / evicted
 
 
-def init(device) -> WatermarkState:
-    # One fresh buffer per field: the state is updated in place later.
+def init(device, lead: tuple = ()) -> WatermarkState:
+    """Fresh accounting; ``lead`` is the shard axis (``(W,)``) or none.
+    One fresh buffer per field: the state is updated in place later."""
     def z():
-        return torch.zeros((), dtype=torch.int32, device=device)
+        return torch.zeros(lead, dtype=torch.int32, device=device)
     return WatermarkState(
-        max_time=torch.full((), float(NEG_TIME), dtype=torch.float32,
+        max_time=torch.full(lead, float(NEG_TIME), dtype=torch.float32,
                             device=device),
         on_time=z(), late=z(), dropped=z())
 
@@ -130,7 +131,8 @@ def interval_of(times: torch.Tensor, span: float) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Routing:
-    """Per-item routing decision for one chunk."""
+    """Per-item routing decision for one chunk (each field with the
+    state's leading shard axis, if any)."""
     target_interval: torch.Tensor   # [M] i32 — owning event-time interval
     accept: torch.Tensor            # [M] bool — survives watermark + ring
     open_interval: torch.Tensor     # () i32 — newest interval after chunk
@@ -145,23 +147,28 @@ def route_chunk(wm: WatermarkState, open_interval: torch.Tensor,
     Items are judged against the PRE-chunk watermark (the chunk is the
     arrival unit); eviction is judged after the chunk's own frontier
     advance: the ring holds the ``num_intervals`` newest intervals.
+    A sharded state (``[W]`` scalars) routes a ``[W, M]`` chunk, row
+    ``w`` against shard ``w``'s frontier: the scalars broadcast over
+    the items, the maxima and counts are taken per row.
     """
-    wmark = wm.max_time - _f32(allowed_lateness)
+    wmark = (wm.max_time - _f32(allowed_lateness))[..., None]
     tgt = interval_of(times, span)
     new_max = torch.maximum(
-        wm.max_time, torch.max(torch.where(mask, times, float(NEG_TIME))))
-    new_open = torch.maximum(open_interval,
-                             torch.max(torch.where(mask, tgt, _IMIN)))
-    oldest_live = new_open - num_intervals + 1
+        wm.max_time,
+        torch.amax(torch.where(mask, times, float(NEG_TIME)), dim=-1))
+    new_open = torch.maximum(
+        open_interval, torch.amax(torch.where(mask, tgt, _IMIN), dim=-1))
+    oldest_live = (new_open - num_intervals + 1)[..., None]
     accept = mask & ~(times < wmark) & ~(tgt < oldest_live)
+    before = open_interval[..., None]
 
     def count(m):
-        return torch.sum(m, dtype=torch.int32)
+        return torch.sum(m, dim=-1, dtype=torch.int32)
 
     wm2 = WatermarkState(
         max_time=new_max,
-        on_time=wm.on_time + count(accept & (tgt >= open_interval)),
-        late=wm.late + count(accept & (tgt < open_interval)),
+        on_time=wm.on_time + count(accept & (tgt >= before)),
+        late=wm.late + count(accept & (tgt < before)),
         dropped=wm.dropped + count(mask & ~accept))
     return Routing(target_interval=tgt, accept=accept,
                    open_interval=new_open, wm=wm2)

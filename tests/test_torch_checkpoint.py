@@ -107,12 +107,13 @@ def budget_kw(module, target=0.05, max_per_stratum=64):
 
 
 @functools.lru_cache(maxsize=None)
-def chunks(seed=3, n=N, chunk_size=128, disorder=0.0):
-    """The reference's replayable chunks and the same chunks in torch."""
+def chunks(seed=3, n=N, chunk_size=128, disorder=0.0, num_shards=1):
+    """The reference's replayable chunks and the same chunks in torch
+    (``[W, M]`` leaves for ``num_shards`` W > 1)."""
     stream = ReplayableStream(StreamAggregator(GaussianSource(), seed=seed),
                               chunk_size=chunk_size,
                               rate=chunk_size * n / 4.0, disorder=disorder,
-                              disorder_seed=9)
+                              disorder_seed=9, num_shards=num_shards)
     jchunks = stream.prefix(n)
     tchunks = tuple(TChunk(*(torch.from_numpy(np.array(getattr(c, f)))
                              for f in ("values", "stratum_ids", "times",
@@ -651,12 +652,91 @@ def test_restore_lands_in_fresh_allocations():
 
 
 def test_sharded_configurations_are_still_refused():
-    """A sharded reference payload names its shard count; the port runs
-    one shard and refuses to build a sharded executor."""
-    je = ref_executor("pipelined", cfg_kw(num_shards=2),
-                      linear_registry(jreg), KEY)
-    assert jckp.peek(jckp.to_bytes(je.snapshot()))["config"][
-        "num_shards"] == 2
-    with pytest.raises(tex.UnsupportedConfigError, match="item 9"):
-        port_executor("pipelined", cfg_kw(num_shards=2), linear_registry(),
-                      KEY)
+    """A sharded reference payload names its shard count and restores
+    into the port's vmap placement (the continuation is the reference's
+    run); what stays refused is a checkpoint on the mesh (item 7b)."""
+    jstream, tstream = chunks(seed=13, disorder=0.3, num_shards=2)
+    cfg = cfg_kw(num_shards=2)
+    je = ref_executor("pipelined", cfg, linear_registry(jreg), KEY)
+    jref = je.run(jstream)
+    jfinal = jax.tree.map(np.array, jax.device_get(je.state))
+    je.reset(jax.random.PRNGKey(KEY))
+    for c in jstream[:5]:
+        je.push(c)
+    payload = jckp.to_bytes(je.snapshot())
+    assert jckp.peek(payload)["config"]["num_shards"] == 2
+    rec = port_executor("pipelined", cfg, linear_registry(), OTHER_KEY)
+    ckpt = rec.restore(payload)
+    assert rec.state.window.intervals.values.shape[0] == 2
+    for c in tstream[ckpt.stream_offset:]:
+        rec.push(c)
+    _assert_emissions(jref[ckpt.emissions_done:], rec.finalize())
+    _assert_state_leaves_equal(jfinal, rec.state)
+    with pytest.raises(tex.UnsupportedConfigError, match="item 7b"):
+        port_executor("pipelined", cfg_kw(num_shards=2, placement="mesh"),
+                      linear_registry(), KEY,
+                      checkpointer=ckp.Checkpointer(every_chunks=2))
+
+
+SHARDED = [("pipelined", "cadence", "fused"),
+           ("batched", "watermark", "onekernel")]
+
+
+@pytest.mark.parametrize("mode,emission,ingest", SHARDED)
+def test_sharded_payloads_cross_between_packages(mode, emission, ingest):
+    """W = 4 on the vmap placement: a reference payload restores into the
+    port and the port's loads through the reference's ``from_bytes``,
+    with the same ``[W]``-leading leaves under the same names; each
+    continuation ends in the other package's uninterrupted run."""
+    jstream, tstream = chunks(seed=17, disorder=0.3, num_shards=4,
+                              chunk_size=64)
+    cfg = cfg_kw(emission=emission, ingest=ingest, num_shards=4)
+    je = ref_executor(mode, cfg, linear_registry(jreg), KEY)
+    te = port_executor(mode, cfg, linear_registry(), KEY)
+    jref, tref = je.run(jstream), te.run(tstream)
+    _assert_same_run(je, te, jref, tref)
+    jfinal = jax.tree.map(np.array, jax.device_get(je.state))
+    tfinal = state_bits(te.state)
+    payloads = {}
+    for name, ex, stream, key in (
+            ("ref", je, jstream, jax.random.PRNGKey(KEY)),
+            ("port", te, tstream, prng.PRNGKey(KEY))):
+        ex.reset(key)
+        for c in stream[:5]:
+            ex.push(c)
+        payloads[name] = (jckp if name == "ref" else ckp).to_bytes(
+            ex.snapshot())
+    jhead, thead = jckp.peek(payloads["ref"]), ckp.peek(payloads["port"])
+    assert jhead["leaf_paths"] == thead["leaf_paths"]
+    for f in ("stream_offset", "emissions_done", "config"):
+        assert jhead[f] == thead[f], f
+    for part in ("watermark", "metrics", "open_interval", "slot_interval"):
+        assert jhead["manifest"][part] == thead["manifest"][part], part
+    assert np.shape(thead["manifest"]["open_interval"]) == (4,)
+
+    rec = port_executor(mode, cfg, linear_registry(), OTHER_KEY)
+    ckpt = rec.restore(payloads["ref"])
+    for c in tstream[ckpt.stream_offset:]:
+        rec.push(c)
+    _assert_emissions(jref[ckpt.emissions_done:], rec.finalize())
+    _assert_state_leaves_equal(jfinal, rec.state)
+
+    jckpt = jckp.from_bytes(payloads["port"], je.state)
+    je.restore(jckpt)
+    for c in jstream[jckpt.stream_offset:]:
+        je.push(c)
+    _assert_emissions(je.finalize(), tref[jckpt.emissions_done:])
+    assert state_bits(convert.state_from_numpy(
+        jax_state_dict(je.state), "cpu")) == tfinal
+
+
+@pytest.mark.parametrize("mode,emission,ingest", SHARDED)
+def test_sharded_crash_sweep_every_chunk_bitwise(mode, emission, ingest):
+    """The kill-after-every-chunk sweep at W = 4 (checkpoint cadence 3
+    against emission cadence 2)."""
+    registry = (every_kind_registry() if emission == "cadence"
+                else watermark_registry())
+    cfg = cfg_kw(emission=emission, ingest=ingest, num_shards=4)
+    stream = chunks(seed=19, disorder=0.3, num_shards=4, chunk_size=64)[1]
+    reference = sweep(mode, cfg, registry, stream, range(1, N), 3)
+    assert len(reference) >= 2

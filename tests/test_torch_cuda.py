@@ -912,13 +912,16 @@ def test_cuda_crash_sweep_bitwise(cuda_device, mode, ingest, emission,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ingest,emission", [("fused", "cadence"),
-                                             ("onekernel", "watermark")])
+@pytest.mark.parametrize("ingest,emission,shards", [
+    ("fused", "cadence", 1), ("onekernel", "watermark", 1),
+    ("fused", "cadence", 4), ("onekernel", "watermark", 4)])
 def test_cuda_reductions_see_phase_zero_values(cuda_device, monkeypatch,
-                                               ingest, emission):
+                                               ingest, emission, shards):
     """The stats and histogram sums' bits depend on the values' 16-byte
     address phase: every call the emissions of a fresh executor and of
-    one restored from a payload make hands them values at phase 0."""
+    one restored from a payload make hands them values at phase 0, on
+    one shard and on W = 4 (the merged ``[W·K·S, N]`` view and its
+    interval restrictions)."""
     from repro_torch.runtime import checkpoint as ckp
     phases = []
     stats, whist = ops.stratified_stats, ops.weighted_histogram
@@ -934,6 +937,9 @@ def test_cuda_reductions_see_phase_zero_values(cuda_device, monkeypatch,
     monkeypatch.setattr(ops, "weighted_histogram", whist_at)
     cfg = _recovery_cfg(ingest, emission)
     chunks = _device_chunks(cuda_device)
+    if shards > 1:
+        cfg = _sharded_cfg(ingest, emission, shards)
+        chunks = _sharded_device_chunks(cuda_device, shards)
     fresh = tex.PipelinedExecutor(cfg, nonlinear_registry(), prng.PRNGKey(5),
                                   device=cuda_device)
     for c in chunks[:7]:
@@ -948,3 +954,97 @@ def test_cuda_reductions_see_phase_zero_values(cuda_device, monkeypatch,
     assert fresh.finalize() and restored.finalize()
     assert {k for k, _ in phases} == {"stats", "whist"}
     assert [p for _, p in phases] == [0] * len(phases), phases
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution (placement="vmap") on the card.
+# ---------------------------------------------------------------------------
+
+def _sharded_cfg(ingest, emission, shards=4):
+    """``_recovery_cfg`` over ``shards`` shards: 16 per shard, a power of
+    two, so the nonlinear answers' weights stay dyadic."""
+    return tex.RuntimeConfig(num_strata=3, capacity=16 * shards,
+                             num_intervals=3, interval_span=1.0,
+                             allowed_lateness=0.5, emit_every=4,
+                             batch_chunks=4, max_capacity=32,
+                             num_shards=shards, ingest=ingest,
+                             emission=emission)
+
+
+def _sharded_device_chunks(dev, shards=4, seed=8, n=12, m=128):
+    """``nonlinear_chunks`` as ``[W, M]`` chunks: shard ``w``'s row is
+    stream ``seed + w``, all on the same event-time ramp."""
+    rows = [nonlinear_chunks(seed + w, n, m) for w in range(shards)]
+    return [TimestampedChunk(*(torch.from_numpy(np.stack(
+        [rows[w][e][f] for w in range(shards)])).to(dev)
+        for f in range(4))) for e in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,ingest,emission", [
+    ("pipelined", "fused", "cadence"),
+    ("pipelined", "masked", "cadence"),
+    ("pipelined", "onekernel", "watermark"),
+    ("batched", "onekernel", "cadence"),
+    ("batched", "fused", "watermark")])
+def test_cuda_sharded_paths_match_cpu(cuda_device, mode, ingest, emission):
+    """W = 4 on the card and on the CPU: the same state bit for bit, the
+    same emissions (answers within rtol); per chunk ONE fold over the
+    ``W·K·S`` cells (``fused``), one per (shard, slot) (``masked``) or W
+    one-shot calls (``onekernel``); two stats calls per emission."""
+    cfg = _sharded_cfg(ingest, emission)
+    cls = tex.PipelinedExecutor if mode == "pipelined" else \
+        tex.BatchedExecutor
+    runs = []
+    for dev in ("cpu", cuda_device):
+        chunks = _sharded_device_chunks(dev)
+        ex = cls(cfg, _linear_registry(), prng.PRNGKey(5), device=dev)
+        ops.reset_launch_counts()
+        ems = ex.run(chunks)
+        torch.cuda.synchronize()
+        runs.append((ems, convert.state_to_numpy(ex.state),
+                     ops.launch_counts()))
+    (ce, cs, cl), (ge, gs, gl) = runs
+    assert not any(cl.values())
+    n, w, k = 12, 4, cfg.num_intervals
+    want = {"fused": (n, 0), "masked": (n * w * k, 0),
+            "onekernel": (0, n * w)}[ingest]
+    assert (gl["reservoir_fold"], gl["one_shot_ingest"]) == want
+    assert gl["stratified_stats"] == 2 * len(ge) > 0
+    for part in ("window", "slot_interval", "open_interval", "wm",
+                 "metrics"):
+        np.testing.assert_equal(gs[part], cs[part])
+    assert [_emission_bytes(e)[:9] for e in ce] == \
+        [_emission_bytes(e)[:9] for e in ge]
+    for a, b in zip(ce, ge):
+        for name in a.results:
+            np.testing.assert_allclose(float(b.results[name].value),
+                                       float(a.results[name].value),
+                                       rtol=1e-5)
+    assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_nonlinear_matches_cpu(cuda_device):
+    """The nonlinear registry at W = 4 (pipelined onekernel): the same
+    state and heavy-hitter keys on both devices, answers within rtol."""
+    cfg = _sharded_cfg("onekernel", "cadence")
+    runs = []
+    for dev in ("cpu", cuda_device):
+        ex = tex.PipelinedExecutor(cfg, nonlinear_registry(),
+                                   prng.PRNGKey(5), device=dev)
+        ems = ex.run(_sharded_device_chunks(dev))
+        runs.append(([convert.results_to_numpy(em.results) for em in ems],
+                     convert.state_to_numpy(ex.state)))
+    (ce, cs), (ge, gs) = runs
+    for part in ("window", "slot_interval", "open_interval", "wm",
+                 "metrics"):
+        np.testing.assert_equal(gs[part], cs[part])
+    assert len(ce) == len(ge) > 0
+    for a, b in zip(ce, ge):
+        for name in a:
+            if "keys" in a[name]:
+                np.testing.assert_array_equal(b[name]["keys"],
+                                              a[name]["keys"])
+            np.testing.assert_allclose(b[name]["value"], a[name]["value"],
+                                       rtol=1e-5)

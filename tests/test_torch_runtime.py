@@ -273,15 +273,23 @@ def test_push_never_reads_back_a_device_value(monkeypatch):
     assert reads == [torch.Size([])] * 4 and not te.emissions
 
 
-@pytest.mark.parametrize("change", [
-    dict(num_shards=2), dict(placement="mesh")])
-def test_unported_configurations_raise(change):
-    cfg = tex.RuntimeConfig(num_strata=3, capacity=8, **change)
+@pytest.mark.parametrize("change,error", [
+    (dict(num_shards=2, placement="mesh"), "item 7b"),
+    (dict(num_shards=4, num_strata=100), "limited to 1024")])
+def test_unported_configurations_raise(change, error):
+    """What the port still refuses, by name: a checkpointer on the mesh
+    (ROADMAP Queue 1 item 7b), and a fused ingest whose ``W·K·S`` cells
+    pass the fold kernel's limit."""
+    from repro_torch.runtime.checkpoint import Checkpointer
+    cfg = tex.RuntimeConfig(**dict(dict(num_strata=3, capacity=8),
+                                   **change))
     _, tr = _registries()
-    with pytest.raises(tex.UnsupportedConfigError, match="ROADMAP"):
-        tex.PipelinedExecutor(cfg, tr, prng.PRNGKey(0), device="cpu")
-    with pytest.raises(tex.UnsupportedConfigError):
-        tex.init_state(cfg, prng.PRNGKey(0), device="cpu")
+    with pytest.raises(tex.UnsupportedConfigError, match=error):
+        tex.PipelinedExecutor(cfg, tr, prng.PRNGKey(0), device="cpu",
+                              checkpointer=Checkpointer(every_chunks=2))
+    if cfg.placement == "vmap":
+        with pytest.raises(tex.UnsupportedConfigError, match=error):
+            tex.init_state(cfg, prng.PRNGKey(0), device="cpu")
 
 
 @pytest.mark.parametrize("kind,kw,error", [
