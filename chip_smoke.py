@@ -111,6 +111,32 @@ Phases (any failure ends the run with a non-zero exit):
              ingest chunk of both, one emission's ms at W = 4; (e) recovery at W = 4 killed after
              chunks 6 and 21, bitwise; (f) the mesh line (no NCCL is
              run). Figures in ``chiprun_out/chip_smoke_sharded.json``.
+11. rescale  restore-time elastic rescale at full width: 24 chunks in
+             segments of 1, 4 and 1 shards (8 chunks each; ring
+             [2, 3, 1,048,576] at W = 1, [4, 2, 3, 262,144] at W = 4), on
+             (a) pipelined fused on cadence over the in-order streams and
+             (b) batched onekernel on the watermark over the disordered
+             ones. At each boundary the batched executor flushes, the
+             executor is captured, ``checkpoint.migrate`` re-packs the
+             payload for the next width's shard count and slot width, and
+             it is serialized, deserialized and restored into the next
+             width's executor; the invariants hold there (Σ counts per
+             cell, taken <= capacity <= N_max, Σ watermark and device
+             counters, the occupancy gauge). Every answer lies within 3
+             sigma of the exact value over the items the script itself
+             finds accepted (per shard, with the frontiers pooled as
+             ``migrate`` pools them). With a checkpoint every 3 chunks,
+             kills after chunks 5, 8, 9, 16, 17 and 23 recover (replay at
+             the payload's width, every later rescale re-done) to the
+             uninterrupted schedule's emissions and final state bit for
+             bit. ``HeldToPlain`` holds every kernel call of the
+             uninterrupted and checkpointed runs and of each recovery,
+             which then runs again unheld for its restore and replay
+             times; two timed runs (unheld) give each boundary's payload
+             bytes and capture / migrate / to_bytes / from_bytes / restore
+             ms and each segment's items/s; the mesh line (no NCCL is
+             run).
+             Figures in ``chiprun_out/chip_smoke_rescale.json``.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -120,6 +146,7 @@ and as its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -174,6 +201,10 @@ RATE_SHARD = RATE / W_SHARDS       # items per event-time second per shard
 N_SHARD = -(-N_MAX // W_SHARDS)    # split_capacity(N_MAX, 4) = N_max
 SHARDED_WINDOWS = 5                # timed windows of W = 1 and W = 4, in turns
 SHARDED_CRASHES = (6, 21)          # phase sharded: chunks before each crash
+RESCALE_SEGMENTS = ((1, 8), (W_SHARDS, 8), (1, 8))   # (W, chunks): 1->4->1
+RESCALE_EVERY = 3                  # phase rescale: checkpoint cadence
+RESCALE_CRASHES = (5, 8, 9, 16, 17, 23)   # before, at, after each boundary
+RESCALE_TIMED = 2                  # timed runs of each rescaled schedule
 
 
 def log(msg: str) -> None:
@@ -2457,6 +2488,363 @@ def phase_sharded(torch, seed: int, dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase rescale: restore-time elastic rescale, 1 -> 4 -> 1 shards.
+# ---------------------------------------------------------------------------
+
+def rescale_bounds() -> list:
+    """``[(W, start, end)]`` of RESCALE_SEGMENTS, global chunk offsets."""
+    out, start = [], 0
+    for w, n in RESCALE_SEGMENTS:
+        out.append((w, start, start + n))
+        start += n
+    return out
+
+
+def rescale_exact(torch, streams, dev):
+    """The script's own verdict on every item of the rescaled schedule
+    (chunk ``e`` from ``streams[W]``, W the segment's width): each shard
+    row routed by its own pre-chunk watermark, its open interval and ring
+    eviction, the frontiers pooled to their minimum and the open intervals
+    to their maximum at each rescale, as ``migrate`` pools them. Returns
+    the exact float64 per-(interval, stratum) count, sum and
+    count(x > THRESHOLD) over the accepted items after each chunk."""
+    recip = float(np.float32(1.0) / np.float32(SPAN))
+    n_iv = int((DISORDER_T0 + CHUNKS * M / RATE) // SPAN) + 1
+    acc = torch.zeros((3, n_iv, S), dtype=torch.float64, device=dev)
+    frontier = np.full(1, np.float32(-3.0e38), np.float32)
+    open_iv = np.zeros(1, np.int64)
+    exact = []
+    for w, start, end in rescale_bounds():
+        frontier = np.full(w, frontier.min(), np.float32)
+        open_iv = np.full(w, open_iv.max(), np.int64)
+        for e in range(start, end):
+            ch = streams[w][e]
+            t, sid, v, mask = (x.reshape(w, -1) for x in (
+                ch.times, ch.stratum_ids, ch.values, ch.mask))
+            for r in range(w):
+                tgt = torch.floor(t[r] * recip).to(torch.int32)
+                wmark = float(frontier[r] - np.float32(LATENESS))
+                top = int(torch.where(mask[r], tgt, -1).max())
+                new_open = max(int(open_iv[r]), top)
+                ok = mask[r] & ~(t[r] < wmark) & (tgt >= new_open - K + 1)
+                cell = (tgt.long() * S + sid[r].long())[ok]
+                x = v[r][ok].double()
+                acc[0].view(-1).index_add_(0, cell, torch.ones_like(x))
+                acc[1].view(-1).index_add_(0, cell, x)
+                acc[2].view(-1).index_add_(0, cell, (x > THRESHOLD).double())
+                frontier[r] = max(frontier[r], np.float32(float(
+                    torch.where(mask[r], t[r], -3.0e38).max())))
+                open_iv[r] = new_open
+            exact.append(acc.clone())
+    return exact
+
+
+def rescale_invariants(tag, before, after, n_max) -> dict:
+    """A migrate's invariants on host states: Σ counts per (slot, stratum)
+    cell, ``taken <= capacity <= N_max``, Σ of the watermark counters and
+    of the device counters, and the occupancy gauge recomputed."""
+    def rows(a, tail):
+        return np.asarray(a).reshape((-1,) + tail)
+    bi, ai = before.window.intervals, after.window.intervals
+    cb, ca = rows(bi.counts, (K, S)), rows(ai.counts, (K, S))
+    cap = rows(ai.capacity, (K, S))
+    taken = np.minimum(ca, cap)
+    bad = []
+    if not (cb.astype(np.int64).sum(0) == ca.astype(np.int64).sum(0)).all():
+        bad.append("counts per cell")
+    if not ((taken <= cap).all() and (cap <= n_max).all()):
+        bad.append("taken <= capacity <= N_max")
+    for part in ("wm", "metrics"):
+        for f in dataclasses.fields(getattr(before, part)):
+            if part == "metrics" and f.name == "occupancy":
+                continue
+            x, y = (np.asarray(getattr(getattr(s, part), f.name))
+                    for s in (before, after))
+            if x.astype(np.int64).sum() != y.astype(np.int64).sum() \
+                    and f.name != "max_time":
+                bad.append(f"sum of {part}.{f.name}")
+    if not (rows(after.metrics.occupancy, (S,)) == taken.sum(1)).all():
+        bad.append("occupancy")
+    if bad:
+        fail(f"{tag}: migrate broke {bad}")
+    return dict(cells=cb.astype(np.int64).sum(0).tolist(),
+                taken=taken.sum(axis=(0, 1)).tolist())
+
+
+class Rescaler:
+    """The rescaled schedule on one path: ``executors[W]`` (warm, one per
+    width), ``streams[W][e]`` the chunk at global offset ``e``. At each
+    boundary the batched executor flushes its partial micro-batch, the
+    executor is captured, the checkpoint migrated to the next width's
+    shard count and slot width, serialized, deserialized and restored into
+    the next width's executor; the figures of every boundary are kept."""
+
+    def __init__(self, torch, tag, executors, streams):
+        self.torch, self.tag = torch, tag
+        self.executors, self.streams = executors, streams
+        self.boundaries = []
+
+    def _sync(self):
+        self.torch.cuda.synchronize()
+
+    def start(self, seg, payload, key, every):
+        from repro_torch.runtime import Checkpointer
+        from repro_torch.runtime import checkpoint as ckp
+        ex = self.executors[rescale_bounds()[seg][0]]
+        ex.checkpointer = None
+        fig = {}
+        if payload is None:
+            ex.reset(key)
+        else:
+            self._sync()
+            t0 = time.perf_counter()
+            ckpt = ckp.from_bytes(payload, ex.payload_template())
+            t1 = time.perf_counter()
+            ex.restore(ckpt)                 # waits for the copies
+            fig = dict(from_bytes_ms=(t1 - t0) * 1e3,
+                       restore_ms=(time.perf_counter() - t1) * 1e3)
+        if every is not None:
+            ex.checkpointer = Checkpointer(every_chunks=every)
+            ex.checkpointer.save(ex)
+        return ex, fig
+
+    def boundary(self, ex, seg):
+        """Capture, migrate and serialize at the end of segment ``seg``;
+        returns the payload and its figures."""
+        from repro_torch.runtime import checkpoint as ckp
+        nxt = self.executors[rescale_bounds()[seg + 1][0]]
+        if ex.mode == "batched" and ex._pending:
+            ex._flush()
+        self._sync()
+        t0 = time.perf_counter()
+        snap = ex.snapshot()
+        t1 = time.perf_counter()
+        n_max = nxt.state.window.intervals.values.shape[-1]
+        mig = ckp.migrate(snap, nxt.cfg.num_shards, new_max_capacity=n_max)
+        t2 = time.perf_counter()
+        payload = ckp.to_bytes(mig)
+        t3 = time.perf_counter()
+        inv = rescale_invariants(f"rescale ({self.tag}) boundary {seg}",
+                                 snap.state, mig.state, n_max)
+        return payload, dict(capture_ms=(t1 - t0) * 1e3,
+                             migrate_ms=(t2 - t1) * 1e3,
+                             to_bytes_ms=(t3 - t2) * 1e3,
+                             payload_bytes=len(payload), **inv)
+
+    def drive(self, seg, ex, offset, every=None, watch=None, walls=None):
+        """Push from global ``offset`` (in segment ``seg``) to the end,
+        rescaling at each boundary. Returns the emissions and the last
+        executor; ``walls`` gets each segment's wall seconds."""
+        bounds = rescale_bounds()
+        ems = []
+        for i in range(seg, len(bounds)):
+            w, _, end = bounds[i]
+            self._sync()
+            t0 = time.perf_counter()
+            n = end - offset
+            while offset < end:
+                ex.push(self.streams[w][offset])
+                offset += 1
+                if watch is not None:
+                    watch(offset, ems + list(ex.emissions), ex)
+            if i == len(bounds) - 1:
+                ems += ex.finalize()
+            self._sync()
+            if walls is not None:
+                walls.append((w, n, time.perf_counter() - t0))
+            if i == len(bounds) - 1:
+                return ems, ex
+            ems += list(ex.emissions)
+            payload, fig = self.boundary(ex, i)
+            ex.checkpointer = None
+            ex, fig2 = self.start(i + 1, payload, None, every)
+            self.boundaries.append(dict(fig, **fig2))
+        raise RuntimeError("empty schedule")
+
+    def run(self, key, every=None, watch=None, walls=None):
+        ex, _ = self.start(0, None, key, every)
+        if watch is not None:
+            watch(0, [], ex)
+        return self.drive(0, ex, 0, every, watch, walls)
+
+    def resume(self, payload, kill):
+        """Recover from ``payload`` after a kill after chunk ``kill``:
+        replay at the payload's own width, re-perform every remaining
+        rescale. Returns the emissions, the last executor, the restore ms,
+        the chunks replayed until the state holds chunk ``kill`` again
+        (the batched executor's next flush at or after it) and the ms per
+        replayed chunk."""
+        from repro_torch.runtime import checkpoint as ckp
+        head = ckp.peek(payload)
+        w_ck, off = int(head["config"]["num_shards"]), head["stream_offset"]
+        bounds = rescale_bounds()
+        cands = [i for i, (w, s, e) in enumerate(bounds)
+                 if w == w_ck and s <= off <= e]
+        live = [i for i in cands if off < bounds[i][2]]
+        seg = live[0] if live else cands[0]
+        t0 = time.perf_counter()
+        ex, fig = self.start(seg, payload, None, None)
+        t1 = time.perf_counter()
+        replay = dict(chunks=0, ms=0.0)
+        if off >= kill:
+            replay["done"] = True
+
+        def watch(_o, _ems, now):
+            held = ckp.incorporated_offset(now)
+            if held >= kill and "done" not in replay:
+                self._sync()
+                replay.update(done=True, chunks=held - off,
+                              ms=(time.perf_counter() - t1) * 1e3)
+        ems, last = self.drive(seg, ex, off, watch=watch)
+        per_chunk = replay["ms"] / max(replay["chunks"], 1)
+        return (ems, last, (t1 - t0) * 1e3, replay["chunks"], per_chunk,
+                off)
+
+
+def phase_rescale(torch, seed: int, dev) -> dict:
+    """Restore-time elastic rescale at full width: 1 -> 4 -> 1 shards with
+    ``checkpoint.migrate`` at each boundary, on two paths, answers within
+    3 sigma, invariants at both boundaries, killed around both and
+    recovered bit for bit (module docstring, phase 11)."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import checkpoint as ckp
+    from repro_torch.runtime.executor import (BatchedExecutor,
+                                              PipelinedExecutor)
+    where = card()
+    key, other = prng.PRNGKey(seed), prng.PRNGKey(seed + 1000)
+    paths = {
+        "a": (PipelinedExecutor, "fused", "cadence",
+              {1: make_stream(torch, seed, dev)[0],
+               W_SHARDS: make_sharded_stream(torch, seed, dev)[0]}),
+        "b": (BatchedExecutor, "onekernel", "watermark",
+              {1: make_disordered_stream(torch, seed, dev)[0],
+               W_SHARDS: make_sharded_stream(torch, seed, dev,
+                                             disorder=True)[0]}),
+    }
+    result = dict(card=where, segments=RESCALE_SEGMENTS,
+                  every_chunks=RESCALE_EVERY, paths={})
+    for tag, (cls, ingest, emission, streams) in paths.items():
+        execs = {w: cls(sharded_cfg(num_shards=w, ingest=ingest,
+                                    emission=emission),
+                        linear_registry(), key, device=dev)
+                 for w in (1, W_SHARDS)}
+        rings = {w: list(ex.state.window.intervals.values.shape)
+                 for w, ex in execs.items()}
+        log(f"[rescale] ({tag}) {cls.__name__} ingest={ingest} emission="
+            f"{emission}: segments {RESCALE_SEGMENTS}, rings {rings} f32")
+        exact = rescale_exact(torch, streams, dev)
+
+        # Timed runs, no kernel held: items/s per segment and the
+        # boundaries' parts.
+        res = Rescaler(torch, tag, execs, streams)
+        res.run(key)                       # warm-up
+        res.boundaries, seg_rates = [], []
+        for _ in range(RESCALE_TIMED):
+            walls = []
+            res.run(key, walls=walls)
+            seg_rates.append([n * M / s for _, n, s in walls])
+        timed = res.boundaries
+
+        # The uninterrupted schedule, every kernel call held.
+        res.boundaries = []
+        held = HeldToPlain(torch, f"rescale ({tag})")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with held:
+            ems, last = res.run(key)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        kernel = "one_shot_ingest" if ingest == "onekernel" else \
+            "reservoir_fold"
+        if launches[kernel] == 0 or launches["stratified_stats"] == 0:
+            fail(f"rescale ({tag}): the schedule did not run {kernel} and "
+                 f"stratified_stats: {launches}")
+        reference = [emission_bits(torch, em) for em in ems]
+        final = state_bits(last.state)
+        if not ems:
+            fail(f"rescale ({tag}): no emission")
+        for em in ems:
+            if emission == "cadence":
+                check_answers(f"rescale ({tag})", em, live_intervals(em),
+                              exact[(em.index + 1) * EMIT_EVERY - 1])
+            else:
+                check_answers(f"rescale ({tag})", em, [em.interval],
+                              exact[-1])
+        inv = [{k: b[k] for k in ("cells", "taken")}
+               for b in res.boundaries]
+        log(f"[rescale] ({tag}) {len(ems)} emissions within 3 sigma; "
+            f"launches {launches}; kernel calls held to the plain version "
+            f"{ {' '.join(map(str, k)): v for k, v in held.calls.items()} }"
+            f"; invariants held at both boundaries (Σ counts per cell, "
+            f"Σ taken per stratum after) {inv}")
+
+        # Killed around both boundaries: one checkpointed run gives the
+        # payload each kill leaves (the run is deterministic). Each
+        # recovery runs twice: with every kernel call held, then unheld
+        # for its times.
+        survivors = {}
+
+        def watch(offset, so_far, ex):
+            survivors[offset] = (ex.checkpointer.latest, list(so_far))
+        kills = {}
+        with held:
+            res.run(key, every=RESCALE_EVERY, watch=watch)
+        for k in RESCALE_CRASHES:
+            payload, pre = survivors[k]
+            head = ckp.peek(payload)
+            done = int(head["emissions_done"])
+            for ctx in (held, contextlib.nullcontext()):
+                with ctx:
+                    rec, last, restore_ms, n_replay, replay_ms, off = \
+                        res.resume(payload, k)
+                out = pre[:done] + rec
+                check_exactly_once(torch, f"rescale ({tag}) kill after {k}",
+                                   reference, out, final, last.state)
+            w_ck = head["config"]["num_shards"]
+            kills[k] = dict(offset=off, width=w_ck,
+                            payload_bytes=len(payload),
+                            restore_ms=restore_ms,
+                            replayed_chunks=n_replay,
+                            replay_ms_per_chunk=replay_ms)
+            log(f"[rescale] ({tag}) killed after chunk {k}: payload at "
+                f"offset {off}, W = {w_ck} ({len(payload)} B), restore "
+                f"{restore_ms:.4f} ms, {n_replay} chunks replayed until "
+                f"the state held chunk {k} again, {replay_ms:.4f} ms per "
+                f"chunk (unheld); {len(out)} emissions and the final state "
+                "bit for bit the uninterrupted schedule's, held and unheld")
+
+        for i, b in enumerate(timed):
+            w0, w1 = (RESCALE_SEGMENTS[i % 2][0],
+                      RESCALE_SEGMENTS[i % 2 + 1][0])
+            log(f"[rescale] ({tag}) on {where}: boundary {w0} -> {w1} "
+                f"(timed run {i // 2}): payload {b['payload_bytes']} B, "
+                f"capture {b['capture_ms']:.4f} ms, migrate "
+                f"{b['migrate_ms']:.4f} ms, to_bytes {b['to_bytes_ms']:.4f} "
+                f"ms, from_bytes {b['from_bytes_ms']:.4f} ms, restore "
+                f"{b['restore_ms']:.4f} ms")
+        for j, r in enumerate(seg_rates):
+            log(f"[rescale] ({tag}) on {where}: items/s per segment (timed "
+                f"run {j}, W = {[w for w, _ in RESCALE_SEGMENTS]}): "
+                f"{[round(x) for x in r]}")
+        result["paths"][tag] = dict(
+            executor=cls.__name__, ingest=ingest, emission=emission,
+            boundaries=timed, segment_items_per_s=seg_rates, kills=kills,
+            launches=launches, emissions=len(ems),
+            held={" ".join(map(str, k)): v for k, v in held.calls.items()})
+        del execs, res, last
+
+    cards = torch.cuda.device_count()
+    log(f"[rescale] mesh not run: torch.cuda.device_count() = {cards}"
+        + (f" < {W_SHARDS}" if cards < W_SHARDS else
+           " (this script drives one card)"))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_rescale.json").write_text(
+        json.dumps(result, indent=1))
+    return result
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2491,6 +2879,7 @@ def main(argv=None) -> int:
     nonlinear = phase_nonlinear(torch, args.seed, dev)
     phase_recovery(torch, args.seed, dev, nonlinear)
     phase_sharded(torch, args.seed, dev)
+    phase_rescale(torch, args.seed, dev)
     if args.profile:
         phase_profile(torch, args.seed, dev)
 

@@ -19,6 +19,8 @@ names:
   worker's sample cells with a payload of integer words riding in the
   same buffer, bit-reinterpreted so that words above ``2**24`` stay
   exact.
+* A mesh checkpoint (:func:`gather_shards`) is ONE all_gather of every
+  worker's state leaves packed as 32-bit words.
 
 Every collective goes through :func:`_all_reduce` or :func:`_all_gather`,
 which count their calls (:func:`collective_counts`, read like
@@ -307,3 +309,30 @@ def gather_cells(view: qt.SampleView, aux: torch.Tensor, group=None,
     aux_all = gathered[:, g:].reshape(world, rows * width)[:, :a]
     aux_all = aux_all.contiguous().view(torch.int32).to(torch.int64) & _MASK
     return merged, aux_all
+
+
+def gather_shards(parts: Sequence[torch.Tensor],
+                  group=None) -> List[torch.Tensor]:
+    """Stack every rank's ``[1, ...]`` tensors into ``[world, ...]`` ones
+    with ONE all_gather of one packed buffer of 32-bit words (a mesh
+    checkpoint's capture). Each part keeps its dtype and its bits: f32
+    and i32 travel as their bit patterns, int64 as the u32 words it
+    holds (PRNG key words)."""
+    words = []
+    for p in parts:
+        p = p.reshape(1, -1)
+        if p.dtype == torch.float32:
+            p = p.contiguous().view(torch.int32)
+        words.append(p.to(torch.int32))
+    gathered = _all_gather(torch.cat(words, dim=1), group)
+    out, at = [], 0
+    for p in parts:
+        n = p[0].numel()
+        w = gathered[:, at:at + n]
+        at += n
+        if p.dtype == torch.float32:
+            w = w.contiguous().view(torch.float32)
+        elif p.dtype == torch.int64:
+            w = w.to(torch.int64) & _MASK
+        out.append(w.reshape((w.shape[0],) + tuple(p.shape[1:])))
+    return out

@@ -47,15 +47,17 @@ the cell counters, slot table, watermark scalars and counter rows.
 
 Exactly-once recovery: a ``Checkpointer`` (``runtime/checkpoint.py``)
 passed as ``checkpointer=`` snapshots the executor at the end of a push,
-after any emission; ``snapshot()`` / ``restore()`` are the hooks, on one
-shard and on the vmap placement. A ``Telemetry`` (``obs/metrics.py``)
-passed as ``telemetry=`` hears every emission, flush, checkpoint and
-restore, all where the host already waits.
+after any emission; ``snapshot()`` / ``restore()`` are the hooks, on
+every placement. On the mesh a snapshot is a collective (one all_gather
+of every rank's shard), so every rank takes it at the same offsets, and
+a restore keeps the rank's row of the ``[W]``-leading payload; payloads
+move between the placements, and ``checkpoint.migrate`` moves them
+between shard counts. A ``Telemetry`` (``obs/metrics.py``) passed as
+``telemetry=`` hears every emission, flush, checkpoint and restore, all
+where the host already waits.
 
-Not ported (each raises :class:`UnsupportedConfigError`): checkpoints on
-the mesh (with the restore-time rescale ``migrate``, ROADMAP Queue 1
-item 7b), and a ``fused`` ingest whose ``W·K·S`` cells pass the fold
-kernel's limits.
+Not ported (raises :class:`UnsupportedConfigError`): a ``fused`` ingest
+whose ``W·K·S`` cells pass the fold kernel's limits.
 """
 from __future__ import annotations
 
@@ -691,16 +693,6 @@ def _controller_step(cfg: RuntimeConfig, ctrl: ctl.ControllerState,
 # The executors.
 # ---------------------------------------------------------------------------
 
-#: Why the mesh refuses checkpoints: a payload there needs every rank's
-#: state, gathered to one rank or written one file per rank, a design
-#: that comes with the restore-time rescale.
-_MESH_CHECKPOINTS = (
-    "checkpoints on placement='mesh' are not ported: a payload needs "
-    "every rank's shard (gathered to one rank, or one file per rank), "
-    "which comes with checkpoint.migrate (ROADMAP Queue 1 item 7b); "
-    "checkpoint the vmap placement")
-
-
 class _ExecutorBase:
     """Shared plumbing: state, emission bookkeeping, the watermark mirror,
     ad hoc queries."""
@@ -714,8 +706,6 @@ class _ExecutorBase:
         check_supported(cfg)
         self.mesh: Optional["StreamMesh"] = None
         if cfg.placement == "mesh":
-            if checkpointer is not None:
-                raise UnsupportedConfigError(_MESH_CHECKPOINTS)
             from repro_torch.launch import mesh as lmesh
             self.mesh = lmesh.make_stream_mesh(cfg.num_shards)
             if device is None:
@@ -805,27 +795,34 @@ class _ExecutorBase:
         self.telemetry = telemetry
         telemetry.on_run_meta(self)
 
-    def _no_mesh_checkpoints(self) -> None:
-        if self.mesh is not None:
-            raise UnsupportedConfigError(_MESH_CHECKPOINTS)
-
     def snapshot(self) -> "RuntimeCheckpoint":
         """A complete checkpoint of this executor (the state copied to
         the host and the host cursors). Waits for the card: take it at a
-        chunk boundary, like an emission."""
-        self._no_mesh_checkpoints()
+        chunk boundary, like an emission. On the mesh every rank calls
+        it (one all_gather) and gets the same ``[W]``-leading
+        checkpoint."""
         from repro_torch.runtime import checkpoint as ckp
         return ckp.capture(self)
+
+    def payload_template(self) -> RuntimeState:
+        """The state a payload of this executor holds: its own, or on the
+        mesh every shard's (``[W]``-leading tensors on the meta device,
+        shapes and dtypes only)."""
+        if self.mesh is None:
+            return self.state
+        from repro_torch.runtime import convert
+        w = self.cfg.num_shards
+        return convert.map_leaves(self.state, lambda _p, t: torch.empty(
+            (w,) + tuple(t.shape[1:]), dtype=t.dtype, device="meta"))
 
     def restore(self, ckpt) -> "RuntimeCheckpoint":
         """Restore a :class:`RuntimeCheckpoint` or its payload bytes, then
         replay the chunks from ``ckpt.stream_offset``: the continuation is
         the uninterrupted run's, bit for bit. Returns the checkpoint."""
-        self._no_mesh_checkpoints()
         from repro_torch.runtime import checkpoint as ckp
         t0 = time.perf_counter()
         if isinstance(ckpt, (bytes, bytearray)):
-            ckpt = ckp.from_bytes(bytes(ckpt), self.state)
+            ckpt = ckp.from_bytes(bytes(ckpt), self.payload_template())
         ckp.restore_into(self, ckpt)
         self._sync()
         if self.telemetry is not None:
@@ -844,10 +841,20 @@ class _ExecutorBase:
         Under watermark emission ``emitted_through`` and
         ``emit_base_key`` (two u32 words) carry the host cursors; the
         frontier mirror restarts from the state's frontier (one entry
-        per shard), as the reference's restore does."""
-        self._no_mesh_checkpoints()
+        per shard), as the reference's restore does.
+
+        On the mesh ``state`` holds every shard (``[W]``-leading, on any
+        device): each rank checks its leaves' shapes and keeps its own
+        row, in a fresh allocation on its device."""
+        every = state
+        if self.mesh is not None:
+            state = self._own_row(every)
         self.state = state
-        self._ctrl_rows = state.ctrl
+        self._ctrl_rows = every.ctrl
+        # A copy: on the CPU ``numpy()`` shares the state's buffer, which
+        # the one-shot ingest updates in place.
+        self._host_frontier = every.wm.max_time.cpu().numpy().reshape(
+            -1).copy()
         self.chunks_pushed = chunks_pushed
         self._emission_cursor = emissions_done
         self._items_since_emit = items_since_emit
@@ -856,10 +863,23 @@ class _ExecutorBase:
         if emit_base_key is not None:
             self._emit_base_key = torch.as_tensor(
                 np.asarray(emit_base_key, np.int64), device=self.device)
-        # A copy: on the CPU ``numpy()`` shares the state's buffer, which
-        # the one-shot ingest updates in place.
-        self._host_frontier = state.wm.max_time.cpu().numpy().reshape(
-            -1).copy()
+
+    def _own_row(self, state: RuntimeState) -> RuntimeState:
+        """This mesh rank's row of an every-shard state, each leaf checked
+        against the rank's own and copied to its device."""
+        from repro_torch.runtime import convert
+        own = dict(convert.named_leaves(self.state))
+        r, w = self.mesh.rank, self.cfg.num_shards
+
+        def row(path, t):
+            want = (w,) + tuple(own[path].shape[1:])
+            if tuple(t.shape) != want or t.dtype != own[path].dtype:
+                raise ValueError(
+                    f"state leaf {path} is {tuple(t.shape)} {t.dtype}; a "
+                    f"rank of this mesh resumes from every shard's state, "
+                    f"{want} {own[path].dtype}")
+            return t[r:r + 1].to(self.device, copy=True)
+        return convert.map_leaves(state, row)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -654,7 +654,8 @@ def test_restore_lands_in_fresh_allocations():
 def test_sharded_configurations_are_still_refused():
     """A sharded reference payload names its shard count and restores
     into the port's vmap placement (the continuation is the reference's
-    run); what stays refused is a checkpoint on the mesh (item 7b)."""
+    run); a mesh executor takes a checkpointer, and what it still refuses
+    is a missing process group."""
     jstream, tstream = chunks(seed=13, disorder=0.3, num_shards=2)
     cfg = cfg_kw(num_shards=2)
     je = ref_executor("pipelined", cfg, linear_registry(jreg), KEY)
@@ -672,7 +673,7 @@ def test_sharded_configurations_are_still_refused():
         rec.push(c)
     _assert_emissions(jref[ckpt.emissions_done:], rec.finalize())
     _assert_state_leaves_equal(jfinal, rec.state)
-    with pytest.raises(tex.UnsupportedConfigError, match="item 7b"):
+    with pytest.raises(ValueError, match="init_process_group"):
         port_executor("pipelined", cfg_kw(num_shards=2, placement="mesh"),
                       linear_registry(), KEY,
                       checkpointer=ckp.Checkpointer(every_chunks=2))

@@ -1048,3 +1048,51 @@ def test_cuda_sharded_nonlinear_matches_cpu(cuda_device):
                                               a[name]["keys"])
             np.testing.assert_allclose(b[name]["value"], a[name]["value"],
                                        rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pipelined-cadence", "batched-watermark"])
+def test_cuda_rescale_kill_sweep(cuda_device, name):
+    """The 4→8→4 rescale on the card (``test_torch_rescale``'s harness,
+    numpy ramp chunks), killed after every chunk: bitwise exactly-once
+    against the uninterrupted card run, whose state is the CPU run's bit
+    for bit and whose answers are within rtol."""
+    from test_torch_rescale import (KEY, SCHEDULES, SEGMENTS, port_executor,
+                                    ramp_chunk, run_schedule,
+                                    segment_bounds, sweep_rescale)
+    disorder = SCHEDULES[name][3]
+    runs = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        streams = {w: (lambda o, w=w, d=dev: ramp_chunk(
+            o, w, disorder=disorder, device=d)) for w in (4, 8)}
+        executors = {w: port_executor(name, w, KEY + w, device=dev)
+                     for w in (4, 8)}
+        if dev == "cpu":
+            ems, last = run_schedule(executors, streams, SEGMENTS,
+                                     prng.PRNGKey(KEY))
+        else:
+            total = segment_bounds(SEGMENTS)[-1][2]
+            ems = sweep_rescale(executors, streams, SEGMENTS,
+                                prng.PRNGKey(KEY), every_chunks=2,
+                                crash_points=range(total + 1))
+            ems, last = run_schedule(executors, streams, SEGMENTS,
+                                     prng.PRNGKey(KEY))
+        runs[str(dev)] = (ems, convert.state_to_numpy(last.state))
+    kernel = "one_shot_ingest" if SCHEDULES[name][1] == "onekernel" else \
+        "reservoir_fold"
+    launches = ops.launch_counts()
+    assert launches[kernel] > 0 and launches["stratified_stats"] > 0
+    (ce, cs), (ge, gs) = runs["cpu"], runs[str(cuda_device)]
+    for part in ("window", "slot_interval", "open_interval", "wm",
+                 "metrics"):
+        np.testing.assert_equal(gs[part], cs[part])
+    assert len(ce) == len(ge) > 0
+    for a, b in zip(ce, ge):
+        assert (a.index, a.interval, a.on_time, a.late, a.dropped) == \
+            (b.index, b.interval, b.on_time, b.late, b.dropped)
+        for q in a.results:
+            np.testing.assert_allclose(
+                convert.results_to_numpy({q: b.results[q]})[q]["value"],
+                convert.results_to_numpy({q: a.results[q]})[q]["value"],
+                rtol=1e-5)

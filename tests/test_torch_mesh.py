@@ -17,8 +17,8 @@ but the wall-clock latency, every answer and width), the ranks' shards
 stacked are the vmap state bit for bit, and both are the reference's
 vmap oracle's: emission fields, Σ capacity and state bitwise, answers
 within ``test_torch_runtime``'s rtol. The collective counter: no
-collective while ingesting, one all_gather per emission and per ad hoc
-``query()``.
+collective while ingesting, one all_gather per emission, per ad hoc
+``query()`` and per snapshot.
 """
 import pickle
 
@@ -120,11 +120,13 @@ def _rank_main(rank, world, init, streams, out_dir):
     for c in chunks[:2]:
         ex.push(c)
     out["ingest_counts"] = dist.collective_counts()
+    dist.reset_collective_counts()
+    snap = ex.snapshot()
+    out["snapshot"] = dict(
+        offset=snap.stream_offset, counts=dist.collective_counts(),
+        shape=snap.state.window.intervals.values.shape,
+        payload=ckp.to_bytes(snap))
     errors = {}
-    try:
-        ex.snapshot()
-    except tex.UnsupportedConfigError as e:
-        errors["snapshot"] = str(e)
     try:
         tex.PipelinedExecutor(
             tex.RuntimeConfig(**dict(config_kw(name), num_shards=2)),
@@ -261,19 +263,23 @@ def test_mesh_ingest_is_collective_free(ranks):
 
 
 def test_mesh_refusals_inside_a_group(ranks):
-    """A group of 4 ranks refuses ``num_shards=2`` with the recipe, and a
-    mesh executor refuses a snapshot (item 7b)."""
+    """A group of 4 ranks refuses ``num_shards=2`` with the recipe; a mesh
+    executor's snapshot is no longer refused: every rank gets the same
+    ``[W]``-leading payload, with one all_gather."""
     for r in range(W):
         errors = ranks[r]["errors"]
         assert "has 4 ranks" in errors["world_size"]
         assert "init_process_group" in errors["world_size"]
-        assert "item 7b" in errors["snapshot"]
+        snap = ranks[r]["snapshot"]
+        assert snap["offset"] == 2 and snap["shape"][0] == W
+        assert snap["counts"] == {"all_reduce": 0, "all_gather": 1}
+        assert snap["payload"] == ranks[0]["snapshot"]["payload"]
 
 
 def test_mesh_placement_validation():
     """Refused before any process group is needed: a mesh of one shard,
-    an unknown placement, a checkpointer on the mesh; and a mesh with no
-    initialized group names the recipe."""
+    an unknown placement; and a mesh with no initialized group names the
+    recipe, with or without a checkpointer (which the mesh takes)."""
     with pytest.raises(ValueError, match="num_shards > 1"):
         tex.PipelinedExecutor(tex.RuntimeConfig(
             num_strata=3, capacity=8, placement="mesh"), registry(),
@@ -282,7 +288,7 @@ def test_mesh_placement_validation():
         tex.PipelinedExecutor(tex.RuntimeConfig(
             num_strata=3, capacity=8, num_shards=2, placement="spmd"),
             registry(), prng.PRNGKey(0), device="cpu")
-    with pytest.raises(tex.UnsupportedConfigError, match="item 7b"):
+    with pytest.raises(ValueError, match="init_process_group"):
         executor("pipelined-cadence",
                  checkpointer=ckp.Checkpointer(every_chunks=2))
     with pytest.raises(ValueError, match="init_process_group"):

@@ -273,18 +273,24 @@ def test_push_never_reads_back_a_device_value(monkeypatch):
     assert reads == [torch.Size([])] * 4 and not te.emissions
 
 
-@pytest.mark.parametrize("change,error", [
-    (dict(num_shards=2, placement="mesh"), "item 7b"),
-    (dict(num_shards=4, num_strata=100), "limited to 1024")])
-def test_unported_configurations_raise(change, error):
-    """What the port still refuses, by name: a checkpointer on the mesh
-    (ROADMAP Queue 1 item 7b), and a fused ingest whose ``W·K·S`` cells
-    pass the fold kernel's limit."""
+@pytest.mark.parametrize("change,exc,error", [
+    # Item 7b ported checkpoints on the mesh: the case keeps its id and
+    # checks that a mesh executor takes a checkpointer and refuses only
+    # the missing process group.
+    pytest.param(dict(num_shards=2, placement="mesh"), ValueError,
+                 "init_process_group", id="change0-item 7b"),
+    pytest.param(dict(num_shards=4, num_strata=100),
+                 tex.UnsupportedConfigError, "limited to 1024",
+                 id="change1-limited to 1024")])
+def test_unported_configurations_raise(change, exc, error):
+    """What the port refuses, by name: a fused ingest whose ``W·K·S``
+    cells pass the fold kernel's limit; and a mesh executor, which takes
+    a checkpointer, without an initialized process group."""
     from repro_torch.runtime.checkpoint import Checkpointer
     cfg = tex.RuntimeConfig(**dict(dict(num_strata=3, capacity=8),
                                    **change))
     _, tr = _registries()
-    with pytest.raises(tex.UnsupportedConfigError, match=error):
+    with pytest.raises(exc, match=error):
         tex.PipelinedExecutor(cfg, tr, prng.PRNGKey(0), device="cpu",
                               checkpointer=Checkpointer(every_chunks=2))
     if cfg.placement == "vmap":
