@@ -137,6 +137,40 @@ Phases (any failure ends the run with a non-zero exit):
              ms and each segment's items/s; the mesh line (no NCCL is
              run).
              Figures in ``chiprun_out/chip_smoke_rescale.json``.
+12. systems  the paper's five-system comparison (§5), each system built
+             from the port's modules as ``benchmarks/systems.py`` builds
+             it from the reference's (``five_systems``): native,
+             oasrs_batched, oasrs_pipelined (one fold per lane), srs and
+             sts. (a) fig7b's window at the reference's own width: 65,536
+             items of the skewed Gaussian stream (aggregator seed 4),
+             fraction 0.4, lane 256; native within ANSWER_RTOL of the f64
+             sum, the others within 3 sigma, SRS selecting exactly k and
+             STS exactly ceil(0.4 C_i) per stratum. (b) one 10 s window
+             of the §5.1 stream at RATE: 20 chunks of M from
+             ``ReplayableStream``, 10,485,760 items, fraction 0.6
+             (capacity 2,097,152 per stratum), lane 65,536 (160 folds);
+             SRS is held to 3 sigma around the f64 sum scaled by its own
+             count estimate (the reference's f32 running sum of the
+             weights, which drifts at this width). In (a) and (b) one
+             window of each system has every fold and stats call held to
+             its plain version, its launches per window checked, then
+             SYS_RUNS windows of each are timed in turns
+             (``replay.measure_window_program``); (b) also records each
+             system's device activities and busy share (profiler; the
+             pipelined system traced on a tenth of its window) and
+             the OASRS/native, OASRS/SRS and OASRS/STS ratios. (c) the
+             substrate: ``chunk_at`` twice bit for bit, ``range(7, 24)``
+             against ``prefix(24)[7:]`` with disorder and a key gap, ms
+             per generated chunk, and a ``MeteredStream`` over a 24-chunk
+             pipelined run (its summary the exact count and span, no
+             device-to-host read while it meters). (d)
+             ``oasrs.update_stream`` of 1,024 items on the card (no read
+             back to the host), bit for bit the same call on the CPU. Figures in
+             ``chiprun_out/chip_smoke_systems.json``.
+
+Every stream is the reference's: ``StreamAggregator`` draws, ids and
+event times bit for bit (phases paths' and sharded's disorder is drawn
+from a seeded ``torch.Generator``).
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -205,6 +239,12 @@ RESCALE_SEGMENTS = ((1, 8), (W_SHARDS, 8), (1, 8))   # (W, chunks): 1->4->1
 RESCALE_EVERY = 3                  # phase rescale: checkpoint cadence
 RESCALE_CRASHES = (5, 8, 9, 16, 17, 23)   # before, at, after each boundary
 RESCALE_TIMED = 2                  # timed runs of each rescaled schedule
+SYSTEMS = ("native", "oasrs_batched", "oasrs_pipelined", "srs", "sts")
+SYS_A = dict(items=65_536, fraction=0.4, lane=256, seed=4)   # fig7b
+SYS_B = dict(chunks=20, fraction=0.6, lane=65_536)   # one 10 s window
+SYS_RUNS = 5                       # timed runs of each system, in turns
+SYS_REPLAY = 24                    # phase systems (c): chunks replayed
+SYS_ITEMS_D = 1_024                # phase systems (d): items one by one
 
 
 def log(msg: str) -> None:
@@ -648,19 +688,19 @@ def check_answers(tag, em, intervals, exact_at) -> None:
 
 
 def make_stream(torch, seed: int, dev):
-    """The §5.1 Gaussian stream, stamped in order, made on the card in
-    bulk (set-up), with the exact per-interval float64 aggregates."""
+    """The §5.1 Gaussian stream (the reference's draws: aggregator seed
+    ``seed``), stamped in order, made on the card in bulk (set-up), with
+    the exact per-interval float64 aggregates."""
     from repro_torch.runtime.records import stamp
     from repro_torch.runtime.watermark import interval_of
-    from repro_torch.stream.sources import GaussianSource
-    src = GaussianSource()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    from repro_torch.stream import GaussianSource, StreamAggregator
+    agg = StreamAggregator(GaussianSource(), seed=seed, device=dev)
     n_iv = int(CHUNKS * M / RATE // SPAN) + 1
     chunks, exact = [], []
     acc = torch.zeros((3, n_iv, S), dtype=torch.float64, device=dev)
     for e in range(CHUNKS):
-        vals, sid = src.chunk(gen, M)
+        c = agg.interval_chunk(e, M)
+        vals, sid = c.values, c.stratum_ids
         ch = stamp(vals, sid, e * M / RATE, RATE)
         chunks.append(ch)
         cell = interval_of(ch.times, SPAN).long() * S + sid.long()
@@ -1030,16 +1070,16 @@ def one_shot_need(torch, items, state) -> dict:
 
 
 def make_disordered_stream(torch, seed: int, dev):
-    """The §5.1 stream from DISORDER_T0 s on, with SHIFT_P of the items
-    shifted back by U(0, SHIFT_MAX) s (made on the card from a seeded
-    generator), and the script's own verdict on every item, chunk by
+    """The §5.1 stream (aggregator seed ``seed + 1``) from DISORDER_T0 s
+    on, with SHIFT_P of the items shifted back by U(0, SHIFT_MAX) s (the
+    shifts drawn on the card from a seeded generator), and the script's own verdict on every item, chunk by
     chunk, from the chunk times, the pre-chunk watermark and ring
     eviction: the exact float64 per-(interval, stratum) count, sum and
     count(x > THRESHOLD) over the accepted items after each chunk, and the
     accepted / on-time / late / dropped totals."""
     from repro_torch.runtime.records import TimestampedChunk
-    from repro_torch.stream.sources import GaussianSource
-    src = GaussianSource()
+    from repro_torch.stream import GaussianSource, StreamAggregator
+    agg = StreamAggregator(GaussianSource(), seed=seed + 1, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     recip = float(np.float32(1.0) / np.float32(SPAN))
@@ -1049,7 +1089,8 @@ def make_disordered_stream(torch, seed: int, dev):
     frontier, open_iv = np.float32(-3.0e38), 0
     chunks, exact = [], []
     for e in range(CHUNKS):
-        vals, sid = src.chunk(gen, M)
+        c = agg.interval_chunk(e, M)
+        vals, sid = c.values, c.stratum_ids
         base = (torch.arange(M, dtype=torch.float32, device=dev)
                 / float(np.float32(RATE))
                 + float(np.float32(DISORDER_T0 + e * M / RATE)))
@@ -1453,17 +1494,16 @@ def nonlinear_registry():
 
 def make_netflow_stream(torch, seed: int, dev):
     """The §6.1 NetFlow stream (TCP/UDP/ICMP at 0.85/0.13/0.02, log-normal
-    bytes), flow sizes floored to whole bytes, stamped in order at RATE,
-    made on the card from the seed."""
+    bytes; aggregator seed ``seed + 2``), flow sizes floored to whole
+    bytes, stamped in order at RATE, made on the card."""
     from repro_torch.runtime.records import stamp
-    from repro_torch.stream.sources import NetflowSource
-    src = NetflowSource()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed + 2)
+    from repro_torch.stream import NetflowSource, StreamAggregator
+    agg = StreamAggregator(NetflowSource(), seed=seed + 2, device=dev)
     chunks = []
     for e in range(NL_CHUNKS):
-        vals, sid = src.chunk(gen, M)
-        chunks.append(stamp(torch.floor(vals), sid, e * M / RATE, RATE))
+        c = agg.interval_chunk(e, M)
+        chunks.append(stamp(torch.floor(c.values), c.stratum_ids,
+                            e * M / RATE, RATE))
     return chunks
 
 
@@ -2007,8 +2047,9 @@ def linear_registry():
 
 
 def make_sharded_stream(torch, seed: int, dev, disorder: bool = False):
-    """The §5.1 Gaussian stream over W_SHARDS shards, made on the card in
-    bulk: chunk ``e`` gives every shard M_SHARD items on the same ramp
+    """The §5.1 Gaussian stream over W_SHARDS shards
+    (``sharded_interval`` of the aggregator), made on the card in bulk:
+    chunk ``e`` gives every shard M_SHARD items on the same ramp
     ``t0 + j / RATE_SHARD`` (``stamp_sharded``), RATE items per
     event-time second in all. With ``disorder`` it starts at DISORDER_T0
     and SHIFT_P of the items are shifted back by U(0, SHIFT_MAX) s, as
@@ -2017,8 +2058,9 @@ def make_sharded_stream(torch, seed: int, dev, disorder: bool = False):
     count(x > THRESHOLD) after each chunk (every item is on time)."""
     from repro_torch.runtime.records import stamp_sharded
     from repro_torch.runtime.watermark import interval_of
-    from repro_torch.stream.sources import GaussianSource
-    src = GaussianSource()
+    from repro_torch.stream import GaussianSource, StreamAggregator
+    agg = StreamAggregator(GaussianSource(),
+                           seed=seed + (3 if disorder else 2), device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + (3 if disorder else 2))
     t_start = DISORDER_T0 if disorder else 0.0
@@ -2026,9 +2068,8 @@ def make_sharded_stream(torch, seed: int, dev, disorder: bool = False):
     acc = torch.zeros((3, n_iv, S), dtype=torch.float64, device=dev)
     chunks, exact = [], []
     for e in range(CHUNKS):
-        vals, sid = src.chunk(gen, M)
-        ch = stamp_sharded(vals.view(W_SHARDS, M_SHARD),
-                           sid.view(W_SHARDS, M_SHARD),
+        c = agg.sharded_interval(e, W_SHARDS, M_SHARD)
+        ch = stamp_sharded(c.values, c.stratum_ids,
                            t_start + e * M_SHARD / RATE_SHARD, RATE_SHARD)
         if disorder:
             shift = torch.where(
@@ -2846,6 +2887,341 @@ def phase_rescale(torch, seed: int, dev) -> dict:
     return result
 
 
+def five_systems(dev, num_strata: int, fraction: float, items: int,
+                 lane: int = 256, seed: int = 0) -> dict:
+    """The five systems of the paper's §5 comparison, built from the
+    port's modules as ``benchmarks/systems.py`` builds them from the
+    reference's: ``name -> run(values, stratum_ids) -> Estimate`` of the
+    window's SUM.
+
+    native          exact stats over every item (no sampling);
+    oasrs_batched   StreamApprox, Spark-Streaming mode: one fold of the
+                    window into a reset reservoir;
+    oasrs_pipelined StreamApprox, Flink mode: one fold per ``lane`` items;
+    srs             Spark ``sample`` (random sort with (p, q) pruning);
+    sts             Spark ``sampleByKeyExact`` (count, then sort within
+                    each stratum).
+    """
+    from repro_torch import prng
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import error as err
+    from repro_torch.core import oasrs, query
+    cap = max(int(fraction * items / num_strata), 4)
+    key = prng.PRNGKey(seed, device=dev)
+    state0 = oasrs.init(num_strata, cap, key, device=dev)
+    k = max(int(fraction * items), 4)
+
+    def native(values, sids):
+        return err.estimate_sum(query.exact_stats(values, sids, num_strata))
+
+    def oasrs_batched(values, sids):
+        st = oasrs.update_chunk(oasrs.reset_window(state0), sids, values)
+        return query.query_sum(st)
+
+    def oasrs_pipelined(values, sids):
+        st = oasrs.update_pipelined_chunks(oasrs.reset_window(state0), sids,
+                                           values, lane=lane)
+        return query.query_sum(st)
+
+    def srs(values, sids):
+        return err.estimate_sum(bl.srs_stats(values,
+                                             bl.srs_sample(key, items, k)))
+
+    def sts(values, sids):
+        gc = bl.sts_counts(sids, num_strata)           # pass 1 (the sync)
+        sample = bl.sts_sample(key, sids, gc, fraction)
+        return err.estimate_sum(bl.sample_stats(values, sids, sample,
+                                                num_strata, gc))
+
+    return {"native": native, "oasrs_batched": oasrs_batched,
+            "oasrs_pipelined": oasrs_pipelined, "srs": srs, "sts": sts}
+
+
+def system_gate(tag, name, est, exact, target=None) -> dict:
+    """Log one system's answer against the f64 sum; fail unless native is
+    within ANSWER_RTOL of it and a sampled system within 3 sigma (plus
+    ANSWER_RTOL) of ``target`` (the f64 sum unless given)."""
+    v, var = float(est.value), float(est.variance)
+    sigma = max(var, 0.0) ** 0.5
+    want = exact if target is None else target
+    err_ = abs(v - want)
+    bound = (0.0 if name == "native" else 3 * sigma) + ANSWER_RTOL * abs(
+        want)
+    ok = err_ <= bound
+    loss = abs(v - exact) / abs(exact)
+    log(f"[systems] ({tag}) {name}: {v:.9g} exact {exact:.9g} "
+        f"accuracy loss {loss:.3e} sigma {sigma:.4g}"
+        + ("" if target is None else f" target {target:.9g}")
+        + f" {'ok' if ok else 'OUTSIDE its bound'}")
+    if not ok:
+        fail(f"systems ({tag}) {name}: {v} is {err_:.4g} from {want}, "
+             f"bound {bound:.4g}")
+    return dict(value=v, sigma=sigma, accuracy_loss=loss,
+                gate="native rtol" if name == "native" else "3 sigma")
+
+
+def run_systems(torch, tag, systems, values, sids, exact, lane,
+                srs_target=None) -> dict:
+    """(1) One untimed window of each system with every kernel call held
+    to its plain version (``HeldToPlain``), its launches of the fold and
+    the stats kernel counted and checked, and its answer gated; (2)
+    ``SYS_RUNS`` timed windows of each, in turns, by the port's §6.1
+    method (``replay.measure_window_program``: the clock stops after the
+    card has finished)."""
+    from repro_torch.kernels import ops
+    from repro_torch.stream import replay
+    items = values.numel()
+    expect = {"native": (0, 1), "oasrs_batched": (1, 1),
+              "oasrs_pipelined": (items // lane, 1), "srs": (0, 1),
+              "sts": (0, 1)}
+    out, totals = {}, {"reservoir_fold": 0, "stratified_stats": 0}
+    for name in SYSTEMS:
+        ops.reset_launch_counts()
+        with HeldToPlain(torch, f"systems-{tag}-{name}") as held:
+            est = systems[name](values, sids)
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        got = (counts["reservoir_fold"], counts["stratified_stats"])
+        held_n = sum(held.calls.values())
+        log(f"[systems] ({tag}) {name}: fold {got[0]}, stats {got[1]} "
+            f"launches per window; {held_n} kernel calls held to the "
+            f"plain version ({', '.join(f'{k[0]} {k[1:]} x{n}' for k, n in held.calls.items())})")
+        if got != expect[name] or held_n != sum(got):
+            fail(f"systems ({tag}) {name}: launches {got}, expected "
+                 f"{expect[name]}; held {held.calls}")
+        for k in totals:
+            totals[k] += counts[k]
+        out[name] = system_gate(tag, name, est, exact,
+                                srs_target if name == "srs" else None)
+        out[name].update(fold_launches=got[0], stats_launches=got[1])
+    rates = {name: [] for name in SYSTEMS}
+    for _ in range(SYS_RUNS):
+        for name in SYSTEMS:
+            res = replay.measure_window_program(
+                lambda e, fn=systems[name]: fn(values, sids), items,
+                warmup=0, windows=1)
+            rates[name].append(res.items_per_sec)
+    for name in SYSTEMS:
+        r = sorted(rates[name])
+        out[name].update(items_per_s=r, items_per_s_median=r[len(r) // 2],
+                         ms_median=items / r[len(r) // 2] * 1e3)
+        log(f"[systems] ({tag}) {name}: items/s median {r[len(r) // 2]:.6g} "
+            f"(min {r[0]:.6g}, max {r[-1]:.6g}) over {SYS_RUNS} windows of "
+            f"{items} items, in turns")
+    return dict(systems=out, launches=totals)
+
+
+def phase_systems(torch, seed: int, dev) -> dict:
+    """The paper's five-system comparison (§5) on the card, the stream
+    substrate and the per-item path (module docstring, phase 12)."""
+    from repro_torch import prng
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import oasrs
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.executor import PipelinedExecutor, RuntimeConfig
+    from repro_torch.stream import (GaussianSource, MeteredStream,
+                                    ReplayableStream, StreamAggregator,
+                                    skewed)
+    t_phase = time.perf_counter()
+    result = {"card": card()}
+    launches = {"reservoir_fold": 0, "stratified_stats": 0}
+
+    # (a) fig7b's window at the reference's own width.
+    a = SYS_A
+    agg_a = StreamAggregator(
+        skewed(GaussianSource(mus=(100.0, 1000.0, 10000.0),
+                              sigmas=(10.0, 100.0, 1000.0)),
+               (0.8, 0.19, 0.01)), seed=a["seed"], device=dev)
+    win = agg_a.interval_chunk(0, a["items"])
+    exact_a = float(win.values.double().sum())
+    sys_a = five_systems(dev, S, a["fraction"], a["items"], lane=a["lane"])
+    ra = run_systems(torch, "a", sys_a, win.values, win.stratum_ids,
+                     exact_a, a["lane"])
+    key = prng.PRNGKey(0, device=dev)
+    k = max(int(a["fraction"] * a["items"]), 4)
+    n_srs = int(bl.srs_sample(key, a["items"], k).mask.sum())
+    gc = bl.sts_counts(win.stratum_ids, S)
+    sts = bl.sts_sample(key, win.stratum_ids, gc, a["fraction"])
+    per = torch.bincount(win.stratum_ids[sts.mask].long(), minlength=S)
+    want = torch.ceil(float(np.float32(a["fraction"])) * gc.float()).long()
+    log(f"[systems] (a) srs selected {n_srs} of k = {k}; sts per stratum "
+        f"{per.tolist()} of ceil(0.4 C_i) = {want.tolist()}")
+    if n_srs != k or not torch.equal(per, want):
+        fail("systems (a): SRS or STS did not select its exact sample size")
+    result["a"] = dict(ra["systems"], items=a["items"], exact=exact_a,
+                       fraction=a["fraction"], lane=a["lane"])
+    for kk in launches:
+        launches[kk] += ra["launches"][kk]
+
+    result["seconds_a"] = time.perf_counter() - t_phase
+    # (b) one 10 s window of the §5.1 stream at full width.
+    b = SYS_B
+    agg_b = StreamAggregator(GaussianSource(), seed=seed, device=dev)
+    stream_b = ReplayableStream(agg_b, M, RATE)
+    chunks = stream_b.prefix(b["chunks"])
+    values = torch.cat([c.values for c in chunks])
+    sids = torch.cat([c.stratum_ids for c in chunks])
+    del chunks
+    items = values.numel()
+    exact_b = float(values.double().sum())
+    sys_b = five_systems(dev, S, b["fraction"], items, lane=b["lane"])
+    k_b = max(int(b["fraction"] * items), 4)
+    srs_b = bl.srs_stats(values, bl.srs_sample(key, items, k_b))
+    c_est = int(srs_b.counts[0])
+    log(f"[systems] (b) SRS count estimate {c_est} of {items} items "
+        f"(the reference's f32 running sum of the HT weights, "
+        f"{c_est / items - 1:+.4e}); SRS is held to 3 sigma around "
+        f"exact * {c_est} / {items}")
+    rb = run_systems(torch, "b", sys_b, values, sids, exact_b, b["lane"],
+                     srs_target=exact_b * c_est / items)
+    for kk in launches:
+        launches[kk] += rb["launches"][kk]
+    for name in SYSTEMS:
+        fn = sys_b[name]
+
+        # Three windows per trace. The pipelined system's window is tens
+        # of thousands of host ops, whose trace alone takes tens of
+        # seconds: it is traced on its first tenth (16 of 160 lanes) and
+        # counted as a tenth of a window.
+        n_tr, part = (0.1, b["chunks"] * M // 10) if \
+            name == "oasrs_pipelined" else (3, items)
+
+        def windows(fn=fn, n_tr=n_tr, part=part):
+            for _ in range(max(int(n_tr), 1)):
+                fn(values[:part], sids[:part])
+        for _ in range(PROFILE_TRIES):
+            acts, busy_ms, own, host_ops = device_split(torch, windows,
+                                                        n_tr)
+            traced = any(k.startswith("stats_") for k in own)
+            if traced:
+                break
+            log(f"[systems] (b) {name}: the trace holds no stats kernel "
+                f"({acts:.1f} device activities per window); profiling "
+                "again")
+        wall = rb["systems"][name]["ms_median"]
+        rb["systems"][name].update(
+            device_activities=acts, device_busy_ms=busy_ms,
+            device_busy_share=busy_ms / wall, own_kernel_ms=own,
+            host_torch_ops=host_ops, stats_kernel_traced=traced)
+        log(f"[systems] (b) {name}: {acts:.1f} device activities, "
+            f"{busy_ms:.4f} device ms busy of {wall:.4f} ms median wall "
+            f"(share {busy_ms / wall:.3f}); own kernels {own}; "
+            f"{host_ops:.0f} host torch ops per window ({n_tr:g} traced)"
+            + ("" if traced else "; the tracer recorded no stats kernel, "
+               "so the busy share misses it"))
+    med = {n: rb["systems"][n]["items_per_s_median"] for n in SYSTEMS}
+    ratios = {f"{o}/{x}": med[o] / med[x] for o in ("oasrs_batched",
+                                                   "oasrs_pipelined")
+              for x in ("native", "srs", "sts")}
+    log(f"[systems] (b) items/s ratios (median over median): "
+        + ", ".join(f"{k_} {v:.4g}" for k_, v in ratios.items()))
+    result["b"] = dict(rb["systems"], items=items, exact=exact_b,
+                       fraction=b["fraction"], lane=b["lane"],
+                       srs_count_estimate=c_est, ratios=ratios)
+    del values, sids
+
+    result["seconds_b"] = time.perf_counter() - t_phase
+    # (c) the substrate: replay bits, cost per chunk, metering.
+    again = stream_b.chunk_at(7)
+    first = stream_b.chunk_at(7)
+    if not all(same_bits(torch, getattr(first, f), getattr(again, f))
+               for f in ("values", "stratum_ids", "times", "mask")):
+        fail("systems (c): chunk_at(7) made twice differs")
+    stream_c = ReplayableStream(agg_b, M, RATE, disorder=SHIFT_MAX,
+                                disorder_seed=seed + 5,
+                                key_gaps=((1, 2.0, 1.0),))
+    full = stream_c.prefix(SYS_REPLAY)
+    for i, c in enumerate(stream_c.range(7, SYS_REPLAY)):
+        if not all(same_bits(torch, getattr(c, f),
+                             getattr(full[7 + i], f))
+                   for f in ("values", "stratum_ids", "times", "mask")):
+            fail(f"systems (c): range(7, {SYS_REPLAY}) differs from "
+                 f"prefix({SYS_REPLAY})[7:] at chunk {7 + i}")
+    exact_items = int(sum(int(c.mask.sum()) for c in full))
+    lo = min(float(c.times[c.mask].min()) for c in full)
+    hi = max(float(c.times[c.mask].max()) for c in full)
+    del full
+    gen_ms = {}
+    for tag, st in (("plain", stream_b), ("disorder+gap", stream_c)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(8):
+            st.chunk_at(e)
+        torch.cuda.synchronize()
+        gen_ms[tag] = (time.perf_counter() - t0) / 8 * 1e3
+    log(f"[systems] (c) chunk_at bitwise twice; range(7, {SYS_REPLAY}) == "
+        f"prefix({SYS_REPLAY})[7:] with disorder and a key gap; ms per "
+        f"generated chunk of {M} items: "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in gen_ms.items()))
+    cfg = RuntimeConfig(num_strata=S, capacity=N_MAX, num_intervals=K,
+                        interval_span=SPAN, allowed_lateness=LATENESS,
+                        emit_every=EMIT_EVERY)
+    ex = PipelinedExecutor(cfg, linear_registry(), prng.PRNGKey(seed,
+                                                                device=dev),
+                           device=dev)
+    metered = MeteredStream(stream_c.range(0, SYS_REPLAY))
+    it = iter(metered)
+    for _ in range(SYS_REPLAY):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            c = next(it)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ex.push(c)
+    ex.finalize()
+    summary = metered.summary()
+    want_summary = {"chunks": SYS_REPLAY, "items": exact_items,
+                    "event_span": hi - lo}
+    log(f"[systems] (c) MeteredStream over a {SYS_REPLAY}-chunk pipelined "
+        f"run: {summary}, exact {want_summary}; no device-to-host read "
+        f"while metering (CUDA sync debug mode 'error')")
+    if summary != want_summary:
+        fail(f"systems (c): metered {summary} != exact {want_summary}")
+    result["c"] = dict(generate_ms_per_chunk=gen_ms, metered=summary)
+
+    result["seconds_c"] = time.perf_counter() - t_phase
+    # (d) the per-item path, card against CPU.
+    first = stream_b.chunk_at(0)
+    sid_d = first.stratum_ids[:SYS_ITEMS_D]
+    pay_d = first.values[:SYS_ITEMS_D]
+    states = {}
+    for where in ("cpu", dev):
+        st = oasrs.init(S, 64, prng.PRNGKey(seed, device=where),
+                        device=where)
+        ids, pay = sid_d.to(where), pay_d.to(where)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # On the card, any read back to the host inside the loop raises.
+        torch.cuda.set_sync_debug_mode("error" if where == dev else 0)
+        try:
+            st = oasrs.update_stream(st, ids, pay)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        states[str(where)] = (st, (time.perf_counter() - t0) * 1e3)
+    (cpu_st, cpu_ms), (gpu_st, gpu_ms) = states["cpu"], states[str(dev)]
+    bad = [f for f in ("values", "counts", "key")
+           if not torch.equal(getattr(cpu_st, f), getattr(gpu_st, f).cpu())]
+    log(f"[systems] (d) update_stream of {SYS_ITEMS_D} items: card state "
+        f"{'bit for bit the CPU state' if not bad else f'DIFFERS in {bad}'}"
+        f"; {gpu_ms:.1f} ms on the card (no read back to the host), "
+        f"{cpu_ms:.1f} ms on the CPU")
+    if bad:
+        fail(f"systems (d): update_stream on the card differs in {bad}")
+    result["d"] = dict(items=SYS_ITEMS_D, card_ms=gpu_ms, cpu_ms=cpu_ms)
+
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[systems] phase took {result['seconds']:.1f} s ((a) ended at "
+        f"{result['seconds_a']:.1f} s, (b) at {result['seconds_b']:.1f}, "
+        f"(c) at {result['seconds_c']:.1f})")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_systems.json").write_text(
+        json.dumps(result, indent=1))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2880,6 +3256,7 @@ def main(argv=None) -> int:
     phase_recovery(torch, args.seed, dev, nonlinear)
     phase_sharded(torch, args.seed, dev)
     phase_rescale(torch, args.seed, dev)
+    systems = phase_systems(torch, args.seed, dev)["launches"]
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -2887,11 +3264,13 @@ def main(argv=None) -> int:
         dict(name="reservoir_fold", route="cuda",
              source="src/repro_torch/kernels/csrc/reservoir_fold.cu",
              replaces="src/repro/kernels/reservoir.py:36",
-             launches=launches["reservoir_fold"], **fold),
+             launches=launches["reservoir_fold"]
+             + systems["reservoir_fold"], **fold),
         dict(name="stratified_stats", route="cuda",
              source="src/repro_torch/kernels/csrc/stratified_stats.cu",
              replaces="src/repro/kernels/stratified_stats.py:31",
-             launches=launches["stratified_stats"], **stats),
+             launches=launches["stratified_stats"]
+             + systems["stratified_stats"], **stats),
         dict(name="one_shot_ingest", route="cuda",
              source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
              replaces="src/repro/kernels/reservoir.py:146",

@@ -2,10 +2,19 @@
 
 Counterpart of the reference's ``core/oasrs.py`` for scalar payloads
 (one ``[S, N_max]`` reservoir tensor): the state, its fresh-buffer
-``init``, and the chunk fold with the same key schedule — the key is
-split three ways and two ``[M]`` uniforms are drawn up front. The fold
-runs where the tensors lie (``kernels/ops``): the CUDA kernel on the
-card, the plain version on the CPU; both consume the same random stream.
+``init``, ``reset_window``, and the paper's two ingestion models with the
+reference's key schedules:
+
+* ``update_chunk`` — the batched model (Spark Streaming): the key is
+  split three ways and two ``[M]`` uniforms are drawn up front. The fold
+  runs where the tensors lie (``kernels/ops``): the CUDA kernel on the
+  card, the plain version on the CPU; both consume the same draws.
+* ``update_item`` / ``update_stream`` — the pipelined model (Flink),
+  Algorithm 1 one item at a time: a Python loop of device operations
+  with no host read, for the tests and short runs, not a throughput
+  path. ``update_pipelined_chunks`` folds ``lane`` items per
+  ``update_chunk``, so through the fold kernel on the card; its result
+  depends on ``lane``.
 
 Unlike the reference's pure updates, the fold writes the reservoir
 tensor IN PLACE (the ring is never re-materialised per chunk); the
@@ -14,7 +23,7 @@ returned state shares ``values`` with the input state.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -107,8 +116,130 @@ def update_chunk(state: OASRSState, stratum_ids: torch.Tensor,
     if mask is None:
         mask = torch.ones(m, dtype=torch.bool, device=stratum_ids.device)
     keys = prng.split(state.key, 3)
-    u_accept = prng.uniform(keys[1], m)
-    u_slot = prng.uniform(keys[2], m)
+    # Both draws in one hash over the two keys: the same bits as two
+    # draws, half the host launches.
+    u_accept, u_slot = prng.uniform(keys[1:3], m)
     out = apply_chunk_uniforms(state, stratum_ids, payload, mask, u_accept,
                                u_slot)
     return dataclasses.replace(out, key=keys[0])
+
+
+def reset_window(state: OASRSState) -> OASRSState:
+    """Start a new window: zero the counters (the reservoir's contents
+    are dead, since ``slot_mask`` derives from the counts)."""
+    return dataclasses.replace(state, counts=torch.zeros_like(state.counts))
+
+
+# ---------------------------------------------------------------------------
+# Pipelined-model ingestion (Flink analog).
+# ---------------------------------------------------------------------------
+
+def _fold_item(state: OASRSState, s: torch.Tensor, payload: torch.Tensor,
+               mk: torch.Tensor, u: torch.Tensor,
+               slot_draw: torch.Tensor) -> torch.Tensor:
+    """Algorithm 1 for one item given its draws (``u`` for acceptance,
+    ``slot_draw`` the replacement slot); every argument a ``[1]`` tensor,
+    since indexing with a 0-dim tensor reads it back to the host. Writes
+    the reservoir in place; returns the new counts."""
+    c = state.counts.index_select(0, s) + 1
+    cap = state.capacity.index_select(0, s)
+    filling = c <= cap
+    accept = mk & (filling | (u * c.to(torch.float32)
+                              < cap.to(torch.float32)))
+    slot = torch.where(filling, c - 1, slot_draw)
+    flat = state.values.view(-1)
+    cell = s * state.max_capacity + slot.long()
+    old = flat.index_select(0, cell)
+    flat.index_copy_(0, cell, torch.where(
+        accept, payload.reshape(1).to(flat.dtype), old))
+    return state.counts.index_add(0, s, mk.to(torch.int32))
+
+
+def update_item(state: OASRSState, stratum_id: torch.Tensor,
+                payload: torch.Tensor, mask=True) -> OASRSState:
+    """Algorithm 1 applied to one arriving item (pipelined operator).
+
+    ``stratum_id``/``payload`` are one-element tensors, ``mask`` a bool
+    or a one-element bool tensor. The key splits three ways: the next
+    key, an acceptance uniform and a replacement slot ``randint(0,
+    max(N_i, 1))``. The reservoir is written in place; ``counts`` is a
+    new tensor."""
+    keys = prng.split(state.key, 3)
+    s = stratum_id.reshape(1).long()
+    mk = (mask if isinstance(mask, torch.Tensor) else torch.full(
+        (), bool(mask), device=state.counts.device)).reshape(1)
+    cap = torch.clamp(state.capacity.index_select(0, s), min=1)
+    # A draw of shape (1,) is the reference's draw of shape ().
+    counts = _fold_item(state, s, payload, mk, prng.uniform(keys[1], 1),
+                        prng.randint(keys[2], 1, 0, cap))
+    return OASRSState(values=state.values, counts=counts,
+                      capacity=state.capacity, key=keys[0])
+
+
+def update_stream(state: OASRSState, stratum_ids: torch.Tensor,
+                  payload: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> OASRSState:
+    """Pipelined ingestion of ``T`` items, one at a time: each item flows
+    through the sampler as it arrives; no batch is formed first.
+
+    :func:`update_item`'s draws for every item at once: the key chain is
+    walked first (item ``j``'s keys are ``split(key_j, 3)``, ``key_{j+1}``
+    the first of them), then one batched uniform and one batched
+    ``randint`` over the ``[T, 2]`` keys (the capacity does not change
+    within the stream), then the items are folded in order."""
+    t = stratum_ids.shape[0]
+    if mask is None:
+        mask = torch.ones(t, dtype=torch.bool, device=stratum_ids.device)
+    key, chain = state.key, []
+    for _ in range(t):
+        keys = prng.split(key, 3)
+        chain.append(keys)
+        key = keys[0]
+    if not chain:
+        return state
+    chain = torch.stack(chain)                        # [T, 3, 2]
+    sid = stratum_ids.reshape(t).long()
+    u = prng.uniform(chain[:, 1], 1)                  # [T, 1]
+    cap = torch.clamp(state.capacity.index_select(0, sid), min=1)
+    slots = prng.randint(chain[:, 2], 1, 0, cap[:, None])
+    for j in range(t):
+        counts = _fold_item(state, sid[j:j + 1], payload[j:j + 1],
+                            mask[j:j + 1], u[j], slots[j])
+        state = OASRSState(values=state.values, counts=counts,
+                           capacity=state.capacity, key=state.key)
+    return dataclasses.replace(state, key=key)
+
+
+def update_pipelined_chunks(state: OASRSState, stratum_ids: torch.Tensor,
+                            payload: torch.Tensor, lane: int = 64,
+                            mask: Optional[torch.Tensor] = None
+                            ) -> OASRSState:
+    """Pipelined ingestion ``lane`` items at a time: one
+    :func:`update_chunk` per lane, in stream order (the reference's
+    Flink mode, ``lax.scan`` over the lanes)."""
+    t = stratum_ids.shape[0]
+    if t % lane != 0:
+        raise ValueError(f"stream length {t} not divisible by lane {lane}")
+    if mask is None:
+        mask = torch.ones(t, dtype=torch.bool, device=stratum_ids.device)
+    for i in range(0, t, lane):
+        state = update_chunk(state, stratum_ids[i:i + lane],
+                             payload[i:i + lane], mask[i:i + lane])
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Sample extraction.
+# ---------------------------------------------------------------------------
+
+def sample_with_weights(
+    state: OASRSState,
+    extract: Callable[[torch.Tensor], torch.Tensor] = lambda p: p,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(x, w, valid)`` flattened over all reservoir slots: slot ``k``'s
+    extracted value, its stratum's weight ``W_i`` and whether it holds a
+    sampled item."""
+    xs = extract(state.values)
+    w = state.weights()[..., None].expand(xs.shape)
+    return (xs.reshape(-1), w.reshape(-1),
+            state.slot_mask().reshape(-1))

@@ -59,6 +59,38 @@ def init(num_intervals: int, num_strata: int, capacity, key: torch.Tensor,
                        filled=zero.clone())
 
 
+def slide(window: WindowState, fresh: oasrs.OASRSState) -> WindowState:
+    """Advance one slide step: ``fresh`` (one interval's state) takes the
+    cursor's slot, evicting the oldest interval. The ring's tensors are
+    written in place; ``cursor`` and ``filled`` are new."""
+    iv = window.intervals
+    k = iv.counts.shape[0]
+    at = window.cursor.long().view(1)
+    for ring, new in ((iv.values, fresh.values), (iv.counts, fresh.counts),
+                      (iv.capacity, fresh.capacity), (iv.key, fresh.key)):
+        ring.index_copy_(0, at, new.to(ring.dtype).unsqueeze(0))
+    return WindowState(intervals=iv, cursor=(window.cursor + 1) % k,
+                       filled=torch.clamp(window.filled + 1, max=k))
+
+
+def interval_capacity(window: WindowState) -> torch.Tensor:
+    """Capacity vector of the current insert slot (the adaptive loop's
+    input)."""
+    return window.intervals.capacity.index_select(
+        0, window.cursor.long().view(1))[0]
+
+
+def with_capacity(window: WindowState,
+                  capacity: torch.Tensor) -> WindowState:
+    """Every interval's per-stratum capacity set to ``capacity [S]``
+    (adaptive feedback); a fresh capacity tensor, the rest shared."""
+    iv = window.intervals
+    cap = capacity.to(device=iv.capacity.device, dtype=torch.int32)
+    intervals = dataclasses.replace(
+        iv, capacity=cap.expand(iv.capacity.shape).clone())
+    return dataclasses.replace(window, intervals=intervals)
+
+
 def _live_mask(window: WindowState) -> torch.Tensor:
     """``[K]`` bool — the ``filled`` most recent slots (``[W, K]``)."""
     k = window.intervals.counts.shape[-2]
@@ -103,6 +135,17 @@ def window_stats(window: WindowState) -> err.StratumStats:
     view = sample_view(window)
     return err.stratum_stats_from_sample(view.values, view.counts,
                                          view.taken, view.slot_mask())
+
+
+def query_sum(window: WindowState) -> err.Estimate:
+    """Windowed SUM over the live intervals (Eq. 5: the cells' variances
+    add)."""
+    return err.estimate_sum(window_stats(window))
+
+
+def query_mean(window: WindowState) -> err.Estimate:
+    """Windowed MEAN over the live intervals."""
+    return err.estimate_mean(window_stats(window))
 
 
 # ---------------------------------------------------------------------------

@@ -138,8 +138,8 @@ def check_one_shot_payload(payload, values) -> None:
     if not isinstance(payload, torch.Tensor) or \
             not isinstance(values, torch.Tensor):
         raise NotImplementedError(
-            "one_shot_ingest takes one payload tensor; values plus "
-            "heavy-hitter keys come with ROADMAP Queue 1 item 2b")
+            "one_shot_ingest takes one payload tensor; payloads of "
+            "several leaves come with ROADMAP Queue 1 item 12")
     if payload.dtype not in (torch.float32, torch.int32) or \
             values.dtype != payload.dtype:
         raise TypeError(f"one_shot_ingest: payload {payload.dtype} and "

@@ -83,17 +83,17 @@ def render(events, span=None) -> str:
 
 
 def _smoke_log(path: str, device=None) -> None:
-    """A small end-to-end run's event log: 16 chunks of 128 items at 512
+    """A small end-to-end run's event log, the reference's smoke run: 16
+    chunks of 128 items of the §5.1 stream (aggregator seed 7) at 512
     items per event-time unit, watermark emission, a checkpoint every 8
     chunks."""
-    import torch
     from repro_torch import prng
     from repro_torch.obs import EventLog, Telemetry
     from repro_torch.runtime import Checkpointer
     from repro_torch.runtime.executor import PipelinedExecutor, RuntimeConfig
-    from repro_torch.runtime.records import stamp
     from repro_torch.runtime.registry import QueryRegistry
-    from repro_torch.stream.sources import GaussianSource
+    from repro_torch.stream import (GaussianSource, ReplayableStream,
+                                    StreamAggregator)
     from repro_torch.utils import resolve_device
     dev = resolve_device(device)
     reg = (QueryRegistry().register("avg", "mean")
@@ -101,18 +101,14 @@ def _smoke_log(path: str, device=None) -> None:
     cfg = RuntimeConfig(num_strata=3, capacity=32, num_intervals=4,
                         interval_span=1.0, allowed_lateness=0.25,
                         emission="watermark")
-    chunk_size, rate = 128, 512.0
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    src = GaussianSource()
+    stream = ReplayableStream(
+        StreamAggregator(GaussianSource(), seed=7, device=dev),
+        chunk_size=128, rate=512.0)
     with EventLog(path) as log:
         ex = PipelinedExecutor(cfg, reg, prng.PRNGKey(0), device=dev,
                                checkpointer=Checkpointer(every_chunks=8),
                                telemetry=Telemetry(log))
-        for e in range(16):
-            vals, sid = src.chunk(gen, chunk_size)
-            ex.push(stamp(vals, sid, e * chunk_size / rate, rate))
-        ex.finalize()
+        ex.run(stream.prefix(16))
 
 
 def main(argv=None) -> int:

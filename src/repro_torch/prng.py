@@ -28,11 +28,25 @@ The schedule matches ``jax._src.prng`` as installed beside the reference:
 * ``randint(key, shape, minval, maxval)`` — int32 ``_randint``: split the
   key in two, draw a high and a low word per element, and reduce both
   modulo the span in u32 arithmetic.
+* ``normal(key, shape)`` — ``sqrt(2) · erf_inv(uniform(lo, 1))`` with
+  ``lo = nextafter(-1, 0)``, ``erf_inv`` the single-precision polynomial
+  XLA's CPU backend compiles (Giles), its ``log1p`` the backend's own
+  (Cephes ``logf`` for ``1 + x``, a rational form near 0), every
+  multiply-add the backend contracts done as one fused step
+  (:func:`_fma`). Bit for bit on the draws checked
+  (``tests/test_torch_prng.py``).
+* ``choice(key, n, shape, p)`` — ``searchsorted(cumsum(p), cum[-1] ·
+  (1 - uniform))`` with the cumulative sum in the backend's order
+  (:func:`xla_cumsum`).
+* ``gamma(key, a)`` — Marsaglia–Tsang with one key per element, split
+  as the reference splits it; held to the reference by its moments (its
+  ``log`` and ``pow`` are the device's own).
 """
 from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -83,11 +97,17 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for a Python int ``data``.
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a Python int ``data``; for an
+    int64 tensor ``data [n]`` the ``[n, 2]`` keys ``jax.vmap`` over
+    ``data`` gives (a ``[2]`` key only).
 
     The counter is filled on the key's device (no host-to-device copy,
     which on the card would wait for the stream)."""
+    if isinstance(data, torch.Tensor):
+        lo = data.to(device=key.device, dtype=torch.int64) & _MASK
+        b0, b1 = threefry2x32(key, torch.zeros_like(lo), lo)
+        return torch.stack([b0, b1], dim=-1)
     hi = torch.zeros(1, dtype=torch.int64, device=key.device)
     lo = torch.full((1,), int(data) & _MASK, dtype=torch.int64,
                     device=key.device)
@@ -107,11 +127,230 @@ def random_bits(key: torch.Tensor,
     return (b0 ^ b1).reshape(tuple(key.shape[:-1]) + shape)
 
 
-def uniform(key: torch.Tensor,
-            shape: Union[int, Sequence[int]]) -> torch.Tensor:
-    """f32 uniforms in ``[0, 1)`` (``jax.random.uniform``, defaults)."""
+def _f32(x: float) -> float:
+    """``x`` rounded to f32, as a Python float (f32-exact scalars keep
+    torch's f32 arithmetic the reference's)."""
+    return float(np.float32(x))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """``a · b + c`` of f32 operands rounded once to f32, as the fused
+    multiply-add XLA's CPU backend contracts a product and a sum into:
+    the product is exact in f64, the f64 sum is rounded to f32."""
+    if not isinstance(a, torch.Tensor):
+        a, b = b, a
+    return (a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
+            + (c.double() if isinstance(c, torch.Tensor) else c)).float()
+
+
+def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]],
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """f32 uniforms in ``[minval, maxval)`` (``jax.random.uniform``):
+    ``max(minval, u · (maxval - minval) + minval)`` for ``u`` in
+    ``[0, 1)``, the multiply-add fused as the reference's compiled draw
+    fuses it."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return u
+    lo, hi = _f32(minval), _f32(maxval)
+    return torch.clamp(_fma(u, _f32(hi - lo), lo), min=lo)
+
+
+# XLA's CPU log1p: Cephes ``logf`` of ``1 + x``, and a rational form for
+# |x| below sqrt(2) - 1 (numerator and denominator, highest power first).
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# Giles' single-precision erf_inv, for w < 5 and w >= 5.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _xla_log(y: torch.Tensor) -> torch.Tensor:
+    """Cephes ``logf`` as XLA's CPU backend emits it, for ``y > 0``
+    finite (the callers never pass anything else)."""
+    y = torch.clamp(y, min=_f32(1.17549435e-38))
+    b = y.view(torch.int32)
+    ef = ((b >> 23) - 127).float() + 1.0
+    m = ((b & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _f32(0.70710676908493042)
+    ef = ef - small.float()
+    xr = (m - 1.0) + torch.where(small, m, 0.0)
+    z = xr * xr
+    x3 = z * xr
+    y1 = _fma(_fma(xr, _f32(7.0376836292e-2), _f32(-1.1514610310e-1)), xr,
+              _f32(1.1676998740e-1))
+    y2 = _fma(_fma(xr, _f32(-1.2420140846e-1), _f32(1.4249322787e-1)), xr,
+              _f32(-1.6668057665e-1))
+    y3 = _fma(_fma(xr, _f32(2.0000714765e-1), _f32(-2.4999993993e-1)), xr,
+              _f32(3.3333331174e-1))
+    p = _fma(_fma(y1, x3, y2), x3, y3)
+    p = _fma(p, x3, ef * _f32(-2.12194440e-4))
+    return _fma(ef, 0.693359375, _fma(z, -0.5, xr) + p)
+
+
+def _xla_log1p(a: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU ``log1p`` of f32 ``a > -1``."""
+    x2 = a * a
+    num = torch.full_like(a, _f32(_LOG1P_NUM[0]))
+    den = torch.ones_like(a)
+    for cn, cd in zip(_LOG1P_NUM[1:], _LOG1P_DEN[1:]):
+        num = _fma(num, a, _f32(cn))
+        den = _fma(den, a, _f32(cd))
+    near0 = a + _fma(x2, -0.5, (a * x2) * (num / den))
+    return torch.where(a.abs() < _f32(0.41421356237309504880), near0,
+                       _xla_log(a + 1.0))
+
+
+def normal(key: torch.Tensor,
+           shape: Union[int, Sequence[int]]) -> torch.Tensor:
+    """f32 standard normals (``jax.random.normal``)."""
+    x = uniform(key, shape, float(np.nextafter(np.float32(-1.0),
+                                               np.float32(0.0))), 1.0)
+    w = -_xla_log1p(x * (-x))
+    lt = w < 5.0
+    # f64 then f32: a correctly rounded f32 root (``torch.sqrt`` of f32 on
+    # the CPU is not, for some short tensors).
+    wv = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, wv, torch.where(lt, _f32(a), _f32(b)))
+    r = torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+    return r * _f32(np.sqrt(2.0))
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 cumulative sum of a 1-D ``x`` in the order of
+    ``jnp.cumsum`` on XLA's CPU backend: sequential within blocks of 16,
+    the blocks' totals scanned the same way and added to the next
+    blocks. (``torch.cumsum`` accumulates in f64 on the CPU and in a
+    parallel order on the card.)"""
+    n = x.shape[0]
+    blk = 16
+    if n <= blk:
+        cols = [x[0]]
+        for j in range(1, n):
+            cols.append(cols[-1] + x[j])
+        return torch.stack(cols)
+    nb = -(-n // blk)
+    rows = torch.zeros(nb * blk, dtype=x.dtype, device=x.device)
+    rows[:n] = x
+    rows = rows.view(nb, blk)
+    cols = [rows[:, 0]]
+    for j in range(1, blk):
+        cols.append(cols[-1] + rows[:, j])
+    inner = torch.stack(cols, dim=1)
+    tot = xla_cumsum(inner[:, -1].contiguous())
+    excl = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
+                      tot[:-1]])
+    return (inner + excl[:, None]).reshape(-1)[:n]
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32 sum of a 1-D ``x`` in the order of ``jnp.sum`` on XLA's CPU
+    backend: above 32 items, zero-padded to a multiple of 32 (half the
+    padding in front), each window of 32 summed in order, and the window
+    sums reduced the same way."""
+    n = x.shape[0]
+    if n <= 32:
+        acc = torch.zeros((), dtype=x.dtype, device=x.device)
+        for j in range(n):
+            acc = acc + x[j]
+        return acc
+    padded = -(-n // 32) * 32
+    low = (padded - n) // 2
+    rows = torch.zeros(padded, dtype=x.dtype, device=x.device)
+    rows[low:low + n] = x
+    rows = rows.view(-1, 32)
+    acc = rows[:, 0]
+    for j in range(1, 32):
+        acc = acc + rows[:, j]
+    return xla_sum(acc)
+
+
+def choice(key: torch.Tensor, n: int, shape: Union[int, Sequence[int]],
+           p: torch.Tensor) -> torch.Tensor:
+    """int64 draws from ``range(n)`` with probabilities ``p`` (f32
+    ``[n]``), with replacement (``jax.random.choice(key, n, shape,
+    p=p)``): the left insertion point of ``cum[-1] · (1 - u)`` in
+    ``cum = cumsum(p)``."""
+    if p.shape != (n,):
+        raise ValueError(f"p has shape {tuple(p.shape)}, expected ({n},)")
+    cum = xla_cumsum(p.to(device=key.device, dtype=torch.float32))
+    r = cum[-1] * (1.0 - uniform(key, shape))
+    return torch.searchsorted(cum, r.reshape(-1)).reshape(r.shape)
+
+
+#: Rounds of the gamma sampler's rejection loop; each lane leaves it
+#: with probability above 0.95 per round for ``a >= 1``.
+GAMMA_ROUNDS = 64
+
+
+def gamma(key: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """f32 Gamma(``a``, 1) draws of ``a``'s shape (``jax.random.gamma``).
+
+    Marsaglia–Tsang as ``jax.random``'s ``_gamma_one``, one key per
+    element (``split(key, n)`` over the ``n`` elements of each key's
+    draw; ``key`` may carry leading axes, which ``a``'s shape starts
+    with). Every element's rejection loop runs as a lane of one
+    vectorised loop over the lanes still rejecting (gathered by index,
+    so each round draws only for them; reading which lanes remain is a
+    host read per round). ``a < 1`` is boosted to ``a + 1`` and scaled
+    by ``(1 - u)^(1/a)``. Raises if a lane still rejects after
+    ``GAMMA_ROUNDS`` rounds."""
+    shape = a.shape
+    alpha0 = a.reshape(-1).to(device=key.device, dtype=torch.float32)
+    lanes = key.numel() // 2
+    keys = split(key, alpha0.numel() // lanes).reshape(-1, 2)
+    boost = alpha0 >= 1.0
+    alpha = torch.where(boost, alpha0, alpha0 + 1.0)
+    d = alpha - _f32(1.0 / 3.0)
+    c = _f32(1.0 / 3.0) / torch.sqrt(d)
+    ks = split(keys, 2)
+    key, subkey = ks[:, 0].contiguous(), ks[:, 1]
+    big_v = torch.ones_like(alpha)
+    act = torch.arange(alpha.numel(), device=alpha.device)
+    for _ in range(GAMMA_ROUNDS):
+        k3 = split(key[act], 3)
+        key[act] = k3[:, 0]
+        xkey, ukey = k3[:, 1].contiguous(), k3[:, 2]
+        c_act = c[act]
+        x = torch.zeros_like(c_act)
+        v = torch.full_like(c_act, -1.0)
+        need = torch.arange(act.numel(), device=act.device)
+        for _ in range(GAMMA_ROUNDS):
+            k2 = split(xkey[need], 2)
+            xkey[need] = k2[:, 0]
+            xn = normal(k2[:, 1], ())
+            x[need] = xn
+            v[need] = 1.0 + xn * c_act[need]
+            need = need[v[need] <= 0.0]
+            if need.numel() == 0:
+                break
+        xx = x * x
+        vv = (v * v) * v
+        u = uniform(ukey, ())
+        d_act = d[act]
+        reject = (u >= 1.0 - _f32(0.0331) * (xx * xx)) & (
+            torch.log(u) >= xx * 0.5 + d_act * ((1.0 - vv) + torch.log(vv)))
+        big_v[act] = vv
+        act = act[reject]
+        if act.numel() == 0:
+            break
+    else:
+        raise RuntimeError(f"gamma: a lane still rejects after "
+                           f"{GAMMA_ROUNDS} rounds")
+    scale = torch.pow(1.0 - uniform(subkey, ()), 1.0 / alpha0)
+    return ((d * big_v) * torch.where(boost, 1.0, scale)).reshape(shape)
 
 
 def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],

@@ -28,16 +28,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def rank_within_stratum(stratum_ids: torch.Tensor) -> torch.Tensor:
     """``r[j]`` = number of ``k < j`` with ``stratum_ids[k] == stratum_ids[j]``.
 
-    Stable sort, then each item's position minus the start of its group,
-    scattered back to item order. int32 out, like the reference.
+    Stable sort, then each item's position minus the start of its group
+    (the group's first position in the sorted ids, by ``searchsorted``:
+    ``torch.cummax`` is a one-block scan on the card), scattered back to
+    item order. int32 out, like the reference.
     """
     m = stratum_ids.shape[0]
     order = torch.argsort(stratum_ids, stable=True)
-    sorted_ids = stratum_ids[order]
+    sorted_ids = stratum_ids[order].contiguous()
     idx = torch.arange(m, dtype=torch.int64, device=stratum_ids.device)
-    is_start = torch.ones(m, dtype=torch.bool, device=stratum_ids.device)
-    is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
-    group_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    group_start = torch.searchsorted(sorted_ids, sorted_ids)
     rank = torch.empty(m, dtype=torch.int32, device=stratum_ids.device)
     rank[order] = (idx - group_start).to(torch.int32)
     return rank

@@ -1,0 +1,204 @@
+"""The port's SRS and STS baselines and the five compared systems of the
+paper's §5, against the reference's, on the CPU.
+
+Masks and HT weights bit for bit (ties in the sort keys included: a
+window of 65,536 f32 uniforms holds tied pairs), stats counts bit for bit
+(the SRS count estimate is the reference's f32 running sum of the
+weights), sums within rtol 1e-5 (the stats pass sums in f64 and rounds
+once; the reference's scatter-add sums in f32). The five systems are
+built as ``benchmarks/systems.py`` builds them (``chip_smoke.five_systems``
+for the port) and run on fig7b's window: every estimate within rtol 1e-5
+of the reference's jitted system.
+"""
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import baselines as jbl
+from repro.stream import GaussianSource as JGauss
+from repro.stream import StreamAggregator as JAgg
+from repro.stream import skewed as jskewed
+from repro_torch import prng
+from repro_torch.core import baselines as tbl
+from repro_torch.core import error as terr
+
+ROOT = Path(__file__).resolve().parents[1]
+SUMS_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test: the suite runs several worker
+    processes on the same cores, and torch's thread pool contending with
+    them makes these many small operations tens of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def systems():
+    """``(reference benchmarks/systems.py, chip_smoke.py)``."""
+    return (_load("reference_systems", ROOT / "benchmarks" / "systems.py"),
+            _load("chip_smoke_systems", ROOT / "chip_smoke.py"))
+
+
+def _fig7b_window(items, epoch=0):
+    """fig7b's window: the skewed Gaussian stream, aggregator seed 4."""
+    agg = JAgg(jskewed(JGauss(mus=(100.0, 1000.0, 10000.0),
+                              sigmas=(10.0, 100.0, 1000.0)),
+                       (0.8, 0.19, 0.01)), seed=4)
+    w = agg.interval_chunk(epoch, items)
+    return np.array(w.values), np.array(w.stratum_ids)
+
+
+def _same(a, b):
+    a, b = np.asarray(a), b.numpy()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    np.testing.assert_array_equal(a, b)
+
+
+def _same_stats(js, ts):
+    _same(js.counts, ts.counts)
+    _same(js.taken, ts.taken)
+    np.testing.assert_allclose(ts.sums.numpy(), np.asarray(js.sums),
+                               rtol=SUMS_RTOL)
+    np.testing.assert_allclose(ts.sumsqs.numpy(), np.asarray(js.sumsqs),
+                               rtol=SUMS_RTOL)
+
+
+CASES = {
+    # name: (items, k, mask probability or None, stratum override)
+    "full": (4096, 1638, None, None),
+    "masked": (4096, 1638, 0.8, None),
+    "k_above_live": (1000, 1200, 0.5, None),
+    "k_equals_items": (512, 512, None, None),
+    "one_item_stratum": (2048, 800, 0.9, "one"),
+    "ties_65536": (65536, 26214, None, None),
+    "ties_65536_masked": (65536, 26214, 0.9, None),
+}
+
+
+def _case(name, seed):
+    items, k, p_mask, strata = CASES[name]
+    vals, sid = _fig7b_window(items, epoch=seed)
+    if strata == "one":
+        sid = sid.copy()
+        sid[sid == 2] = 1
+        sid[items // 3] = 2               # stratum 2 holds one item
+    rng = np.random.default_rng(seed)
+    mask = None if p_mask is None else rng.random(items) < p_mask
+    return vals, sid, mask, k
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.array(x))
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_srs_mask_weights_and_stats(name, seed):
+    vals, sid, mask, k = _case(name, seed)
+    items = len(vals)
+    jk, tk = jax.random.PRNGKey(seed + 3), prng.PRNGKey(seed + 3)
+    js = jbl.srs_sample(jk, items, k, _j(mask))
+    ts = tbl.srs_sample(tk, items, k, _t(mask))
+    _same(js.mask, ts.mask)
+    _same(js.weights, ts.weights)
+    live = items if mask is None else int(mask.sum())
+    assert int(ts.mask.sum()) == min(k, live)
+    _same_stats(jbl.srs_stats(jnp.asarray(vals), js),
+                tbl.srs_stats(torch.from_numpy(vals), ts))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("fraction", [0.4, 0.05])
+def test_sts_counts_mask_weights_and_stats(name, seed, fraction):
+    vals, sid, mask, _ = _case(name, seed)
+    jk, tk = jax.random.PRNGKey(seed + 5), prng.PRNGKey(seed + 5)
+    jgc = jbl.sts_counts(jnp.asarray(sid), 3, _j(mask))
+    tgc = tbl.sts_counts(torch.from_numpy(sid), 3, _t(mask))
+    _same(jgc, tgc)
+    js = jbl.sts_sample(jk, jnp.asarray(sid), jgc, fraction, _j(mask))
+    ts = tbl.sts_sample(tk, torch.from_numpy(sid), tgc, fraction, _t(mask))
+    _same(js.mask, ts.mask)
+    _same(js.weights, ts.weights)
+    per = np.bincount(sid[ts.mask.numpy()], minlength=3)
+    np.testing.assert_array_equal(
+        per, np.ceil(np.float32(fraction) * tgc.numpy().astype(np.float32)))
+    _same_stats(jbl.sample_stats(jnp.asarray(vals), jnp.asarray(sid), js, 3,
+                                 jgc),
+                tbl.sample_stats(torch.from_numpy(vals), torch.from_numpy(sid),
+                                 ts, 3, tgc))
+    # Without the true counts: the HT estimate of each stratum's size.
+    _same_stats(jbl.sample_stats(jnp.asarray(vals), jnp.asarray(sid), js, 3),
+                tbl.sample_stats(torch.from_numpy(vals), torch.from_numpy(sid),
+                                 ts, 3))
+
+
+def test_sts_tied_uniforms_are_ranked_by_index(monkeypatch):
+    """Every u equal within a stratum: the order is the items' order, as
+    the reference's sort keeps it."""
+    sid = torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.int32)
+    gc = tbl.sts_counts(sid, 2)
+    monkeypatch.setattr(prng, "uniform",
+                        lambda k, shape, *a: torch.full((shape,), 0.5))
+    sample = tbl.sts_sample(prng.PRNGKey(0), sid, gc, 0.5)
+    assert sample.mask.tolist() == [True, True, True, False, False, False]
+
+
+@pytest.mark.parametrize("w", [2.5, 1 / 0.6, 65536 / 26214, 0.1, 3.0,
+                               1e-4, 7.123456])
+@pytest.mark.parametrize("n", [0, 1, 2, 7, 1000, 26214, 300_000])
+def test_f32_running_sum_closed_form(w, n):
+    """The closed form against the item-by-item f32 sum it replaces."""
+    w32 = np.float32(w)
+    want = np.cumsum(np.full(n, w32, np.float32), dtype=np.float32)[-1] \
+        if n else np.float32(0.0)
+    assert np.float32(tbl._f32_running_sum(float(w32), n)) == want
+
+
+@pytest.mark.parametrize("items", [4096, 65536])
+def test_five_systems_on_fig7b_window(systems, items):
+    """The five systems at fraction 0.4 and lane 256, as fig7b runs them:
+    the port's estimates within rtol 1e-5 of the reference's jitted
+    systems, native within rtol 1e-5 of the f64 sum, every sampled
+    system within 3 sigma of it."""
+    jsys, smoke = systems
+    vals, sid = _fig7b_window(items)
+    jrun = jsys.all_systems(3, 0.4, items, lane=256)
+    trun = smoke.five_systems("cpu", 3, 0.4, items, lane=256)
+    exact = float(np.sum(vals.astype(np.float64)))
+    tv, ts = torch.from_numpy(vals), torch.from_numpy(sid)
+    for name in ("native", "oasrs_batched", "oasrs_pipelined", "srs",
+                 "sts"):
+        je = jrun[name](jnp.asarray(vals), jnp.asarray(sid))
+        te = trun[name](tv, ts)
+        assert isinstance(te, terr.Estimate)
+        np.testing.assert_allclose(float(te.value), float(je.value),
+                                   rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(float(te.variance), float(je.variance),
+                                   rtol=1e-4, atol=1e-3, err_msg=name)
+        sigma = float(te.variance) ** 0.5
+        assert abs(float(te.value) - exact) <= 3 * sigma + 1e-5 * exact, name
+    assert float(trun["native"](tv, ts).variance) == 0.0

@@ -1096,3 +1096,94 @@ def test_cuda_rescale_kill_sweep(cuda_device, name):
                 convert.results_to_numpy({q: b.results[q]})[q]["value"],
                 convert.results_to_numpy({q: a.results[q]})[q]["value"],
                 rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The stream substrate and the baselines on the card.
+# ---------------------------------------------------------------------------
+
+def _on_both(fn, dev):
+    """``fn(device)`` on the CPU and on the card, each on its own."""
+    return fn("cpu"), fn(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["GaussianSource", "PoissonSource",
+                                  "NetflowSource", "TaxiSource"])
+def test_cuda_sources_and_replay_match_cpu(cuda_device, name):
+    """Ids, times and masks bit for bit on the card; Gaussian and Poisson
+    values bit for bit (every multiply-add of ``prng.normal`` is an f64
+    step rounded once), NetFlow's and Taxi's within rtol 1e-5 (``exp``,
+    ``log`` and ``pow`` are each device's own)."""
+    from repro_torch import stream
+
+    def make(dev):
+        agg = stream.StreamAggregator(getattr(stream, name)(), seed=7,
+                                      device=dev)
+        rs = stream.ReplayableStream(agg, chunk_size=4096, rate=8192.0,
+                                     disorder=0.3, disorder_seed=5,
+                                     key_gaps=((1, 0.5, 0.25),))
+        rs4 = stream.ReplayableStream(agg, chunk_size=1024, rate=2048.0,
+                                      num_shards=4, disorder=0.2)
+        return [rs.chunk_at(e) for e in (0, 5)] + [rs4.chunk_at(3)]
+    cpu, gpu = _on_both(make, cuda_device)
+    for a, b in zip(cpu, gpu):
+        for f in ("stratum_ids", "times", "mask"):
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+        if name in ("GaussianSource", "PoissonSource"):
+            assert torch.equal(a.values, b.values.cpu())
+        else:
+            close = torch.isclose(b.values.cpu(), a.values, rtol=1e-5)
+            if name == "TaxiSource":      # a flipped rejection redraws
+                assert close.double().mean() > 0.99
+            else:
+                assert bool(close.all())
+
+
+@pytest.mark.cuda
+def test_cuda_baselines_match_cpu(cuda_device):
+    """SRS and STS at 1,048,576 items (with a mask): masks and weights on
+    the card bit for bit the CPU's, and the stats counts."""
+    from repro_torch.core import baselines as bl
+    rng = np.random.default_rng(3)
+    m = 1 << 20
+    sid = torch.from_numpy(rng.choice(3, m, p=[0.8, 0.19, 0.01])
+                           .astype(np.int32))
+    vals = torch.from_numpy(rng.normal(100.0, 10.0, m).astype(np.float32))
+    mask = torch.from_numpy(rng.random(m) < 0.9)
+
+    def run(dev):
+        s, v, mk = sid.to(dev), vals.to(dev), mask.to(dev)
+        key = prng.PRNGKey(11, device=dev)
+        srs = bl.srs_sample(key, m, 419_430, mk)
+        gc = bl.sts_counts(s, 3, mk)
+        sts = bl.sts_sample(key, s, gc, 0.4, mk)
+        return (srs, sts, bl.srs_stats(v, srs).counts,
+                bl.sample_stats(v, s, sts, 3, gc).taken)
+    (a_srs, a_sts, a_c, a_t), (b_srs, b_sts, b_c, b_t) = _on_both(
+        run, cuda_device)
+    for a, b in ((a_srs, b_srs), (a_sts, b_sts)):
+        assert torch.equal(a.mask, b.mask.cpu())
+        assert torch.equal(a.weights, b.weights.cpu())
+    assert torch.equal(a_c, b_c.cpu()) and torch.equal(a_t, b_t.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_pipelined_chunks_match_cpu(cuda_device):
+    """``update_pipelined_chunks`` at lane 256 through the fold kernel:
+    the state on the card bit for bit the CPU's (the plain fold)."""
+    from repro_torch.core import oasrs
+    rng = np.random.default_rng(5)
+    t = 256 * 64
+    sid = torch.from_numpy(rng.integers(0, 3, t).astype(np.int32))
+    pay = torch.from_numpy(rng.normal(50.0, 5.0, t).astype(np.float32))
+
+    def run(dev):
+        st = oasrs.init(3, 700, prng.PRNGKey(2, device=dev), device=dev)
+        return oasrs.update_pipelined_chunks(st, sid.to(dev), pay.to(dev),
+                                             lane=256)
+    ops.reset_launch_counts()
+    a, b = _on_both(run, cuda_device)
+    assert ops.launch_counts()["reservoir_fold"] == t // 256
+    for f in ("values", "counts", "capacity", "key"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f

@@ -9,8 +9,13 @@ import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.obs import summarize
 from repro_torch.runtime import executor as tex
 from repro_torch.runtime import registry as treg
+from repro_torch.stream import (GaussianSource, ReplayableStream,
+                                StreamAggregator)
+from repro_torch.stream.pipeline import (TokenWindowSpec,
+                                         synthetic_token_window)
 from repro_torch.utils import NoCudaDeviceError
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,6 +67,17 @@ def test_entry_points_raise_without_a_card(monkeypatch, device):
     reg = treg.QueryRegistry().register("total", "sum")
     with pytest.raises(NoCudaDeviceError):
         tex.PipelinedExecutor(cfg, reg, prng.PRNGKey(0), device=device)
+    with pytest.raises(NoCudaDeviceError):
+        StreamAggregator(GaussianSource(), seed=7, device=device)
+    with pytest.raises(NoCudaDeviceError):
+        ReplayableStream(StreamAggregator(GaussianSource(), device=device),
+                         chunk_size=8, rate=16.0)
+    with pytest.raises(NoCudaDeviceError):
+        synthetic_token_window(TokenWindowSpec(2, 3, 2, 5), 0,
+                               device=device)
+    args = ["--smoke"] + ([] if device is None else ["--device", device])
+    with pytest.raises(NoCudaDeviceError):
+        summarize.main(args)
 
 
 def test_cpu_on_request(monkeypatch):
@@ -69,6 +85,21 @@ def test_cpu_on_request(monkeypatch):
     cfg = tex.RuntimeConfig(num_strata=3, capacity=8)
     state = tex.init_state(cfg, prng.PRNGKey(0), device="cpu")
     assert state.window.intervals.values.device.type == "cpu"
+    stream = ReplayableStream(
+        StreamAggregator(GaussianSource(), seed=7, device="cpu"),
+        chunk_size=8, rate=16.0, disorder=0.5)
+    chunk = stream.chunk_at(3)
+    assert all(t.device.type == "cpu" for t in (
+        chunk.values, chunk.stratum_ids, chunk.times, chunk.mask))
+    tokens, _ = synthetic_token_window(TokenWindowSpec(2, 3, 2, 5), 0,
+                                       device="cpu")
+    assert tokens.device.type == "cpu"
+
+
+def test_summarize_smoke_on_the_cpu(monkeypatch, capsys):
+    _no_card(monkeypatch)
+    assert summarize.main(["--smoke", "--device", "cpu"]) == 0
+    assert "hw95" in capsys.readouterr().out
 
 
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):

@@ -208,6 +208,44 @@ def test_summarize_cli_smoke(tmp_path, capsys):
     assert capsys.readouterr().out == out
 
 
+#: Fields of the smoke log's events that are wall-clock times, or the
+#: byte size of each package's own archive of a payload.
+_HOST_FIELDS = ("latency_s", "latency_ema", "serialize_s", "restore_s",
+                "bytes")
+
+
+def test_summarize_smoke_log_matches_the_reference(tmp_path):
+    """The smoke run on the reference's stream (``ReplayableStream(
+    StreamAggregator(GaussianSource(), seed=7), 128, 512.0)``, 16 chunks):
+    the same events in the same order, every schedule field, count,
+    capacity, watermark and offset equal, estimates within rtol 1e-5 and
+    their 95% half-widths within the executors' width rtol 1e-4 (the
+    Eq. 6 variance cancels in f32)."""
+    from repro.obs import read_events as jread_events
+    from repro.obs import summarize as jsummarize
+    from repro_torch.obs import summarize
+    jpath, tpath = str(tmp_path / "j.jsonl"), str(tmp_path / "t.jsonl")
+    jsummarize._smoke_log(jpath)
+    summarize._smoke_log(tpath, device="cpu")
+    jev, tev = jread_events(jpath), read_events(tpath)
+    assert [e["type"] for e in jev] == [e["type"] for e in tev]
+    assert sum(e["type"] == "emission" for e in tev) == 3
+    for a, b in zip(jev, tev):
+        assert a.keys() == b.keys(), a["type"]
+        for f in a:
+            if f in _HOST_FIELDS:
+                continue
+            if f == "results":
+                assert a[f].keys() == b[f].keys()
+                for name, r in a[f].items():
+                    np.testing.assert_allclose(b[f][name]["value"],
+                                               r["value"], rtol=1e-5)
+                    np.testing.assert_allclose(b[f][name]["hw95"],
+                                               r["hw95"], rtol=1e-4)
+            else:
+                assert a[f] == b[f], (a["type"], f)
+
+
 def test_push_never_reads_back_with_telemetry_and_checkpointer(monkeypatch):
     """``test_torch_runtime``'s read-back check again, with a telemetry
     hub and a checkpointer attached: a pipelined cadence push reads
