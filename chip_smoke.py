@@ -193,6 +193,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 (data sheet)
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 
 K, S = 2, 3                        # ring intervals, strata
@@ -245,6 +246,17 @@ SYS_B = dict(chunks=20, fraction=0.6, lane=65_536)   # one 10 s window
 SYS_RUNS = 5                       # timed runs of each system, in turns
 SYS_REPLAY = 24                    # phase systems (c): chunks replayed
 SYS_ITEMS_D = 1_024                # phase systems (d): items one by one
+SERVE_ARCH = "phi4-mini-3.8b"      # phase serve: full config, bf16
+SERVE_REQUESTS = 8
+SERVE_PROMPT = 2_048               # two 1,024-query blocks of attention
+SERVE_STEPS = 16
+SERVE_TENANTS = 4
+SERVE_CAPACITY = 256               # > 8 x 16 records: every one is kept
+SERVE_BITS_CHECKED = 1 << 20       # init elements checked against the CPU
+SERVE_CACHE_BATCH = 2              # requests of the cache-consistency check
+SERVE_LOGIT_ATOL = 0.125           # decode vs prefill logits, bf16 model
+SERVE_CACHE_RTOL = 2.0 ** -5       # decode vs prefill K/V, of max |K/V|
+SERVE_PREFILLS = 3                 # timed prefills
 
 
 def log(msg: str) -> None:
@@ -715,15 +727,9 @@ def make_stream(torch, seed: int, dev):
 def phase_main(torch, seed: int, dev):
     from repro_torch import prng
     from repro_torch.kernels import ops
-    from repro_torch.runtime.executor import (PipelinedExecutor,
-                                              RuntimeConfig, _ingest_chunk)
-    from repro_torch.runtime.registry import QueryRegistry
+    from repro_torch.runtime.executor import PipelinedExecutor, _ingest_chunk
     chunks, exact = make_stream(torch, seed, dev)
-    cfg = RuntimeConfig(num_strata=S, capacity=N_MAX, num_intervals=K,
-                        interval_span=SPAN, allowed_lateness=LATENESS,
-                        emit_every=EMIT_EVERY)
-    reg = (QueryRegistry().register("sum", "sum").register("mean", "mean")
-           .register("count", "count", predicate=lambda x: x > THRESHOLD))
+    cfg, reg = main_config()
     ex = PipelinedExecutor(cfg, reg, prng.PRNGKey(seed), device=dev)
     ex.run(chunks[:EMIT_EVERY])            # warm-up (allocator, caches)
     ex.reset(prng.PRNGKey(seed))
@@ -869,10 +875,11 @@ def one_shot_case(torch, gen, m, *, counts, capacity, adopt, slot_interval,
 
 
 def same_bits(torch, a, b) -> bool:
-    """Equal bit for bit (f32 compared as its int32 words)."""
-    if a.dtype == torch.float32:
-        a, b = a.reshape(-1).view(torch.int32), b.reshape(-1).view(
-            torch.int32)
+    """Equal bit for bit (f32 and bf16 compared as their integer
+    words)."""
+    words = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype in words and b.dtype == a.dtype:
+        a, b = (t.reshape(-1).view(words[a.dtype]) for t in (a, b))
     return bool(torch.equal(a, b))
 
 
@@ -3221,6 +3228,422 @@ def phase_systems(torch, seed: int, dev) -> dict:
         json.dumps(result, indent=1))
     return result
 
+# ---------------------------------------------------------------------------
+# Phase serve: phi4-mini-3.8b at full width with StreamApprox telemetry.
+# ---------------------------------------------------------------------------
+
+def main_config():
+    """Phase main's deployment: its runtime config and registry."""
+    from repro_torch.runtime.executor import RuntimeConfig
+    from repro_torch.runtime.registry import QueryRegistry
+    cfg = RuntimeConfig(num_strata=S, capacity=N_MAX, num_intervals=K,
+                        interval_span=SPAN, allowed_lateness=LATENESS,
+                        emit_every=EMIT_EVERY)
+    reg = (QueryRegistry().register("sum", "sum").register("mean", "mean")
+           .register("count", "count", predicate=lambda x: x > THRESHOLD))
+    return cfg, reg
+
+
+def decode_need(cfg, params, cache, batch: int) -> dict:
+    """Bytes and operations one decode step needs: every weight but the
+    embedding table read once (of the table only the ``batch`` rows
+    gathered), the KV cache read once, the new K/V and the f32 logits
+    written; two operations per weight element and batch row, and the
+    scores and P·V over the cache."""
+    from repro_torch.models import param
+    item = cfg.dtype.itemsize
+    weights = sum(t.numel() * t.element_size()
+                  for p, t in param.leaves(params) if p != "embed.tokens")
+    weight_elems = sum(t.numel() for p, t in param.leaves(params)
+                       if p != "embed.tokens")
+    kv_read = 2 * cache.k.numel() * item
+    kv_write = 2 * cfg.num_layers * batch * cfg.kv_size * item
+    nbytes = (weights + batch * cfg.d_model * item + kv_read + kv_write
+              + batch * cfg.vocab_size * 4)
+    ops_ = 2 * batch * weight_elems + 4 * cfg.num_layers * batch * (
+        cfg.num_heads * cache.max_len * cfg.head_dim)
+    return dict(weight_bytes=weights, kv_read_bytes=kv_read, bytes=nbytes,
+                ops=ops_, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=ops_ / BF16_OPS_PER_S * 1e3)
+
+
+def prefill_need(cfg, params, batch: int, prompt: int) -> dict:
+    """Bytes and operations of one prefill: the weights read once (the
+    embedding's gathered rows), the cache written, the last logits; two
+    operations per weight element and token, and the scores and P·V of
+    the query × key blocks the chunked attention computes."""
+    from repro_torch.models import param
+    item = cfg.dtype.itemsize
+    tokens = batch * prompt
+    weight_elems = sum(t.numel() for p, t in param.leaves(params)
+                       if p != "embed.tokens")
+    weights = weight_elems * item
+    qc, ck = min(cfg.attn_q_chunk, prompt), min(cfg.attn_kv_chunk, prompt)
+    nq = -(-prompt // qc)
+    pairs = sum(min(-(-prompt // ck), -(-((i + 1) * qc) // ck)) * qc * ck
+                for i in range(nq))
+    attn_ops = 4 * cfg.num_layers * batch * cfg.num_heads * pairs \
+        * cfg.head_dim
+    nbytes = (weights + tokens * cfg.d_model * item
+              + 2 * cfg.num_layers * tokens * cfg.kv_size * item
+              + batch * cfg.vocab_size * 4)
+    ops_ = 2 * tokens * weight_elems + attn_ops
+    return dict(bytes=nbytes, ops=ops_,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=ops_ / BF16_OPS_PER_S * 1e3)
+
+
+def serve_build(torch, cfg, dev) -> tuple:
+    """(a) The full config's weights on the card from ``PRNGKey(0)``,
+    drawn in slices; the first ``SERVE_BITS_CHECKED`` elements of two
+    leaves against the CPU's draws over the same counters."""
+    from repro_torch import prng
+    from repro_torch.models import api, param
+    skel = api.skeleton(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = param.init_params(skel, prng.PRNGKey(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = dict(params=param.count_params(skel),
+               param_bytes=param.param_bytes(skel), init_s=init_s,
+               init_peak_bytes=torch.cuda.max_memory_allocated(),
+               init_slice=param.INIT_SLICE)
+    specs = dict(param.leaves(skel))
+    paths = list(specs)
+    keys = prng.split(prng.PRNGKey(0), len(paths))
+    for path in ("embed.tokens", "dense_layers.attn.wq"):
+        spec = specs[path]
+        want = (prng.normal(keys[paths.index(path)], SERVE_BITS_CHECKED)
+                * param.init_std(spec)).to(spec.dtype)
+        got = dict(param.leaves(params))[path].reshape(-1)[
+            :SERVE_BITS_CHECKED].cpu()
+        if not same_bits(torch, got, want):
+            fail(f"serve (a): {path} on the card differs from the CPU's "
+                 f"draws over its first {SERVE_BITS_CHECKED} elements")
+    log(f"[serve] (a) {cfg.name} at full width: {out['params']:,} "
+        f"parameters, {out['param_bytes']:,} B in {cfg.dtype}, drawn on "
+        f"the card in {init_s:.2f} s (slices of {param.INIT_SLICE:,}), "
+        f"peak {out['init_peak_bytes'] / 2**30:.2f} GiB; embed.tokens and "
+        f"dense_layers.attn.wq bit for bit the CPU's first "
+        f"{SERVE_BITS_CHECKED:,} draws")
+    return params, out
+
+
+def check_telemetry(torch, server, est, per, text, tenants) -> dict:
+    """(b) Fewer records than the capacity: each tenant's reservoir holds
+    all its records (taken == counts), the variances are 0 and the means
+    are those of the latencies folded, read back from the state."""
+    st = server.telemetry
+    counts, taken = st.counts.cpu(), st.taken().cpu()
+    values = st.values.cpu().double()
+    want_counts = torch.bincount(tenants.cpu().long(),
+                                 minlength=SERVE_TENANTS) * SERVE_STEPS
+    if not torch.equal(counts.long(), want_counts) or not torch.equal(
+            taken, counts):
+        fail(f"serve (b): counts {counts.tolist()} taken {taken.tolist()}"
+             f", expected counts {want_counts.tolist()} all taken")
+    folded = [values[i, :int(c)] for i, c in enumerate(counts)]
+    every = torch.cat(folded)
+    mean = float(every.mean())
+    got = float(est.value)
+    if abs(got - mean) > ANSWER_RTOL * abs(mean) or float(
+            est.variance) != 0.0:
+        fail(f"serve (b): telemetry mean {got} ± var "
+             f"{float(est.variance)}, folded latencies' mean {mean}")
+    tenant_means = [float(f.mean()) if f.numel() else 0.0 for f in folded]
+    for i, (g, w) in enumerate(zip(per.value.cpu().tolist(),
+                                   tenant_means)):
+        if counts[i] and abs(g - w) > ANSWER_RTOL * abs(w):
+            fail(f"serve (b): tenant {i} mean {g}, folded {w}")
+    if bool((per.variance.cpu() != 0).any()):
+        fail(f"serve (b): per-tenant variances {per.variance.tolist()}")
+    lines = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    gauges = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+              for ln in lines}
+    if (len(gauges) != 2 + 2 * SERVE_TENANTS
+            or abs(gauges["repro_serve_decode_latency_ms"] - got)
+            > 1e-5 * abs(got)
+            or gauges["repro_serve_decode_latency_ms_hw95"] != 0.0):
+        fail(f"serve (b): metrics text does not parse to the estimates: "
+             f"{gauges}")
+    log(f"[serve] (b) telemetry: counts {counts.tolist()} = taken, mean "
+        f"decode latency {got:.6g} ms (folded {mean:.6g}), variance 0, "
+        f"per tenant {[round(x, 4) for x in tenant_means]}")
+    return dict(counts=counts.tolist(), mean_ms=got,
+                tenant_means_ms=tenant_means)
+
+
+def serve_timed(torch, server, batch, tenants) -> dict:
+    """(b, d) The serving loop once more, timed on the host clock (each
+    decode step ends in the server's synchronise): prefills, 16 decode
+    steps; the clamped write of ``max_len=0``; logits finite, tokens in
+    range."""
+    from repro_torch.serve.serve_step import _next_tokens
+    pre_ms = []
+    for _ in range(SERVE_PREFILLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = server.prefill(batch)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    finite = torch.isfinite(logits).all()
+    before = state.k.clone()
+    toks = _next_tokens(logits)
+    dec_ms, out = [], [toks]
+    for _ in range(SERVE_STEPS):
+        t0 = time.perf_counter()
+        logits, state = server.decode(state, toks, tenants)
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= torch.isfinite(logits).all()
+        toks = _next_tokens(logits)
+        out.append(toks)
+    out = torch.cat(out, dim=1)
+    vocab = server.cfg.vocab_size
+    if not bool(finite) or not bool(((out >= 0) & (out < vocab)).all()):
+        fail("serve (b): logits not finite or tokens out of range")
+    slot = SERVE_PROMPT - 1
+    kept = torch.equal(state.k[:, :, :slot], before[:, :, :slot])
+    moved = not torch.equal(state.k[:, :, slot], before[:, :, slot])
+    pos = int(state.position)
+    if not (kept and moved and pos == SERVE_PROMPT + SERVE_STEPS):
+        fail(f"serve (b): clamped write: slots before {slot} kept {kept}, "
+             f"slot {slot} rewritten {moved}, position {pos}")
+    log(f"[serve] (b) max_len=0: {SERVE_STEPS} decode steps rewrote only "
+        f"slot {slot} of {SERVE_PROMPT}, position {pos} (the reference's "
+        f"clamped write)")
+    return dict(prefill_ms=pre_ms, decode_ms=dec_ms, state=state,
+                toks=toks)
+
+
+def serve_cache_consistency(torch, cfg, params, tokens) -> dict:
+    """(c) ``prefill_fn(max_len=prompt+steps)`` then ``decode_fn``, no
+    clamp: step t's logits against the last logits of a prefill over the
+    prompt and the t tokens generated, within SERVE_LOGIT_ATOL, and the
+    cache's first prompt + t slots against that prefill's K/V, within
+    SERVE_CACHE_RTOL of their largest magnitude (with the reference's
+    random weights attention moves the logits little, so a wrong slot
+    or mask shows in the cache, not in the logits)."""
+    from repro_torch.models import api
+    from repro_torch.serve.serve_step import _next_tokens
+    prefill, decode = api.prefill_fn(cfg), api.decode_fn(cfg)
+    logit_err, cache_err = [], []
+    with torch.inference_mode():
+        logits, cache = prefill(params, {"tokens": tokens},
+                                max_len=SERVE_PROMPT + SERVE_STEPS)
+        seq, nxt = tokens, _next_tokens(logits)
+        for _ in range(SERVE_STEPS):
+            seq = torch.cat([seq, nxt], dim=1)
+            logits, cache = decode(params, cache, nxt)
+            again, fresh = prefill(params, {"tokens": seq})
+            logit_err.append((logits - again).abs().amax())
+            n = seq.shape[1]
+            cache_err.append(torch.stack([
+                (getattr(cache, f)[:, :, :n].float()
+                 - getattr(fresh, f).float()).abs().amax()
+                / getattr(fresh, f).float().abs().amax()
+                for f in ("k", "v")]).amax())
+            nxt = _next_tokens(logits)
+        pos = int(cache.position)
+    logit_err = torch.stack(logit_err).tolist()
+    cache_err = torch.stack(cache_err).tolist()
+    if (max(logit_err) > SERVE_LOGIT_ATOL or max(cache_err)
+            > SERVE_CACHE_RTOL or pos != SERVE_PROMPT + SERVE_STEPS):
+        fail(f"serve (c): decode vs prefill logits differ by up to "
+             f"{max(logit_err)} (limit {SERVE_LOGIT_ATOL}), K/V by "
+             f"{max(cache_err)} of their largest (limit "
+             f"{SERVE_CACHE_RTOL}); position {pos}")
+    log(f"[serve] (c) {tokens.shape[0]} requests: decode step t's logits "
+        f"within {max(logit_err):.4g} of a prefill over prompt + t tokens "
+        f"(limit {SERVE_LOGIT_ATOL}), its K/V within {max(cache_err):.4g} "
+        f"of their largest (limit {SERVE_CACHE_RTOL}); logits per step "
+        f"{[round(w, 4) for w in logit_err]}")
+    return dict(logit_max_abs=logit_err, cache_max_rel=cache_err)
+
+
+def serve_sentinel(torch, seed: int, dev) -> dict:
+    """(e) Phase main's executor under ``Telemetry(strict_retrace=True)``
+    raises nothing; then one chunk of half the size, non-strict, logs
+    exactly one ``retrace`` event."""
+    import warnings
+    from repro_torch import prng
+    from repro_torch.obs import EventLog, Telemetry
+    from repro_torch.runtime.executor import PipelinedExecutor
+    from repro_torch.runtime.records import TimestampedChunk
+    chunks, _ = make_stream(torch, seed, dev)
+    cfg, reg = main_config()
+    ex = PipelinedExecutor(cfg, reg, prng.PRNGKey(seed), device=dev,
+                           telemetry=Telemetry(EventLog(),
+                                               strict_retrace=True))
+    ex.run(chunks)
+    ex.query()
+    traces = {k: s.traces for k, s in ex._sentinels.items()}
+    if traces != {"query": 1, "step": 1, "emit": 1}:
+        fail(f"serve (e): strict run traced {traces}")
+    events = EventLog()
+    ex.attach_telemetry(Telemetry(events, strict_retrace=False))
+    half = TimestampedChunk(*(getattr(chunks[0], f)[:M // 2] for f in (
+        "values", "stratum_ids", "times", "mask")))
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        ex.push(half)
+    retraces = events.of_type("retrace")
+    if [(e["step"], e["traces"], e["allowed"]) for e in retraces] != [
+            ("pipelined.step", 2, 1)]:
+        fail(f"serve (e): half-size chunk logged {retraces}")
+    log(f"[serve] (e) phase main's executor, strict: traces {traces}, "
+        f"nothing raised; a {M // 2}-item chunk then logged one retrace "
+        f"event {retraces[0]}")
+    return dict(strict_traces=traces, retrace=retraces[0])
+
+
+def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
+    from repro_torch import configs, prng
+    from repro_torch.core import oasrs
+    from repro_torch.kernels import ops
+    from repro_torch.serve.serve_step import Server
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(SERVE_ARCH) if cfg is None else cfg
+    flags = dict(
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        matmul_allow_bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction),
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    log(f"[serve] torch matmul flags as found (none set): {flags}")
+    result = dict(arch=cfg.name, dtype=str(cfg.dtype), card=card(),
+                  flags=flags, requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+                  steps=SERVE_STEPS, tenants=SERVE_TENANTS,
+                  capacity=SERVE_CAPACITY)
+    torch.cuda.empty_cache()
+    params, result["build"] = serve_build(torch, cfg, dev)
+
+    # (b) The main path: Server.generate and the telemetry queries, every
+    # kernel call held to its plain version.
+    server = Server(cfg, params, num_tenants=SERVE_TENANTS,
+                    telemetry_capacity=SERVE_CAPACITY, device=dev)
+    key = prng.PRNGKey(1, device=dev)
+    tokens = prng.randint(key, (SERVE_REQUESTS, SERVE_PROMPT), 0,
+                          cfg.vocab_size)
+    tenants = prng.randint(prng.fold_in(key, 3), (SERVE_REQUESTS,), 0,
+                           SERVE_TENANTS)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with HeldToPlain(torch, "serve") as held:
+        t0 = time.perf_counter()
+        out = server.generate(batch, steps=SERVE_STEPS, tenant_ids=tenants)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        est = server.telemetry_mean()
+        per = server.telemetry_per_tenant()
+        text = server.metrics_text()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {("reservoir_fold", (SERVE_TENANTS, SERVE_CAPACITY),
+             SERVE_REQUESTS): SERVE_STEPS,
+            ("stratified_stats", SERVE_TENANTS,
+             SERVE_TENANTS * SERVE_CAPACITY): 4}
+    if held.calls != want or launches["reservoir_fold"] != SERVE_STEPS \
+            or launches["stratified_stats"] != 4:
+        fail(f"serve (b): kernel calls held {held.calls}, launches "
+             f"{launches}; expected {want}")
+    if tuple(out.shape) != (SERVE_REQUESTS, SERVE_STEPS + 1) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"serve (b): generated {tuple(out.shape)} {out.dtype}")
+    log(f"[serve] (b) Server.generate: {SERVE_REQUESTS} requests x "
+        f"{SERVE_PROMPT}-token prompts, {SERVE_STEPS} decode steps in "
+        f"{generate_s:.3f} s; every kernel call held to its plain version "
+        f"({held.calls}); launches {launches}")
+    log("[serve] (b) metrics_text():\n" + text.rstrip())
+    result["telemetry"] = check_telemetry(torch, server, est, per, text,
+                                          tenants)
+    result.update(generate_s=generate_s, launches=launches,
+                  peak_bytes=peak)
+
+    # (d) Times: the loop again, then the telemetry's own calls.
+    timed = serve_timed(torch, server, batch, tenants)
+    state = timed.pop("state")
+    toks = timed.pop("toks")
+    dec = sorted(timed["decode_ms"])
+    med = dec[len(dec) // 2]
+    need = decode_need(cfg, params, state, SERVE_REQUESTS)
+    pneed = prefill_need(cfg, params, SERVE_REQUESTS, SERVE_PROMPT)
+    pre = sorted(timed["prefill_ms"])[len(timed["prefill_ms"]) // 2]
+    tel = oasrs.OASRSState(values=server.telemetry.values.clone(),
+                           counts=server.telemetry.counts.clone(),
+                           capacity=server.telemetry.capacity.clone(),
+                           key=server.telemetry.key.clone())
+    lat = torch.full((SERVE_REQUESTS,), 1.0, dtype=torch.float32,
+                     device=dev)
+    fold_ms = time_ms(lambda: oasrs.update_chunk(tel, tenants, lat), torch)
+    mean_ms = time_ms(server.telemetry_mean, torch)
+    tenant_ms = time_ms(server.telemetry_per_tenant, torch)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        server.metrics_text()
+    text_ms = (time.perf_counter() - t0) / 10 * 1e3
+    box = [state, toks]
+
+    def steps():
+        for _ in range(3):
+            logits, box[0] = server.decode(box[0], box[1], tenants)
+    acts, busy_ms, own, host_ops = device_split(torch, steps, 3)
+    bound_ms = max(need["bytes_ms"], need["ops_ms"])
+    result.update(
+        prefill_ms=timed["prefill_ms"], decode_ms=timed["decode_ms"],
+        decode_median_ms=med, decode_min_ms=dec[0], decode_max_ms=dec[-1],
+        tokens_per_s=SERVE_REQUESTS * SERVE_STEPS
+        / (sum(dec) / 1e3),
+        tokens_per_s_end_to_end=SERVE_REQUESTS * SERVE_STEPS
+        / ((pre + sum(dec)) / 1e3),
+        decode_need=need, decode_bound_ms=bound_ms,
+        decode_bound_by="bytes" if need["bytes_ms"] >= need["ops_ms"]
+        else "operations",
+        prefill_need=pneed,
+        prefill_bound_ms=max(pneed["bytes_ms"], pneed["ops_ms"]),
+        telemetry_fold_ms=fold_ms, telemetry_mean_ms=mean_ms,
+        telemetry_per_tenant_ms=tenant_ms, metrics_text_ms=text_ms,
+        decode_device_activities=acts, decode_device_busy_ms=busy_ms,
+        decode_busy_share=busy_ms / med, decode_own_kernel_ms=own,
+        decode_host_ops=host_ops)
+    log(f"[serve] (d) prefill of {SERVE_REQUESTS} x {SERVE_PROMPT} tokens: "
+        f"{[round(x, 3) for x in timed['prefill_ms']]} ms (bound "
+        f"{result['prefill_bound_ms']:.3f} ms by "
+        f"{'operations' if pneed['ops_ms'] > pneed['bytes_ms'] else 'bytes'}"
+        f"); decode step median {med:.4f} ms, min {dec[0]:.4f}, max "
+        f"{dec[-1]:.4f} ({SERVE_STEPS} steps); bound {bound_ms:.4f} ms by "
+        f"{result['decode_bound_by']} ({need['bytes'] / 1e9:.4f} GB: "
+        f"weights {need['weight_bytes'] / 1e9:.4f}, KV read "
+        f"{need['kv_read_bytes'] / 1e9:.4f}); {result['tokens_per_s']:.1f}"
+        f" generated tokens/s ({result['tokens_per_s_end_to_end']:.1f} "
+        f"with the prefill)")
+    log(f"[serve] (d) one decode step: {acts:.1f} device activities, "
+        f"{busy_ms:.4f} ms device busy = {busy_ms / med:.3f} of the median "
+        f"step, {host_ops:.0f} host torch ops; own kernels {own}")
+    log(f"[serve] (d) telemetry: fold of {SERVE_REQUESTS} records "
+        f"{fold_ms:.4f} ms, telemetry_mean {mean_ms:.4f} ms, per tenant "
+        f"{tenant_ms:.4f} ms (device, events); metrics_text "
+        f"{text_ms:.4f} ms (host); peak memory of (b) "
+        f"{peak / 2**30:.2f} GiB")
+    del state, box, timed, server, tel
+    torch.cuda.empty_cache()
+
+    result["cache"] = serve_cache_consistency(
+        torch, cfg, params, tokens[:SERVE_CACHE_BATCH])
+    del params
+    torch.cuda.empty_cache()
+    result["sentinel"] = serve_sentinel(torch, seed, dev)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve] phase took {result['seconds']:.1f} s")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_serve.json").write_text(
+        json.dumps(result, indent=1, default=str))
+    return result
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3257,6 +3680,7 @@ def main(argv=None) -> int:
     phase_sharded(torch, args.seed, dev)
     phase_rescale(torch, args.seed, dev)
     systems = phase_systems(torch, args.seed, dev)["launches"]
+    serve = phase_serve(torch, args.seed, dev)["launches"]
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -3265,12 +3689,13 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/reservoir_fold.cu",
              replaces="src/repro/kernels/reservoir.py:36",
              launches=launches["reservoir_fold"]
-             + systems["reservoir_fold"], **fold),
+             + systems["reservoir_fold"] + serve["reservoir_fold"], **fold),
         dict(name="stratified_stats", route="cuda",
              source="src/repro_torch/kernels/csrc/stratified_stats.cu",
              replaces="src/repro/kernels/stratified_stats.py:31",
              launches=launches["stratified_stats"]
-             + systems["stratified_stats"], **stats),
+             + systems["stratified_stats"] + serve["stratified_stats"],
+             **stats),
         dict(name="one_shot_ingest", route="cuda",
              source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
              replaces="src/repro/kernels/reservoir.py:146",

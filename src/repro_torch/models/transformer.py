@@ -1,0 +1,168 @@
+"""Decoder-only transformer LM, the dense family: prefill and decode.
+
+Counterpart of the dense part of the reference's
+``models/transformer.py``. Per-layer params are stacked (a leading
+``layers`` axis on every leaf, the reference's layout) and walked with a
+Python loop over the layers where the reference scans; ``remat`` has no
+meaning without a gradient and ``scan_layers`` none without a compiler.
+Serving runs under ``torch.inference_mode()``.
+
+Not ported yet (ROADMAP item 12): the MoE layers (``is_moe`` configs are
+refused) and the training loss ``lm_loss``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import kvcache as kvc
+from repro_torch.models import layers as nn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.param import ParamSpec, map_tree
+
+
+class UnportedModelError(NotImplementedError):
+    """A model family or phase the port does not have yet."""
+
+
+def refuse_moe(cfg: ModelConfig) -> None:
+    if cfg.is_moe:
+        raise UnportedModelError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item 12); "
+            "the port serves the dense family")
+
+
+# ---------------------------------------------------------------------------
+# Skeletons
+# ---------------------------------------------------------------------------
+
+def _layer_skeleton(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": nn.rmsnorm_skeleton(cfg.d_model),
+        "attn": attn.attention_skeleton(cfg),
+        "ln2": nn.rmsnorm_skeleton(cfg.d_model),
+        "mlp": nn.mlp_skeleton(cfg, cfg.d_ff),
+    }
+
+
+def _stack(skel: dict, n: int) -> dict:
+    return map_tree(lambda _p, s: ParamSpec(
+        (n,) + s.shape, ("layers",) + s.logical, dtype=s.dtype,
+        init=s.init, scale=s.scale), skel)
+
+
+def lm_skeleton(cfg: ModelConfig) -> dict:
+    refuse_moe(cfg)
+    return {
+        "embed": nn.embedding_skeleton(cfg),
+        "final_ln": nn.rmsnorm_skeleton(cfg.d_model),
+        "unembed": nn.unembed_skeleton(cfg),
+        "dense_layers": _stack(_layer_skeleton(cfg), cfg.num_layers),
+    }
+
+
+def _layer(stack: dict, i: int) -> dict:
+    """Layer ``i``'s params: views into the stacked leaves."""
+    return map_tree(lambda _p, t: t[i], stack)
+
+
+def _num_layers(params: dict) -> int:
+    return params["dense_layers"]["ln1"]["scale"].shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Layer bodies
+# ---------------------------------------------------------------------------
+
+def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, window: Optional[int] = None):
+    """Forward one layer and return its K/V for the cache."""
+    h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, k, v = attn.qkv(lp["attn"], h, positions, cfg)
+    o = attn.chunked_causal_attention(q, k, v, cfg, window=window)
+    x = x + attn.proj_out(lp["attn"], o)
+    h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + nn.mlp(lp["mlp"], h, cfg), k, v
+
+
+def hidden_states(params: dict, tokens: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings → final hidden states ``[B, S, D]``."""
+    refuse_moe(cfg)
+    x = nn.embed(params["embed"], tokens).to(cfg.dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    stack = params["dense_layers"]
+    for i in range(_num_layers(params)):
+        x, _, _ = _layer_prefill(_layer(stack, i), x, positions, cfg)
+    return nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            window: int = 0, max_len: int = 0):
+    """Run the whole prompt, build the KV cache, return the last token's
+    f32 logits ``[B, 1, vocab]`` and the cache.
+
+    ``max_len``: cache allocation (prompt length + decode budget); 0 (and
+    anything shorter than the prompt) allocates exactly the prompt. The
+    cache is allocated once and each layer's K/V written into it.
+    """
+    refuse_moe(cfg)
+    x = nn.embed(params["embed"], tokens).to(cfg.dtype)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    n = _num_layers(params)
+    kept = min(s, window) if window else s
+    alloc = kept if window else max(max_len, s)
+    cache = kvc.init_cache(cfg, n, b, alloc, window=window,
+                           device=x.device)
+    stack = params["dense_layers"]
+    for i in range(n):
+        x, k, v = _layer_prefill(_layer(stack, i), x, positions, cfg,
+                                 window=window or None)
+        cache.k[i, :, :kept] = k[:, s - kept:]
+        cache.v[i, :, :kept] = v[:, s - kept:]
+    h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    logits = nn.unembed(params["unembed"], h[:, -1:])
+    cache.position.fill_(kept)
+    return logits, cache
+
+
+def _layer_decode(lp: dict, x: torch.Tensor, layer_k: torch.Tensor,
+                  layer_v: torch.Tensor, cache: kvc.KVCache,
+                  cfg: ModelConfig):
+    pos = cache.position.reshape(1)
+    h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, k, v = attn.qkv(lp["attn"], h, pos, cfg)
+    kvc.write_token(layer_k, layer_v, cache, k, v)
+    valid = kvc.cache_len(cache) + 1
+    o = attn.decode_attention(q, layer_k, layer_v, valid)
+    x = x + attn.proj_out(lp["attn"], o)
+    h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + nn.mlp(lp["mlp"], h, cfg)
+
+
+def decode_step(params: dict, cache: kvc.KVCache, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One decode step for the whole batch: tokens ``[B, 1]`` → f32
+    logits ``[B, 1, vocab]`` and the cache one token on.
+
+    The cache's K/V tensors are written in place (the returned cache
+    shares them with ``cache``); only ``position`` is a new tensor.
+    Nothing is read back to the host.
+    """
+    refuse_moe(cfg)
+    x = nn.embed(params["embed"], tokens).to(cfg.dtype)
+    stack = params["dense_layers"]
+    for i in range(_num_layers(params)):
+        x = _layer_decode(_layer(stack, i), x, cache.k[i], cache.v[i],
+                          cache, cfg)
+    h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    logits = nn.unembed(params["unembed"], h)
+    return logits, dataclasses.replace(cache, position=cache.position + 1)

@@ -170,11 +170,15 @@ class Telemetry:
     ``log`` is an optional :class:`repro_torch.obs.events.EventLog`;
     without one the hub still keeps the in-memory mirrors behind
     :meth:`summary`. :meth:`on_retrace` writes the schema's ``retrace``
-    event; the port compiles nothing, so nothing calls it yet.
+    event when an executor's retrace sentinel (``obs/sentinel.py``) sees
+    a step run past its budget. ``strict_retrace`` (default: the
+    ``REPRO_OBS_STRICT`` env var) makes those sentinels raise instead of
+    record.
     """
 
-    def __init__(self, log=None):
+    def __init__(self, log=None, strict_retrace: Optional[bool] = None):
         self.log = log
+        self.strict_retrace = strict_retrace
         self.latencies: List[float] = []       # per-emission step latency
         self.batch_sizes: List[int] = []       # batched micro-batch knob
         self.capacity_traj: List[list] = []    # [S] capacity per emission

@@ -79,8 +79,9 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
-def _counters(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _counters(n: int, device,
+              start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return idx >> 32, idx & _MASK
 
 
@@ -115,14 +116,18 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.cat([b0, b1], dim=-1)
 
 
-def random_bits(key: torch.Tensor,
-                shape: Union[int, Sequence[int]]) -> torch.Tensor:
-    """32-bit random words (int64 tensor) of ``key.shape[:-1] + shape``."""
+def random_bits(key: torch.Tensor, shape: Union[int, Sequence[int]],
+                start: int = 0) -> torch.Tensor:
+    """32-bit random words (int64 tensor) of ``key.shape[:-1] + shape``.
+
+    ``start`` offsets the flat counter: the words are elements ``start
+    ...`` of a larger draw from the same key, so a large draw can be made
+    in slices of the same bits."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = 1
     for d in shape:
         n *= d
-    hi, lo = _counters(n, key.device)
+    hi, lo = _counters(n, key.device, start)
     b0, b1 = threefry2x32(key, hi, lo)
     return (b0 ^ b1).reshape(tuple(key.shape[:-1]) + shape)
 
@@ -144,12 +149,13 @@ def _fma(a, b, c) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]],
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+            minval: float = 0.0, maxval: float = 1.0,
+            start: int = 0) -> torch.Tensor:
     """f32 uniforms in ``[minval, maxval)`` (``jax.random.uniform``):
     ``max(minval, u · (maxval - minval) + minval)`` for ``u`` in
     ``[0, 1)``, the multiply-add fused as the reference's compiled draw
-    fuses it."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+    fuses it. ``start`` as in :func:`random_bits`."""
+    bits = (random_bits(key, shape, start) >> 9) | 0x3F800000
     u = bits.to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:
         return u
@@ -211,11 +217,13 @@ def _xla_log1p(a: torch.Tensor) -> torch.Tensor:
                        _xla_log(a + 1.0))
 
 
-def normal(key: torch.Tensor,
-           shape: Union[int, Sequence[int]]) -> torch.Tensor:
-    """f32 standard normals (``jax.random.normal``)."""
+def normal(key: torch.Tensor, shape: Union[int, Sequence[int]],
+           start: int = 0) -> torch.Tensor:
+    """f32 standard normals (``jax.random.normal``); ``start`` as in
+    :func:`random_bits`."""
     x = uniform(key, shape, float(np.nextafter(np.float32(-1.0),
-                                               np.float32(0.0))), 1.0)
+                                               np.float32(0.0))), 1.0,
+                start)
     w = -_xla_log1p(x * (-x))
     lt = w < 5.0
     # f64 then f32: a correctly rounded f32 root (``torch.sqrt`` of f32 on

@@ -56,6 +56,14 @@ between shard counts. A ``Telemetry`` (``obs/metrics.py``) passed as
 ``telemetry=`` hears every emission, flush, checkpoint and restore, all
 where the host already waits.
 
+Retrace sentinels (``obs/sentinel.py``): each step the reference
+compiles keeps the input signatures it has run at, and a new one is a
+trace of its :class:`~repro_torch.obs.sentinel.RetraceSentinel`, with the
+reference's names and budgets: ``pipelined.step`` and ``.emit`` 1,
+``{mode}.emit_interval`` and ``{mode}.query`` 1, ``batched.window_step``
+0 plus one per new micro-batch count. A trace past the budget warns and
+logs a ``retrace`` event, or raises under strict mode.
+
 Not ported (raises :class:`UnsupportedConfigError`): a ``fused`` ingest
 whose ``W·K·S`` cells pass the fold kernel's limits.
 """
@@ -79,6 +87,8 @@ from repro_torch.kernels.reservoir import MAX_STRATA as FOLD_MAX_CELLS
 from repro_torch.kernels.stratified_stats import (
     MAX_STRATA as STATS_MAX_CELLS)
 from repro_torch.obs import metrics as obm
+from repro_torch.obs.sentinel import (RetraceSentinel, SignatureCache,
+                                      signature)
 from repro_torch.runtime import controller as ctl
 from repro_torch.runtime import watermark as wmk
 from repro_torch.runtime.records import TimestampedChunk
@@ -747,6 +757,14 @@ class _ExecutorBase:
         registry.freeze()
         self.checkpointer: Optional["Checkpointer"] = None
         self.telemetry: Optional[obm.Telemetry] = None
+        # One retrace sentinel per step the reference compiles, with its
+        # budget: a step run at a new input signature is a trace.
+        self._sentinels: Dict[str, RetraceSentinel] = {}
+        self._signatures: Dict[str, SignatureCache] = {}
+        if cfg.emission == "watermark":
+            self._sentinel("emit_interval", allowed=1)
+        self._sentinel("query", allowed=1)
+        self._make_sentinels()
         self.reset(key)
         self.checkpointer = checkpointer
         if telemetry is not None:
@@ -756,12 +774,39 @@ class _ExecutorBase:
     def _watermark_mode(self) -> bool:
         return self.cfg.emission == "watermark"
 
+    def _make_sentinels(self) -> None:
+        """The mode's own steps' sentinels."""
+
+    def _sentinel(self, name: str, allowed: int) -> RetraceSentinel:
+        s = RetraceSentinel(f"{self.mode}.{name}", allowed=allowed,
+                            on_violation=self._on_retrace)
+        self._sentinels[name] = s
+        self._signatures[name] = SignatureCache(s)
+        return s
+
+    def _on_retrace(self, name: str, traces: int, allowed: int) -> None:
+        if self.telemetry is not None:
+            self.telemetry.on_retrace(name, traces, allowed)
+
+    def _run_at(self, step: str, *inputs) -> None:
+        """Step ``step`` runs on the state and ``inputs``: a new
+        signature is a trace of its sentinel."""
+        self._signatures[step].see((self._state_sig,) + signature(*inputs))
+
+    @property
+    def emit_trace_count(self) -> int:
+        """Traces of the per-interval-close emission step (watermark
+        mode): 1 after warmup, forever."""
+        s = self._sentinels.get("emit_interval")
+        return 0 if s is None else s.traces
+
     def reset(self, key: torch.Tensor) -> None:
         """Restart on a fresh stream."""
         w = self.cfg.num_shards
         self.state = init_state(self.cfg, key, self.device,
                                 None if self.mesh is None else
                                 self.mesh.rank)
+        self._state_sig = signature(self.state)
         self.emissions: List[Emission] = []
         self.chunks_pushed = 0
         self._emission_cursor = 0
@@ -793,6 +838,9 @@ class _ExecutorBase:
         """Attach (or swap) the host telemetry hub; logs one ``run_meta``
         event describing this executor."""
         self.telemetry = telemetry
+        if telemetry.strict_retrace is not None:
+            for s in self._sentinels.values():
+                s.strict = telemetry.strict_retrace
         telemetry.on_run_meta(self)
 
     def snapshot(self) -> "RuntimeCheckpoint":
@@ -850,6 +898,7 @@ class _ExecutorBase:
         if self.mesh is not None:
             state = self._own_row(every)
         self.state = state
+        self._state_sig = signature(state)
         self._ctrl_rows = every.ctrl
         # A copy: on the CPU ``numpy()`` shares the state's buffer, which
         # the one-shot ingest updates in place.
@@ -900,6 +949,7 @@ class _ExecutorBase:
         """Every standing query on the current state (ad hoc: no
         controller feedback, no emission record). On the mesh every rank
         calls it: one all_gather."""
+        self._run_at("query")
         return _evaluate_merged(self.cfg, self.registry, self.state,
                                 self.mesh, self._last_latency)[0]
 
@@ -1040,6 +1090,7 @@ class _ExecutorBase:
                     "interval's sample was recycled unemitted; grow "
                     "num_intervals or shorten the chunk/micro-batch event "
                     "span")
+            self._run_at("emit_interval", self._emit_base_key)
             results, stats, aux = _evaluate_interval(
                 cfg, self.registry, self.state, j, self._emit_base_key,
                 self.mesh, latency_s)
@@ -1074,6 +1125,12 @@ class BatchedExecutor(_ExecutorBase):
     """
 
     mode = "batched"
+
+    def _make_sentinels(self) -> None:
+        # Budget 0: each NEW micro-batch count declares its trace with
+        # allow(1) in _flush, so only a re-trace is a violation.
+        self._step_sentinel = self._sentinel("window_step", allowed=0)
+        self._batch_counts: set = set()
 
     def reset(self, key: torch.Tensor) -> None:
         super().reset(key)
@@ -1110,6 +1167,10 @@ class BatchedExecutor(_ExecutorBase):
     def _flush(self) -> None:
         if not self._pending:
             return
+        if len(self._pending) not in self._batch_counts:
+            self._batch_counts.add(len(self._pending))
+            self._step_sentinel.allow(1)      # declared: a new count
+            self._step_sentinel.trace()
         pending, self._pending = self._pending, []
         t0 = time.perf_counter()
         for ch in pending:
@@ -1154,6 +1215,16 @@ class PipelinedExecutor(_ExecutorBase):
 
     mode = "pipelined"
 
+    def _make_sentinels(self) -> None:
+        self._sentinel("step", allowed=1)
+        self._sentinel("emit", allowed=1)
+
+    @property
+    def trace_count(self) -> int:
+        """Signatures the per-chunk step has run at: 1 after warmup,
+        forever (guarded by the sentinel)."""
+        return self._sentinels["step"].traces
+
     def reset(self, key: torch.Tensor) -> None:
         super().reset(key)
         self._chunks_since_emit = 0
@@ -1173,6 +1244,7 @@ class PipelinedExecutor(_ExecutorBase):
         if self._chunks_since_emit == 0:
             # The period's latency clock starts at its FIRST arrival.
             self._emit_t0 = time.perf_counter()
+        self._run_at("step", chunk)
         chunk_max = None
         if self._watermark_mode:
             chunk_max = self._mirror_read(chunk)
@@ -1207,6 +1279,7 @@ class PipelinedExecutor(_ExecutorBase):
         elapsed = time.perf_counter() - self._emit_t0
         per_chunk = elapsed / max(self._chunks_since_emit, 1)
         self._last_latency = per_chunk
+        self._run_at("emit")
         results, stats, aux = _evaluate_merged(self.cfg, self.registry,
                                                self.state, self.mesh,
                                                per_chunk)

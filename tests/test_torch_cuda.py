@@ -1187,3 +1187,92 @@ def test_cuda_pipelined_chunks_match_cpu(cuda_device):
     assert ops.launch_counts()["reservoir_fold"] == t // 256
     for f in ("values", "counts", "capacity", "key"):
         assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+
+
+# ---------------------------------------------------------------------------
+# The serving path (models/, serve/) on the card.
+# ---------------------------------------------------------------------------
+
+class _StepClock:
+    """A ``time`` stand-in whose ``perf_counter`` advances by a fixed,
+    varying step per call: the same latencies on both devices."""
+
+    def __init__(self):
+        self.t, self.n = 0.0, 0
+
+    def perf_counter(self) -> float:
+        self.n += 1
+        self.t += (1 + self.n % 7) * 2.0 ** -12
+        return self.t
+
+
+def _smoke_params(dev, dtype=torch.float32):
+    from repro_torch import configs
+    from repro_torch.models import api, param
+    cfg = configs.get_config("phi4-mini-3.8b", smoke=True).replace(
+        dtype=dtype)
+    return cfg, param.init_params(api.skeleton(cfg), prng.PRNGKey(0),
+                                  device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_server_generate_matches_cpu(cuda_device, monkeypatch):
+    """Smoke-width ``Server.generate`` on the card: the CPU's tokens, and
+    its telemetry state bit for bit (one fold kernel launch per step)."""
+    from repro_torch.serve import serve_step
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, 512, (6, 24)).astype(np.int32))
+    tenants = torch.from_numpy(rng.integers(0, 4, 6).astype(np.int32))
+
+    def run(dev):
+        monkeypatch.setattr(serve_step, "time", _StepClock())
+        cfg, params = _smoke_params(dev)
+        server = serve_step.Server(cfg, params, num_tenants=4,
+                                   telemetry_capacity=4, device=dev)
+        out = server.generate({"tokens": toks.to(dev)}, steps=7,
+                              tenant_ids=tenants.to(dev))
+        return out, server.telemetry
+    ops.reset_launch_counts()
+    (a, ta), (b, tb) = _on_both(run, cuda_device)
+    assert ops.launch_counts()["reservoir_fold"] == 7
+    assert torch.equal(a, b.cpu())
+    for f in ("values", "counts", "capacity", "key"):
+        assert torch.equal(getattr(ta, f), getattr(tb, f).cpu()), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("position,window,slot", [
+    (5, 0, 5), (8, 0, 7), (11, 0, 7), (9, 4, 1), (6, 16, 6)])
+def test_cuda_clamped_write(cuda_device, position, window, slot):
+    """The write slot is clamped to ``Smax - 1`` on the card as on the
+    CPU, with no read back to the host."""
+    from repro_torch.models import kvcache
+    lk = torch.zeros(2, 8, 2, 4, device=cuda_device)
+    lv = torch.zeros_like(lk)
+    kn = torch.ones(2, 1, 2, 4, device=cuda_device)
+    cache = kvcache.KVCache(k=lk[None], v=lv[None], position=torch.full(
+        (), position, dtype=torch.int32, device=cuda_device), window=window)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kvcache.write_token(lk, lv, cache, kn, 2 * kn)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    written = (lk != 0).any(-1).any(-1).any(0).cpu()
+    assert written.tolist() == [i == slot for i in range(8)]
+    assert bool((lv[:, slot] == 2).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sliced_init_params(cuda_device, monkeypatch, dtype):
+    """``init_params`` on the card, in slices of 1,000 elements, bit for
+    bit the CPU's whole draws."""
+    from repro_torch.models import param
+    _, cpu = _smoke_params("cpu", dtype)
+    monkeypatch.setattr(param, "INIT_SLICE", 1000)
+    _, card = _smoke_params(cuda_device, dtype)
+    for (p, a), (_, b) in zip(param.leaves(cpu), param.leaves(card)):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        words = torch.int16 if a.element_size() == 2 else torch.int32
+        assert torch.equal(a.view(words), b.cpu().view(words)), p

@@ -8,12 +8,18 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import configs as tcfgs
 from repro_torch import prng
+from repro_torch.launch import serve as tlaunch
+from repro_torch.models import api as tapi
+from repro_torch.models import kvcache as tkvc
+from repro_torch.models import param as tparam
 from repro_torch.obs import summarize
 from repro_torch.runtime import executor as tex
 from repro_torch.runtime import registry as treg
 from repro_torch.stream import (GaussianSource, ReplayableStream,
                                 StreamAggregator)
+from repro_torch.serve.serve_step import Server
 from repro_torch.stream.pipeline import (TokenWindowSpec,
                                          synthetic_token_window)
 from repro_torch.utils import NoCudaDeviceError
@@ -43,7 +49,10 @@ def _imported_modules(path: Path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"executor.py", "oasrs.py", "prng.py", "chip_smoke.py"} <= names
+    assert {"executor.py", "oasrs.py", "prng.py", "chip_smoke.py",
+            "sentinel.py", "param.py", "attention.py", "kvcache.py",
+            "transformer.py", "api.py", "serve_step.py", "serve.py",
+            "phi4_mini_3_8b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -78,6 +87,50 @@ def test_entry_points_raise_without_a_card(monkeypatch, device):
     args = ["--smoke"] + ([] if device is None else ["--device", device])
     with pytest.raises(NoCudaDeviceError):
         summarize.main(args)
+
+
+def _smoke_model(device):
+    cfg = tcfgs.get_config("phi4-mini-3.8b", smoke=True).replace(
+        dtype=torch.float32)
+    return cfg, tparam.init_params(tapi.skeleton(cfg), prng.PRNGKey(0),
+                                   device=device)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_serving_entry_points_raise_without_a_card(monkeypatch, device):
+    """The serving path's entry points take the card unless asked for
+    the CPU, and refuse without one."""
+    _no_card(monkeypatch)
+    cfg, cpu_params = _smoke_model("cpu")
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        tparam.init_params(tapi.skeleton(cfg), prng.PRNGKey(0),
+                           device=device)
+    with pytest.raises(NoCudaDeviceError):
+        tparam.params_from_reference(
+            tparam.params_to_reference(cpu_params), device=device)
+    with pytest.raises(NoCudaDeviceError):
+        tkvc.init_cache(cfg, 2, 1, 8, device=device)
+    with pytest.raises(NoCudaDeviceError):
+        tapi.init_decode_state(cfg, 1, 8, device=device)
+    with pytest.raises(NoCudaDeviceError):
+        Server(cfg, cpu_params, device=device)
+    args = [] if device is None else ["--device", device]
+    with pytest.raises(NoCudaDeviceError):
+        tlaunch.main(args)
+
+
+def test_serving_on_the_cpu_on_request(monkeypatch, capsys):
+    _no_card(monkeypatch)
+    cfg, params = _smoke_model("cpu")
+    assert params["dense_layers"]["attn"]["wq"].device.type == "cpu"
+    server = Server(cfg, params, num_tenants=2, device="cpu")
+    out = server.generate({"tokens": torch.zeros((2, 4), dtype=torch.int32)},
+                          steps=2, tenant_ids=torch.tensor([0, 1]))
+    assert tuple(out.shape) == (2, 3)
+    assert server.telemetry.values.device.type == "cpu"
+    assert tlaunch.main(["--requests", "2", "--prompt-len", "4",
+                         "--steps", "1", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("[serve] generated (2, 2)")
 
 
 def test_cpu_on_request(monkeypatch):
