@@ -167,6 +167,20 @@ Phases (any failure ends the run with a non-zero exit):
              ``oasrs.update_stream`` of 1,024 items on the card (no read
              back to the host), bit for bit the same call on the CPU. Figures in
              ``chiprun_out/chip_smoke_systems.json``.
+13. serve    ``phi4-mini-3.8b`` at full width in bf16 served by
+             ``serve_step.Server`` with StreamApprox telemetry (its
+             docstring); ``chiprun_out/chip_smoke_serve.json``.
+14. train    ``launch/train.train`` on ``phi4-mini-3.8b`` at full width in
+             bf16 with the reference CLI's defaults (20 steps, batch 8 of
+             windows of 16 sequences of 128 tokens, 8 domains): every
+             fold held to its plain version (20 launches at [8, 4]), each
+             window's sample bit for bit a CPU run, step 1's loss against
+             its f32 recomputation, an AdamW slice against the formula,
+             the loss falling; step ms, tokens/s, the optimizer's device
+             ms, peak memory, busy share, host ops and the bound; then
+             the resume path at the smoke config (the restored state bit
+             for bit the saved one, the resumed losses against the
+             uninterrupted run's). ``chiprun_out/chip_smoke_train.json``.
 
 Every stream is the reference's: ``StreamAggregator`` draws, ids and
 event times bit for bit (phases paths' and sharded's disorder is drawn
@@ -224,7 +238,7 @@ HIST_LAUNCHES = 1 + len(NL_QS) * REFINE_STEPS   # weighted_hist/emission
 LATENCY_REPS = 3                   # timed evaluations per registry
 TIMING_SEED = 14                   # inputs of every kernel's timing
 PROFILE_TRIES = 5                  # traces of one window, as needed
-STATS_RTOL = 1e-5                  # kernel vs f64-accumulated plain sums
+STATS_RTOL = 1e-5                  # kernel vs the plain version's f32 sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
 ANSWER_RTOL = 1e-5                 # f32 rounding beside the 3-sigma bound
 RECOVERY_EVERY = 5                 # checkpoint cadence: inside periods of 4
@@ -257,6 +271,19 @@ SERVE_CACHE_BATCH = 2              # requests of the cache-consistency check
 SERVE_LOGIT_ATOL = 0.125           # decode vs prefill logits, bf16 model
 SERVE_CACHE_RTOL = 2.0 ** -5       # decode vs prefill K/V, of max |K/V|
 SERVE_PREFILLS = 3                 # timed prefills
+TRAIN_ARCH = "phi4-mini-3.8b"      # phase train: full config, bf16
+TRAIN_STEPS = 20                   # launch/train's defaults: 20 steps,
+TRAIN_BATCH = 8                    # batch 8 of 16 sequences per window
+TRAIN_SEQ = 128                    # (fraction 0.5), 128 tokens, 8 domains
+TRAIN_DOMAINS = 8
+TRAIN_FRACTION = 0.5
+TRAIN_PROFILED_STEP = 15           # the step traced for busy share, ops
+TRAIN_CHECKED_STEP = 3             # the step whose AdamW slice is checked
+TRAIN_SLICE = 4096                 # elements of that slice
+TRAIN_LEAF = "dense_layers.mlp.w_in"   # the largest leaves
+TRAIN_LOSS_RTOL = 2e-2             # step 1's bf16 loss vs the f32 one
+TRAIN_ADAM_RTOL = 1e-6             # the slice vs the functional formula
+TRAIN_RESUME_RTOL = 1e-3           # resumed losses vs uninterrupted, smoke
 
 
 def log(msg: str) -> None:
@@ -570,9 +597,9 @@ def stats_inputs(torch, gen, case):
 def phase_stats(torch, gen):
     """The stats kernel against its plain version in every case of
     ``stats_inputs`` (counts bit for bit, sums within STATS_RTOL of the
-    f64-summed plain version, the same bits on a second call, the tickets
-    0 after it), the s2 of the emission's input against float64, then its
-    times at the emission's input (``stats_timing``)."""
+    plain version's f32 sums in XLA's order, the same bits on a second
+    call, the tickets 0 after it), the s2 of the emission's input against
+    float64, then its times at the emission's input (``stats_timing``)."""
     from repro_torch.kernels import ref, stratified_stats as sk
     dev = gen.device
     worst = 0.0
@@ -2171,7 +2198,7 @@ class HeldToPlain:
     ``kernels/ref`` on clones of the same inputs, at the shapes its caller
     gives it: the fold's ring and counts and every tensor the one-shot
     carries bit for bit; the stats' and the histogram's counts bit for bit
-    and their sums within STATS_RTOL of the plain version's f64 sums. The
+    and their sums within STATS_RTOL of the plain version's sums. The
     wrapper runs once per call on the caller's tensors, so the launch
     counts stay the path's. ``calls`` counts the calls held per kernel
     and shape."""
@@ -3645,6 +3672,375 @@ def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
     return result
 
 
+def train_need(cfg, params, batch: int, seq: int) -> dict:
+    """One training step's work, from the run's own counts: the matrix
+    products' operations (forward, backward at twice the forward, and the
+    ``remat`` forward of the layers again; the scores and P·V of the
+    attention blocks computed) and the optimizer's and clip's bytes (the
+    grads read for the norm, read and written by the clip, read by AdamW;
+    master, mu and nu read and written in f32; the params written). The
+    bound is the sum of the two phases' least times."""
+    from repro_torch.models import param
+    leaves = dict(param.leaves(params))
+    n_all = sum(t.numel() for t in leaves.values())
+    n_layers = sum(t.numel() for p, t in leaves.items()
+                   if p.startswith("dense_layers"))
+    n_mat = n_all - leaves["embed.tokens"].numel()
+    tokens = batch * seq
+    qc, ck = min(cfg.attn_q_chunk, seq), min(cfg.attn_kv_chunk, seq)
+    pairs = sum(min(-(-seq // ck), -(-((i + 1) * qc) // ck)) * qc * ck
+                for i in range(-(-seq // qc)))
+    attn = 4 * cfg.num_layers * batch * cfg.num_heads * pairs * cfg.head_dim
+    remat = cfg.remat == "full"
+    ops_ = 3 * (2 * tokens * n_mat + attn) + (
+        2 * tokens * n_layers + attn if remat else 0)
+    item = cfg.dtype.itemsize
+    nbytes = n_all * (4 * item + 3 * 2 * 4 + item)
+    ops_ms = ops_ / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(params=n_all, matmul_weights=n_mat, layer_weights=n_layers,
+                tokens=tokens, ops=ops_, opt_bytes=nbytes, ops_ms=ops_ms,
+                opt_bytes_ms=bytes_ms, bound_ms=ops_ms + bytes_ms)
+
+
+def train_first_batch(torch, run, dev) -> dict:
+    """Step 1's batch, drawn on the CPU (the fold's plain version: no
+    launch) from epoch 0's window and the run's fresh reservoirs, as
+    ``launch/train.train`` draws it; on ``dev``."""
+    from repro_torch import configs, prng
+    from repro_torch.core import oasrs
+    from repro_torch.launch import train as tlt
+    from repro_torch.stream.pipeline import (TokenWindowSpec,
+                                             synthetic_token_window)
+    cfg = configs.get_config(run.arch, smoke=run.smoke)
+    spec = TokenWindowSpec(int(run.batch / run.sampling_fraction),
+                           run.seq_len, run.num_domains, cfg.vocab_size)
+    cap = max(run.batch // run.num_domains, 1)
+    res = oasrs.init(run.num_domains, cap,
+                     prng.fold_in(prng.PRNGKey(run.seed), 1),
+                     max_capacity=4 * cap, dtype=torch.int32, device="cpu")
+    tokens, domains = synthetic_token_window(spec, 0, run.seed, "cpu")
+    _, idx, w, valid = tlt.sample_window(res, tokens, domains)
+    batch = tlt.assemble_batch(tokens, idx, w, valid, run.batch)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+class TrainProbe:
+    """Hooks on ``launch/train.train``'s main path, inside ``with``:
+
+    * ``optimizer.init_state``: before the optimizer state is allocated,
+      step 1's loss recomputed in f32 (the params upcast, the config's
+      dtype f32) on ``first_batch``;
+    * ``launch/train.sample_window``: each window's domains and sample
+      (indices, weights, validity) kept for the CPU check;
+    * ``launch/train.make_train_step``: each step timed on the host clock
+      between two synchronisations; step ``TRAIN_PROFILED_STEP`` traced
+      instead (``device_split``);
+    * ``optimizer.apply_updates``: each update's device time (CUDA
+      events around it, clip included); at step ``TRAIN_CHECKED_STEP``,
+      the first ``TRAIN_SLICE`` elements of ``TRAIN_LEAF``'s master, mu and
+      nu against the functional AdamW formula on the same grads, the
+      error relative to the slice's largest magnitude.
+    """
+
+    def __init__(self, torch, cfg, first_batch):
+        self.torch, self.cfg, self.first_batch = torch, cfg, first_batch
+        self.loss32, self.windows, self.step_ms = None, [], []
+        self.profile, self.adam, self.update_events = None, None, []
+
+    def __enter__(self):
+        from repro_torch.launch import train as tlt
+        from repro_torch.train import optimizer as opt
+        self.saved = [(opt, "init_state", opt.init_state),
+                      (opt, "apply_updates", opt.apply_updates),
+                      (tlt, "sample_window", tlt.sample_window),
+                      (tlt, "make_train_step", tlt.make_train_step)]
+        opt.init_state = self.init_state
+        opt.apply_updates = self.apply_updates
+        tlt.sample_window = self.sample_window
+        tlt.make_train_step = self.make_train_step
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def _real(self, name):
+        return next(fn for _, n, fn in self.saved if n == name)
+
+    def update_ms(self) -> list:
+        """Each update's device ms, from its events."""
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.update_events]
+
+    def init_state(self, params, mesh, opt_cfg, skeleton=None):
+        from repro_torch.models import param
+        from repro_torch.models import transformer as tr
+        t = self.torch
+        with t.no_grad():
+            p32 = param.map_tree(lambda _p, x: x.float(), params)
+            b = self.first_batch
+            self.loss32 = float(tr.lm_loss(
+                p32, b["tokens"], self.cfg.replace(dtype=t.float32),
+                seq_weights=b["weights"])[0])
+        del p32
+        t.cuda.empty_cache()
+        return self._real("init_state")(params, mesh, opt_cfg, skeleton)
+
+    def sample_window(self, res, tokens, domains):
+        out = self._real("sample_window")(res, tokens, domains)
+        self.windows.append((domains.clone(), out[1].clone(),
+                             out[2].clone(), out[3].clone()))
+        return out
+
+    def make_train_step(self, cfg, opt_cfg, num_microbatches=1):
+        real = self._real("make_train_step")(cfg, opt_cfg, num_microbatches)
+        t = self.torch
+
+        def step(state, batch):
+            k = len(self.step_ms) + (self.profile is not None) + 1
+            if k == TRAIN_PROFILED_STEP:
+                box = []
+                self.profile = device_split(
+                    t, lambda: box.append(real(state, batch)), 1)
+                return box[0]
+            t.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(state, batch)
+            t.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return step
+
+    def apply_updates(self, state, grads, opt_cfg):
+        from repro_torch import prng
+        from repro_torch.models import param
+        real = self._real("apply_updates")
+        t = self.torch
+        a = t.cuda.Event(enable_timing=True)
+        b = t.cuda.Event(enable_timing=True)
+        self.update_events.append((a, b))
+        a.record()
+        if int(state.step) + 1 != TRAIN_CHECKED_STEP:
+            out = real(state, grads, opt_cfg)
+            b.record()
+            return out
+        t, n = self.torch, TRAIN_SLICE
+
+        def part(tree):
+            return dict(param.leaves(tree))[TRAIN_LEAF].reshape(-1)[:n]
+        g = part(grads).clone()
+        mu, nu, master = (part(x).clone()
+                          for x in (state.mu, state.nu, state.master))
+        new, metrics = real(state, grads, opt_cfg)
+        b.record()
+        gn, lr = metrics["grad_norm"], metrics["lr"]
+        scale = t.clamp(opt_cfg.grad_clip / t.clamp(gn, min=1e-9), max=1.0)
+        g32 = (g * scale.to(g.dtype)).float()
+        b1, b2 = opt_cfg.b1, opt_cfg.b2
+        mu_n = b1 * mu + (1 - b1) * g32
+        nu_n = b2 * nu + (1 - b2) * g32 * g32
+        sf = new.step.float()
+        c1 = 1.0 - prng.xla_pow(t.full_like(sf, float(np.float32(b1))), sf)
+        c2 = 1.0 - prng.xla_pow(t.full_like(sf, float(np.float32(b2))), sf)
+        delta = (mu_n / c1) / (t.sqrt(nu_n / c2) + opt_cfg.eps)
+        want = master - lr * (delta + opt_cfg.weight_decay * master)
+        # Relative to the slice's largest magnitude: mu's entries cancel
+        # to near 0 where the grads change sign.
+        err = {f: float((part(getattr(new, f)) - w).abs().max()
+                        / w.abs().max().clamp(min=1e-30))
+               for f, w in (("mu", mu_n), ("nu", nu_n), ("master", want))}
+        self.adam = dict(step=int(new.step), leaf=TRAIN_LEAF, elements=n,
+                         max_rel_err=err, grad_norm=float(gn),
+                         lr=float(lr))
+        return new, metrics
+
+
+def train_resume(torch, dev) -> dict:
+    """The resume path at the smoke config on the card: 6 steps with a
+    checkpoint every 3 into a temporary directory, the state restored
+    from it against the state saved (bit for bit), then 3 more steps from
+    it against steps 7-9 of an uninterrupted 9-step run."""
+    import tempfile
+    from repro_torch.launch import train as tlt
+    from repro_torch.train import checkpoint as ckpt
+    kw = dict(arch=TRAIN_ARCH, smoke=True, steps=6, batch=4, seq_len=32,
+              sampling_fraction=0.5)
+    quiet = dict(device=dev, log=lambda *_: None)
+    whole = tlt.train(tlt.RunConfig(**dict(kw, steps=9)), **quiet)
+    saved = {}
+    real_save = ckpt.AsyncCheckpointer.save
+
+    def save(self, step, tree):
+        saved[step] = (tree, ckpt.host_leaves(tree))
+        return real_save(self, step, tree)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.AsyncCheckpointer.save = save
+        try:
+            first = tlt.train(tlt.RunConfig(**kw, checkpoint_dir=d,
+                                            checkpoint_every=3), **quiet)
+        finally:
+            ckpt.AsyncCheckpointer.save = real_save
+        last = ckpt.latest_step(d)
+        template, host = saved[last]
+        back = ckpt.host_leaves(ckpt.restore(d, last, template))
+        same = len(back) == len(host) and all(
+            a[1:] == b[1:] and np.array_equal(a[0], b[0])
+            for a, b in zip(back, host))
+        rest = tlt.train(tlt.RunConfig(**dict(kw, steps=3),
+                                       checkpoint_dir=d,
+                                       checkpoint_every=100), **quiet)
+    err = max(abs(a - b) / abs(b) for a, b in zip(rest, whole[6:]))
+    if (last != 6 or not same or first != whole[:6]
+            or not all(math.isfinite(x) for x in rest)
+            or err > TRAIN_RESUME_RTOL):
+        fail(f"train (resume): latest step {last}, restored state bit for "
+             f"bit the saved {same}, first 6 losses the uninterrupted "
+             f"run's {first == whole[:6]}, resumed {rest} vs {whole[6:]} "
+             f"(rtol {TRAIN_RESUME_RTOL})")
+    log(f"[train] (resume) smoke config on the card: checkpoint at step "
+        f"{last} restored bit for bit ({len(host)} leaves), steps 7-9 "
+        f"{[round(x, 6) for x in rest]} vs the uninterrupted "
+        f"{[round(x, 6) for x in whole[6:]]} (max rel {err:.3g}, rtol "
+        f"{TRAIN_RESUME_RTOL}; bit for bit: {rest == whole[6:]})")
+    return dict(latest_step=last, leaves=len(host), resumed=rest,
+                uninterrupted=whole[6:], max_rel_err=err,
+                bitwise=rest == whole[6:])
+
+
+def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
+    """``launch/train.train`` at ``phi4-mini-3.8b``'s full config in bf16
+    (the reference CLI's defaults otherwise; no checkpoint directory: a
+    full-width checkpoint would be 62 GB of host files), every fold held
+    to its plain version; then the checks and figures of ``TrainProbe``,
+    the sampled windows against the CPU, and the resume path at the
+    smoke config."""
+    from repro_torch import configs, prng
+    from repro_torch.core import oasrs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlt
+    from repro_torch.models import api, param
+    from repro_torch.stream.pipeline import (TokenWindowSpec,
+                                             synthetic_token_window)
+    t_phase = time.perf_counter()
+    run = tlt.RunConfig(arch=TRAIN_ARCH, smoke=smoke, steps=TRAIN_STEPS,
+                        batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        num_domains=TRAIN_DOMAINS,
+                        sampling_fraction=TRAIN_FRACTION, seed=seed)
+    cfg = configs.get_config(run.arch, smoke=run.smoke)
+    window = int(run.batch / run.sampling_fraction)
+    cap = max(run.batch // run.num_domains, 1)
+    first = train_first_batch(torch, run, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+
+    def keep(line):
+        lines.append(line)
+        log(line)
+    ops.reset_launch_counts()
+    with HeldToPlain(torch, "train") as held, \
+            TrainProbe(torch, cfg, first) as probe:
+        t0 = time.perf_counter()
+        losses = tlt.train(run, device=dev, log=keep)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    want = {("reservoir_fold", (run.num_domains, 4 * cap), window):
+            TRAIN_STEPS}
+    if held.calls != want or launches["reservoir_fold"] != TRAIN_STEPS:
+        fail(f"train: kernel calls held {held.calls}, launches {launches}; "
+             f"expected {want}")
+    # The sampled windows against a CPU run of the same sample_window.
+    res = oasrs.init(run.num_domains, cap,
+                     prng.fold_in(prng.PRNGKey(seed), 1),
+                     max_capacity=4 * cap, dtype=torch.int32, device="cpu")
+    spec = TokenWindowSpec(window, run.seq_len, run.num_domains,
+                           cfg.vocab_size)
+    for e, (dom, idx, w, valid) in enumerate(probe.windows):
+        tokens, domains = synthetic_token_window(spec, e, seed, "cpu")
+        res, ci, cw, cv = tlt.sample_window(res, tokens, domains)
+        if not (torch.equal(dom.cpu(), domains) and all(
+                same_bits(torch, a.cpu(), b) for a, b in
+                ((idx, ci), (w, cw), (valid, cv)))):
+            fail(f"train: window {e}'s sample on the card differs from the "
+                 "CPU's")
+    l1, l32 = losses[0], probe.loss32
+    if abs(l1 - l32) > TRAIN_LOSS_RTOL * abs(l32):
+        fail(f"train: step 1's loss {l1} vs its f32 recomputation {l32} "
+             f"(rtol {TRAIN_LOSS_RTOL})")
+    adam = probe.adam
+    if adam is None or max(adam["max_rel_err"].values()) > TRAIN_ADAM_RTOL:
+        fail(f"train: AdamW slice at step {TRAIN_CHECKED_STEP}: {adam} "
+             f"(rtol {TRAIN_ADAM_RTOL})")
+    if not (all(math.isfinite(x) for x in losses) and len(losses)
+            == TRAIN_STEPS and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        fail(f"train: losses do not decrease: {losses}")
+    timed = sorted(probe.step_ms[1:])      # step 1 warms the allocator
+    med = timed[len(timed) // 2]
+    shapes = param.map_tree(lambda _p, s: torch.empty(
+        s.shape, dtype=s.dtype, device="meta"), api.skeleton(cfg))
+    need = train_need(cfg, shapes, run.batch, run.seq_len)
+    acts, busy_ms, own, host_ops = probe.profile
+    upd = sorted(probe.update_ms()[1:])
+    upd_med = upd[len(upd) // 2]
+    result = dict(
+        arch=cfg.name, dtype=str(cfg.dtype), card=card(), steps=TRAIN_STEPS,
+        batch=run.batch, seq_len=run.seq_len, window=window,
+        domains=run.num_domains, losses=losses, loss32_step1=l32,
+        step1_rel_err=abs(l1 - l32) / abs(l32), adam=adam,
+        step_ms=probe.step_ms, step_median_ms=med, step_min_ms=timed[0],
+        step_max_ms=timed[-1],
+        tokens_per_s=run.batch * run.seq_len / (med / 1e3),
+        window_tokens_per_s=window * run.seq_len / (med / 1e3),
+        peak_bytes=peak, train_s=train_s, launches=launches,
+        held=str(held.calls), need=need, bound_ms=need["bound_ms"],
+        device_activities=acts, device_busy_ms=busy_ms,
+        busy_share=busy_ms / med, own_kernel_ms=own, host_ops=host_ops,
+        update_ms=probe.update_ms(), update_median_ms=upd_med, lines=lines)
+    log(f"[train] {cfg.name} at {'smoke' if smoke else 'full'} width in "
+        f"{cfg.dtype}: {need['params']:,} parameters, {TRAIN_STEPS} steps "
+        f"of {run.batch} x {run.seq_len} tokens sampled from windows of "
+        f"{window} in {train_s:.2f} s; every fold held to its plain "
+        f"version ({held.calls}); launches {launches}; sampled indices, "
+        f"weights and validity of every window bit for bit a CPU run")
+    log(f"[train] step 1's loss {l1:.6f} vs {l32:.6f} recomputed in f32 "
+        f"before the optimizer state (rel {result['step1_rel_err']:.3g}, "
+        f"rtol {TRAIN_LOSS_RTOL}); AdamW slice at step {adam['step']} "
+        f"({TRAIN_LEAF}[:{TRAIN_SLICE}]) rel err {adam['max_rel_err']} "
+        f"(rtol {TRAIN_ADAM_RTOL}); loss {losses[0]:.4f} → "
+        f"{losses[-1]:.4f} (first 5 mean {np.mean(losses[:5]):.4f}, last 5 "
+        f"{np.mean(losses[-5:]):.4f})")
+    log(f"[train] step ms median {med:.3f}, min {timed[0]:.3f}, max "
+        f"{timed[-1]:.3f} (steps 2-{TRAIN_STEPS} but {TRAIN_PROFILED_STEP}; "
+        f"step 1 {probe.step_ms[0]:.3f}); {result['tokens_per_s']:.1f} "
+        f"trained tokens/s ({result['window_tokens_per_s']:.1f} window "
+        f"tokens/s); bound {need['bound_ms']:.3f} ms = products "
+        f"{need['ops_ms']:.3f} ms ({need['ops']:.4g} operations) + "
+        f"optimizer {need['opt_bytes_ms']:.3f} ms ({need['opt_bytes']:.4g} "
+        f"B); peak {peak / 2**30:.2f} GiB")
+    log(f"[train] optimizer (clip + AdamW, device, events): median "
+        f"{upd_med:.3f} ms, min {upd[0]:.3f}, max {upd[-1]:.3f} (bound "
+        f"{need['opt_bytes_ms']:.3f} ms); forward and backward: the rest of "
+        f"the step, {med - upd_med:.3f} ms at the median (bound "
+        f"{need['ops_ms']:.3f} ms)")
+    log(f"[train] step {TRAIN_PROFILED_STEP} traced: {acts:.0f} device "
+        f"activities, {busy_ms:.3f} ms busy = {busy_ms / med:.3f} of the "
+        f"median step, {host_ops:.0f} host torch ops; own kernels {own}")
+    result["resume"] = train_resume(torch, dev)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase took {result['seconds']:.1f} s")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_train.json").write_text(
+        json.dumps(result, indent=1, default=str))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3681,6 +4077,7 @@ def main(argv=None) -> int:
     phase_rescale(torch, args.seed, dev)
     systems = phase_systems(torch, args.seed, dev)["launches"]
     serve = phase_serve(torch, args.seed, dev)["launches"]
+    train = phase_train(torch, args.seed, dev)["launches"]
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -3689,7 +4086,8 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/reservoir_fold.cu",
              replaces="src/repro/kernels/reservoir.py:36",
              launches=launches["reservoir_fold"]
-             + systems["reservoir_fold"] + serve["reservoir_fold"], **fold),
+             + systems["reservoir_fold"] + serve["reservoir_fold"]
+             + train["reservoir_fold"], **fold),
         dict(name="stratified_stats", route="cuda",
              source="src/repro_torch/kernels/csrc/stratified_stats.cu",
              replaces="src/repro/kernels/stratified_stats.py:31",

@@ -12,6 +12,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.prng import _fma
+from repro_torch.utils import rank_within_stratum
 
 #: z multipliers of the paper's "68-95-99.7" rule.
 Z_FOR_CONFIDENCE = {0.68: 1.0, 0.95: 2.0, 0.997: 3.0}
@@ -57,7 +59,9 @@ class StratumStats:
         """Unbiased per-stratum sample variance (Eq. 7), 0 where Y_i < 2."""
         y = self.taken.to(torch.float32)
         mean = self.mean()
-        ss = self.sumsqs - y * mean * mean
+        # The reference's compiled emission fuses the subtraction and the
+        # last product into one multiply-add.
+        ss = _fma(y * mean, -mean, self.sumsqs)
         return torch.where(self.taken > 1,
                            torch.clamp(ss, min=0.0)
                            / torch.clamp(y - 1.0, min=1.0),
@@ -144,16 +148,20 @@ def _group_sum(x: torch.Tensor, group_ids: torch.Tensor,
                num_groups: int) -> torch.Tensor:
     """``out[g] = Σ x[i]`` over ``group_ids[i] == g``, ``[num_groups]``.
 
-    A masked dense sum over the ``[num_groups, G]`` membership table (the
-    cells number a few thousand at most): a fixed-order reduction on the
-    device, where a float scatter-add would sum in atomic order and give
-    other bits from run to run. Nothing is read back to the host.
+    The reference's scatter-add order: each group's items added one by
+    one in index order. Every item is placed at (its group, its rank in
+    the group) of a ``[num_groups, G]`` table, whose columns are then
+    added in turn (the zeros past a group's end change nothing); a fixed
+    order on every device, where a float scatter-add on the card would
+    sum in atomic order. Nothing is read back to the host.
     """
-    groups = torch.arange(num_groups, dtype=group_ids.dtype,
-                          device=x.device)
-    member = group_ids[None, :] == groups[:, None]
-    return torch.sum(torch.where(member, x[None, :], 0), dim=1,
-                     dtype=x.dtype)
+    g = x.shape[0]
+    table = torch.zeros((num_groups, g), dtype=x.dtype, device=x.device)
+    table[group_ids.long(), rank_within_stratum(group_ids).long()] = x
+    out = torch.zeros(num_groups, dtype=x.dtype, device=x.device)
+    for j in range(g):
+        out = out + table[:, j]
+    return out
 
 
 def estimate_sum_grouped(stats: StratumStats, group_ids: torch.Tensor,

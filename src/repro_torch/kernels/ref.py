@@ -64,24 +64,79 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
     return counts + bincount(sid.long(), s_cnt + 1)[:s_cnt]
 
 
+def _window_level(v: torch.Tensor, sid: torch.Tensor, pos: torch.Tensor,
+                  length: torch.Tensor, cap: int):
+    """One level of XLA's CPU reduction of every stratum's sequence at
+    once: a sequence of ``L > 32`` items is zero-padded to a multiple of
+    32 (half the padding in front) and each window of 32 summed in order;
+    one of ``L <= 32`` is summed in order. ``v``/``sid``/``pos``: each
+    item's value, stratum (``S`` for none) and place in its sequence;
+    ``length [S]``. Returns the next level's items (one per window, at
+    most ``cap``) and lengths. No host read."""
+    dev = v.device
+    num = length.shape[0]
+    big = length > 32
+    padded = -(-length // 32) * 32
+    low = torch.where(big, (padded - length) // 2, 0)
+    nwin = torch.where(big, padded // 32, torch.clamp(length, max=1))
+    ends = torch.cumsum(nwin, 0)
+    base = torch.cat([ends.new_zeros(1), ends])        # [S + 1]
+    live = sid < num
+    s_c = torch.clamp(sid, max=num - 1)
+    q = pos + low[s_c]
+    win = torch.where(live, base[s_c] + q // 32, cap)
+    table = torch.zeros((cap + 1, 32), dtype=v.dtype, device=dev)
+    table[win, q % 32] = torch.where(live, v, 0.0)
+    acc = table[:cap, 0]
+    for j in range(1, 32):
+        acc = acc + table[:cap, j]
+    w = torch.arange(cap, dtype=ends.dtype, device=dev)
+    wsid = torch.searchsorted(ends, w, right=True)
+    wpos = w - base[torch.clamp(wsid, max=num - 1)]
+    return acc, wsid, wpos, nwin
+
+
 def stratified_stats(values: torch.Tensor, stratum_ids: torch.Tensor,
                      mask: torch.Tensor, num_strata: int):
     """Per-stratum ``(count, Σx·m, Σ(x·m)·x)`` as three ``[S]`` f32.
 
-    A masked ``index_add_``. The products are taken in f32 as the kernel
-    takes them; the sums run in f64 and are rounded once, so this is the
-    better-rounded of the two and the kernel is held to it by rtol.
+    The sums are f32 in the order of the reference's moments
+    (``error.stratum_stats_from_sample``: ``jnp.sum`` over each row of
+    ``[S, N]`` slots on XLA's CPU backend): each stratum's items in index
+    order, a masked-out item as 0 in its place, reduced as
+    ``prng.xla_sum`` reduces a row, every stratum at once (no host read).
+    On the slot layout of an emission (row ids as strata) the sums are
+    the reference's bit for bit; items with an id outside ``[0, S)`` are
+    dropped. The kernel sums in another order and is held to this by
+    rtol.
     """
-    m = mask.to(torch.float32)
+    from repro_torch.utils import rank_within_stratum
+    dev = values.device
+    m = values.shape[0]
     x = torch.where(mask, values.to(torch.float32), 0.0)
-    sid = torch.where(mask, stratum_ids, 0).long()
-    out = torch.zeros((3, num_strata), dtype=torch.float64,
-                      device=values.device)
-    out[0].index_add_(0, sid, m.double())
-    out[1].index_add_(0, sid, x.double())
-    out[2].index_add_(0, sid, (x * x).double())
-    out = out.to(torch.float32)
-    return out[0], out[1], out[2]
+    valid = (stratum_ids >= 0) & (stratum_ids < num_strata)
+    sid = torch.where(valid, stratum_ids, num_strata).long()
+    counts = torch.zeros(num_strata + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, sid, mask.to(torch.int64))
+    length = torch.zeros(num_strata + 1, dtype=torch.int64, device=dev)
+    length.index_add_(0, sid, torch.ones_like(sid))
+    length = length[:num_strata]
+    pos = rank_within_stratum(sid).long()
+    cap = m // 32 + num_strata + 1          # windows of any level
+    out = []
+    for v in (x, x * x):
+        v_l, s_l, p_l, n_l = v, sid, pos, length
+        n = m
+        while True:
+            v_l, s_l, p_l, n_l = _window_level(v_l, s_l, p_l, n_l, cap)
+            if n <= 32:
+                break
+            n = -(-n // 32)
+        # One window per stratum is left: its sum.
+        first = torch.cumsum(n_l, 0) - n_l
+        out.append(torch.where(n_l > 0, v_l[torch.clamp(
+            first, max=cap - 1)], 0.0))
+    return counts[:num_strata].to(torch.float32), out[0], out[1]
 
 
 def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
@@ -139,7 +194,7 @@ def check_one_shot_payload(payload, values) -> None:
             not isinstance(values, torch.Tensor):
         raise NotImplementedError(
             "one_shot_ingest takes one payload tensor; payloads of "
-            "several leaves come with ROADMAP Queue 1 item 12")
+            "several leaves come with ROADMAP Queue 1 item 12e")
     if payload.dtype not in (torch.float32, torch.int32) or \
             values.dtype != payload.dtype:
         raise TypeError(f"one_shot_ingest: payload {payload.dtype} and "

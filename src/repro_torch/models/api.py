@@ -1,12 +1,16 @@
 """Unified model API: one entry point per (family × phase).
 
-Counterpart of the reference's ``models/api.py`` for serving the dense
-family: ``prefill_fn(cfg)(params, batch) -> (logits, state)`` and
-``decode_fn(cfg)(params, state, tokens) -> (logits, state)``, the state a
-:class:`~repro_torch.models.kvcache.KVCache`. The other families (moe,
-encdec, vlm, hybrid, ssm) and the training ``loss_fn`` raise
+Counterpart of the reference's ``models/api.py`` for the dense family:
+``loss_fn(cfg)(params, batch) -> (loss, metrics)`` for training,
+``prefill_fn(cfg)(params, batch) -> (logits, state)`` and
+``decode_fn(cfg)(params, state, tokens) -> (logits, state)`` for serving,
+the state a :class:`~repro_torch.models.kvcache.KVCache`.
+
+``batch`` layout (training): ``tokens [B, S]`` and, optionally,
+``weights [B]``, the OASRS stratum weights ``W_i`` per sequence. The other
+families (moe, encdec, vlm, hybrid, ssm) raise
 :class:`~repro_torch.models.transformer.UnportedModelError` (ROADMAP
-item 12).
+item 12c).
 """
 from __future__ import annotations
 
@@ -25,13 +29,23 @@ def _dense_only(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise tr.UnportedModelError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP item 12); the port serves the dense family")
+            "(ROADMAP item 12c); the port runs the dense family")
     tr.refuse_moe(cfg)
 
 
 def skeleton(cfg: ModelConfig) -> dict:
     _dense_only(cfg)
     return tr.lm_skeleton(cfg)
+
+
+def loss_fn(cfg: ModelConfig) -> Callable:
+    """Returns ``f(params, batch) -> (loss, metrics)``."""
+    _dense_only(cfg)
+
+    def f(params, batch):
+        return tr.lm_loss(params, batch["tokens"], cfg,
+                          seq_weights=batch.get("weights"))
+    return f
 
 
 def prefill_fn(cfg: ModelConfig) -> Callable:

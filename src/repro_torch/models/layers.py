@@ -7,9 +7,9 @@ annotations have no meaning on one card and are dropped.
 Where the reference asks its dot for f32 results from bf16 operands
 (``preferred_element_type=jnp.float32``), :func:`dot_f32` gives them:
 on the card through cuBLAS with an f32 output (``torch.bmm(...,
-out_dtype=torch.float32)``), on the CPU by upcasting the operands (the
-products of bf16 values are exact in f32 either way; both accumulate in
-f32).
+out_dtype=torch.float32)``) inside an autograd function of its own, on
+the CPU by upcasting the operands (the products of bf16 values are exact
+in f32 either way; both accumulate in f32).
 """
 from __future__ import annotations
 
@@ -22,14 +22,41 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
 
 
+class _DotF32(torch.autograd.Function):
+    """``a @ b`` (2-D or batched 3-D, one low-precision dtype) with an f32
+    result from cuBLAS. The backward is the transpose JAX takes of
+    ``einsum(..., preferred_element_type=f32)``: each operand's cotangent
+    is the f32 cotangent against the other operand, cast to the operand's
+    dtype. The cotangent is rounded to the operands' dtype before its two
+    products (cuBLAS multiplies one dtype), so no f32 copy of an operand
+    (the 1.23 GB unembedding at phi4-mini's width) is ever made; the
+    products accumulate in f32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = g @ b.transpose(-1, -2)
+        if ctx.needs_input_grad[1]:
+            gb = a.transpose(-1, -2) @ g
+        return ga, gb
+
+
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 2-D or 3-D (batched) operands of one dtype, with an
-    f32 result."""
+    f32 result; differentiable."""
     if a.dtype == torch.float32 or a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
-    if a.dim() == 2:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a, b, out_dtype=torch.float32)
+    return _DotF32.apply(a, b)
 
 
 def scalar_in(x: float, dtype: torch.dtype) -> float:

@@ -1,14 +1,17 @@
-"""Decoder-only transformer LM, the dense family: prefill and decode.
+"""Decoder-only transformer LM, the dense family: train, prefill, decode.
 
 Counterpart of the dense part of the reference's
 ``models/transformer.py``. Per-layer params are stacked (a leading
 ``layers`` axis on every leaf, the reference's layout) and walked with a
-Python loop over the layers where the reference scans; ``remat`` has no
-meaning without a gradient and ``scan_layers`` none without a compiler.
-Serving runs under ``torch.inference_mode()``.
+Python loop over the layers where the reference scans; ``scan_layers``
+has no meaning without a compiler. The per-layer views come from one
+``torch.unbind`` per leaf and forward, so a backward stacks each leaf's
+gradient once. ``remat == "full"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+its scan body. Serving runs under ``torch.inference_mode()``.
 
-Not ported yet (ROADMAP item 12): the MoE layers (``is_moe`` configs are
-refused) and the training loss ``lm_loss``.
+Not ported yet (ROADMAP item 12c): the MoE layers (``is_moe`` configs are
+refused).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
@@ -31,8 +35,8 @@ class UnportedModelError(NotImplementedError):
 def refuse_moe(cfg: ModelConfig) -> None:
     if cfg.is_moe:
         raise UnportedModelError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item 12); "
-            "the port serves the dense family")
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item 12c); "
+            "the port runs the dense family")
 
 
 # ---------------------------------------------------------------------------
@@ -64,9 +68,10 @@ def lm_skeleton(cfg: ModelConfig) -> dict:
     }
 
 
-def _layer(stack: dict, i: int) -> dict:
-    """Layer ``i``'s params: views into the stacked leaves."""
-    return map_tree(lambda _p, t: t[i], stack)
+def _layers(stack: dict, n: int) -> list:
+    """Every layer's params, from one ``unbind`` per stacked leaf."""
+    views = map_tree(lambda _p, t: t.unbind(0), stack)
+    return [map_tree(lambda _p, t: t[i], views) for i in range(n)]
 
 
 def _num_layers(params: dict) -> int:
@@ -88,16 +93,75 @@ def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + nn.mlp(lp["mlp"], h, cfg), k, v
 
 
+def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    return _layer_prefill(lp, x, positions, cfg)[0]
+
+
 def hidden_states(params: dict, tokens: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
-    """Token embeddings → final hidden states ``[B, S, D]``."""
+    """Token embeddings → final hidden states ``[B, S, D]``;
+    differentiable, each layer recomputed in the backward when
+    ``cfg.remat == "full"`` and a gradient is being taken."""
     refuse_moe(cfg)
     x = nn.embed(params["embed"], tokens).to(cfg.dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    stack = params["dense_layers"]
-    for i in range(_num_layers(params)):
-        x, _, _ = _layer_prefill(_layer(stack, i), x, positions, cfg)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for lp in _layers(params["dense_layers"], _num_layers(params)):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_fwd, lp, x, positions, cfg, use_reentrant=False)
+        else:
+            x = _layer_fwd(lp, x, positions, cfg)
     return nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+
+
+def _xent_from_hidden(params: dict, h: torch.Tensor, targets: torch.Tensor,
+                      mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Per-position cross entropy ``[B, S]`` (f32), masked; with
+    ``cfg.logit_chunk`` dividing S (and below it) the sequence is taken
+    ``logit_chunk`` positions at a time, so the whole ``[B, S, vocab]``
+    logits never exist at once."""
+    def chunk_nll(h_c, t_c):
+        logits = nn.unembed(params["unembed"], h_c)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
+        return lse - picked
+
+    s = h.shape[1]
+    ck = cfg.logit_chunk
+    if not ck or s <= ck or s % ck:
+        nll = chunk_nll(h, targets)
+    else:
+        nll = torch.cat([chunk_nll(h[:, i:i + ck], targets[:, i:i + ck])
+                         for i in range(0, s, ck)], dim=1)
+    return nll * mask
+
+
+def lm_loss(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            seq_weights: Optional[torch.Tensor] = None):
+    """Weighted causal-LM loss ``Σ_b w_b ℓ̄_b / Σ_b w_b`` and its metrics.
+
+    ``seq_weights``: OASRS stratum weights ``W_i`` per sequence, the
+    Horvitz–Thompson estimator of the full-stream loss. The inputs are
+    the whole sequences and the targets the sequences rolled by one, the
+    last position masked, as the reference's.
+    """
+    b = tokens.shape[0]
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(targets.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    h = hidden_states(params, tokens, cfg)
+    nll = _xent_from_hidden(params, h, targets, mask, cfg)
+    per_seq = torch.sum(nll, dim=1) / torch.clamp(torch.sum(mask, dim=1),
+                                                  min=1.0)
+    if seq_weights is None:
+        seq_weights = torch.ones(b, dtype=torch.float32,
+                                 device=tokens.device)
+    w = seq_weights.to(torch.float32)
+    loss = torch.sum(w * per_seq) / torch.clamp(torch.sum(w), min=1e-9)
+    return loss, {"loss": loss, "tokens": torch.sum(mask)}
 
 
 # ---------------------------------------------------------------------------
@@ -122,9 +186,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     alloc = kept if window else max(max_len, s)
     cache = kvc.init_cache(cfg, n, b, alloc, window=window,
                            device=x.device)
-    stack = params["dense_layers"]
-    for i in range(n):
-        x, k, v = _layer_prefill(_layer(stack, i), x, positions, cfg,
+    for i, lp in enumerate(_layers(params["dense_layers"], n)):
+        x, k, v = _layer_prefill(lp, x, positions, cfg,
                                  window=window or None)
         cache.k[i, :, :kept] = k[:, s - kept:]
         cache.v[i, :, :kept] = v[:, s - kept:]
@@ -159,10 +222,9 @@ def decode_step(params: dict, cache: kvc.KVCache, tokens: torch.Tensor,
     """
     refuse_moe(cfg)
     x = nn.embed(params["embed"], tokens).to(cfg.dtype)
-    stack = params["dense_layers"]
-    for i in range(_num_layers(params)):
-        x = _layer_decode(_layer(stack, i), x, cache.k[i], cache.v[i],
-                          cache, cfg)
+    layers = _layers(params["dense_layers"], _num_layers(params))
+    for i, lp in enumerate(layers):
+        x = _layer_decode(lp, x, cache.k[i], cache.v[i], cache, cfg)
     h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = nn.unembed(params["unembed"], h)
     return logits, dataclasses.replace(cache, position=cache.position + 1)

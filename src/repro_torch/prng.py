@@ -39,8 +39,12 @@ The schedule matches ``jax._src.prng`` as installed beside the reference:
   (1 - uniform))`` with the cumulative sum in the backend's order
   (:func:`xla_cumsum`).
 * ``gamma(key, a)`` — Marsaglia–Tsang with one key per element, split
-  as the reference splits it; held to the reference by its moments (its
-  ``log`` and ``pow`` are the device's own).
+  as the reference splits it, its ``log``, ``rsqrt`` and ``pow`` XLA's
+  CPU code (:func:`xla_log`, :func:`xla_rsqrt`, :func:`xla_pow`): bit
+  for bit on the shapes checked.
+* ``xla_exp`` / ``xla_log`` / ``xla_pow`` — ``jnp.exp`` / ``log`` /
+  ``power`` of f32 as XLA's CPU backend computes them (Cephes ``expf``
+  and ``logf`` from the compiled code, glibc's ``powf``).
 """
 from __future__ import annotations
 
@@ -204,6 +208,133 @@ def _xla_log(y: torch.Tensor) -> torch.Tensor:
     return _fma(ef, 0.693359375, _fma(z, -0.5, xr) + p)
 
 
+def xla_log(y: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of f32 ``y >= 0`` finite, bit for bit XLA's CPU code
+    (0 and, flushed to it, a subnormal give ``-inf``)."""
+    return torch.where(y < _f32(1.17549435e-38), float("-inf"), _xla_log(y))
+
+
+def xla_rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``lax.rsqrt`` of f32 ``x`` positive, normal and finite as XLA's CPU
+    code computes it: an estimate refined by two Newton steps, each
+    ``y + (-y/2)·(y·(x·y) - 1)`` with both multiply-adds fused. The
+    backend's estimate is the CPU's ``rsqrtps``; this one is the
+    correctly rounded root, which the two steps turn into the same result
+    for most ``x`` but not all (some end one ulp apart). Bit for bit at
+    every ``alpha - 1/3`` of the gamma draws the repository makes
+    (shapes 1.5, 2, 2.2, 2.5, 2.8, 3)."""
+    y = (1.0 / torch.sqrt(x.double())).float()
+    for _ in range(2):
+        y = _fma(y * -0.5, _fma(y, x * y, -1.0), y)
+    return y
+
+
+# XLA's CPU exp: Cephes ``expf``, its input clamped to [-87.8, 88.8] and
+# ``2**n`` built from the exponent bits (n clamped to [-127, 127]).
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 0.5)
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp`` of f32 ``x`` (finite), bit for bit XLA's CPU code: the
+    backend's compiled ``expf`` with each multiply-add it contracts done
+    as one step rounded once (:func:`_fma`), a subnormal result flushed
+    to zero as the backend flushes it."""
+    x = torch.clamp(x, _f32(-87.80000305175781), _f32(88.80000305175781))
+    fx = torch.floor(_fma(x, _f32(1.4426950216293335), 0.5))
+    fx = torch.clamp(fx, -127.0, 127.0)
+    x = _fma(fx, -0.693359375, x)
+    x = _fma(fx, -_f32(-2.12194440e-4), x)
+    y = torch.full_like(x, _f32(_EXP_POLY[0]))
+    for c in _EXP_POLY[1:]:
+        y = _fma(y, x, _f32(c))
+    y = _fma(y, x * x, x) + 1.0
+    two_n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * two_n
+    # The backend flushes subnormal results to zero.
+    return torch.where(out < _f32(1.17549435e-38), 0.0, out)
+
+
+# glibc's ``powf`` (what XLA's CPU backend calls for an f32 ``pow``):
+# log2 of x from a 16-entry table and a degree-5 polynomial in f64, the
+# product with y, and 2**that from a 32-entry table and a cubic, rounded
+# once to f32. The constants are glibc's ``__powf_log2_data`` and
+# ``__exp2f_data`` (x86_64, glibc 2.28 and later).
+_POWF_LOG2 = tuple((float.fromhex(a), float.fromhex(b)) for a, b in (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+    ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2"),
+    ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+    ("0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+    ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+    ("0x1.0000000000000p+0", "0x0p+0"),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+    ("0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+    ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+    ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2")))
+_POWF_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+# 2**(i/32) as f64 bits less i << 47 (glibc stores them so).
+_EXP2_TAB = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f,
+    0x3fef9301d0125b51, 0x3fef72b83c7d517b, 0x3fef54873168b9aa,
+    0x3fef387a6e756238, 0x3fef1e9df51fdee1, 0x3fef06fe0a31b715,
+    0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429,
+    0x3feea47eb03a5585, 0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74,
+    0x3feea11473eb0187, 0x3feea589994cce13, 0x3feeace5422aa0db,
+    0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c,
+    0x3fef3720dcef9069, 0x3fef5818dcfba487, 0x3fef7c97337b9b5f,
+    0x3fefa4afa2a490da, 0x3fefd0765b6e4540)
+_EXP2_SHIFT = float.fromhex("0x1.8p+47")      # 0x1.8p52 / 32
+_EXP2_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+
+
+def xla_pow(x: torch.Tensor, y) -> torch.Tensor:
+    """``x ** y`` for f32 ``x`` positive, normal and finite and f32 ``y``
+    (a tensor or a Python float) with ``y · log2 x < 126``: what the
+    reference's ``jnp.power`` / ``lax.pow`` computes on the CPU, glibc's
+    ``powf``, rebuilt in f64 torch ops (bit for bit on the 200,064 ranks
+    of the token window and the 600,000 pairs of
+    ``tests/test_torch_stream.py``); a result below
+    ``2**-126`` is flushed to 0, as the backend flushes it. Overflow and
+    the special inputs take glibc paths this rebuild does not have."""
+    dev = x.device
+    ix = x.contiguous().view(torch.int32).long() & _MASK
+    tmp = (ix - 0x3F330000) & _MASK
+    top = tmp & 0xFF800000
+    k = torch.where(top >= 2 ** 31, top - 2 ** 32, top) >> 23
+    tab = torch.tensor(_POWF_LOG2, dtype=torch.float64, device=dev)
+    i = (tmp >> 19) % 16
+    z = ((ix - top) & _MASK).to(torch.int32).view(torch.float32).double()
+    r = z * tab[i, 0] - 1.0
+    a = _POWF_POLY
+    r2 = r * r
+    logx = ((a[0] * r + a[1]) * (r2 * r2)
+            + ((a[2] * r + a[3]) * r2 + (a[4] * r + (tab[i, 1] + k))))
+    yd = y.double() if isinstance(y, torch.Tensor) else _f32(y)
+    xd = yd * logx
+    kd = xd + _EXP2_SHIFT
+    ki = kd.view(torch.int64)
+    r = xd - (kd - _EXP2_SHIFT)
+    t2 = torch.tensor([v - (1 << 64) if v >= 1 << 63 else v
+                       for v in _EXP2_TAB], dtype=torch.int64, device=dev)
+    s = (t2[ki % 32] + (ki << 47)).view(torch.float64)
+    c = _EXP2_POLY
+    out = (((c[0] * r + c[1]) * (r * r) + (c[2] * r + 1.0)) * s).float()
+    # Below 2**-126 the result is subnormal or 0, which the backend
+    # flushes to 0.
+    return torch.where(xd < -126.0, 0.0, out)
+
+
 def _xla_log1p(a: torch.Tensor) -> torch.Tensor:
     """XLA's CPU ``log1p`` of f32 ``a > -1``."""
     x2 = a * a
@@ -264,24 +395,26 @@ def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def xla_sum(x: torch.Tensor) -> torch.Tensor:
-    """f32 sum of a 1-D ``x`` in the order of ``jnp.sum`` on XLA's CPU
-    backend: above 32 items, zero-padded to a multiple of 32 (half the
-    padding in front), each window of 32 summed in order, and the window
-    sums reduced the same way."""
-    n = x.shape[0]
+    """f32 sum over the last axis of ``x [..., n]`` in the order of
+    ``jnp.sum`` on XLA's CPU backend (a row reduction too): above 32
+    items, zero-padded to a multiple of 32 (half the padding in front),
+    each window of 32 summed in order, and the window sums reduced the
+    same way. Returns ``x.shape[:-1]``."""
+    n = x.shape[-1]
+    lead = tuple(x.shape[:-1])
     if n <= 32:
-        acc = torch.zeros((), dtype=x.dtype, device=x.device)
+        acc = torch.zeros(lead, dtype=x.dtype, device=x.device)
         for j in range(n):
-            acc = acc + x[j]
+            acc = acc + x[..., j]
         return acc
     padded = -(-n // 32) * 32
     low = (padded - n) // 2
-    rows = torch.zeros(padded, dtype=x.dtype, device=x.device)
-    rows[low:low + n] = x
-    rows = rows.view(-1, 32)
-    acc = rows[:, 0]
+    rows = torch.zeros(lead + (padded,), dtype=x.dtype, device=x.device)
+    rows[..., low:low + n] = x
+    rows = rows.view(lead + (-1, 32))
+    acc = rows[..., 0]
     for j in range(1, 32):
-        acc = acc + rows[:, j]
+        acc = acc + rows[..., j]
     return xla_sum(acc)
 
 
@@ -322,7 +455,7 @@ def gamma(key: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     boost = alpha0 >= 1.0
     alpha = torch.where(boost, alpha0, alpha0 + 1.0)
     d = alpha - _f32(1.0 / 3.0)
-    c = _f32(1.0 / 3.0) / torch.sqrt(d)
+    c = _f32(1.0 / 3.0) * xla_rsqrt(d)
     ks = split(keys, 2)
     key, subkey = ks[:, 0].contiguous(), ks[:, 1]
     big_v = torch.ones_like(alpha)
@@ -340,7 +473,7 @@ def gamma(key: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
             xkey[need] = k2[:, 0]
             xn = normal(k2[:, 1], ())
             x[need] = xn
-            v[need] = 1.0 + xn * c_act[need]
+            v[need] = _fma(xn, c_act[need], 1.0)
             need = need[v[need] <= 0.0]
             if need.numel() == 0:
                 break
@@ -348,8 +481,10 @@ def gamma(key: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         vv = (v * v) * v
         u = uniform(ukey, ())
         d_act = d[act]
-        reject = (u >= 1.0 - _f32(0.0331) * (xx * xx)) & (
-            torch.log(u) >= xx * 0.5 + d_act * ((1.0 - vv) + torch.log(vv)))
+        # x²·0.5 is exact, so the backend's fused form of the right-hand
+        # side rounds as this one does.
+        reject = (u >= _fma(xx * xx, -_f32(0.0331), 1.0)) & (
+            xla_log(u) >= xx * 0.5 + d_act * ((1.0 - vv) + xla_log(vv)))
         big_v[act] = vv
         act = act[reject]
         if act.numel() == 0:
@@ -357,7 +492,7 @@ def gamma(key: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     else:
         raise RuntimeError(f"gamma: a lane still rejects after "
                            f"{GAMMA_ROUNDS} rounds")
-    scale = torch.pow(1.0 - uniform(subkey, ()), 1.0 / alpha0)
+    scale = xla_pow(1.0 - uniform(subkey, ()), 1.0 / alpha0)
     return ((d * big_v) * torch.where(boost, 1.0, scale)).reshape(shape)
 
 

@@ -17,7 +17,6 @@ import dataclasses
 import threading
 from typing import Callable, Iterator, Optional
 
-import numpy as np
 import torch
 
 from repro_torch import prng
@@ -35,15 +34,12 @@ class TokenWindowSpec:
 
 
 def _zipf(n: int, power: Optional[float], dev) -> torch.Tensor:
-    """Normalised ``1 / r**power`` over ranks ``1..n`` (f32), summed in
-    the reference's order (``prng.xla_sum``); the power is taken in f64
-    and rounded, which matches the reference's f32 ``pow`` on every rank
-    up to 1,000 and on all but 13 of 32,000."""
+    """Normalised ``1 / r**power`` over ranks ``1..n`` (f32): the power
+    by ``prng.xla_pow`` (the reference's f32 ``pow``), summed in the
+    reference's order (``prng.xla_sum``); bit for bit the reference's
+    weights."""
     r = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
-    if power is None:
-        w = 1.0 / r
-    else:
-        w = 1.0 / torch.pow(r.double(), float(np.float32(power))).float()
+    w = 1.0 / (r if power is None else prng.xla_pow(r, power))
     return w / prng.xla_sum(w)
 
 

@@ -9,10 +9,10 @@ key in two, draws the stratum ids from the first half by
 * ``GaussianSource`` / ``PoissonSource`` — the §5.1 microbenchmark
   streams; ids, and values wherever ``prng.normal`` is, bit for bit.
 * ``NetflowSource`` — CAIDA-like records (§6.2): the protocols TCP, UDP
-  and ICMP, log-normal flow bytes (``torch.exp`` of the reference's
-  exponent, so values within an f32 rounding or two).
+  and ICMP, log-normal flow bytes (``prng.xla_exp``, the reference's
+  ``jnp.exp``), bit for bit.
 * ``TaxiSource`` — DEBS'15-like rides (§6.3): 6 boroughs, gamma trip
-  distances (``prng.gamma``, held to the reference by its moments).
+  distances (``prng.gamma``), bit for bit.
 
 A key with leading axes (``[W, 2]``) gives ``[W, size]`` leaves, what
 ``jax.vmap`` over the keys gives.
@@ -117,7 +117,7 @@ class NetflowSource(Source):
         k2, sid = self._draw(key, size)
         mu = self._per_stratum(self.log_mu, sid)
         sg = self._per_stratum(self.log_sigma, sid)
-        vals = torch.exp(mu + sg * prng.normal(k2, size))
+        vals = prng.xla_exp(mu + sg * prng.normal(k2, size))
         return StreamChunk(values=vals, stratum_ids=sid.to(torch.int32))
 
 

@@ -1276,3 +1276,61 @@ def test_cuda_sliced_init_params(cuda_device, monkeypatch, dtype):
         assert b.device.type == "cuda" and b.dtype == a.dtype
         words = torch.int16 if a.element_size() == 2 else torch.int32
         assert torch.equal(a.view(words), b.cpu().view(words)), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dot_f32_gradients(cuda_device, dtype):
+    """``dot_f32`` on the card (f32 out of cuBLAS, its own backward) and
+    on the CPU, 2-D and batched: values and both operands' grads within
+    the operands' rounding of the largest magnitude (the card rounds the
+    f32 cotangent to bf16 before its products; one element of 90 was
+    0.047 off, 0.4% of the largest, on an H100)."""
+    from repro_torch.models import layers
+    g = torch.Generator().manual_seed(3)
+    for shapes in (((6, 5), (5, 7)), ((3, 6, 5), (3, 5, 7))):
+        a, b = (torch.randn(s, generator=g).to(dtype) for s in shapes)
+        outs = []
+        for dev in ("cpu", cuda_device):
+            x = a.to(dev).requires_grad_(True)
+            y = b.to(dev).requires_grad_(True)
+            out = layers.dot_f32(x, y)
+            assert out.dtype == torch.float32
+            gx, gy = torch.autograd.grad(out.square().sum(), (x, y))
+            assert gx.dtype == gy.dtype == dtype
+            outs.append([t.detach().float().cpu() for t in (out, gx, gy)])
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        for u, v in zip(*outs):
+            torch.testing.assert_close(v, u, rtol=tol,
+                                       atol=tol * float(u.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_train_matches_cpu(cuda_device):
+    """``launch/train.train`` at the phi4 smoke config on the card and on
+    the CPU: the same sampled batch every step (the fold kernel against
+    its plain version), the losses within bf16 rounding (rtol 1e-2), one
+    fold launch per step."""
+    from repro_torch.launch import train as tlt
+    seen = {}
+    real = tlt.assemble_batch
+
+    def record(*a, **kw):
+        out = real(*a, **kw)
+        seen.setdefault(str(a[0].device.type), []).append(
+            {k: v.cpu() for k, v in out.items()})
+        return out
+    tlt.assemble_batch = record
+    try:
+        run = tlt.RunConfig(arch="phi4-mini-3.8b", steps=4)
+        quiet = lambda *_: None     # noqa: E731
+        cpu = tlt.train(run, device="cpu", log=quiet)
+        ops.reset_launch_counts()
+        card = tlt.train(run, device=cuda_device, log=quiet)
+        assert ops.launch_counts()["reservoir_fold"] == 4
+    finally:
+        tlt.assemble_batch = real
+    for a, b in zip(seen["cpu"], seen["cuda"]):
+        assert torch.equal(a["tokens"], b["tokens"])
+        assert torch.equal(a["weights"], b["weights"])
+    np.testing.assert_allclose(card, cpu, rtol=1e-2)

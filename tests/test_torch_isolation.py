@@ -11,6 +11,7 @@ import torch
 from repro_torch import configs as tcfgs
 from repro_torch import prng
 from repro_torch.launch import serve as tlaunch
+from repro_torch.launch import train as ttrain
 from repro_torch.models import api as tapi
 from repro_torch.models import kvcache as tkvc
 from repro_torch.models import param as tparam
@@ -26,7 +27,7 @@ from repro_torch.utils import NoCudaDeviceError
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_training.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -52,7 +53,9 @@ def test_port_files_found():
     assert {"executor.py", "oasrs.py", "prng.py", "chip_smoke.py",
             "sentinel.py", "param.py", "attention.py", "kvcache.py",
             "transformer.py", "api.py", "serve_step.py", "serve.py",
-            "phi4_mini_3_8b.py"} <= names
+            "phi4_mini_3_8b.py", "optimizer.py", "train_step.py",
+            "straggler.py", "checkpoint.py", "train.py",
+            "torch_approx_training.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -117,6 +120,27 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch, device):
     args = [] if device is None else ["--device", device]
     with pytest.raises(NoCudaDeviceError):
         tlaunch.main(args)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_training_entry_points_raise_without_a_card(monkeypatch, device):
+    """``launch/train`` takes the card unless asked for the CPU, and
+    refuses without one rather than training on the CPU."""
+    _no_card(monkeypatch)
+    run = ttrain.RunConfig(arch="phi4-mini-3.8b", steps=1)
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        ttrain.train(run, device=device)
+    args = ["--arch", "phi4-mini-3.8b", "--steps", "1"]
+    with pytest.raises(NoCudaDeviceError):
+        ttrain.main(args + ([] if device is None else ["--device", device]))
+
+
+def test_training_on_the_cpu_on_request(monkeypatch, capsys):
+    _no_card(monkeypatch)
+    assert ttrain.main(["--arch", "phi4-mini-3.8b", "--steps", "1",
+                        "--batch", "2", "--seq-len", "8",
+                        "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("[train] step    1 epoch 0")
 
 
 def test_serving_on_the_cpu_on_request(monkeypatch, capsys):

@@ -480,7 +480,7 @@ def test_rescale_4_8_4_kill_after_every_chunk(name):
             return cache[w, offset]
         return at
     streams = {w: chunk_fn(w) for w in (4, 8)}
-    executors = {w: port_executor(name, w, KEY + w, windows=False)
+    executors = {w: port_executor(name, w, KEY + w)
                  for w in (4, 8)}
     total = segment_bounds(SEGMENTS)[-1][2]
     reference = sweep_rescale(executors, streams, SEGMENTS,
@@ -491,7 +491,7 @@ def test_rescale_4_8_4_kill_after_every_chunk(name):
     jcls = jex.PipelinedExecutor if SCHEDULES[name][0] == "pipelined" else \
         jex.BatchedExecutor
     jexecutors = {w: jcls(jex.RuntimeConfig(**cfg_kw(name, w)),
-                          registry(jreg, windows=False),
+                          registry(jreg),
                           jax.random.PRNGKey(KEY + w)) for w in (4, 8)}
     jems = ref_run_schedule(jexecutors, jstreams, SEGMENTS,
                             jax.random.PRNGKey(KEY))
