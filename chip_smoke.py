@@ -181,6 +181,24 @@ Phases (any failure ends the run with a non-zero exit):
              the resume path at the smoke config (the restored state bit
              for bit the saved one, the resumed losses against the
              uninterrupted run's). ``chiprun_out/chip_smoke_train.json``.
+15. families the decoder-only families beyond dense at full width in
+             bf16: ``xlstm-350m`` (ssm), ``granite-moe-3b-a800m`` (moe),
+             ``recurrentgemma-9b`` (hybrid). Each is served by phase
+             serve's own path (``serve_model``: ``init_params(PRNGKey(0))``
+             on the card, two leaves' first draws against the CPU's;
+             ``Server.generate`` of 8 prompts of 2,048 tokens, 512 for
+             the xLSTM, for 16 steps, 4 tenants, every fold and stats
+             call held to its plain version, the telemetry read back and
+             checked; the loop timed, each figure beside its bound; (c)
+             decode steps 1, 2, 3 and 16 against a prefill over prompt +
+             t tokens, logits and every state leaf, logged in bf16 and
+             gated on an f32 copy; for moe also the dispatch at the
+             served capacity and at one where experts overflow against a
+             plain plan and loop),
+             then trained by phase train's path at its defaults
+             (recurrentgemma-9b at 6 of its 38 blocks, full width: the
+             AdamW state of all 38 would exceed the card).
+             ``chiprun_out/chip_smoke_families.json``.
 
 Every stream is the reference's: ``StreamAggregator`` draws, ids and
 event times bit for bit (phases paths' and sharded's disorder is drawn
@@ -284,6 +302,30 @@ TRAIN_LEAF = "dense_layers.mlp.w_in"   # the largest leaves
 TRAIN_LOSS_RTOL = 2e-2             # step 1's bf16 loss vs the f32 one
 TRAIN_ADAM_RTOL = 1e-6             # the slice vs the functional formula
 TRAIN_RESUME_RTOL = 1e-3           # resumed losses vs uninterrupted, smoke
+FAMILY_ARCHS = ("xlstm-350m", "granite-moe-3b-a800m", "recurrentgemma-9b")
+# The xLSTM's serving prompt: its prefill is a Python loop over time
+# (24 blocks x 2,048 steps, ~1.1 M host torch ops, 8.4-15.2 s at 8 x 2,048
+# on an H100 80GB HBM3 at 700 W), and a serve pass runs 1 + SERVE_PREFILLS
+# + len(FAMILY_CACHE_STEPS) of them.
+FAMILY_SSM_PROMPT = 512
+FAMILY_CACHE_STEPS = (1, 2, 3, SERVE_STEPS)   # decode steps of (c) checked
+# (c): the MoE dispatch is also checked at this capacity factor, where
+# experts overflow: at the served 1.25 a 2,048-token row of
+# granite-moe-3b-a800m dropped none of its 16,384 assignments on an H100.
+MOE_TIGHT_CAPACITY = 1.0
+# Blocks trained at full width: recurrentgemma-9b's AdamW state for its 38
+# blocks (~14 B per parameter, ~146 GB) exceeds the card; two periods of
+# (rec, rec, attn) keep every block kind.
+FAMILY_TRAIN_LAYERS = {"recurrentgemma-9b": 6}
+# Families whose training step is not traced: xlstm-350m's step is
+# ~340,000 host torch ops (its time loop), and a trace of one took 126 s
+# on an H100 80GB HBM3 at 700 W (busy 0.201 of the step).
+FAMILY_UNTRACED = ("xlstm-350m",)
+# Per family, a large leaf: its first draws checked against the CPU's
+# (serving) and its AdamW slice checked against the formula (training).
+FAMILY_LEAF = {"xlstm-350m": "blocks.0.w_up",
+               "granite-moe-3b-a800m": "moe_layers.moe.w_in",
+               "recurrentgemma-9b": "blocks.0.mlp.w_in"}
 
 
 def log(msg: str) -> None:
@@ -3271,59 +3313,146 @@ def main_config():
     return cfg, reg
 
 
-def decode_need(cfg, params, cache, batch: int) -> dict:
+EXPERT_LEAVES = tuple(f"moe_layers.moe.{w}" for w in ("w_in", "w_gate",
+                                                      "w_out"))
+LAYER_PREFIXES = ("dense_layers", "moe_layers", "blocks")
+
+
+def attention_layers(cfg) -> int:
+    """Layers (or blocks) that attend: every layer of dense and moe, the
+    ``attn`` blocks of hybrid, none of ssm."""
+    from repro_torch.models import rglru
+    if cfg.family == "hybrid":
+        return sum(rglru.block_kind(cfg, i) == "attn"
+                   for i in range(cfg.num_layers))
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def attention_pairs(cfg, seq: int) -> int:
+    """Query × key elements of the blocks the chunked attention computes
+    for one head and row over ``seq`` tokens from position 0 (the local
+    window's block range for hybrid)."""
+    qc, ck = min(cfg.attn_q_chunk, seq), min(cfg.attn_kv_chunk, seq)
+    w = cfg.local_window if cfg.family == "hybrid" else None
+    pairs = 0
+    for i in range(-(-seq // qc)):
+        start = max(0, (i * qc - w + 1) // ck) if w else 0
+        stop = min(-(-seq // ck), -(-((i + 1) * qc) // ck))
+        pairs += (stop - start) * qc * ck
+    return pairs
+
+
+def model_work(cfg, params, batch: int, seq: int) -> dict:
+    """Operations of one forward over ``batch`` rows of ``seq`` tokens,
+    from the run's shapes: two per weight element a token touches (of
+    the experts, the ``k`` of ``E`` routed; the embedding table only
+    gathered), the attention blocks' scores and P·V, and the mLSTM's
+    matrix-memory update and read-out (``4·hd²`` per token and head).
+    ``layer_ops``: the per-layer weights' share (what ``remat``
+    recomputes)."""
+    from repro_torch.models import param, xlstm
+    leaves = dict(param.leaves(params))
+    frac = (cfg.num_experts_per_token / cfg.num_experts
+            if cfg.is_moe else 1.0)
+
+    def active(p, t):
+        return t.numel() * (frac if p in EXPERT_LEAVES else 1.0)
+    n_mat = sum(active(p, t) for p, t in leaves.items()
+                if p != "embed.tokens")
+    n_layers = sum(active(p, t) for p, t in leaves.items()
+                   if p.startswith(LAYER_PREFIXES))
+    tokens = batch * seq
+    attn = 4 * attention_layers(cfg) * batch * cfg.num_heads * \
+        attention_pairs(cfg, seq) * cfg.head_dim
+    rec = 0
+    if cfg.family == "ssm":
+        hd = 2 * cfg.d_model // cfg.num_heads
+        rec = sum(xlstm.block_kind(cfg, i) == "mlstm"
+                  for i in range(cfg.num_layers)) * 4 * tokens \
+            * cfg.num_heads * hd * hd
+    return dict(params=sum(t.numel() for t in leaves.values()),
+                matmul_weights=n_mat, layer_weights=n_layers, tokens=tokens,
+                mat_ops=2 * tokens * n_mat, layer_ops=2 * tokens * n_layers,
+                attn_ops=attn, rec_ops=rec)
+
+
+def state_bytes(cfg, state, batch: int) -> tuple:
+    """(bytes read, bytes written) of a decode step's state: a KV cache
+    read whole, one slot written; the hybrid's rings likewise; every
+    recurrent state (and conv tail) read and written whole."""
+    if hasattr(state, "window"):
+        item = state.k.element_size()
+        return (2 * state.k.numel() * item,
+                2 * state.k.shape[0] * batch * cfg.kv_size * item)
+    read = written = 0
+    for blk in state["blocks"]:
+        for name, t in blk.items():
+            nb = t.numel() * t.element_size()
+            read += nb
+            written += nb // cfg.local_window if name in ("k", "v") else nb
+    return read, written
+
+
+def decode_need(cfg, params, state, batch: int, routed=()) -> dict:
     """Bytes and operations one decode step needs: every weight but the
-    embedding table read once (of the table only the ``batch`` rows
-    gathered), the KV cache read once, the new K/V and the f32 logits
-    written; two operations per weight element and batch row, and the
-    scores and P·V over the cache."""
+    embedding table read once (of the experts, only those the step
+    routed to: ``routed`` distinct experts per MoE layer; of the table
+    the ``batch`` rows gathered), the state read and written
+    (:func:`state_bytes`), the f32 logits written; two operations per
+    weight element a token touches, the scores and P·V over the cache or
+    ring, the mLSTM read-out and update (``4·hd²`` per head)."""
+    from repro_torch.models import param
+    item = cfg.dtype.itemsize
+    leaves = dict(param.leaves(params))
+    per_layer_expert = sum(leaves[p][0].numel() for p in EXPERT_LEAVES
+                           if p in leaves) // max(cfg.num_experts, 1)
+    dense = [t for p, t in leaves.items()
+             if p != "embed.tokens" and p not in EXPERT_LEAVES]
+    dense_elems = sum(t.numel() for t in dense)
+    weights = sum(t.numel() * t.element_size() for t in dense) + \
+        sum(routed) * per_layer_expert * item
+    touched = dense_elems + len(routed) * cfg.num_experts_per_token \
+        * per_layer_expert
+    read, written = state_bytes(cfg, state, batch)
+    nbytes = (weights + batch * cfg.d_model * item + read + written
+              + batch * cfg.vocab_size * 4)
+    slots = state.max_len if hasattr(state, "window") else cfg.local_window
+    work = model_work(cfg, params, batch, 1)
+    ops_ = 2 * batch * touched + 4 * attention_layers(cfg) * batch * \
+        cfg.num_heads * slots * cfg.head_dim + work["rec_ops"]
+    return dict(weight_bytes=weights, state_read_bytes=read,
+                state_write_bytes=written, bytes=nbytes, ops=ops_,
+                routed_experts=list(routed),
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=ops_ / BF16_OPS_PER_S * 1e3)
+
+
+def prefill_need(cfg, params, state, batch: int, prompt: int) -> dict:
+    """Bytes and operations of one prefill: the weights read once (the
+    embedding's gathered rows), the serving state written, the last
+    logits; the operations of :func:`model_work`."""
     from repro_torch.models import param
     item = cfg.dtype.itemsize
     weights = sum(t.numel() * t.element_size()
                   for p, t in param.leaves(params) if p != "embed.tokens")
-    weight_elems = sum(t.numel() for p, t in param.leaves(params)
-                       if p != "embed.tokens")
-    kv_read = 2 * cache.k.numel() * item
-    kv_write = 2 * cfg.num_layers * batch * cfg.kv_size * item
-    nbytes = (weights + batch * cfg.d_model * item + kv_read + kv_write
+    if hasattr(state, "window"):
+        written = 2 * state.k.numel() * item
+    else:
+        written = state_bytes(cfg, state, batch)[0]
+    w = model_work(cfg, params, batch, prompt)
+    nbytes = (weights + batch * prompt * cfg.d_model * item + written
               + batch * cfg.vocab_size * 4)
-    ops_ = 2 * batch * weight_elems + 4 * cfg.num_layers * batch * (
-        cfg.num_heads * cache.max_len * cfg.head_dim)
-    return dict(weight_bytes=weights, kv_read_bytes=kv_read, bytes=nbytes,
-                ops=ops_, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                ops_ms=ops_ / BF16_OPS_PER_S * 1e3)
-
-
-def prefill_need(cfg, params, batch: int, prompt: int) -> dict:
-    """Bytes and operations of one prefill: the weights read once (the
-    embedding's gathered rows), the cache written, the last logits; two
-    operations per weight element and token, and the scores and P·V of
-    the query × key blocks the chunked attention computes."""
-    from repro_torch.models import param
-    item = cfg.dtype.itemsize
-    tokens = batch * prompt
-    weight_elems = sum(t.numel() for p, t in param.leaves(params)
-                       if p != "embed.tokens")
-    weights = weight_elems * item
-    qc, ck = min(cfg.attn_q_chunk, prompt), min(cfg.attn_kv_chunk, prompt)
-    nq = -(-prompt // qc)
-    pairs = sum(min(-(-prompt // ck), -(-((i + 1) * qc) // ck)) * qc * ck
-                for i in range(nq))
-    attn_ops = 4 * cfg.num_layers * batch * cfg.num_heads * pairs \
-        * cfg.head_dim
-    nbytes = (weights + tokens * cfg.d_model * item
-              + 2 * cfg.num_layers * tokens * cfg.kv_size * item
-              + batch * cfg.vocab_size * 4)
-    ops_ = 2 * tokens * weight_elems + attn_ops
+    ops_ = w["mat_ops"] + w["attn_ops"] + w["rec_ops"]
     return dict(bytes=nbytes, ops=ops_,
                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 ops_ms=ops_ / BF16_OPS_PER_S * 1e3)
 
 
-def serve_build(torch, cfg, dev) -> tuple:
+def serve_build(torch, cfg, dev, checked, tag) -> tuple:
     """(a) The full config's weights on the card from ``PRNGKey(0)``,
     drawn in slices; the first ``SERVE_BITS_CHECKED`` elements of two
-    leaves against the CPU's draws over the same counters."""
+    leaves (``checked``) against the CPU's draws over the same
+    counters."""
     from repro_torch import prng
     from repro_torch.models import api, param
     skel = api.skeleton(cfg)
@@ -3340,25 +3469,25 @@ def serve_build(torch, cfg, dev) -> tuple:
     specs = dict(param.leaves(skel))
     paths = list(specs)
     keys = prng.split(prng.PRNGKey(0), len(paths))
-    for path in ("embed.tokens", "dense_layers.attn.wq"):
+    for path in checked:
         spec = specs[path]
         want = (prng.normal(keys[paths.index(path)], SERVE_BITS_CHECKED)
                 * param.init_std(spec)).to(spec.dtype)
         got = dict(param.leaves(params))[path].reshape(-1)[
             :SERVE_BITS_CHECKED].cpu()
         if not same_bits(torch, got, want):
-            fail(f"serve (a): {path} on the card differs from the CPU's "
+            fail(f"{tag} (a): {path} on the card differs from the CPU's "
                  f"draws over its first {SERVE_BITS_CHECKED} elements")
-    log(f"[serve] (a) {cfg.name} at full width: {out['params']:,} "
+    log(f"{tag} (a) {cfg.name} at full width: {out['params']:,} "
         f"parameters, {out['param_bytes']:,} B in {cfg.dtype}, drawn on "
         f"the card in {init_s:.2f} s (slices of {param.INIT_SLICE:,}), "
-        f"peak {out['init_peak_bytes'] / 2**30:.2f} GiB; embed.tokens and "
-        f"dense_layers.attn.wq bit for bit the CPU's first "
+        f"peak {out['init_peak_bytes'] / 2**30:.2f} GiB; "
+        f"{' and '.join(checked)} bit for bit the CPU's first "
         f"{SERVE_BITS_CHECKED:,} draws")
     return params, out
 
 
-def check_telemetry(torch, server, est, per, text, tenants) -> dict:
+def check_telemetry(torch, server, est, per, text, tenants, tag) -> dict:
     """(b) Fewer records than the capacity: each tenant's reservoir holds
     all its records (taken == counts), the variances are 0 and the means
     are those of the latencies folded, read back from the state."""
@@ -3369,7 +3498,7 @@ def check_telemetry(torch, server, est, per, text, tenants) -> dict:
                                  minlength=SERVE_TENANTS) * SERVE_STEPS
     if not torch.equal(counts.long(), want_counts) or not torch.equal(
             taken, counts):
-        fail(f"serve (b): counts {counts.tolist()} taken {taken.tolist()}"
+        fail(f"{tag} (b): counts {counts.tolist()} taken {taken.tolist()}"
              f", expected counts {want_counts.tolist()} all taken")
     folded = [values[i, :int(c)] for i, c in enumerate(counts)]
     every = torch.cat(folded)
@@ -3377,15 +3506,15 @@ def check_telemetry(torch, server, est, per, text, tenants) -> dict:
     got = float(est.value)
     if abs(got - mean) > ANSWER_RTOL * abs(mean) or float(
             est.variance) != 0.0:
-        fail(f"serve (b): telemetry mean {got} ± var "
+        fail(f"{tag} (b): telemetry mean {got} ± var "
              f"{float(est.variance)}, folded latencies' mean {mean}")
     tenant_means = [float(f.mean()) if f.numel() else 0.0 for f in folded]
     for i, (g, w) in enumerate(zip(per.value.cpu().tolist(),
                                    tenant_means)):
         if counts[i] and abs(g - w) > ANSWER_RTOL * abs(w):
-            fail(f"serve (b): tenant {i} mean {g}, folded {w}")
+            fail(f"{tag} (b): tenant {i} mean {g}, folded {w}")
     if bool((per.variance.cpu() != 0).any()):
-        fail(f"serve (b): per-tenant variances {per.variance.tolist()}")
+        fail(f"{tag} (b): per-tenant variances {per.variance.tolist()}")
     lines = [ln for ln in text.splitlines() if not ln.startswith("#")]
     gauges = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
               for ln in lines}
@@ -3393,21 +3522,24 @@ def check_telemetry(torch, server, est, per, text, tenants) -> dict:
             or abs(gauges["repro_serve_decode_latency_ms"] - got)
             > 1e-5 * abs(got)
             or gauges["repro_serve_decode_latency_ms_hw95"] != 0.0):
-        fail(f"serve (b): metrics text does not parse to the estimates: "
+        fail(f"{tag} (b): metrics text does not parse to the estimates: "
              f"{gauges}")
-    log(f"[serve] (b) telemetry: counts {counts.tolist()} = taken, mean "
+    log(f"{tag} (b) telemetry: counts {counts.tolist()} = taken, mean "
         f"decode latency {got:.6g} ms (folded {mean:.6g}), variance 0, "
         f"per tenant {[round(x, 4) for x in tenant_means]}")
     return dict(counts=counts.tolist(), mean_ms=got,
                 tenant_means_ms=tenant_means)
 
 
-def serve_timed(torch, server, batch, tenants) -> dict:
+def serve_timed(torch, server, batch, tenants, tag) -> dict:
     """(b, d) The serving loop once more, timed on the host clock (each
-    decode step ends in the server's synchronise): prefills, 16 decode
-    steps; the clamped write of ``max_len=0``; logits finite, tokens in
-    range."""
+    decode step ends in the server's synchronise): ``SERVE_PREFILLS``
+    prefills, ``SERVE_STEPS`` decode steps; logits finite, tokens in
+    range, the position prompt + steps; for a KV cache (``max_len=0``)
+    the clamped write: only the prompt's last slot rewritten."""
+    from repro_torch.models import api
     from repro_torch.serve.serve_step import _next_tokens
+    prompt = batch["tokens"].shape[1]
     pre_ms = []
     for _ in range(SERVE_PREFILLS):
         torch.cuda.synchronize()
@@ -3416,7 +3548,8 @@ def serve_timed(torch, server, batch, tenants) -> dict:
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
     finite = torch.isfinite(logits).all()
-    before = state.k.clone()
+    cache = hasattr(state, "window")
+    before = state.k.clone() if cache else None
     toks = _next_tokens(logits)
     dec_ms, out = [], [toks]
     for _ in range(SERVE_STEPS):
@@ -3428,65 +3561,173 @@ def serve_timed(torch, server, batch, tenants) -> dict:
         out.append(toks)
     out = torch.cat(out, dim=1)
     vocab = server.cfg.vocab_size
-    if not bool(finite) or not bool(((out >= 0) & (out < vocab)).all()):
-        fail("serve (b): logits not finite or tokens out of range")
-    slot = SERVE_PROMPT - 1
-    kept = torch.equal(state.k[:, :, :slot], before[:, :, :slot])
-    moved = not torch.equal(state.k[:, :, slot], before[:, :, slot])
-    pos = int(state.position)
-    if not (kept and moved and pos == SERVE_PROMPT + SERVE_STEPS):
-        fail(f"serve (b): clamped write: slots before {slot} kept {kept}, "
-             f"slot {slot} rewritten {moved}, position {pos}")
-    log(f"[serve] (b) max_len=0: {SERVE_STEPS} decode steps rewrote only "
-        f"slot {slot} of {SERVE_PROMPT}, position {pos} (the reference's "
-        f"clamped write)")
+    pos = int(api.state_tree(state)["position"])
+    if not bool(finite) or not bool(((out >= 0) & (out < vocab)).all()) \
+            or pos != prompt + SERVE_STEPS:
+        fail(f"{tag} (b): logits finite {bool(finite)}, tokens in range, "
+             f"position {pos} (expected {prompt + SERVE_STEPS})")
+    if cache:
+        slot = prompt - 1
+        kept = torch.equal(state.k[:, :, :slot], before[:, :, :slot])
+        moved = not torch.equal(state.k[:, :, slot], before[:, :, slot])
+        if not (kept and moved):
+            fail(f"{tag} (b): clamped write: slots before {slot} kept "
+                 f"{kept}, slot {slot} rewritten {moved}")
+        log(f"{tag} (b) max_len=0: {SERVE_STEPS} decode steps rewrote "
+            f"only slot {slot} of {prompt}, position {pos} (the "
+            f"reference's clamped write)")
     return dict(prefill_ms=pre_ms, decode_ms=dec_ms, state=state,
                 toks=toks)
 
 
-def serve_cache_consistency(torch, cfg, params, tokens) -> dict:
+def state_gaps(torch, state, fresh, n: int) -> dict:
+    """Per leaf of a serving state, its largest gap to the same leaf of a
+    fresh prefill's state as a share of that leaf's largest magnitude (a
+    KV cache's first ``n`` slots; the hybrid's rings and recurrent states
+    and the xLSTM's states whole); ``inf`` where an integer leaf (a
+    position) differs."""
+    from repro_torch.models import api, param
+    got = dict(param.leaves(api.state_tree(state)))
+    gaps = {}
+    for path, want in param.leaves(api.state_tree(fresh)):
+        have = got[path]
+        if not want.is_floating_point():
+            gaps[path] = 0.0 if torch.equal(have, want) else math.inf
+            continue
+        if hasattr(state, "window"):
+            have = have[:, :, :n]
+        want = want.float()
+        gaps[path] = float((have.float() - want).abs().amax()
+                           / want.abs().amax().clamp_min(1e-30))
+    return gaps
+
+
+def serve_cache_consistency(torch, cfg, params, tokens, tag,
+                            checked=None, gate=True) -> dict:
     """(c) ``prefill_fn(max_len=prompt+steps)`` then ``decode_fn``, no
-    clamp: step t's logits against the last logits of a prefill over the
-    prompt and the t tokens generated, within SERVE_LOGIT_ATOL, and the
-    cache's first prompt + t slots against that prefill's K/V, within
-    SERVE_CACHE_RTOL of their largest magnitude (with the reference's
-    random weights attention moves the logits little, so a wrong slot
-    or mask shows in the cache, not in the logits)."""
+    clamp: at step t (each of ``checked``, every step if None) the logits
+    against the last logits of a prefill over the prompt and the t tokens
+    generated, within SERVE_LOGIT_ATOL, and every leaf of the serving
+    state against that prefill's (:func:`state_gaps`), within
+    SERVE_CACHE_RTOL of its largest magnitude (with the reference's
+    random weights attention moves the logits little, so a wrong slot,
+    ring or mask shows in the state, not in the logits). ``gate=False``
+    only logs the gaps."""
     from repro_torch.models import api
     from repro_torch.serve.serve_step import _next_tokens
+    prompt = tokens.shape[1]
+    checked = range(1, SERVE_STEPS + 1) if checked is None else checked
     prefill, decode = api.prefill_fn(cfg), api.decode_fn(cfg)
-    logit_err, cache_err = [], []
+    logit_err, state_err, worst = [], [], (-1.0, None)
     with torch.inference_mode():
-        logits, cache = prefill(params, {"tokens": tokens},
-                                max_len=SERVE_PROMPT + SERVE_STEPS)
+        logits, state = prefill(params, {"tokens": tokens},
+                                max_len=prompt + SERVE_STEPS)
         seq, nxt = tokens, _next_tokens(logits)
-        for _ in range(SERVE_STEPS):
+        for t in range(1, SERVE_STEPS + 1):
             seq = torch.cat([seq, nxt], dim=1)
-            logits, cache = decode(params, cache, nxt)
-            again, fresh = prefill(params, {"tokens": seq})
-            logit_err.append((logits - again).abs().amax())
-            n = seq.shape[1]
-            cache_err.append(torch.stack([
-                (getattr(cache, f)[:, :, :n].float()
-                 - getattr(fresh, f).float()).abs().amax()
-                / getattr(fresh, f).float().abs().amax()
-                for f in ("k", "v")]).amax())
+            logits, state = decode(params, state, nxt)
+            if t in checked:
+                again, fresh = prefill(params, {"tokens": seq})
+                logit_err.append(float((logits - again).abs().amax()))
+                gaps = state_gaps(torch, state, fresh, seq.shape[1])
+                path = max(gaps, key=gaps.get)
+                state_err.append(gaps[path])
+                worst = max(worst, (gaps[path], f"{path} at t = {t}"),
+                            key=lambda w: w[0])
+                del fresh
             nxt = _next_tokens(logits)
-        pos = int(cache.position)
-    logit_err = torch.stack(logit_err).tolist()
-    cache_err = torch.stack(cache_err).tolist()
-    if (max(logit_err) > SERVE_LOGIT_ATOL or max(cache_err)
-            > SERVE_CACHE_RTOL or pos != SERVE_PROMPT + SERVE_STEPS):
-        fail(f"serve (c): decode vs prefill logits differ by up to "
-             f"{max(logit_err)} (limit {SERVE_LOGIT_ATOL}), K/V by "
-             f"{max(cache_err)} of their largest (limit "
-             f"{SERVE_CACHE_RTOL}); position {pos}")
-    log(f"[serve] (c) {tokens.shape[0]} requests: decode step t's logits "
+        pos = int(api.state_tree(state)["position"])
+    log(f"{tag} (c) {tokens.shape[0]} requests, {cfg.dtype}"
+        f"{'' if gate else ' (logged, not gated)'}: decode step t's logits "
         f"within {max(logit_err):.4g} of a prefill over prompt + t tokens "
-        f"(limit {SERVE_LOGIT_ATOL}), its K/V within {max(cache_err):.4g} "
-        f"of their largest (limit {SERVE_CACHE_RTOL}); logits per step "
-        f"{[round(w, 4) for w in logit_err]}")
-    return dict(logit_max_abs=logit_err, cache_max_rel=cache_err)
+        f"(limit {SERVE_LOGIT_ATOL}), its state within {worst[0]:.4g} of "
+        f"the largest ({worst[1]}; limit {SERVE_CACHE_RTOL}); at t = "
+        f"{list(checked)} logits {[round(w, 4) for w in logit_err]}, state "
+        f"{[round(w, 5) for w in state_err]}")
+    if gate and (max(logit_err) > SERVE_LOGIT_ATOL or worst[0]
+                 > SERVE_CACHE_RTOL or pos != prompt + SERVE_STEPS):
+        fail(f"{tag} (c): decode vs prefill logits differ by up to "
+             f"{max(logit_err)} (limit {SERVE_LOGIT_ATOL}), the state by "
+             f"{worst[0]} of its largest ({worst[1]}; limit "
+             f"{SERVE_CACHE_RTOL}); position {pos}")
+    return dict(steps=list(checked), dtype=str(cfg.dtype), gated=gate,
+                logit_max_abs=logit_err, state_max_rel=state_err,
+                worst_leaf=worst[1])
+
+
+def moe_dispatch_check(torch, cfg, params, tokens, tag) -> dict:
+    """(c) The MoE dispatch at the served prefill shape: the first MoE
+    layer's input in a prefill of ``tokens`` (one group of ``prompt``
+    tokens per row), at the served capacity factor and at
+    ``MOE_TIGHT_CAPACITY``, where experts overflow; at each, the plan
+    against a plain one (each row's assignments ranked per expert in
+    flat order by an integer cumulative count, the first C kept) bit for
+    bit, and ``moe_ffn``'s output against a loop over rows and experts
+    within SERVE_CACHE_RTOL of its largest magnitude. Fails if nothing
+    is dropped at the tight capacity."""
+    import torch.nn.functional as F
+    from repro_torch.models import api, moe
+    seen, real = [], moe.moe_ffn
+
+    def capture(p, x, c, key=None):
+        if not seen:
+            seen.append((p, x.clone()))
+        return real(p, x, c, key)
+    moe.moe_ffn = capture
+    try:
+        with torch.inference_mode():
+            api.prefill_fn(cfg)(params, {"tokens": tokens})
+    finally:
+        moe.moe_ffn = real
+    p, x = seen[0]
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_token
+    out = {}
+    for cf in (cfg.capacity_factor, MOE_TIGHT_CAPACITY):
+        c = cfg.replace(capacity_factor=cf)
+        cap = moe.capacity_of(c, s)
+        with torch.inference_mode():
+            y = real(p, x, c)
+            eids, gates, dst, keep, _ = moe.route(p, x, c)
+            flat = eids.reshape(b, s * k).long()
+            rank = (F.one_hot(flat, e).cumsum(1) - 1).gather(
+                2, flat[..., None])[..., 0]
+            keep_plain = rank < cap
+            dst_plain = torch.where(keep_plain, flat * cap + rank, e * cap)
+            w = gates.reshape(b, s * k) * keep_plain
+            plain = torch.zeros(b, s, d, dtype=torch.float32,
+                                device=x.device)
+            for r in range(b):
+                for j in range(e):
+                    a = torch.nonzero(keep_plain[r] & (flat[r] == j))[:, 0]
+                    t = a // k
+                    xe = x[r, t]
+                    h = F.silu(xe @ p["w_gate"][j]) * (xe @ p["w_in"][j])
+                    plain[r].index_add_(0, t, (h @ p["w_out"][j]).float()
+                                        * w[r, a, None])
+            if "shared" in p:
+                sh = p["shared"]
+                plain += ((F.silu(x @ sh["w_gate"]) * (x @ sh["w_in"]))
+                          @ sh["w_out"]).float()
+            err = float((y.float() - plain).abs().amax()
+                        / plain.abs().amax())
+        same = torch.equal(keep, keep_plain) and torch.equal(dst.long(),
+                                                            dst_plain)
+        dropped = int((~keep_plain).sum())
+        if not same or err > SERVE_CACHE_RTOL or (
+                cf == MOE_TIGHT_CAPACITY and not dropped):
+            fail(f"{tag} (c): MoE plan at capacity {cap} the plain one's "
+                 f"{same}, {dropped} assignments dropped; moe_ffn within "
+                 f"{err} of the loop's largest (limit {SERVE_CACHE_RTOL})")
+        log(f"{tag} (c) MoE dispatch of {b} x {s} tokens at capacity "
+            f"factor {cf} (capacity {cap}): {dropped} of {b * s * k} "
+            f"assignments dropped, keep and dst bit for bit the plain "
+            f"plan's, moe_ffn within {err:.4g} of a loop over rows and "
+            f"experts (limit {SERVE_CACHE_RTOL})")
+        out[f"capacity_{cap}"] = dict(capacity_factor=cf, dropped=dropped,
+                                      assignments=b * s * k,
+                                      ffn_max_rel=err)
+    return out
 
 
 def serve_sentinel(torch, seed: int, dev) -> dict:
@@ -3525,41 +3766,57 @@ def serve_sentinel(torch, seed: int, dev) -> dict:
     return dict(strict_traces=traces, retrace=retraces[0])
 
 
-def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
-    from repro_torch import configs, prng
+def serve_model(torch, cfg, dev, tag="[serve]",
+                checked=("embed.tokens", "dense_layers.attn.wq"),
+                prompt=None, cache_steps=None) -> dict:
+    """One full-width model served: (a) its weights on the card
+    (:func:`serve_build`); (b) ``Server.generate`` of ``SERVE_REQUESTS``
+    prompts of ``prompt`` (``SERVE_PROMPT``) tokens for ``SERVE_STEPS``
+    steps, every kernel call held to its plain version, the telemetry read
+    back and checked;
+    (d) the loop again timed (:func:`serve_timed`), each figure beside its
+    bound, one traced decode step's device activities and host ops, the
+    telemetry's own calls; (c) decode against prefill
+    (:func:`serve_cache_consistency` at ``cache_steps``). Dense is gated
+    in its served dtype. The other families are logged in it and gated
+    on an f32 copy of the weights: the recurrent states integrate over
+    time the rounding differences of the two paths' bf16 products
+    (prefill multiplies ``[rows x tokens, D]`` blocks, decode ``[rows,
+    D]``), 0.032 of the largest xLSTM state leaf on an H100 against
+    phi4's K/V at 0.009, while a wrong slot, ring or state shows at
+    O(1); in bf16 a router near-tie picks different experts in the two
+    paths. For moe, (c) also holds the dispatch, at the served capacity
+    and where experts overflow, to a plain one
+    (:func:`moe_dispatch_check`), and runs decode against
+    prefill at a capacity that drops nothing: with drops the two
+    legitimately differ (their groups and capacities differ, in the
+    reference too)."""
+    from repro_torch import prng
     from repro_torch.core import oasrs
     from repro_torch.kernels import ops
+    from repro_torch.models import param
     from repro_torch.serve.serve_step import Server
-    t_phase = time.perf_counter()
-    cfg = configs.get_config(SERVE_ARCH) if cfg is None else cfg
-    flags = dict(
-        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-        matmul_allow_bf16_reduced_precision_reduction=(
-            torch.backends.cuda.matmul
-            .allow_bf16_reduced_precision_reduction),
-        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-    log(f"[serve] torch matmul flags as found (none set): {flags}")
-    result = dict(arch=cfg.name, dtype=str(cfg.dtype), card=card(),
-                  flags=flags, requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
-                  steps=SERVE_STEPS, tenants=SERVE_TENANTS,
+    prompt = SERVE_PROMPT if prompt is None else prompt
+    result = dict(arch=cfg.name, family=cfg.family, dtype=str(cfg.dtype),
+                  num_layers=cfg.num_layers, requests=SERVE_REQUESTS,
+                  prompt=prompt, steps=SERVE_STEPS, tenants=SERVE_TENANTS,
                   capacity=SERVE_CAPACITY)
     torch.cuda.empty_cache()
-    params, result["build"] = serve_build(torch, cfg, dev)
+    params, result["build"] = serve_build(torch, cfg, dev, checked, tag)
 
     # (b) The main path: Server.generate and the telemetry queries, every
     # kernel call held to its plain version.
     server = Server(cfg, params, num_tenants=SERVE_TENANTS,
                     telemetry_capacity=SERVE_CAPACITY, device=dev)
     key = prng.PRNGKey(1, device=dev)
-    tokens = prng.randint(key, (SERVE_REQUESTS, SERVE_PROMPT), 0,
-                          cfg.vocab_size)
+    tokens = prng.randint(key, (SERVE_REQUESTS, prompt), 0, cfg.vocab_size)
     tenants = prng.randint(prng.fold_in(key, 3), (SERVE_REQUESTS,), 0,
                            SERVE_TENANTS)
     batch = {"tokens": tokens}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    with HeldToPlain(torch, "serve") as held:
+    with HeldToPlain(torch, tag) as held:
         t0 = time.perf_counter()
         out = server.generate(batch, steps=SERVE_STEPS, tenant_ids=tenants)
         torch.cuda.synchronize()
@@ -3575,30 +3832,32 @@ def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
              SERVE_TENANTS * SERVE_CAPACITY): 4}
     if held.calls != want or launches["reservoir_fold"] != SERVE_STEPS \
             or launches["stratified_stats"] != 4:
-        fail(f"serve (b): kernel calls held {held.calls}, launches "
+        fail(f"{tag} (b): kernel calls held {held.calls}, launches "
              f"{launches}; expected {want}")
     if tuple(out.shape) != (SERVE_REQUESTS, SERVE_STEPS + 1) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
-        fail(f"serve (b): generated {tuple(out.shape)} {out.dtype}")
-    log(f"[serve] (b) Server.generate: {SERVE_REQUESTS} requests x "
-        f"{SERVE_PROMPT}-token prompts, {SERVE_STEPS} decode steps in "
+        fail(f"{tag} (b): generated {tuple(out.shape)} {out.dtype}")
+    log(f"{tag} (b) Server.generate: {SERVE_REQUESTS} requests x "
+        f"{prompt}-token prompts, {SERVE_STEPS} decode steps in "
         f"{generate_s:.3f} s; every kernel call held to its plain version "
         f"({held.calls}); launches {launches}")
-    log("[serve] (b) metrics_text():\n" + text.rstrip())
+    log(f"{tag} (b) metrics_text():\n" + text.rstrip())
     result["telemetry"] = check_telemetry(torch, server, est, per, text,
-                                          tenants)
+                                          tenants, tag)
     result.update(generate_s=generate_s, launches=launches,
-                  peak_bytes=peak)
+                  held=str(held.calls), peak_bytes=peak)
 
     # (d) Times: the loop again, then the telemetry's own calls.
-    timed = serve_timed(torch, server, batch, tenants)
+    timed = serve_timed(torch, server, batch, tenants, tag)
     state = timed.pop("state")
     toks = timed.pop("toks")
     dec = sorted(timed["decode_ms"])
     med = dec[len(dec) // 2]
-    need = decode_need(cfg, params, state, SERVE_REQUESTS)
-    pneed = prefill_need(cfg, params, SERVE_REQUESTS, SERVE_PROMPT)
     pre = sorted(timed["prefill_ms"])[len(timed["prefill_ms"]) // 2]
+    routed = (routed_experts(torch, server, state, toks) if cfg.is_moe
+              else [])
+    need = decode_need(cfg, params, state, SERVE_REQUESTS, routed)
+    pneed = prefill_need(cfg, params, state, SERVE_REQUESTS, prompt)
     tel = oasrs.OASRSState(values=server.telemetry.values.clone(),
                            counts=server.telemetry.counts.clone(),
                            capacity=server.telemetry.capacity.clone(),
@@ -3619,6 +3878,7 @@ def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
             logits, box[0] = server.decode(box[0], box[1], tenants)
     acts, busy_ms, own, host_ops = device_split(torch, steps, 3)
     bound_ms = max(need["bytes_ms"], need["ops_ms"])
+    pbound_ms = max(pneed["bytes_ms"], pneed["ops_ms"])
     result.update(
         prefill_ms=timed["prefill_ms"], decode_ms=timed["decode_ms"],
         decode_median_ms=med, decode_min_ms=dec[0], decode_max_ms=dec[-1],
@@ -3626,31 +3886,35 @@ def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
         / (sum(dec) / 1e3),
         tokens_per_s_end_to_end=SERVE_REQUESTS * SERVE_STEPS
         / ((pre + sum(dec)) / 1e3),
+        prefill_tokens_per_s=SERVE_REQUESTS * prompt / (pre / 1e3),
         decode_need=need, decode_bound_ms=bound_ms,
         decode_bound_by="bytes" if need["bytes_ms"] >= need["ops_ms"]
         else "operations",
-        prefill_need=pneed,
-        prefill_bound_ms=max(pneed["bytes_ms"], pneed["ops_ms"]),
+        prefill_need=pneed, prefill_bound_ms=pbound_ms,
+        prefill_bound_by="bytes" if pneed["bytes_ms"] >= pneed["ops_ms"]
+        else "operations",
         telemetry_fold_ms=fold_ms, telemetry_mean_ms=mean_ms,
         telemetry_per_tenant_ms=tenant_ms, metrics_text_ms=text_ms,
         decode_device_activities=acts, decode_device_busy_ms=busy_ms,
         decode_busy_share=busy_ms / med, decode_own_kernel_ms=own,
         decode_host_ops=host_ops)
-    log(f"[serve] (d) prefill of {SERVE_REQUESTS} x {SERVE_PROMPT} tokens: "
-        f"{[round(x, 3) for x in timed['prefill_ms']]} ms (bound "
-        f"{result['prefill_bound_ms']:.3f} ms by "
-        f"{'operations' if pneed['ops_ms'] > pneed['bytes_ms'] else 'bytes'}"
-        f"); decode step median {med:.4f} ms, min {dec[0]:.4f}, max "
-        f"{dec[-1]:.4f} ({SERVE_STEPS} steps); bound {bound_ms:.4f} ms by "
+    log(f"{tag} (d) prefill of {SERVE_REQUESTS} x {prompt} tokens: "
+        f"{[round(x, 3) for x in timed['prefill_ms']]} ms "
+        f"({result['prefill_tokens_per_s']:.1f} tokens/s; bound "
+        f"{pbound_ms:.3f} ms by {result['prefill_bound_by']}); decode step "
+        f"median {med:.4f} ms, min {dec[0]:.4f}, max {dec[-1]:.4f} "
+        f"({SERVE_STEPS} steps); bound {bound_ms:.4f} ms by "
         f"{result['decode_bound_by']} ({need['bytes'] / 1e9:.4f} GB: "
-        f"weights {need['weight_bytes'] / 1e9:.4f}, KV read "
-        f"{need['kv_read_bytes'] / 1e9:.4f}); {result['tokens_per_s']:.1f}"
-        f" generated tokens/s ({result['tokens_per_s_end_to_end']:.1f} "
-        f"with the prefill)")
-    log(f"[serve] (d) one decode step: {acts:.1f} device activities, "
+        f"weights {need['weight_bytes'] / 1e9:.4f}, state read "
+        f"{need['state_read_bytes'] / 1e9:.4f}, written "
+        f"{need['state_write_bytes'] / 1e9:.4f}"
+        f"{f'; routed experts per layer {routed}' if routed else ''}); "
+        f"{result['tokens_per_s']:.1f} generated tokens/s "
+        f"({result['tokens_per_s_end_to_end']:.1f} with the prefill)")
+    log(f"{tag} (d) one decode step: {acts:.1f} device activities, "
         f"{busy_ms:.4f} ms device busy = {busy_ms / med:.3f} of the median "
         f"step, {host_ops:.0f} host torch ops; own kernels {own}")
-    log(f"[serve] (d) telemetry: fold of {SERVE_REQUESTS} records "
+    log(f"{tag} (d) telemetry: fold of {SERVE_REQUESTS} records "
         f"{fold_ms:.4f} ms, telemetry_mean {mean_ms:.4f} ms, per tenant "
         f"{tenant_ms:.4f} ms (device, events); metrics_text "
         f"{text_ms:.4f} ms (host); peak memory of (b) "
@@ -3658,10 +3922,42 @@ def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
     del state, box, timed, server, tel
     torch.cuda.empty_cache()
 
-    result["cache"] = serve_cache_consistency(
-        torch, cfg, params, tokens[:SERVE_CACHE_BATCH])
+    ctoks = tokens[:SERVE_CACHE_BATCH]
+    if cfg.family != "dense":
+        if cfg.is_moe:
+            result["moe_plan"] = moe_dispatch_check(torch, cfg, params,
+                                                    ctoks, tag)
+            cfg = cfg.replace(capacity_factor=(
+                cfg.num_experts / cfg.num_experts_per_token))
+        result["cache_served"] = serve_cache_consistency(
+            torch, cfg, params, ctoks, tag, cache_steps, gate=False)
+        params = param.map_tree(lambda _p, t: t.float(), params)
+        cfg = cfg.replace(dtype=torch.float32)
+        torch.cuda.empty_cache()
+    result["cache"] = serve_cache_consistency(torch, cfg, params, ctoks,
+                                              tag, cache_steps)
     del params
     torch.cuda.empty_cache()
+    return result
+
+
+def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
+    """``SERVE_ARCH`` (or ``cfg``) served at full width
+    (:func:`serve_model`), then phase main's executor under the retrace
+    sentinel (:func:`serve_sentinel`); ``chiprun_out/
+    chip_smoke_serve.json``."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    flags = dict(
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        matmul_allow_bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction),
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    log(f"[serve] torch matmul flags as found (none set): {flags}")
+    result = dict(card=card(), flags=flags)
+    cfg = configs.get_config(SERVE_ARCH) if cfg is None else cfg
+    result.update(serve_model(torch, cfg, dev))
     result["sentinel"] = serve_sentinel(torch, seed, dev)
     result["seconds"] = time.perf_counter() - t_phase
     log(f"[serve] phase took {result['seconds']:.1f} s")
@@ -3673,33 +3969,25 @@ def phase_serve(torch, seed: int, dev, cfg=None) -> dict:
 
 
 def train_need(cfg, params, batch: int, seq: int) -> dict:
-    """One training step's work, from the run's own counts: the matrix
-    products' operations (forward, backward at twice the forward, and the
-    ``remat`` forward of the layers again; the scores and P·V of the
-    attention blocks computed) and the optimizer's and clip's bytes (the
-    grads read for the norm, read and written by the clip, read by AdamW;
-    master, mu and nu read and written in f32; the params written). The
-    bound is the sum of the two phases' least times."""
-    from repro_torch.models import param
-    leaves = dict(param.leaves(params))
-    n_all = sum(t.numel() for t in leaves.values())
-    n_layers = sum(t.numel() for p, t in leaves.items()
-                   if p.startswith("dense_layers"))
-    n_mat = n_all - leaves["embed.tokens"].numel()
-    tokens = batch * seq
-    qc, ck = min(cfg.attn_q_chunk, seq), min(cfg.attn_kv_chunk, seq)
-    pairs = sum(min(-(-seq // ck), -(-((i + 1) * qc) // ck)) * qc * ck
-                for i in range(-(-seq // qc)))
-    attn = 4 * cfg.num_layers * batch * cfg.num_heads * pairs * cfg.head_dim
+    """One training step's work, from the run's own counts: the forward's
+    operations (:func:`model_work`), the backward at twice the forward,
+    the ``remat`` forward of the layers again; and the optimizer's and
+    clip's bytes (the grads read for the norm, read and written by the
+    clip, read by AdamW; master, mu and nu read and written in f32; the
+    params written). The bound is the sum of the two phases' least
+    times."""
+    w = model_work(cfg, params, batch, seq)
+    seq_ops = w["attn_ops"] + w["rec_ops"]
     remat = cfg.remat == "full"
-    ops_ = 3 * (2 * tokens * n_mat + attn) + (
-        2 * tokens * n_layers + attn if remat else 0)
+    ops_ = 3 * (w["mat_ops"] + seq_ops) + (
+        w["layer_ops"] + seq_ops if remat else 0)
     item = cfg.dtype.itemsize
-    nbytes = n_all * (4 * item + 3 * 2 * 4 + item)
+    nbytes = w["params"] * (4 * item + 3 * 2 * 4 + item)
     ops_ms = ops_ / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(params=n_all, matmul_weights=n_mat, layer_weights=n_layers,
-                tokens=tokens, ops=ops_, opt_bytes=nbytes, ops_ms=ops_ms,
+    return dict(params=w["params"], matmul_weights=w["matmul_weights"],
+                layer_weights=w["layer_weights"], tokens=w["tokens"],
+                ops=ops_, opt_bytes=nbytes, ops_ms=ops_ms,
                 opt_bytes_ms=bytes_ms, bound_ms=ops_ms + bytes_ms)
 
 
@@ -3738,13 +4026,15 @@ class TrainProbe:
       instead (``device_split``);
     * ``optimizer.apply_updates``: each update's device time (CUDA
       events around it, clip included); at step ``TRAIN_CHECKED_STEP``,
-      the first ``TRAIN_SLICE`` elements of ``TRAIN_LEAF``'s master, mu and
-      nu against the functional AdamW formula on the same grads, the
-      error relative to the slice's largest magnitude.
+      the first ``TRAIN_SLICE`` elements of ``leaf``'s master, mu and nu
+      against the functional AdamW formula on the same grads, the error
+      relative to the slice's largest magnitude.
     """
 
-    def __init__(self, torch, cfg, first_batch):
+    def __init__(self, torch, cfg, first_batch, leaf: str = TRAIN_LEAF,
+                 traced: bool = True):
         self.torch, self.cfg, self.first_batch = torch, cfg, first_batch
+        self.leaf, self.traced = leaf, traced
         self.loss32, self.windows, self.step_ms = None, [], []
         self.profile, self.adam, self.update_events = None, None, []
 
@@ -3775,15 +4065,12 @@ class TrainProbe:
         return [a.elapsed_time(b) for a, b in self.update_events]
 
     def init_state(self, params, mesh, opt_cfg, skeleton=None):
-        from repro_torch.models import param
-        from repro_torch.models import transformer as tr
+        from repro_torch.models import api, param
         t = self.torch
         with t.no_grad():
             p32 = param.map_tree(lambda _p, x: x.float(), params)
-            b = self.first_batch
-            self.loss32 = float(tr.lm_loss(
-                p32, b["tokens"], self.cfg.replace(dtype=t.float32),
-                seq_weights=b["weights"])[0])
+            loss = api.loss_fn(self.cfg.replace(dtype=t.float32))
+            self.loss32 = float(loss(p32, self.first_batch)[0])
         del p32
         t.cuda.empty_cache()
         return self._real("init_state")(params, mesh, opt_cfg, skeleton)
@@ -3800,7 +4087,7 @@ class TrainProbe:
 
         def step(state, batch):
             k = len(self.step_ms) + (self.profile is not None) + 1
-            if k == TRAIN_PROFILED_STEP:
+            if self.traced and k == TRAIN_PROFILED_STEP:
                 box = []
                 self.profile = device_split(
                     t, lambda: box.append(real(state, batch)), 1)
@@ -3829,7 +4116,7 @@ class TrainProbe:
         t, n = self.torch, TRAIN_SLICE
 
         def part(tree):
-            return dict(param.leaves(tree))[TRAIN_LEAF].reshape(-1)[:n]
+            return dict(param.leaves(tree))[self.leaf].reshape(-1)[:n]
         g = part(grads).clone()
         mu, nu, master = (part(x).clone()
                           for x in (state.mu, state.nu, state.master))
@@ -3851,7 +4138,7 @@ class TrainProbe:
         err = {f: float((part(getattr(new, f)) - w).abs().max()
                         / w.abs().max().clamp(min=1e-30))
                for f, w in (("mu", mu_n), ("nu", nu_n), ("master", want))}
-        self.adam = dict(step=int(new.step), leaf=TRAIN_LEAF, elements=n,
+        self.adam = dict(step=int(new.step), leaf=self.leaf, elements=n,
                          max_rel_err=err, grad_norm=float(gn),
                          lr=float(lr))
         return new, metrics
@@ -3909,13 +4196,33 @@ def train_resume(torch, dev) -> dict:
                 bitwise=rest == whole[6:])
 
 
-def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
+@contextlib.contextmanager
+def config_as(cfg):
+    """Inside ``with``, ``launch/train`` gets ``cfg`` for ``cfg.name``
+    (a config cut in depth, as ``configs.get_config`` has none)."""
+    from repro_torch.launch import train as tlt
+    real = tlt.cfgs.get_config
+
+    def get_config(name, smoke=False):
+        return cfg if name == cfg.name and not smoke else real(name, smoke)
+    tlt.cfgs.get_config = get_config
+    try:
+        yield
+    finally:
+        tlt.cfgs.get_config = real
+
+
+def phase_train(torch, seed: int, dev, smoke: bool = False,
+                cfg=None) -> dict:
     """``launch/train.train`` at ``phi4-mini-3.8b``'s full config in bf16
     (the reference CLI's defaults otherwise; no checkpoint directory: a
     full-width checkpoint would be 62 GB of host files), every fold held
     to its plain version; then the checks and figures of ``TrainProbe``,
     the sampled windows against the CPU, and the resume path at the
-    smoke config."""
+    smoke config. Given ``cfg`` (phase families: another family, at full
+    width, its depth perhaps cut), ``launch/train`` trains that config,
+    the AdamW slice is ``FAMILY_LEAF``'s, and the resume path and the
+    JSON file are left to the caller."""
     from repro_torch import configs, prng
     from repro_torch.core import oasrs
     from repro_torch.kernels import ops
@@ -3924,11 +4231,16 @@ def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
     from repro_torch.stream.pipeline import (TokenWindowSpec,
                                              synthetic_token_window)
     t_phase = time.perf_counter()
-    run = tlt.RunConfig(arch=TRAIN_ARCH, smoke=smoke, steps=TRAIN_STEPS,
+    family = cfg is not None
+    run = tlt.RunConfig(arch=cfg.name if family else TRAIN_ARCH,
+                        smoke=smoke, steps=TRAIN_STEPS,
                         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                         num_domains=TRAIN_DOMAINS,
                         sampling_fraction=TRAIN_FRACTION, seed=seed)
-    cfg = configs.get_config(run.arch, smoke=run.smoke)
+    if not family:
+        cfg = configs.get_config(run.arch, smoke=run.smoke)
+    leaf = FAMILY_LEAF[cfg.name] if family else TRAIN_LEAF
+    traced = cfg.name not in FAMILY_UNTRACED
     window = int(run.batch / run.sampling_fraction)
     cap = max(run.batch // run.num_domains, 1)
     first = train_first_batch(torch, run, dev)
@@ -3941,8 +4253,8 @@ def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
         lines.append(line)
         log(line)
     ops.reset_launch_counts()
-    with HeldToPlain(torch, "train") as held, \
-            TrainProbe(torch, cfg, first) as probe:
+    with HeldToPlain(torch, "train") as held, config_as(cfg), \
+            TrainProbe(torch, cfg, first, leaf, traced) as probe:
         t0 = time.perf_counter()
         losses = tlt.train(run, device=dev, log=keep)
         torch.cuda.synchronize()
@@ -3985,11 +4297,12 @@ def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
     shapes = param.map_tree(lambda _p, s: torch.empty(
         s.shape, dtype=s.dtype, device="meta"), api.skeleton(cfg))
     need = train_need(cfg, shapes, run.batch, run.seq_len)
-    acts, busy_ms, own, host_ops = probe.profile
+    acts, busy_ms, own, host_ops = probe.profile or (None,) * 4
     upd = sorted(probe.update_ms()[1:])
     upd_med = upd[len(upd) // 2]
     result = dict(
-        arch=cfg.name, dtype=str(cfg.dtype), card=card(), steps=TRAIN_STEPS,
+        arch=cfg.name, num_layers=cfg.num_layers, dtype=str(cfg.dtype),
+        card=card(), steps=TRAIN_STEPS,
         batch=run.batch, seq_len=run.seq_len, window=window,
         domains=run.num_domains, losses=losses, loss32_step1=l32,
         step1_rel_err=abs(l1 - l32) / abs(l32), adam=adam,
@@ -4000,10 +4313,12 @@ def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
         peak_bytes=peak, train_s=train_s, launches=launches,
         held=str(held.calls), need=need, bound_ms=need["bound_ms"],
         device_activities=acts, device_busy_ms=busy_ms,
-        busy_share=busy_ms / med, own_kernel_ms=own, host_ops=host_ops,
-        update_ms=probe.update_ms(), update_median_ms=upd_med, lines=lines)
+        busy_share=busy_ms / med if traced else None, own_kernel_ms=own,
+        host_ops=host_ops, update_ms=probe.update_ms(),
+        update_median_ms=upd_med, lines=lines)
     log(f"[train] {cfg.name} at {'smoke' if smoke else 'full'} width in "
-        f"{cfg.dtype}: {need['params']:,} parameters, {TRAIN_STEPS} steps "
+        f"{cfg.dtype}, {cfg.num_layers} layers: {need['params']:,} "
+        f"parameters, {TRAIN_STEPS} steps "
         f"of {run.batch} x {run.seq_len} tokens sampled from windows of "
         f"{window} in {train_s:.2f} s; every fold held to its plain "
         f"version ({held.calls}); launches {launches}; sampled indices, "
@@ -4011,12 +4326,13 @@ def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
     log(f"[train] step 1's loss {l1:.6f} vs {l32:.6f} recomputed in f32 "
         f"before the optimizer state (rel {result['step1_rel_err']:.3g}, "
         f"rtol {TRAIN_LOSS_RTOL}); AdamW slice at step {adam['step']} "
-        f"({TRAIN_LEAF}[:{TRAIN_SLICE}]) rel err {adam['max_rel_err']} "
+        f"({leaf}[:{TRAIN_SLICE}]) rel err {adam['max_rel_err']} "
         f"(rtol {TRAIN_ADAM_RTOL}); loss {losses[0]:.4f} → "
         f"{losses[-1]:.4f} (first 5 mean {np.mean(losses[:5]):.4f}, last 5 "
         f"{np.mean(losses[-5:]):.4f})")
     log(f"[train] step ms median {med:.3f}, min {timed[0]:.3f}, max "
-        f"{timed[-1]:.3f} (steps 2-{TRAIN_STEPS} but {TRAIN_PROFILED_STEP}; "
+        f"{timed[-1]:.3f} (steps 2-{TRAIN_STEPS}"
+        f"{f' but {TRAIN_PROFILED_STEP}' if traced else ''}; "
         f"step 1 {probe.step_ms[0]:.3f}); {result['tokens_per_s']:.1f} "
         f"trained tokens/s ({result['window_tokens_per_s']:.1f} window "
         f"tokens/s); bound {need['bound_ms']:.3f} ms = products "
@@ -4028,15 +4344,91 @@ def phase_train(torch, seed: int, dev, smoke: bool = False) -> dict:
         f"{need['opt_bytes_ms']:.3f} ms); forward and backward: the rest of "
         f"the step, {med - upd_med:.3f} ms at the median (bound "
         f"{need['ops_ms']:.3f} ms)")
-    log(f"[train] step {TRAIN_PROFILED_STEP} traced: {acts:.0f} device "
-        f"activities, {busy_ms:.3f} ms busy = {busy_ms / med:.3f} of the "
-        f"median step, {host_ops:.0f} host torch ops; own kernels {own}")
+    if traced:
+        log(f"[train] step {TRAIN_PROFILED_STEP} traced: {acts:.0f} device "
+            f"activities, {busy_ms:.3f} ms busy = {busy_ms / med:.3f} of "
+            f"the median step, {host_ops:.0f} host torch ops; own kernels "
+            f"{own}")
+    else:
+        log(f"[train] no step traced ({cfg.name} is in FAMILY_UNTRACED)")
+    if family:
+        result["seconds"] = time.perf_counter() - t_phase
+        return result
     result["resume"] = train_resume(torch, dev)
     result["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase took {result['seconds']:.1f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_train.json").write_text(
+        json.dumps(result, indent=1, default=str))
+    return result
+
+
+def routed_experts(torch, server, state, toks) -> list:
+    """Distinct experts each MoE layer routes the batch to in one decode
+    step from ``state`` (the step is run once more, outside the timing;
+    it writes the cache slot the next step would)."""
+    from repro_torch.models import moe
+    seen, real = [], moe.route
+
+    def route(params, xg, cfg, key=None):
+        out = real(params, xg, cfg, key)
+        seen.append(int(torch.unique(out[0]).numel()))
+        return out
+    moe.route = route
+    try:
+        server.decode(state, toks)
+    finally:
+        moe.route = real
+    return seen
+
+
+def phase_families(torch, seed: int, dev) -> dict:
+    """The decoder-only families beyond dense, each at full width in
+    bf16: served as phase serve serves phi4 (:func:`serve_model`; the
+    xLSTM's prompt cut to ``FAMILY_SSM_PROMPT``), then trained by
+    ``launch/train.train`` at its defaults (:func:`phase_train` with the
+    family's config; ``FAMILY_TRAIN_LAYERS`` cuts the depth). Every fold
+    and stats call held to its plain version; the launches of the phase
+    summed for the kernels' JSON line. ``chiprun_out/
+    chip_smoke_families.json``."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    result = dict(card=card(), archs={}, reduced={})
+    launches = {"reservoir_fold": 0, "stratified_stats": 0}
+    for arch in FAMILY_ARCHS:
+        cfg = configs.get_config(arch)
+        t0 = time.perf_counter()
+        prompt = FAMILY_SSM_PROMPT if cfg.family == "ssm" else SERVE_PROMPT
+        if prompt != SERVE_PROMPT:
+            result["reduced"][f"{arch} prompt"] = (
+                f"served on prompts of {prompt} of {SERVE_PROMPT} tokens: "
+                "its prefill is a host-bound loop over time")
+        serve = serve_model(torch, cfg, dev, f"[families] {arch}",
+                            ("embed.tokens", FAMILY_LEAF[arch]), prompt,
+                            FAMILY_CACHE_STEPS)
+        depth = FAMILY_TRAIN_LAYERS.get(arch, cfg.num_layers)
+        if depth != cfg.num_layers:
+            result["reduced"][arch] = (
+                f"trained at {depth} of {cfg.num_layers} layers (full "
+                "width): the AdamW state of all would exceed the card")
+        train = phase_train(torch, seed, dev,
+                            cfg=cfg.replace(num_layers=depth))
+        torch.cuda.empty_cache()
+        for d in (serve["launches"], train["launches"]):
+            for k in launches:
+                launches[k] += d.get(k, 0)
+        result["archs"][arch] = dict(serve=serve, train=train,
+                                     seconds=time.perf_counter() - t0)
+        log(f"[families] {arch} served and trained in "
+            f"{result['archs'][arch]['seconds']:.1f} s")
+    result.update(launches=launches,
+                  seconds=time.perf_counter() - t_phase)
+    log(f"[families] phase took {result['seconds']:.1f} s; reduced "
+        f"{result['reduced']}; launches {launches}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_families.json").write_text(
         json.dumps(result, indent=1, default=str))
     return result
 
@@ -4078,6 +4470,7 @@ def main(argv=None) -> int:
     systems = phase_systems(torch, args.seed, dev)["launches"]
     serve = phase_serve(torch, args.seed, dev)["launches"]
     train = phase_train(torch, args.seed, dev)["launches"]
+    families = phase_families(torch, args.seed, dev)["launches"]
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -4087,13 +4480,14 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/reservoir.py:36",
              launches=launches["reservoir_fold"]
              + systems["reservoir_fold"] + serve["reservoir_fold"]
-             + train["reservoir_fold"], **fold),
+             + train["reservoir_fold"] + families["reservoir_fold"],
+             **fold),
         dict(name="stratified_stats", route="cuda",
              source="src/repro_torch/kernels/csrc/stratified_stats.cu",
              replaces="src/repro/kernels/stratified_stats.py:31",
              launches=launches["stratified_stats"]
-             + systems["stratified_stats"] + serve["stratified_stats"],
-             **stats),
+             + systems["stratified_stats"] + serve["stratified_stats"]
+             + families["stratified_stats"], **stats),
         dict(name="one_shot_ingest", route="cuda",
              source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
              replaces="src/repro/kernels/reservoir.py:146",

@@ -65,6 +65,17 @@ def scalar_in(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``
+    (``F.softplus`` switches to ``x`` above a threshold instead)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -145,3 +156,47 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     ``w``)."""
     b, s, d = x.shape
     return dot_f32(x.reshape(b * s, d), params["w"]).view(b, s, -1)
+
+
+# ---------------------------------------------------------------------------
+# Shared by the recurrent families (models/xlstm.py, models/rglru.py)
+# ---------------------------------------------------------------------------
+
+def causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                tail: Optional[torch.Tensor] = None):
+    """Depthwise causal conv of width ``K = w.shape[0]`` over ``x [B, S,
+    C]``; ``tail``: ``[B, K-1, C]`` carried inputs (decode), zeros if
+    None. The taps are summed in order in x's dtype, as the reference's
+    Python ``sum``. Returns (y, the new tail)."""
+    k = w.shape[0]
+    if tail is None:
+        tail = torch.zeros(x.shape[0], k - 1, x.shape[2], dtype=x.dtype,
+                           device=x.device)
+    xp = torch.cat([tail, x], dim=1)
+    s = x.shape[1]
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i]
+    return y + b, xp[:, -(k - 1):]
+
+
+def weighted_lm_loss(unembed_params: dict, h: torch.Tensor,
+                     tokens: torch.Tensor,
+                     seq_weights: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``Σ_b w_b ℓ̄_b / Σ_b w_b`` from the final hidden states ``h [B, S,
+    D]`` of the whole-length inputs: targets the tokens rolled by one,
+    the last position masked (the reference's ``xlstm_loss`` and
+    ``rg_loss``)."""
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(targets.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    logits = unembed(unembed_params, h)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    per_seq = torch.sum((lse - picked) * mask, dim=1) / torch.clamp(
+        torch.sum(mask, dim=1), min=1.0)
+    w = (seq_weights if seq_weights is not None
+         else torch.ones_like(per_seq)).to(torch.float32)
+    return torch.sum(w * per_seq) / torch.clamp(torch.sum(w), min=1e-9)

@@ -5,9 +5,11 @@ Counterpart of the reference's ``models/param.py``. A model's
 :func:`init_params` materialises the reference's weights bit for bit for
 the same key, :func:`count_params` / :func:`param_bytes` size it, and
 :func:`params_from_reference` / :func:`params_to_reference` carry weights
-between the packages. A params tree is a nested dict of tensors whose
-paths are the reference's tree paths (``dense_layers.attn.wq``), with
-the reference's stacked ``[L, ...]`` layouts.
+between the packages. A params tree is a tree of dicts and lists of
+tensors whose paths are the reference's tree paths
+(``dense_layers.attn.wq``, ``blocks.3.w_up``), with the reference's
+stacked ``[L, ...]`` layouts and its per-block lists (the ssm and hybrid
+families hold ``blocks`` as a list of dicts of different structure).
 
 The reference's ``abstract_params``, ``param_shardings`` and
 ``param_specs`` wait for the port of ``distributed/sharding``.
@@ -44,25 +46,37 @@ class ParamSpec:
                 f"shape {self.shape} / logical {self.logical} rank mismatch")
 
 
+def _children(tree) -> Iterator[Tuple[Any, Any]]:
+    """``(key, child)`` of a dict (keys sorted, as ``jax.tree_util``
+    sorts them) or a list (by index)."""
+    if isinstance(tree, dict):
+        return ((k, tree[k]) for k in sorted(tree))
+    return enumerate(tree)
+
+
 def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """``(path, leaf)`` of a nested dict in the reference's flattening
-    order: dict keys sorted, as ``jax.tree_util`` sorts them."""
-    for k in sorted(tree):
-        path = f"{prefix}.{k}" if prefix else k
-        if isinstance(tree[k], dict):
-            yield from leaves(tree[k], path)
+    """``(path, leaf)`` of a tree of dicts and lists in the reference's
+    flattening order: dict keys sorted, list items by index. A list item's
+    path part is its index (``blocks.10.ln.scale``), walked as a number:
+    block 10 comes after block 2."""
+    for k, v in _children(tree):
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            yield from leaves(v, path)
         else:
-            yield path, tree[k]
+            yield path, v
 
 
-def map_tree(fn: Callable[[str, Any], Any], tree, prefix: str = "") -> dict:
-    """A nested dict of ``fn(path, leaf)`` with ``tree``'s structure."""
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}.{k}" if prefix else k
-        out[k] = (map_tree(fn, v, path) if isinstance(v, dict)
-                  else fn(path, v))
-    return out
+def map_tree(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
+    """A tree of ``fn(path, leaf)`` with ``tree``'s structure (its dicts
+    and lists, the dicts' key order kept)."""
+    def one(k, v):
+        path = f"{prefix}.{k}" if prefix else str(k)
+        return (map_tree(fn, v, path) if isinstance(v, (dict, list))
+                else fn(path, v))
+    if isinstance(tree, list):
+        return [one(i, v) for i, v in enumerate(tree)]
+    return {k: one(k, v) for k, v in tree.items()}
 
 
 def _numel(shape) -> int:
@@ -139,7 +153,7 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 def params_from_reference(tree: Dict[str, Any],
                           device: DeviceLike = None) -> dict:
-    """The reference's params tree (nested dicts of numpy or JAX arrays,
+    """The reference's params tree (dicts and lists of numpy or JAX arrays,
     e.g. ``jax.device_get(params)``) as the port's: the same paths, the
     same layouts and bits (no transposes, no renames). On the card unless
     ``device`` says otherwise."""

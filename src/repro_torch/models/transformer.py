@@ -1,17 +1,16 @@
-"""Decoder-only transformer LM, the dense family: train, prefill, decode.
+"""Decoder-only transformer LM (dense + MoE): train, prefill, decode.
 
-Counterpart of the dense part of the reference's
-``models/transformer.py``. Per-layer params are stacked (a leading
-``layers`` axis on every leaf, the reference's layout) and walked with a
-Python loop over the layers where the reference scans; ``scan_layers``
-has no meaning without a compiler. The per-layer views come from one
+Counterpart of the reference's ``models/transformer.py``. Per-layer
+params are stacked (a leading ``layers`` axis on every leaf, the
+reference's layout) and walked with a Python loop over the layers where
+the reference scans; ``scan_layers`` has no meaning without a compiler.
+MoE configs carry two stacks, ``dense_layers`` (the ``first_dense_layers``
+leading ones, if any) and ``moe_layers`` (``models/moe.moe_ffn`` in place
+of the MLP), walked in that order. The per-layer views come from one
 ``torch.unbind`` per leaf and forward, so a backward stacks each leaf's
 gradient once. ``remat == "full"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
 its scan body. Serving runs under ``torch.inference_mode()``.
-
-Not ported yet (ROADMAP item 12c): the MoE layers (``is_moe`` configs are
-refused).
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ import torch.utils.checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec, map_tree
 
@@ -31,25 +31,28 @@ from repro_torch.models.param import ParamSpec, map_tree
 class UnportedModelError(NotImplementedError):
     """A model family or phase the port does not have yet."""
 
-
-def refuse_moe(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise UnportedModelError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item 12c); "
-            "the port runs the dense family")
+#: The stacks of a params tree, in the order they run, and whether each
+#: holds MoE layers.
+STACKS = (("dense_layers", False), ("moe_layers", True))
 
 
 # ---------------------------------------------------------------------------
 # Skeletons
 # ---------------------------------------------------------------------------
 
-def _layer_skeleton(cfg: ModelConfig) -> dict:
-    return {
+def _layer_skeleton(cfg: ModelConfig, use_moe: bool) -> dict:
+    skel = {
         "ln1": nn.rmsnorm_skeleton(cfg.d_model),
         "attn": attn.attention_skeleton(cfg),
         "ln2": nn.rmsnorm_skeleton(cfg.d_model),
-        "mlp": nn.mlp_skeleton(cfg, cfg.d_ff),
     }
+    if use_moe:
+        skel["moe"] = moe_lib.moe_skeleton(cfg)
+    else:
+        d_ff = cfg.d_ff or cfg.expert_d_ff * max(
+            cfg.num_experts_per_token + cfg.num_shared_experts, 1)
+        skel["mlp"] = nn.mlp_skeleton(cfg, d_ff)
+    return skel
 
 
 def _stack(skel: dict, n: int) -> dict:
@@ -59,13 +62,18 @@ def _stack(skel: dict, n: int) -> dict:
 
 
 def lm_skeleton(cfg: ModelConfig) -> dict:
-    refuse_moe(cfg)
-    return {
+    n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
+    n_moe = cfg.num_layers - cfg.first_dense_layers if cfg.is_moe else 0
+    skel = {
         "embed": nn.embedding_skeleton(cfg),
         "final_ln": nn.rmsnorm_skeleton(cfg.d_model),
         "unembed": nn.unembed_skeleton(cfg),
-        "dense_layers": _stack(_layer_skeleton(cfg), cfg.num_layers),
     }
+    if n_dense:
+        skel["dense_layers"] = _stack(_layer_skeleton(cfg, False), n_dense)
+    if n_moe:
+        skel["moe_layers"] = _stack(_layer_skeleton(cfg, True), n_moe)
+    return skel
 
 
 def _layers(stack: dict, n: int) -> list:
@@ -74,28 +82,43 @@ def _layers(stack: dict, n: int) -> list:
     return [map_tree(lambda _p, t: t[i], views) for i in range(n)]
 
 
-def _num_layers(params: dict) -> int:
-    return params["dense_layers"]["ln1"]["scale"].shape[0]
+def _stacks(params: dict) -> list:
+    """``(per-layer params, use_moe)`` of every layer, in order."""
+    out = []
+    for name, use_moe in STACKS:
+        if name in params:
+            stack = params[name]
+            n = stack["ln1"]["scale"].shape[0]
+            out += [(lp, use_moe) for lp in _layers(stack, n)]
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Layer bodies
 # ---------------------------------------------------------------------------
 
+def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+         use_moe: bool) -> torch.Tensor:
+    if use_moe:
+        return moe_lib.moe_ffn(lp["moe"], h, cfg)
+    return nn.mlp(lp["mlp"], h, cfg)
+
+
 def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                   cfg: ModelConfig, window: Optional[int] = None):
+                   cfg: ModelConfig, use_moe: bool,
+                   window: Optional[int] = None):
     """Forward one layer and return its K/V for the cache."""
     h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv(lp["attn"], h, positions, cfg)
     o = attn.chunked_causal_attention(q, k, v, cfg, window=window)
     x = x + attn.proj_out(lp["attn"], o)
     h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + nn.mlp(lp["mlp"], h, cfg), k, v
+    return x + _ffn(lp, h, cfg, use_moe), k, v
 
 
 def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
-    return _layer_prefill(lp, x, positions, cfg)[0]
+               cfg: ModelConfig, use_moe: bool) -> torch.Tensor:
+    return _layer_prefill(lp, x, positions, cfg, use_moe)[0]
 
 
 def hidden_states(params: dict, tokens: torch.Tensor,
@@ -103,16 +126,16 @@ def hidden_states(params: dict, tokens: torch.Tensor,
     """Token embeddings → final hidden states ``[B, S, D]``;
     differentiable, each layer recomputed in the backward when
     ``cfg.remat == "full"`` and a gradient is being taken."""
-    refuse_moe(cfg)
     x = nn.embed(params["embed"], tokens).to(cfg.dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for lp in _layers(params["dense_layers"], _num_layers(params)):
+    for lp, use_moe in _stacks(params):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _layer_fwd, lp, x, positions, cfg, use_reentrant=False)
+                _layer_fwd, lp, x, positions, cfg, use_moe,
+                use_reentrant=False)
         else:
-            x = _layer_fwd(lp, x, positions, cfg)
+            x = _layer_fwd(lp, x, positions, cfg, use_moe)
     return nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
 
 
@@ -177,17 +200,16 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     anything shorter than the prompt) allocates exactly the prompt. The
     cache is allocated once and each layer's K/V written into it.
     """
-    refuse_moe(cfg)
     x = nn.embed(params["embed"], tokens).to(cfg.dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    n = _num_layers(params)
+    layers = _stacks(params)
     kept = min(s, window) if window else s
     alloc = kept if window else max(max_len, s)
-    cache = kvc.init_cache(cfg, n, b, alloc, window=window,
+    cache = kvc.init_cache(cfg, len(layers), b, alloc, window=window,
                            device=x.device)
-    for i, lp in enumerate(_layers(params["dense_layers"], n)):
-        x, k, v = _layer_prefill(lp, x, positions, cfg,
+    for i, (lp, use_moe) in enumerate(layers):
+        x, k, v = _layer_prefill(lp, x, positions, cfg, use_moe,
                                  window=window or None)
         cache.k[i, :, :kept] = k[:, s - kept:]
         cache.v[i, :, :kept] = v[:, s - kept:]
@@ -199,7 +221,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 def _layer_decode(lp: dict, x: torch.Tensor, layer_k: torch.Tensor,
                   layer_v: torch.Tensor, cache: kvc.KVCache,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, use_moe: bool):
     pos = cache.position.reshape(1)
     h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv(lp["attn"], h, pos, cfg)
@@ -208,7 +230,7 @@ def _layer_decode(lp: dict, x: torch.Tensor, layer_k: torch.Tensor,
     o = attn.decode_attention(q, layer_k, layer_v, valid)
     x = x + attn.proj_out(lp["attn"], o)
     h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + nn.mlp(lp["mlp"], h, cfg)
+    return x + _ffn(lp, h, cfg, use_moe)
 
 
 def decode_step(params: dict, cache: kvc.KVCache, tokens: torch.Tensor,
@@ -220,11 +242,10 @@ def decode_step(params: dict, cache: kvc.KVCache, tokens: torch.Tensor,
     shares them with ``cache``); only ``position`` is a new tensor.
     Nothing is read back to the host.
     """
-    refuse_moe(cfg)
     x = nn.embed(params["embed"], tokens).to(cfg.dtype)
-    layers = _layers(params["dense_layers"], _num_layers(params))
-    for i, lp in enumerate(layers):
-        x = _layer_decode(lp, x, cache.k[i], cache.v[i], cache, cfg)
+    for i, (lp, use_moe) in enumerate(_stacks(params)):
+        x = _layer_decode(lp, x, cache.k[i], cache.v[i], cache, cfg,
+                          use_moe)
     h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = nn.unembed(params["unembed"], h)
     return logits, dataclasses.replace(cache, position=cache.position + 1)

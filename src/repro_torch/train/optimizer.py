@@ -119,9 +119,11 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 
 
 def _drop(tree: dict, path: str) -> None:
+    """Delete the leaf at ``path`` from its dict (a list part of the path
+    is an index; every leaf's own container is a dict)."""
     keys = path.split(".")
     for k in keys[:-1]:
-        tree = tree[k]
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
     del tree[keys[-1]]
 
 

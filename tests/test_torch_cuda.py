@@ -1334,3 +1334,78 @@ def test_cuda_train_matches_cpu(cuda_device):
         assert torch.equal(a["tokens"], b["tokens"])
         assert torch.equal(a["weights"], b["weights"])
     np.testing.assert_allclose(card, cpu, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-3b-a800m",
+                                  "recurrentgemma-9b"])
+def test_cuda_family_matches_cpu(cuda_device, monkeypatch, arch):
+    """A decoder-only family (ssm, moe, hybrid) at its smoke config in
+    f32 on the card and on the CPU: ``init_params`` bit for bit; prefill
+    and three decode steps, each decode step with no read back to the
+    host (sync debug mode "error"), logits and every state leaf within
+    rtol 1e-4 / atol 1e-4; the weighted loss within 1e-4 and its grads
+    within rtol 1e-3 or 1e-5 of the largest grad (a gate whose gradient
+    is 0 but for rounding, behind the max-stabilizer's winning branch,
+    keeps only noise: 4.4e-9 seen on an H100); ``Server.generate`` the CPU's
+    tokens and telemetry state bit for bit, one fold launch per step."""
+    from repro_torch import configs
+    from repro_torch.models import api, param
+    from repro_torch.serve import serve_step
+    cfg = configs.get_config(arch, smoke=True).replace(dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, 512, (4, 20)).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, 4).astype(np.float32))
+
+    def run(dev):
+        params = param.init_params(api.skeleton(cfg), prng.PRNGKey(0),
+                                   device=dev)
+        seen = []
+        with torch.inference_mode():
+            logits, state = api.prefill_fn(cfg)(params,
+                                                {"tokens": toks.to(dev)})
+            seen.append((logits, param.map_tree(
+                lambda _p, t: t.clone(), api.state_tree(state))))
+            for t in range(3):
+                nxt = toks[:, t:t + 1].to(dev)
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    logits, state = api.decode_fn(cfg)(params, state, nxt)
+                finally:
+                    if dev != "cpu":
+                        torch.cuda.set_sync_debug_mode(0)
+                seen.append((logits, param.map_tree(
+                    lambda _p, t: t.clone(), api.state_tree(state))))
+        live = param.map_tree(lambda _p, t: t.clone().requires_grad_(True),
+                              params)
+        loss, _ = api.loss_fn(cfg)(live, {"tokens": toks.to(dev),
+                                          "weights": w.to(dev)})
+        grads = torch.autograd.grad(loss, [t for _, t in
+                                           param.leaves(live)])
+        monkeypatch.setattr(serve_step, "time", _StepClock())
+        server = serve_step.Server(cfg, params, num_tenants=4,
+                                   telemetry_capacity=4, device=dev)
+        out = server.generate({"tokens": toks.to(dev)}, steps=5,
+                              tenant_ids=toks[:, 0].to(dev) % 4)
+        return params, seen, loss.detach(), grads, out, server.telemetry
+
+    ops.reset_launch_counts()
+    cpu, card = _on_both(run, cuda_device)
+    assert ops.launch_counts()["reservoir_fold"] == 5
+    for (p, a), (_, b) in zip(param.leaves(cpu[0]), param.leaves(card[0])):
+        assert torch.equal(a, b.cpu()), p
+    for (la, sa), (lb, sb) in zip(cpu[1], card[1]):
+        torch.testing.assert_close(lb.cpu(), la, rtol=1e-4, atol=1e-4)
+        for (p, a), (_, b) in zip(param.leaves(sa), param.leaves(sb)):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4,
+                                       msg=p)
+    torch.testing.assert_close(card[2].cpu(), cpu[2], rtol=1e-4, atol=0.0)
+    largest = max(float(g.abs().max()) for g in cpu[3])
+    for ga, gb in zip(cpu[3], card[3]):
+        torch.testing.assert_close(gb.cpu(), ga, rtol=1e-3,
+                                   atol=1e-5 * largest)
+    assert torch.equal(cpu[4], card[4].cpu())
+    for f in ("values", "counts", "capacity", "key"):
+        assert torch.equal(getattr(cpu[5], f), getattr(card[5], f).cpu()), f

@@ -27,7 +27,8 @@ from repro_torch.utils import NoCudaDeviceError
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_training.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
+    ROOT / "examples" / "torch_approx_training.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -55,7 +56,8 @@ def test_port_files_found():
             "transformer.py", "api.py", "serve_step.py", "serve.py",
             "phi4_mini_3_8b.py", "optimizer.py", "train_step.py",
             "straggler.py", "checkpoint.py", "train.py",
-            "torch_approx_training.py"} <= names
+            "torch_approx_training.py", "xlstm.py", "moe.py",
+            "rglru.py", "chip_compare.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_family import FixedStepClock
 
 from repro import configs as jcfgs
 from repro.launch import serve as jlaunch
@@ -43,20 +44,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-class FixedStepClock:
-    """``perf_counter`` of a ``time`` module stand-in: call ``n`` returns
-    the sum of the first ``n`` steps, each a multiple of 2**-12 s that
-    varies with ``n``, so every latency is exact and they differ."""
-
-    def __init__(self):
-        self.t, self.n = 0.0, 0
-
-    def perf_counter(self) -> float:
-        self.n += 1
-        self.t += (1 + self.n % 7) * 2.0 ** -12
-        return self.t
 
 
 @pytest.fixture
@@ -179,6 +166,22 @@ def test_decode_rewrites_the_last_prompt_slot_as_the_reference(clocks):
     assert int(tst.position) == int(jst.position) == 9
     np.testing.assert_allclose(tst.k.numpy(), np.asarray(jst.k), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-3b-a800m",
+                                  "recurrentgemma-9b"])
+def test_launch_serve_families_print_the_reference_line(clocks, capsys,
+                                                        arch):
+    """``launch/serve --arch`` of the ssm, moe and hybrid families prints
+    the reference's line."""
+    argv = ["--arch", arch, "--requests", "3", "--prompt-len", "8",
+            "--steps", "2", "--tenants", "2"]
+    jlaunch.main(argv)
+    want = capsys.readouterr().out
+    assert tlaunch.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got.startswith("[serve] generated (3, 3) tokens; ")
+    assert got == want
 
 
 def test_launch_serve_prints_the_reference_line(clocks, capsys):

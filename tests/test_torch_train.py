@@ -14,9 +14,12 @@ The same numpy inputs (made from a seed) and the same state (carried by
 * the straggler helpers bit for bit;
 * ``sample_window`` + ``assemble_batch`` (the fold's plain version over
   int32 sequence indices): indices, validity and weights bit for bit;
-* ``launch/train.train`` in both packages, bf16: the same sampled batch
-  every step, the losses within rtol 2e-3, and the loss decreasing as the
-  reference's ``test_integration.py`` asks.
+* one train step of each other decoder-only family (``xlstm-350m``,
+  ``granite-moe-3b-a800m``, ``recurrentgemma-9b``) in f32;
+* ``launch/train.train`` in both packages, bf16, at phi4 and at the
+  default arch (``xlstm-350m``): the same sampled batch every step, the
+  losses within rtol 2e-3, and the loss decreasing as the reference's
+  ``test_integration.py`` asks.
 
 Each tolerance is stated beside the gap measured on this machine.
 """
@@ -155,10 +158,60 @@ def test_lm_loss_unweighted_and_eval_step():
 
 
 def test_other_families_have_no_loss():
-    for arch in ("xlstm-350m", "granite-moe-3b-a800m",
-                 "seamless-m4t-large-v2"):
+    """The families with a frontend stub (encdec, vlm) have no loss yet;
+    the decoder-only ones do (``test_family_train_step_matches_reference``)."""
+    for arch in ("seamless-m4t-large-v2", "internvl2-76b"):
         with pytest.raises(UnportedModelError, match="item 12c"):
             tapi.loss_fn(tcfgs.get_config(arch, smoke=True))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-3b-a800m",
+                                  "recurrentgemma-9b"])
+def test_family_train_step_matches_reference(arch):
+    """One f32 train step of each decoder-only family beyond dense from
+    the same state (the port's weights, carried to the reference, a tree
+    with lists of blocks for ssm and hybrid) against the reference's
+    jitted step: the loss within 1e-5; the grad norm and the moments
+    within the grads' rtol 1e-4 (or 1e-6 of the tree's largest, where
+    values cancel to near 0); master and params within rtol 1e-4 where
+    the first moment is above 1e-3 of the tree's largest (AdamW's first
+    step moves each value by about ``lr`` times the sign of its
+    gradient, and a gradient that is rounding noise, such as a gate
+    behind the max-stabilizer's winning branch, has a noise sign); step
+    bit for bit."""
+    jcfg = jcfgs.get_config(arch, smoke=True).replace(dtype=jnp.float32)
+    tcfg = tcfgs.get_config(arch, smoke=True).replace(dtype=torch.float32)
+    tp = tparam.init_params(tapi.skeleton(tcfg), prng.PRNGKey(0), "cpu")
+    oc = dict(warmup_steps=3)
+    js = jopt.init_state(tparam.params_to_reference(tp), None,
+                         jopt.OptConfig(**oc))
+    ts = topt.train_state_from_reference(jax.device_get(js), "cpu")
+    assert isinstance(ts.mu.get("blocks", []), list)
+    jb, tb = _batch(jcfg.vocab_size, s=16)
+    js, jm = jax.jit(jts.make_train_step(jcfg, jopt.OptConfig(**oc)))(js, jb)
+    ts, tm = tts.make_train_step(tcfg, topt.OptConfig(**oc))(ts, tb)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=GRAD_RTOL)
+    assert int(ts.step) == int(js.step) == 1
+    mu = dict(tparam.leaves(jax.device_get(js.mu)))
+    mu_top = max(float(np.max(np.abs(a))) for a in mu.values())
+    for f in ("mu", "nu", "master", "params"):
+        tree = jax.device_get(getattr(js, f))
+        largest = max(float(np.max(np.abs(a)))
+                      for _, a in tparam.leaves(tree))
+        jl, tl = dict(tparam.leaves(tree)), dict(tparam.leaves(
+            getattr(ts, f)))
+        assert jl.keys() == tl.keys()
+        for p in jl:
+            want, got = np.asarray(jl[p]), _np(tl[p])
+            if f in ("master", "params"):
+                moved = np.abs(mu[p]) > 1e-3 * mu_top
+                want, got = want[moved], got[moved]
+            np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                                       atol=NEAR_ZERO * largest,
+                                       err_msg=f"{f}.{p}")
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +467,37 @@ def test_train_loss_decreases():
         f"no learning: {losses[:3]} → {losses[-3:]}"
 
 
-def test_default_arch_is_unported(capsys):
-    with pytest.raises(UnportedModelError, match="item 12c"):
-        tlt.train(tlt.RunConfig(), device="cpu")
-    with pytest.raises(UnportedModelError, match="item 12c"):
-        tlt.main(["--device", "cpu"])
+@pytest.fixture(scope="module")
+def default_run():
+    """The reference's ``train`` at its defaults (``xlstm-350m`` smoke,
+    bf16, 20 steps): its losses and every assembled batch."""
+    mp = pytest.MonkeyPatch()
+    seen = _recorded(jlt, mp)
+    try:
+        losses = jlt.train(jlt.RunConfig())
+    finally:
+        mp.undo()
+    return losses, seen
+
+
+def test_default_arch_is_unported(default_run, monkeypatch, capsys):
+    """The default ``--arch xlstm-350m`` was unported; it now trains:
+    ``train(RunConfig())`` samples the reference's batch every step (bit
+    for bit) and its losses are the reference's within rtol 2e-3 (3.5e-4
+    seen), and ``main(["--device", "cpu"])`` trains it too."""
+    jlosses, jseen = default_run
+    tseen = _recorded(tlt, monkeypatch)
+    tlosses = tlt.train(tlt.RunConfig(), device="cpu")
+    assert len(tseen) == len(jseen) == 20
+    for a, b in zip(jseen, tseen):
+        assert a["tokens"].tobytes() == b["tokens"].tobytes()
+        assert a["weights"].tobytes() == b["weights"].tobytes()
+    np.testing.assert_allclose(tlosses, jlosses, rtol=TRAIN_RTOL)
+    capsys.readouterr()
+    assert tlt.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 21 and out[-1] == (
+        f"[train] done; loss {tlosses[0]:.4f} → {tlosses[-1]:.4f}")
 
 
 def test_cli_on_the_cpu(capsys):

@@ -3,7 +3,8 @@
 A checkpoint of ``{"state": TrainState, "res": OASRSState, "epoch"}``
 written by the port restores with the reference's ``restore`` and the
 reverse, every leaf bit for bit, the bf16 params and the reservoirs'
-PRNG key included; the port's own ``save`` / ``restore`` /
+PRNG key included, for phi4's tree and for ``xlstm-350m``'s (a list of
+blocks); the port's own ``save`` / ``restore`` /
 ``AsyncCheckpointer`` / ``latest_step`` / ``_gc`` behave as the
 reference's ``tests/test_train_infra.py`` holds them; and a run of
 ``launch/train`` resumed from its checkpoint continues the uninterrupted
@@ -23,8 +24,11 @@ from repro.models import api as japi
 from repro.models import param as jparam
 from repro.train import checkpoint as jckpt
 from repro.train import optimizer as jopt
+from repro_torch import configs as tcfgs
+from repro_torch import prng
 from repro_torch.core import oasrs as toasrs
 from repro_torch.launch import train as tlt
+from repro_torch.models import api as tapi
 from repro_torch.models import param as tparam
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import optimizer as topt
@@ -49,13 +53,11 @@ def _bytes(x) -> bytes:
     return np.asarray(x).tobytes()
 
 
-@pytest.fixture(scope="module")
-def trees():
-    """The same run state in both packages: the bf16 smoke model's
-    TrainState with distinct f32 master and moments at step 3,
-    reservoirs with int32 payloads and a live key, the epoch cursor."""
-    jcfg = jcfgs.get_config(ARCH, smoke=True)
-    jp = jparam.init_params(japi.skeleton(jcfg), jax.random.PRNGKey(0))
+def _trees(jp):
+    """The same run state in both packages from the reference's bf16
+    params ``jp``: a TrainState with distinct f32 master and moments at
+    step 3, reservoirs with int32 payloads and a live key, the epoch
+    cursor."""
     f32 = jax.tree.map(lambda p: p.astype(jnp.float32), jp)
     js = jopt.TrainState(
         params=jp, master=jax.tree.map(lambda x: x + 1e-3, f32),
@@ -76,6 +78,14 @@ def trees():
     ttree = {"state": ts, "res": tres,
              "epoch": torch.tensor(5, dtype=torch.int32)}
     return jtree, ttree
+
+
+@pytest.fixture(scope="module")
+def trees():
+    """The run state of the bf16 phi4 smoke model in both packages."""
+    jcfg = jcfgs.get_config(ARCH, smoke=True)
+    return _trees(jparam.init_params(japi.skeleton(jcfg),
+                                     jax.random.PRNGKey(0)))
 
 
 def _assert_same(jtree, ttree):
@@ -121,6 +131,30 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path, trees):
     with open(os.path.join(str(tmp_path), "step_00000003",
                            "manifest.json")) as f:
         assert '"bfloat16"' in f.read()
+
+
+def test_xlstm_checkpoint_crosses_the_packages(tmp_path):
+    """``xlstm-350m``'s smoke training state, its ``blocks`` a list of
+    dicts of two structures (bf16 and f32 leaves): the same leaf order,
+    a port checkpoint restored by the reference and a reference
+    checkpoint restored by the port, every leaf bit for bit."""
+    tcfg = tcfgs.get_config("xlstm-350m", smoke=True)
+    tp = tparam.init_params(tapi.skeleton(tcfg), prng.PRNGKey(0), "cpu")
+    jtree, ttree = _trees(jax.tree.map(
+        jnp.asarray, tparam.params_to_reference(tp)))
+    _assert_same(jtree, ttree)
+    assert isinstance(ttree["state"].nu["blocks"], list)
+    tckpt.save(str(tmp_path / "port"), 1, ttree)
+    got = jckpt.restore(str(tmp_path / "port"), 1,
+                        jax.tree.map(jnp.zeros_like, jtree))
+    for a, b in zip(jax.tree_util.tree_leaves(jtree),
+                    jax.tree_util.tree_leaves(got)):
+        assert a.dtype == b.dtype and _bytes(a) == _bytes(b)
+    jckpt.save(str(tmp_path / "ref"), 2, jtree)
+    back = tckpt.restore(str(tmp_path / "ref"), 2, ttree)
+    assert isinstance(back["state"].params["blocks"], list)
+    assert back["state"].params["blocks"][0]["w_up"].dtype == torch.bfloat16
+    _assert_same(jtree, back)
 
 
 def test_checkpoint_roundtrip(tmp_path):
