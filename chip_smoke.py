@@ -36,9 +36,13 @@ Phases (any failure ends the run with a non-zero exit):
              random capacities), a frontier crossing an interval boundary
              with every slot reset, late items, an all-masked chunk, a
              ragged one, and a sequence of four replacement chunks
-             through one carried state; then, as for the fold, its
-             times, kernels, memsets and bound at a replacement chunk in
-             which every masked-in item is live;
+             through one carried state; a payload of two leaves
+             (``{"val": f32, "key": i32}``, the reference's pytree
+             payloads) on the replacement, crossing and late cases, bit
+             for bit the plain version and the one-leaf call; then, as
+             for the fold, its times, kernels, memsets and bound at a
+             replacement chunk in which every masked-in item is live,
+             and its device time with one leaf and with two in turns;
 6. paths     the same deployment on a disordered stream (30% of items
              shifted back by U(0, 0.75) s): (a) pipelined fused, (b)
              pipelined onekernel, (c) batched onekernel, (d) pipelined
@@ -181,23 +185,27 @@ Phases (any failure ends the run with a non-zero exit):
              the resume path at the smoke config (the restored state bit
              for bit the saved one, the resumed losses against the
              uninterrupted run's). ``chiprun_out/chip_smoke_train.json``.
-15. families the decoder-only families beyond dense at full width in
-             bf16: ``xlstm-350m`` (ssm), ``granite-moe-3b-a800m`` (moe),
-             ``recurrentgemma-9b`` (hybrid). Each is served by phase
-             serve's own path (``serve_model``: ``init_params(PRNGKey(0))``
-             on the card, two leaves' first draws against the CPU's;
+15. families the families beyond dense at full width in bf16:
+             ``xlstm-350m`` (ssm), ``granite-moe-3b-a800m`` (moe),
+             ``recurrentgemma-9b`` (hybrid), ``seamless-m4t-large-v2``
+             (encdec, 24 + 24 layers) and ``internvl2-76b`` (vlm, 16 of
+             its 80 layers). Each is served by phase serve's own path
+             (``serve_model``: ``init_params(PRNGKey(0))`` on the card,
+             two leaves' first draws against the CPU's;
              ``Server.generate`` of 8 prompts of 2,048 tokens, 512 for
-             the xLSTM, for 16 steps, 4 tenants, every fold and stats
+             the xLSTM, with 2,048 frames each for encdec and 256 patches
+             for vlm, for 16 steps, 4 tenants, every fold and stats
              call held to its plain version, the telemetry read back and
              checked; the loop timed, each figure beside its bound; (c)
              decode steps 1, 2, 3 and 16 against a prefill over prompt +
              t tokens, logits and every state leaf, logged in bf16 and
-             gated on an f32 copy; for moe also the dispatch at the
-             served capacity and at one where experts overflow against a
-             plain plan and loop),
-             then trained by phase train's path at its defaults
-             (recurrentgemma-9b at 6 of its 38 blocks, full width: the
-             AdamW state of all 38 would exceed the card).
+             gated on an f32 copy, internvl2-76b's of its first 2
+             layers; for moe also the dispatch at the served capacity
+             and at one where experts overflow against a plain plan and
+             loop), then trained by phase train's path at its defaults
+             (recurrentgemma-9b and xlstm-350m at 6 blocks, internvl2-76b
+             at 2 layers, full width; encdec and vlm batches carry their
+             step's frames or patches beside the sampled tokens).
              ``chiprun_out/chip_smoke_families.json``.
 
 Every stream is the reference's: ``StreamAggregator`` draws, ids and
@@ -302,7 +310,8 @@ TRAIN_LEAF = "dense_layers.mlp.w_in"   # the largest leaves
 TRAIN_LOSS_RTOL = 2e-2             # step 1's bf16 loss vs the f32 one
 TRAIN_ADAM_RTOL = 1e-6             # the slice vs the functional formula
 TRAIN_RESUME_RTOL = 1e-3           # resumed losses vs uninterrupted, smoke
-FAMILY_ARCHS = ("xlstm-350m", "granite-moe-3b-a800m", "recurrentgemma-9b")
+FAMILY_ARCHS = ("xlstm-350m", "granite-moe-3b-a800m", "recurrentgemma-9b",
+                "seamless-m4t-large-v2", "internvl2-76b")
 # The xLSTM's serving prompt: its prefill is a Python loop over time
 # (24 blocks x 2,048 steps, ~1.1 M host torch ops, 8.4-15.2 s at 8 x 2,048
 # on an H100 80GB HBM3 at 700 W), and a serve pass runs 1 + SERVE_PREFILLS
@@ -313,10 +322,29 @@ FAMILY_CACHE_STEPS = (1, 2, 3, SERVE_STEPS)   # decode steps of (c) checked
 # experts overflow: at the served 1.25 a 2,048-token row of
 # granite-moe-3b-a800m dropped none of its 16,384 assignments on an H100.
 MOE_TIGHT_CAPACITY = 1.0
-# Blocks trained at full width: recurrentgemma-9b's AdamW state for its 38
-# blocks (~14 B per parameter, ~146 GB) exceeds the card; two periods of
-# (rec, rec, attn) keep every block kind.
-FAMILY_TRAIN_LAYERS = {"recurrentgemma-9b": 6}
+# Layers (blocks) trained at full width, and why: recurrentgemma-9b's AdamW
+# state for its 38 blocks (~14 B per parameter, ~146 GB) exceeds the card
+# (two periods of (rec, rec, attn) keep every block kind); so would
+# internvl2-76b's for 3 of its 80 layers (1.711 GB a layer in bf16);
+# xlstm-350m's 20 steps took 171 s of the script at 24 blocks, and 6 (three
+# (mLSTM, sLSTM) periods) keep every block kind.
+FAMILY_TRAIN_LAYERS = {
+    "recurrentgemma-9b": (6, "the AdamW state of all would exceed the "
+                          "card"),
+    "xlstm-350m": (6, "three (mLSTM, sLSTM) periods: the time limit of the "
+                   "whole script"),
+    "internvl2-76b": (2, "the AdamW state of 3 layers (~14 B per "
+                      "parameter) would exceed the card"),
+}
+# Layers served at full width: internvl2-76b's 80 layers are 141 GB of
+# bf16 weights; 16 are 31.6 GB. Its decode-vs-prefill gate (c) runs on an
+# f32 copy of its first FAMILY_GATE_LAYERS (the training depth): an f32
+# copy of the 16 served would not fit beside them.
+FAMILY_SERVE_LAYERS = {"internvl2-76b": 16}
+FAMILY_GATE_LAYERS = {"internvl2-76b": 2}
+# The frontend stubs' inputs drawn in phase families' training: one key,
+# folded with the step.
+FRONTEND_KEY = 0x46524F4E
 # Families whose training step is not traced: xlstm-350m's step is
 # ~340,000 host torch ops (its time loop), and a trace of one took 126 s
 # on an H100 80GB HBM3 at 700 W (busy 0.201 of the step).
@@ -325,7 +353,9 @@ FAMILY_UNTRACED = ("xlstm-350m",)
 # (serving) and its AdamW slice checked against the formula (training).
 FAMILY_LEAF = {"xlstm-350m": "blocks.0.w_up",
                "granite-moe-3b-a800m": "moe_layers.moe.w_in",
-               "recurrentgemma-9b": "blocks.0.mlp.w_in"}
+               "recurrentgemma-9b": "blocks.0.mlp.w_in",
+               "seamless-m4t-large-v2": "decoder.mlp.w_in",
+               "internvl2-76b": "dense_layers.mlp.w_in"}
 
 
 def log(msg: str) -> None:
@@ -1053,6 +1083,8 @@ def phase_one_shot(torch, gen):
             fail(f"one-shot kernel differs from its plain version (sequence "
                  f"chunk {i}): {bad}, or left its scratch dirty")
 
+    two = one_shot_two_leaves(torch, gen, cases)
+
     t = one_shot_timing(torch, dev)
     need = one_shot_need(torch, t["items"], t["state"])
     n_ops = 20 * M                     # ~twenty integer/f32 ops per item
@@ -1069,20 +1101,117 @@ def phase_one_shot(torch, gen):
     log_launches("one_shot", t["prof"])
     log(f"[one_shot] the counts' restore before each call: "
         f"{t['restore']} (left out of the split above)")
+    two.update(one_shot_leaf_turns(torch, dev, t, need, n_ops))
     return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=bound,
                 bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
-                >= n_ops / F32_OPS_PER_S else "operations", library_ms=None)
+                >= n_ops / F32_OPS_PER_S else "operations", library_ms=None,
+                two_leaves=two)
 
 
-def one_shot_timing(torch, dev, seed: int = TIMING_SEED) -> dict:
+def with_key_leaf(torch, gen, items, state) -> tuple:
+    """A one-shot case with a payload of two leaves, ``{"val": f32,
+    "key": i32}`` (the reference's pytree payloads: heavy-hitter keys
+    riding beside the values): ``val`` the case's own payload and ring,
+    ``key`` drawn from ``gen``. Returns new dicts; the case's tensors are
+    shared, not copied."""
+    dev = gen.device
+    m = items["times"].numel()
+    key = torch.randint(0, 2**31 - 1, (m,), generator=gen,
+                        dtype=torch.int32, device=dev)
+    ring = torch.randint(0, 2**31 - 1, state["values"].shape, generator=gen,
+                         dtype=torch.int32, device=dev)
+    return (dict(items, payload={"val": items["payload"], "key": key}),
+            dict(state, values={"val": state["values"], "key": ring}))
+
+
+def clone_tree(d: dict) -> dict:
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in d.items()}
+
+
+def one_shot_two_leaves(torch, gen, cases) -> dict:
+    """The kernel on a payload of two leaves (:func:`with_key_leaf`) at
+    phase one_shot's shapes, for the replacement, crossing and late
+    cases: every field and both ring leaves bit for bit the plain
+    version's, the f32 leaf bit for bit a one-leaf call's on the same
+    state (one set of decisions), the scratch clean after each call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.one_shot import one_shot_ingest
+    kw = ONE_SHOT_KW
+    calls = 0
+    for name in ("replacement", "crossing", "late"):
+        items, state = cases[name]
+        items2, state2 = with_key_leaf(torch, gen, items, state)
+        sk, sp, single = clone_tree(state2), clone_tree(state2), \
+            clone_tree(state)
+        one_shot_ingest(**items2, **kw, **sk)
+        ref.one_shot_ingest(**items2, **kw, **sp)
+        one_shot_ingest(**items, **kw, **single)
+        calls += 1
+        bad = [f for f in sk if f not in ("values", "adopt")
+               and not (same_bits(torch, sk[f], sp[f])
+                        and same_bits(torch, sk[f], single[f]))]
+        bad += [f"values.{leaf}" for leaf in ("val", "key")
+                if not same_bits(torch, sk["values"][leaf],
+                                 sp["values"][leaf])]
+        if not same_bits(torch, sk["values"]["val"], single["values"]):
+            bad.append("values.val against one leaf")
+        moved = int((sk["values"]["key"] != state2["values"]["key"]).sum())
+        clean = workspace_clean(torch)
+        log(f"[one_shot] two leaves (f32 val, i32 key), {name}: bitwise="
+            f"{not bad} ({moved} key cells written, the val leaf the "
+            f"one-leaf call's), scratch clean={clean}")
+        if bad or not clean or moved == 0:
+            fail(f"one-shot kernel on two leaves ({name}) differs from its "
+                 f"plain version or from one leaf: {bad}; {moved} key cells "
+                 f"written; scratch clean {clean}")
+    return dict(cases=["replacement", "crossing", "late"],
+                two_leaf_checked_calls=calls)
+
+
+def one_shot_leaf_turns(torch, dev, t1, need, n_ops) -> dict:
+    """Device ms per call (the profiler's kernel time, the counts'
+    restore left out) of the steady replacement chunk with one payload
+    leaf and with two (:func:`one_shot_timing`, ``leaves=2``: the same
+    items, ring and decisions, an i32 key leaf beside), in turns
+    1, 2, 2, 1; each beside its bound, the two-leaf one 8 B more per cell
+    won (the key's payload read and ring word written)."""
+    t2 = one_shot_timing(torch, dev, leaves=2, plain=False)
+    turns = {1: [], 2: []}
+    for n in (1, 2, 2, 1):
+        prof = device_profile((t1 if n == 1 else t2)["call"], torch)
+        turns[n].append(sum(v[0] for k, v in prof.items()
+                            if "Memcpy" not in k))
+    b1 = need["bytes"]
+    b2 = b1 + 8 * need["won"]
+    bounds = {n: max(b / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+              for n, b in ((1, b1), (2, b2))}
+    log(f"[one_shot] device ms per call in turns 1, 2, 2, 1 leaves: one "
+        f"leaf {[round(x, 5) for x in turns[1]]}, two leaves "
+        f"{[round(x, 5) for x in turns[2]]} (events around back-to-back "
+        f"calls: one {t1['ms']:.4f}, two {t2['ms']:.4f}); bounds "
+        f"{bounds[1]:.4f} / {bounds[2]:.4f} ms ({b1} / {b2} B: the second "
+        f"leaf adds 8 B per cell won, {need['won']} cells)")
+    return dict(one_leaf_device_ms=turns[1], two_leaf_device_ms=turns[2],
+                one_leaf_ms=t1["ms"], two_leaf_ms=t2["ms"],
+                one_leaf_bound_ms=bounds[1], two_leaf_bound_ms=bounds[2],
+                two_leaf_bytes=b2)
+
+
+def one_shot_timing(torch, dev, seed: int = TIMING_SEED, leaves: int = 1,
+                    plain: bool = True) -> dict:
     """Times the one-shot at the main path's steady state, a replacement
     chunk made from ``seed``: counts 2-3 M above random capacities, the
     frontier at 9.9 s and the items in [9.45, 9.85) s, so every masked-in
     item is live and the frontier does not move. The counts are put back
     before each call (one 24-byte copy, shown apart from the kernels), so
     every call does the same work. Only the wrapper and the plain version
-    are called, so the same inputs time any tree's kernel."""
+    are called, so the same inputs time any tree's kernel. ``leaves=2``
+    adds an i32 key leaf to the payload and the ring
+    (:func:`with_key_leaf`), drawn after the one-leaf inputs, so those
+    are the same; ``plain=False`` leaves the plain version untimed.
+    ``call`` is the timed kernel call."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.one_shot import one_shot_ingest
     gen = torch.Generator(device=dev)
@@ -1096,6 +1225,8 @@ def one_shot_timing(torch, dev, seed: int = TIMING_SEED) -> dict:
         adopt=torch.randint(1, N_MAX, (S,), generator=gen, **i32),
         slot_interval=[0, 1], max_time=9.9, open_interval=1, t_lo=9.45,
         t_hi=9.85)
+    if leaves == 2:
+        items, state = with_key_leaf(torch, gen, items, state)
     counts0 = state["counts"].clone()
 
     def steady(fn):
@@ -1104,12 +1235,13 @@ def one_shot_timing(torch, dev, seed: int = TIMING_SEED) -> dict:
             fn(**items, **ONE_SHOT_KW, **state)
         return call
     ms = time_ms(steady(one_shot_ingest), torch)
-    plain_ms = time_ms(steady(ref.one_shot_ingest), torch, reps=5, warm=1)
+    plain_ms = (time_ms(steady(ref.one_shot_ingest), torch, reps=5, warm=1)
+                if plain else None)
     prof = device_profile(steady(one_shot_ingest), torch)
     restore = {k: prof.pop(k) for k in list(prof) if "Memcpy" in k}
     state["counts"].copy_(counts0)
     return dict(ms=ms, plain_ms=plain_ms, prof=prof, restore=restore,
-                items=items, state=state)
+                items=items, state=state, call=steady(one_shot_ingest))
 
 
 def one_shot_need(torch, items, state) -> dict:
@@ -3315,7 +3447,12 @@ def main_config():
 
 EXPERT_LEAVES = tuple(f"moe_layers.moe.{w}" for w in ("w_in", "w_gate",
                                                       "w_out"))
-LAYER_PREFIXES = ("dense_layers", "moe_layers", "blocks")
+LAYER_PREFIXES = ("dense_layers", "moe_layers", "blocks", "encoder",
+                  "decoder")
+# Of encdec's weights, those that take the encoder's frames (the rest take
+# the decoder's tokens): a decode step reads none of them.
+FRAME_LEAVES = ("encoder.", "enc_final_ln.", "decoder.cross_attn.wk",
+                "decoder.cross_attn.wv")
 
 
 def attention_layers(cfg) -> int:
@@ -3326,6 +3463,14 @@ def attention_layers(cfg) -> int:
         return sum(rglru.block_kind(cfg, i) == "attn"
                    for i in range(cfg.num_layers))
     return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def full_pairs(cfg, sq: int, skv: int) -> int:
+    """Query × key elements of the blocks the chunked attention computes
+    with ``causal=False`` over ``sq`` queries and ``skv`` keys (padded to
+    whole blocks)."""
+    qc, ck = min(cfg.attn_q_chunk, sq), min(cfg.attn_kv_chunk, skv)
+    return -(-sq // qc) * qc * -(-skv // ck) * ck
 
 
 def attention_pairs(cfg, seq: int) -> int:
@@ -3342,28 +3487,38 @@ def attention_pairs(cfg, seq: int) -> int:
     return pairs
 
 
-def model_work(cfg, params, batch: int, seq: int) -> dict:
-    """Operations of one forward over ``batch`` rows of ``seq`` tokens,
-    from the run's shapes: two per weight element a token touches (of
-    the experts, the ``k`` of ``E`` routed; the embedding table only
-    gathered), the attention blocks' scores and P·V, and the mLSTM's
-    matrix-memory update and read-out (``4·hd²`` per token and head).
-    ``layer_ops``: the per-layer weights' share (what ``remat``
-    recomputes)."""
+def model_work(cfg, params, batch: int, seq: int, frames: int = 0) -> dict:
+    """Operations of one forward over ``batch`` rows of ``seq`` tokens
+    (for vlm, patches and text; for encdec, the decoder's tokens, the
+    encoder taking ``frames``), from the run's shapes: two per weight
+    element a token touches (of the experts, the ``k`` of ``E`` routed;
+    the embedding table only gathered), the attention blocks' scores and
+    P·V (encdec: the encoder's and the cross-attention's full blocks
+    too), and the mLSTM's matrix-memory update and read-out (``4·hd²``
+    per token and head). ``layer_ops``: the per-layer weights' share
+    (what ``remat`` recomputes)."""
     from repro_torch.models import param, xlstm
     leaves = dict(param.leaves(params))
     frac = (cfg.num_experts_per_token / cfg.num_experts
             if cfg.is_moe else 1.0)
+    tokens = batch * seq
+    frames = frames or seq
 
     def active(p, t):
         return t.numel() * (frac if p in EXPERT_LEAVES else 1.0)
-    n_mat = sum(active(p, t) for p, t in leaves.items()
-                if p != "embed.tokens")
-    n_layers = sum(active(p, t) for p, t in leaves.items()
-                   if p.startswith(LAYER_PREFIXES))
-    tokens = batch * seq
+
+    def rows(p):
+        return batch * frames if (cfg.family == "encdec" and p.startswith(
+            FRAME_LEAVES)) else tokens
+    mats = [(p, t) for p, t in leaves.items() if p != "embed.tokens"]
+    lays = [(p, t) for p, t in mats if p.startswith(LAYER_PREFIXES)]
     attn = 4 * attention_layers(cfg) * batch * cfg.num_heads * \
         attention_pairs(cfg, seq) * cfg.head_dim
+    if cfg.family == "encdec":
+        attn += 4 * batch * cfg.num_heads * cfg.head_dim * (
+            (cfg.num_encoder_layers or cfg.num_layers)
+            * full_pairs(cfg, frames, frames)
+            + cfg.num_layers * full_pairs(cfg, seq, frames))
     rec = 0
     if cfg.family == "ssm":
         hd = 2 * cfg.d_model // cfg.num_heads
@@ -3371,8 +3526,11 @@ def model_work(cfg, params, batch: int, seq: int) -> dict:
                   for i in range(cfg.num_layers)) * 4 * tokens \
             * cfg.num_heads * hd * hd
     return dict(params=sum(t.numel() for t in leaves.values()),
-                matmul_weights=n_mat, layer_weights=n_layers, tokens=tokens,
-                mat_ops=2 * tokens * n_mat, layer_ops=2 * tokens * n_layers,
+                matmul_weights=sum(active(p, t) for p, t in mats),
+                layer_weights=sum(active(p, t) for p, t in lays),
+                tokens=tokens, frames=batch * frames,
+                mat_ops=2 * sum(active(p, t) * rows(p) for p, t in mats),
+                layer_ops=2 * sum(active(p, t) * rows(p) for p, t in lays),
                 attn_ops=attn, rec_ops=rec)
 
 
@@ -3384,6 +3542,11 @@ def state_bytes(cfg, state, batch: int) -> tuple:
         item = state.k.element_size()
         return (2 * state.k.numel() * item,
                 2 * state.k.shape[0] * batch * cfg.kv_size * item)
+    if "cross_k" in state:             # encdec: self and cross K/V read
+        item = state["self_k"].element_size()
+        return (2 * (state["self_k"].numel() + state["cross_k"].numel())
+                * item,
+                2 * state["self_k"].shape[0] * batch * cfg.kv_size * item)
     read = written = 0
     for blk in state["blocks"]:
         for name, t in blk.items():
@@ -3397,17 +3560,21 @@ def decode_need(cfg, params, state, batch: int, routed=()) -> dict:
     """Bytes and operations one decode step needs: every weight but the
     embedding table read once (of the experts, only those the step
     routed to: ``routed`` distinct experts per MoE layer; of the table
-    the ``batch`` rows gathered), the state read and written
-    (:func:`state_bytes`), the f32 logits written; two operations per
-    weight element a token touches, the scores and P·V over the cache or
-    ring, the mLSTM read-out and update (``4·hd²`` per head)."""
+    the ``batch`` rows gathered; of encdec, the decoder's but the
+    cross-attention's K/V projections, whose outputs are cached), the
+    state read and written (:func:`state_bytes`), the f32 logits written;
+    two operations per weight element a token touches, the scores and
+    P·V over the cache or ring (encdec: and over the frames), the mLSTM
+    read-out and update (``4·hd²`` per head)."""
     from repro_torch.models import param
     item = cfg.dtype.itemsize
     leaves = dict(param.leaves(params))
     per_layer_expert = sum(leaves[p][0].numel() for p in EXPERT_LEAVES
                            if p in leaves) // max(cfg.num_experts, 1)
     dense = [t for p, t in leaves.items()
-             if p != "embed.tokens" and p not in EXPERT_LEAVES]
+             if p != "embed.tokens" and p not in EXPERT_LEAVES
+             and not (cfg.family == "encdec"
+                      and p.startswith(FRAME_LEAVES))]
     dense_elems = sum(t.numel() for t in dense)
     weights = sum(t.numel() * t.element_size() for t in dense) + \
         sum(routed) * per_layer_expert * item
@@ -3416,7 +3583,12 @@ def decode_need(cfg, params, state, batch: int, routed=()) -> dict:
     read, written = state_bytes(cfg, state, batch)
     nbytes = (weights + batch * cfg.d_model * item + read + written
               + batch * cfg.vocab_size * 4)
-    slots = state.max_len if hasattr(state, "window") else cfg.local_window
+    if hasattr(state, "window"):
+        slots = state.max_len
+    elif "cross_k" in state:
+        slots = state["self_k"].shape[2] + state["cross_k"].shape[2]
+    else:
+        slots = cfg.local_window
     work = model_work(cfg, params, batch, 1)
     ops_ = 2 * batch * touched + 4 * attention_layers(cfg) * batch * \
         cfg.num_heads * slots * cfg.head_dim + work["rec_ops"]
@@ -3427,10 +3599,13 @@ def decode_need(cfg, params, state, batch: int, routed=()) -> dict:
                 ops_ms=ops_ / BF16_OPS_PER_S * 1e3)
 
 
-def prefill_need(cfg, params, state, batch: int, prompt: int) -> dict:
-    """Bytes and operations of one prefill: the weights read once (the
-    embedding's gathered rows), the serving state written, the last
-    logits; the operations of :func:`model_work`."""
+def prefill_need(cfg, params, state, batch: int, prompt: int,
+                 frames: int = 0, input_bytes: int = 0) -> dict:
+    """Bytes and operations of one prefill of ``prompt`` positions (and
+    ``frames`` for encdec): the weights read once (the embedding's
+    gathered rows), the frontend stubs' ``input_bytes`` read, the
+    serving state written, the last logits; the operations of
+    :func:`model_work`."""
     from repro_torch.models import param
     item = cfg.dtype.itemsize
     weights = sum(t.numel() * t.element_size()
@@ -3439,9 +3614,9 @@ def prefill_need(cfg, params, state, batch: int, prompt: int) -> dict:
         written = 2 * state.k.numel() * item
     else:
         written = state_bytes(cfg, state, batch)[0]
-    w = model_work(cfg, params, batch, prompt)
+    w = model_work(cfg, params, batch, prompt, frames)
     nbytes = (weights + batch * prompt * cfg.d_model * item + written
-              + batch * cfg.vocab_size * 4)
+              + input_bytes + batch * cfg.vocab_size * 4)
     ops_ = w["mat_ops"] + w["attn_ops"] + w["rec_ops"]
     return dict(bytes=nbytes, ops=ops_,
                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -3531,15 +3706,31 @@ def check_telemetry(torch, server, est, per, text, tenants, tag) -> dict:
                 tenant_means_ms=tenant_means)
 
 
+def positions(batch) -> int:
+    """Positions a prefill of ``batch`` puts in the cache: its tokens and,
+    for vlm, the patches before them."""
+    p = batch.get("patches")
+    return batch["tokens"].shape[1] + (0 if p is None else p.shape[1])
+
+
+def self_cache(state):
+    """The serving state's self-attention keys (a KV cache's ``k``,
+    encdec's ``self_k``), or None for a recurrent state."""
+    if hasattr(state, "window"):
+        return state.k
+    return state.get("self_k")
+
+
 def serve_timed(torch, server, batch, tenants, tag) -> dict:
     """(b, d) The serving loop once more, timed on the host clock (each
     decode step ends in the server's synchronise): ``SERVE_PREFILLS``
     prefills, ``SERVE_STEPS`` decode steps; logits finite, tokens in
-    range, the position prompt + steps; for a KV cache (``max_len=0``)
-    the clamped write: only the prompt's last slot rewritten."""
+    range, the position prompt + steps; for a self-attention cache
+    (``max_len=0``: a KV cache, encdec's ``self_k``) the clamped write:
+    only the prompt's last slot rewritten."""
     from repro_torch.models import api
     from repro_torch.serve.serve_step import _next_tokens
-    prompt = batch["tokens"].shape[1]
+    prompt = positions(batch)
     pre_ms = []
     for _ in range(SERVE_PREFILLS):
         torch.cuda.synchronize()
@@ -3548,8 +3739,8 @@ def serve_timed(torch, server, batch, tenants, tag) -> dict:
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
     finite = torch.isfinite(logits).all()
-    cache = hasattr(state, "window")
-    before = state.k.clone() if cache else None
+    cache = self_cache(state) is not None
+    before = self_cache(state).clone() if cache else None
     toks = _next_tokens(logits)
     dec_ms, out = [], [toks]
     for _ in range(SERVE_STEPS):
@@ -3568,8 +3759,9 @@ def serve_timed(torch, server, batch, tenants, tag) -> dict:
              f"position {pos} (expected {prompt + SERVE_STEPS})")
     if cache:
         slot = prompt - 1
-        kept = torch.equal(state.k[:, :, :slot], before[:, :, :slot])
-        moved = not torch.equal(state.k[:, :, slot], before[:, :, slot])
+        after = self_cache(state)
+        kept = torch.equal(after[:, :, :slot], before[:, :, :slot])
+        moved = not torch.equal(after[:, :, slot], before[:, :, slot])
         if not (kept and moved):
             fail(f"{tag} (b): clamped write: slots before {slot} kept "
                  f"{kept}, slot {slot} rewritten {moved}")
@@ -3583,9 +3775,10 @@ def serve_timed(torch, server, batch, tenants, tag) -> dict:
 def state_gaps(torch, state, fresh, n: int) -> dict:
     """Per leaf of a serving state, its largest gap to the same leaf of a
     fresh prefill's state as a share of that leaf's largest magnitude (a
-    KV cache's first ``n`` slots; the hybrid's rings and recurrent states
-    and the xLSTM's states whole); ``inf`` where an integer leaf (a
-    position) differs."""
+    self-attention cache's first ``n`` slots, those the fresh prefill
+    holds; encdec's cross-attention K/V, the hybrid's rings and recurrent
+    states and the xLSTM's states whole); ``inf`` where an integer leaf
+    (a position) differs."""
     from repro_torch.models import api, param
     got = dict(param.leaves(api.state_tree(state)))
     gaps = {}
@@ -3594,7 +3787,7 @@ def state_gaps(torch, state, fresh, n: int) -> dict:
         if not want.is_floating_point():
             gaps[path] = 0.0 if torch.equal(have, want) else math.inf
             continue
-        if hasattr(state, "window"):
+        if have.shape != want.shape:
             have = have[:, :, :n]
         want = want.float()
         gaps[path] = float((have.float() - want).abs().amax()
@@ -3603,7 +3796,7 @@ def state_gaps(torch, state, fresh, n: int) -> dict:
 
 
 def serve_cache_consistency(torch, cfg, params, tokens, tag,
-                            checked=None, gate=True) -> dict:
+                            checked=None, gate=True, extra=None) -> dict:
     """(c) ``prefill_fn(max_len=prompt+steps)`` then ``decode_fn``, no
     clamp: at step t (each of ``checked``, every step if None) the logits
     against the last logits of a prefill over the prompt and the t tokens
@@ -3611,25 +3804,27 @@ def serve_cache_consistency(torch, cfg, params, tokens, tag,
     state against that prefill's (:func:`state_gaps`), within
     SERVE_CACHE_RTOL of its largest magnitude (with the reference's
     random weights attention moves the logits little, so a wrong slot,
-    ring or mask shows in the state, not in the logits). ``gate=False``
-    only logs the gaps."""
+    ring or mask shows in the state, not in the logits). ``extra``: the
+    frontend stubs' frames or patches, the same in every prefill.
+    ``gate=False`` only logs the gaps."""
     from repro_torch.models import api
     from repro_torch.serve.serve_step import _next_tokens
-    prompt = tokens.shape[1]
+    extra = extra or {}
+    prompt = positions(dict(extra, tokens=tokens))
     checked = range(1, SERVE_STEPS + 1) if checked is None else checked
     prefill, decode = api.prefill_fn(cfg), api.decode_fn(cfg)
     logit_err, state_err, worst = [], [], (-1.0, None)
     with torch.inference_mode():
-        logits, state = prefill(params, {"tokens": tokens},
+        logits, state = prefill(params, dict(extra, tokens=tokens),
                                 max_len=prompt + SERVE_STEPS)
         seq, nxt = tokens, _next_tokens(logits)
         for t in range(1, SERVE_STEPS + 1):
             seq = torch.cat([seq, nxt], dim=1)
             logits, state = decode(params, state, nxt)
             if t in checked:
-                again, fresh = prefill(params, {"tokens": seq})
+                again, fresh = prefill(params, dict(extra, tokens=seq))
                 logit_err.append(float((logits - again).abs().amax()))
-                gaps = state_gaps(torch, state, fresh, seq.shape[1])
+                gaps = state_gaps(torch, state, fresh, prompt + t)
                 path = max(gaps, key=gaps.get)
                 state_err.append(gaps[path])
                 worst = max(worst, (gaps[path], f"{path} at t = {t}"),
@@ -3766,9 +3961,33 @@ def serve_sentinel(torch, seed: int, dev) -> dict:
     return dict(strict_traces=traces, retrace=retraces[0])
 
 
+def frontend_inputs(cfg, key, requests: int, length: int) -> dict:
+    """The frontend stubs' inputs of ``cfg``'s family, drawn as
+    ``launch/serve`` draws them from ``key``: encdec ``frames [requests,
+    length, d_model]`` on ``fold_in(key, 1)``, vlm ``patches [requests,
+    num_patches, d_model]`` on ``fold_in(key, 2)``; none for the
+    others."""
+    from repro_torch import prng
+    if cfg.family == "encdec":
+        return {"frames": prng.normal(prng.fold_in(key, 1),
+                                      (requests, length, cfg.d_model))}
+    if cfg.family == "vlm":
+        return {"patches": prng.normal(prng.fold_in(key, 2),
+                                       (requests, cfg.num_patches,
+                                        cfg.d_model))}
+    return {}
+
+
+def cut_layers(params: dict, n: int) -> dict:
+    """The first ``n`` layers of every stacked leaf (the others whole)."""
+    from repro_torch.models import param
+    return param.map_tree(lambda p, t: t[:n] if p.startswith(
+        LAYER_PREFIXES) else t, params)
+
+
 def serve_model(torch, cfg, dev, tag="[serve]",
                 checked=("embed.tokens", "dense_layers.attn.wq"),
-                prompt=None, cache_steps=None) -> dict:
+                prompt=None, cache_steps=None, gate_layers=None) -> dict:
     """One full-width model served: (a) its weights on the card
     (:func:`serve_build`); (b) ``Server.generate`` of ``SERVE_REQUESTS``
     prompts of ``prompt`` (``SERVE_PROMPT``) tokens for ``SERVE_STEPS``
@@ -3790,7 +4009,9 @@ def serve_model(torch, cfg, dev, tag="[serve]",
     (:func:`moe_dispatch_check`), and runs decode against
     prefill at a capacity that drops nothing: with drops the two
     legitimately differ (their groups and capacities differ, in the
-    reference too)."""
+    reference too). encdec and vlm requests carry the frontend stubs'
+    frames (one per prompt token) or patches (:func:`frontend_inputs`);
+    ``gate_layers`` cuts the f32 copy of (c) to its first layers."""
     from repro_torch import prng
     from repro_torch.core import oasrs
     from repro_torch.kernels import ops
@@ -3812,7 +4033,9 @@ def serve_model(torch, cfg, dev, tag="[serve]",
     tokens = prng.randint(key, (SERVE_REQUESTS, prompt), 0, cfg.vocab_size)
     tenants = prng.randint(prng.fold_in(key, 3), (SERVE_REQUESTS,), 0,
                            SERVE_TENANTS)
-    batch = {"tokens": tokens}
+    extra = frontend_inputs(cfg, key, SERVE_REQUESTS, prompt)
+    batch = dict(extra, tokens=tokens)
+    result.update({k: list(v.shape) for k, v in extra.items()})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3838,7 +4061,9 @@ def serve_model(torch, cfg, dev, tag="[serve]",
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         fail(f"{tag} (b): generated {tuple(out.shape)} {out.dtype}")
     log(f"{tag} (b) Server.generate: {SERVE_REQUESTS} requests x "
-        f"{prompt}-token prompts, {SERVE_STEPS} decode steps in "
+        f"{prompt}-token prompts"
+        f"{''.join(f', {k} {list(v.shape)}' for k, v in extra.items())}, "
+        f"{SERVE_STEPS} decode steps in "
         f"{generate_s:.3f} s; every kernel call held to its plain version "
         f"({held.calls}); launches {launches}")
     log(f"{tag} (b) metrics_text():\n" + text.rstrip())
@@ -3857,7 +4082,10 @@ def serve_model(torch, cfg, dev, tag="[serve]",
     routed = (routed_experts(torch, server, state, toks) if cfg.is_moe
               else [])
     need = decode_need(cfg, params, state, SERVE_REQUESTS, routed)
-    pneed = prefill_need(cfg, params, state, SERVE_REQUESTS, prompt)
+    pneed = prefill_need(cfg, params, state, SERVE_REQUESTS,
+                         positions(batch), prompt, sum(
+                             v.numel() * v.element_size()
+                             for v in extra.values()))
     tel = oasrs.OASRSState(values=server.telemetry.values.clone(),
                            counts=server.telemetry.counts.clone(),
                            capacity=server.telemetry.capacity.clone(),
@@ -3886,7 +4114,8 @@ def serve_model(torch, cfg, dev, tag="[serve]",
         / (sum(dec) / 1e3),
         tokens_per_s_end_to_end=SERVE_REQUESTS * SERVE_STEPS
         / ((pre + sum(dec)) / 1e3),
-        prefill_tokens_per_s=SERVE_REQUESTS * prompt / (pre / 1e3),
+        prefill_tokens_per_s=SERVE_REQUESTS * positions(batch)
+        / (pre / 1e3),
         decode_need=need, decode_bound_ms=bound_ms,
         decode_bound_by="bytes" if need["bytes_ms"] >= need["ops_ms"]
         else "operations",
@@ -3898,7 +4127,8 @@ def serve_model(torch, cfg, dev, tag="[serve]",
         decode_device_activities=acts, decode_device_busy_ms=busy_ms,
         decode_busy_share=busy_ms / med, decode_own_kernel_ms=own,
         decode_host_ops=host_ops)
-    log(f"{tag} (d) prefill of {SERVE_REQUESTS} x {prompt} tokens: "
+    log(f"{tag} (d) prefill of {SERVE_REQUESTS} x {positions(batch)} "
+        f"positions: "
         f"{[round(x, 3) for x in timed['prefill_ms']]} ms "
         f"({result['prefill_tokens_per_s']:.1f} tokens/s; bound "
         f"{pbound_ms:.3f} ms by {result['prefill_bound_by']}); decode step "
@@ -3923,6 +4153,8 @@ def serve_model(torch, cfg, dev, tag="[serve]",
     torch.cuda.empty_cache()
 
     ctoks = tokens[:SERVE_CACHE_BATCH]
+    cextra = {k: v[:SERVE_CACHE_BATCH] for k, v in extra.items()}
+    del batch, extra
     if cfg.family != "dense":
         if cfg.is_moe:
             result["moe_plan"] = moe_dispatch_check(torch, cfg, params,
@@ -3930,12 +4162,20 @@ def serve_model(torch, cfg, dev, tag="[serve]",
             cfg = cfg.replace(capacity_factor=(
                 cfg.num_experts / cfg.num_experts_per_token))
         result["cache_served"] = serve_cache_consistency(
-            torch, cfg, params, ctoks, tag, cache_steps, gate=False)
+            torch, cfg, params, ctoks, tag, cache_steps, gate=False,
+            extra=cextra)
+        if gate_layers:
+            params = cut_layers(params, gate_layers)
+            cfg = cfg.replace(num_layers=gate_layers)
+            log(f"{tag} (c) gated on an f32 copy of its first "
+                f"{gate_layers} layers (the bf16 run above at all "
+                f"{result['num_layers']} served)")
         params = param.map_tree(lambda _p, t: t.float(), params)
         cfg = cfg.replace(dtype=torch.float32)
         torch.cuda.empty_cache()
     result["cache"] = serve_cache_consistency(torch, cfg, params, ctoks,
-                                              tag, cache_steps)
+                                              tag, cache_steps, extra=cextra)
+    result["cache"]["num_layers"] = cfg.num_layers
     del params
     torch.cuda.empty_cache()
     return result
@@ -3976,7 +4216,8 @@ def train_need(cfg, params, batch: int, seq: int) -> dict:
     clip, read by AdamW; master, mu and nu read and written in f32; the
     params written). The bound is the sum of the two phases' least
     times."""
-    w = model_work(cfg, params, batch, seq)
+    w = model_work(cfg, params, batch, seq + (
+        cfg.num_patches if cfg.family == "vlm" else 0), seq)
     seq_ops = w["attn_ops"] + w["rec_ops"]
     remat = cfg.remat == "full"
     ops_ = 3 * (w["mat_ops"] + seq_ops) + (
@@ -3989,6 +4230,41 @@ def train_need(cfg, params, batch: int, seq: int) -> dict:
                 layer_weights=w["layer_weights"], tokens=w["tokens"],
                 ops=ops_, opt_bytes=nbytes, ops_ms=ops_ms,
                 opt_bytes_ms=bytes_ms, bound_ms=ops_ms + bytes_ms)
+
+
+def train_frontend(cfg, seed: int, step: int, batch: int, seq: int,
+                   dev) -> dict:
+    """Step ``step``'s frontend stub inputs in phase families' training
+    (:func:`frontend_inputs` of ``batch`` rows, ``seq`` frames for
+    encdec): ``prng.normal`` on a key folded with the step."""
+    from repro_torch import prng
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(seed, device=dev),
+                                    FRONTEND_KEY), step)
+    return frontend_inputs(cfg, key, batch, seq)
+
+
+@contextlib.contextmanager
+def frontend_batches(cfg, seed: int):
+    """Inside ``with``, every batch ``launch/train`` assembles (tokens and
+    weights of the sequences the fold kernel sampled) also carries its
+    step's frontend stub inputs (:func:`train_frontend`): the
+    reference's ``assemble_batch`` builds ``tokens`` and ``weights``
+    only, so its CLI cannot train encdec or vlm. The train step is
+    ``train_step.make_train_step``'s, as for every family."""
+    from repro_torch.launch import train as tlt
+    real, step = tlt.assemble_batch, [0]
+
+    def assemble(tokens, sel_idx, w, valid, batch):
+        out = real(tokens, sel_idx, w, valid, batch)
+        step[0] += 1
+        out.update(train_frontend(cfg, seed, step[0], batch,
+                                  tokens.shape[1], tokens.device))
+        return out
+    tlt.assemble_batch = assemble
+    try:
+        yield
+    finally:
+        tlt.assemble_batch = real
 
 
 def train_first_batch(torch, run, dev) -> dict:
@@ -4244,6 +4520,7 @@ def phase_train(torch, seed: int, dev, smoke: bool = False,
     window = int(run.batch / run.sampling_fraction)
     cap = max(run.batch // run.num_domains, 1)
     first = train_first_batch(torch, run, dev)
+    first.update(train_frontend(cfg, seed, 1, run.batch, run.seq_len, dev))
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4254,6 +4531,7 @@ def phase_train(torch, seed: int, dev, smoke: bool = False,
         log(line)
     ops.reset_launch_counts()
     with HeldToPlain(torch, "train") as held, config_as(cfg), \
+            frontend_batches(cfg, seed), \
             TrainProbe(torch, cfg, first, leaf, traced) as probe:
         t0 = time.perf_counter()
         losses = tlt.train(run, device=dev, log=keep)
@@ -4384,15 +4662,19 @@ def routed_experts(torch, server, state, toks) -> list:
 
 
 def phase_families(torch, seed: int, dev) -> dict:
-    """The decoder-only families beyond dense, each at full width in
-    bf16: served as phase serve serves phi4 (:func:`serve_model`; the
-    xLSTM's prompt cut to ``FAMILY_SSM_PROMPT``), then trained by
-    ``launch/train.train`` at its defaults (:func:`phase_train` with the
-    family's config; ``FAMILY_TRAIN_LAYERS`` cuts the depth). Every fold
+    """The families beyond dense, each at full width in bf16: served as
+    phase serve serves phi4 (:func:`serve_model`; the xLSTM's prompt cut
+    to ``FAMILY_SSM_PROMPT``, internvl2-76b's depth to
+    ``FAMILY_SERVE_LAYERS``, encdec and vlm requests with their frames or
+    patches), then trained by ``launch/train.train`` at its defaults
+    (:func:`phase_train` with the family's config;
+    ``FAMILY_TRAIN_LAYERS`` cuts the depth; encdec and vlm batches with
+    their step's frames or patches, :func:`frontend_batches`). Every fold
     and stats call held to its plain version; the launches of the phase
     summed for the kernels' JSON line. ``chiprun_out/
     chip_smoke_families.json``."""
     from repro_torch import configs
+    from repro_torch.models import api, param
     t_phase = time.perf_counter()
     result = dict(card=card(), archs={}, reduced={})
     launches = {"reservoir_fold": 0, "stratified_stats": 0}
@@ -4404,14 +4686,26 @@ def phase_families(torch, seed: int, dev) -> dict:
             result["reduced"][f"{arch} prompt"] = (
                 f"served on prompts of {prompt} of {SERVE_PROMPT} tokens: "
                 "its prefill is a host-bound loop over time")
-        serve = serve_model(torch, cfg, dev, f"[families] {arch}",
+        served = FAMILY_SERVE_LAYERS.get(arch, cfg.num_layers)
+        gate = FAMILY_GATE_LAYERS.get(arch)
+        if served != cfg.num_layers:
+            result["reduced"][f"{arch} serve"] = (
+                f"served at {served} of {cfg.num_layers} layers (full "
+                f"width; the first {served} of the full model's draws): "
+                f"all would need "
+                f"{param.param_bytes(api.skeleton(cfg)) / 1e9:.1f} GB of "
+                f"{cfg.dtype} weights"
+                + (f"; decode vs prefill gated on an f32 copy of its first "
+                   f"{gate} layers (the training depth)" if gate else ""))
+        serve = serve_model(torch, cfg.replace(num_layers=served), dev,
+                            f"[families] {arch}",
                             ("embed.tokens", FAMILY_LEAF[arch]), prompt,
-                            FAMILY_CACHE_STEPS)
-        depth = FAMILY_TRAIN_LAYERS.get(arch, cfg.num_layers)
+                            FAMILY_CACHE_STEPS, gate)
+        depth, why = FAMILY_TRAIN_LAYERS.get(arch, (cfg.num_layers, ""))
         if depth != cfg.num_layers:
             result["reduced"][arch] = (
                 f"trained at {depth} of {cfg.num_layers} layers (full "
-                "width): the AdamW state of all would exceed the card")
+                f"width): {why}")
         train = phase_train(torch, seed, dev,
                             cfg=cfg.replace(num_layers=depth))
         torch.cuda.empty_cache()

@@ -130,7 +130,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_stratified_stats.restype = i
     lib.sa_stats_scratch_words.argtypes = [ll, i]
     lib.sa_stats_scratch_words.restype = ll
-    lib.sa_one_shot_ingest.argtypes = ([p] * 25 + [i] * 4
+    lib.sa_one_shot_ingest.argtypes = ([p] * 25 + [i] * 5
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
     lib.sa_whist_scratch_words.argtypes = [ll, i]

@@ -27,8 +27,9 @@
 //     (j, cell) to its warp's list (one list per warp, so no atomics
 //     place the entries).
 //   write (second launch): each accepted item whose index is still the
-//     winner of its cell copies its payload into the ring, in place, and
-//     puts winner[cell] back to -1. It also zeroes the tile's look-back
+//     winner of its cell copies its payload into the ring (each leaf of a
+//     payload of several leaves), in place, and puts winner[cell] back to
+//     -1 once every leaf is written. It also zeroes the tile's look-back
 //     words and the tile counter.
 //
 // What bounds it on this card: memory, and at the main path's 524,288
@@ -64,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;                 // threads per block
@@ -86,15 +89,17 @@ __host__ __device__ constexpr int claim_smem_words(int cells) {
   return kWarps * (cells + 1) + 3 * cells;
 }
 
-// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB it
-// must ask).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
+// The payload leaves of one fold: each accepted winner writes every
+// leaf's word at its cell, from one decision. Passed by value (a
+// __grid_constant__ kernel parameter, read in place), at most kMaxLeaves;
+// every index into it is a compile-time constant.
+constexpr int kMaxLeaves = 8;
+
+struct Leaves {
+  const uint32_t* payload[kMaxLeaves];
+  uint32_t* values[kMaxLeaves];
+  int n;                                      // 1 <= n <= kMaxLeaves
+};
 
 __device__ __forceinline__ void status_store(unsigned long long* p,
                                              unsigned long long v) {
@@ -278,15 +283,17 @@ __device__ __forceinline__ void claim_items(
 }
 
 // Each accepted item of the tile's lists that still holds its cell
-// writes its payload there and resets the cell's winner word. A warp
-// takes its own list: its first 32 entries are read before the count is,
-// the rest kItems a lane at a time. The pass is bound by L2 transactions
-// (a scattered sector for each winner read and reset, payload read and
-// ring write), so it reads no more list entries than that.
-__device__ __forceinline__ void write_entries(
-    int first, int count, int n, const int2* __restrict__ list,
-    const uint32_t* __restrict__ payload, int32_t* __restrict__ winner,
-    uint32_t* __restrict__ values) {
+// writes its payload there (every leaf's word) and resets the cell's
+// winner word. A warp takes its own list: its first 32 entries are read
+// before the count is, the rest kItems a lane at a time. The pass is
+// bound by L2 transactions (a scattered sector for each winner read and
+// reset, payload read and ring write), so it reads no more list entries
+// than that. The first leaf's payload is read beside the winner word;
+// the other leaves', only by the items that won.
+__device__ __forceinline__ void write_entries(int first, int count, int n,
+                                              const int2* __restrict__ list,
+                                              const Leaves& lv,
+                                              int32_t* __restrict__ winner) {
   int2 e[kItems];
   int32_t w[kItems];
   uint32_t v[kItems];
@@ -298,13 +305,16 @@ __device__ __forceinline__ void write_entries(
   for (int q = 0; q < kItems; ++q) {        // the payload read does not
     if (q < count && first + 32 * q + lane < n) {  // wait on the winner's
       w[q] = winner[e[q].y];
-      v[q] = payload[e[q].x];
+      v[q] = lv.payload[0][e[q].x];
     }
   }
 #pragma unroll
   for (int q = 0; q < kItems; ++q) {
     if (q < count && first + 32 * q + lane < n && w[q] == e[q].x) {
-      values[e[q].y] = v[q];
+      lv.values[0][e[q].y] = v[q];
+#pragma unroll
+      for (int l = 1; l < kMaxLeaves; ++l)
+        if (l < lv.n) lv.values[l][e[q].y] = lv.payload[l][e[q].x];
       winner[e[q].y] = -1;
     }
   }
@@ -312,17 +322,17 @@ __device__ __forceinline__ void write_entries(
 
 __device__ __forceinline__ void write_winners(
     int tile, const int2* __restrict__ lists,
-    const int32_t* __restrict__ list_n, const uint32_t* __restrict__ payload,
-    int32_t* __restrict__ winner, uint32_t* __restrict__ values) {
+    const int32_t* __restrict__ list_n, const Leaves& lv,
+    int32_t* __restrict__ winner) {
   const int warp = threadIdx.x >> 5;
   const int2* list = lists + (size_t)tile * kTile + warp * kWarpItems;
   const int n = list_n[tile * kWarps + warp];
-  write_entries(0, 1, n, list, payload, winner, values);
+  write_entries(0, 1, n, list, lv, winner);
   if (n > 32)                                // warp-uniform
-    write_entries(32, kItems - 1, n, list, payload, winner, values);
+    write_entries(32, kItems - 1, n, list, lv, winner);
 }
 
-// The fold's write pass: one block per tile of the claim.
+// The fold's write pass: one block per tile of the claim, one leaf.
 __global__ void __launch_bounds__(kThreads)
     fold_write(const int2* __restrict__ lists,
                const int32_t* __restrict__ list_n,
@@ -331,7 +341,11 @@ __global__ void __launch_bounds__(kThreads)
                unsigned long long* __restrict__ status, int cells,
                int32_t* __restrict__ tile_ctr) {
   const int tile = blockIdx.x;
-  write_winners(tile, lists, list_n, payload, winner, values);
+  Leaves lv;
+  lv.payload[0] = payload;
+  lv.values[0] = values;
+  lv.n = 1;
+  write_winners(tile, lists, list_n, lv, winner);
   for (int c = threadIdx.x; c < cells; c += kThreads)
     status[(size_t)c * gridDim.x + tile] = 0;
   if (tile == 0 && threadIdx.x == 0) *tile_ctr = 0;

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;                   // threads per block
@@ -118,14 +120,6 @@ Span make_span(long long m, const void* values, const void* mask,
   if (weights && ((reinterpret_cast<uintptr_t>(weights) + 4 * h) & 15) == 0)
     sp.vec |= kWeightsVec;
   return sp;
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 // First item of vector k of this thread in `tile`.

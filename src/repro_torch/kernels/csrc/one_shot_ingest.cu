@@ -40,11 +40,15 @@
 //                      the result is the same every run. The tile that
 //                      comes last writes the new counts to scratch, the
 //                      replaced and occupancy rows, and chunks + 1;
-//   3. osi_write       the winners' payloads into the ring, in place; its
-//                      block 0 writes the carried state that launch 2 still
-//                      read (counts, capacities, slot table, frontier,
-//                      newest interval) and leaves the scratch as the next
-//                      call needs it.
+//   3. osi_write       the winners' payloads into the ring, in place, every
+//                      leaf of the payload at each winner's cell (the
+//                      reference's payload is a pytree of [M] 4-byte
+//                      leaves folding through one set of decisions; the
+//                      leaves' pointers come by value, at most kMaxLeaves);
+//                      its block 0 writes the carried state that launch 2
+//                      still read (counts, capacities, slot table,
+//                      frontier, newest interval) and leaves the scratch
+//                      as the next call needs it.
 //
 // No memset and no pass over the ring: the winner table is self-clearing
 // (fold_device.cuh), kept by the wrapper, which assumes the calls sharing
@@ -349,8 +353,8 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     osi_write(const int2* __restrict__ lists,
               const int32_t* __restrict__ list_n,
-              const uint32_t* __restrict__ payload,
-              int32_t* __restrict__ winner, uint32_t* __restrict__ values,
+              const __grid_constant__ Leaves leaves,
+              int32_t* __restrict__ winner,
               unsigned long long* __restrict__ status, int k, int s,
               const int32_t* __restrict__ new_counts,
               const int32_t* __restrict__ adopt, float* __restrict__ max_time,
@@ -380,7 +384,7 @@ __global__ void __launch_bounds__(kThreads)
       held = slot_interval[c_own / s];
     }
   }
-  write_winners(tile, lists, list_n, payload, winner, values);
+  write_winners(tile, lists, list_n, leaves, winner);
   for (int c = threadIdx.x; c < cells; c += kThreads)
     status[(size_t)c * gridDim.x + tile] = 0;
   if (tile != 0) return;
@@ -410,23 +414,34 @@ int tiles_of(int m) { return m > 0 ? (m + kTile - 1) / kTile : 1; }
 
 }  // namespace
 
-// Pointers: times f32[M], sid i32[M], payload 4-byte words [M], mask
-// u8[M], u_accept/u_slot f32[M]; the state, updated in place: max_time
-// f32[], open_interval/on_time/late/dropped/chunks/items i32[],
-// slot_interval i32[K], counts/capacity i32[K, S], values [K, S, N_max]
-// 4-byte words, counters i32[6, S]; adopt i32[S] (read only, <= N_max).
+// Pointers: times f32[M], sid i32[M], payloads a host array of n_leaves
+// pointers to 4-byte words [M], mask u8[M], u_accept/u_slot f32[M]; the
+// state, updated in place: max_time f32[], open_interval/on_time/late/
+// dropped/chunks/items i32[], slot_interval i32[K], counts/capacity
+// i32[K, S], values a host array of n_leaves pointers to [K, S, N_max]
+// 4-byte words (leaf i takes payload i), counters i32[6, S]; adopt i32[S]
+// (read only, <= N_max). 1 <= n_leaves <= kMaxLeaves.
 // Scratch kept by the caller between calls, as for sa_reservoir_fold
 // (winner i32[K*S*N_max] all -1, status u64[K*S*n_tiles] all 0, ctrs
 // i32[3] all 0, lists, list_n), and aux i32[K*S] (the new counts).
 extern "C" int sa_one_shot_ingest(
-    const void* times, const void* sid, const void* payload, const void* mask,
-    const void* u_accept, const void* u_slot, void* max_time,
-    void* open_interval, void* on_time, void* late, void* dropped,
-    void* chunks, void* items, void* slot_interval, const void* adopt,
-    void* counts, void* capacity, void* values, void* counters,
-    void* winner, void* status, void* lists, void* list_n, void* ctrs,
-    void* aux, int m, int k, int s, int n_max, float recip, float lateness,
-    void* stream_ptr) {
+    const void* times, const void* sid, const void* const* payloads,
+    const void* mask, const void* u_accept, const void* u_slot,
+    void* max_time, void* open_interval, void* on_time, void* late,
+    void* dropped, void* chunks, void* items, void* slot_interval,
+    const void* adopt, void* counts, void* capacity, void* const* values,
+    void* counters, void* winner, void* status, void* lists, void* list_n,
+    void* ctrs, void* aux, int m, int k, int s, int n_max, int n_leaves,
+    float recip, float lateness, void* stream_ptr) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  Leaves leaves;
+  for (int l = 0; l < kMaxLeaves; ++l) {
+    leaves.payload[l] =
+        l < n_leaves ? static_cast<const uint32_t*>(payloads[l]) : nullptr;
+    leaves.values[l] = l < n_leaves ? static_cast<uint32_t*>(values[l])
+                                    : nullptr;
+  }
+  leaves.n = n_leaves;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int cells = k * s;
   const int n_tiles = tiles_of(m);
@@ -464,8 +479,7 @@ extern "C" int sa_one_shot_ingest(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   osi_write<<<n_tiles, kThreads, 0, stream>>>(
-      lists_p, list_n_p, static_cast<const uint32_t*>(payload), win_p,
-      static_cast<uint32_t*>(values), status_p, k, s, new_counts, adopt_p,
+      lists_p, list_n_p, leaves, win_p, status_p, k, s, new_counts, adopt_p,
       max_time_p, open_p, slot_iv, counts_p, cap_p, ctrs_p);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,11 @@ watermark scalars, the chunk/item totals and the ``[6, S]`` counter
 rows) is updated IN PLACE, and the returned
 :class:`~repro_torch.kernels.ref.OneShotResult` holds those same tensors.
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
-plain version in ``kernels/ref.py``.
+plain version in ``kernels/ref.py``. The payload is a tensor or, as the
+reference's, a tree of ``[M]`` leaves (f32 and i32 may be mixed) with
+the ring's structure: the fold's decisions are taken once and the write
+launch copies every leaf at each winner's cell (at most
+:data:`MAX_LEAVES`).
 
 The ingest is bound by memory: it must read the mask of every item, the
 time and stratum of each masked-in item, and then what the fold needs
@@ -37,6 +41,9 @@ from repro_torch.kernels.ref import OneShotResult, check_one_shot_payload
 #: The route-and-claim launch keeps 16 warps x (K*S + 1) + 4 K*S int32
 #: and per-warp counter rows of 32 S + 4 int32 in shared memory.
 MAX_CELLS = 1024
+#: Payload leaves of one call: the write launch takes their pointers by
+#: value (``kMaxLeaves`` in ``csrc/fold_device.cuh``).
+MAX_LEAVES = 8
 
 
 def _check(name, t, dtype, shape, device):
@@ -63,18 +70,23 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     ``adopt`` is the ``[S]`` capacity a reset slot adopts, already clamped
     to ``N_max`` by the caller, as the reference's wrapper takes it.
     """
-    check_one_shot_payload(payload, values)
-    if not values.is_cuda:
+    k, s_cnt = counts.shape
+    m = times.shape[0]
+    leaves = check_one_shot_payload(payload, values, m, k, s_cnt)
+    dev = leaves[0][1].device
+    if not leaves[0][1].is_cuda:
         raise ValueError("one_shot_ingest kernel needs CUDA tensors; "
                          "kernels.ops dispatches CPU tensors")
-    k, s_cnt, n_max = values.shape
-    m = times.shape[0]
-    dev = values.device
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(f"one_shot_ingest: {len(leaves)} payload leaves, "
+                         f"the kernel takes at most {MAX_LEAVES}")
+    n_max = leaves[0][1].shape[-1]
     i32, f32 = torch.int32, torch.float32
-    _check("values", values, (f32, i32), (k, s_cnt, n_max), dev)
+    for i, (pay, val) in enumerate(leaves):
+        _check(f"values leaf {i}", val, (f32, i32), (k, s_cnt, n_max), dev)
+        _check(f"payload leaf {i}", pay, val.dtype, (m,), dev)
     _check("times", times, f32, (m,), dev)
     _check("stratum_ids", stratum_ids, i32, (m,), dev)
-    _check("payload", payload, values.dtype, (m,), dev)
     _check("mask", mask, torch.bool, (m,), dev)
     _check("u_accept", u_accept, f32, (m,), dev)
     _check("u_slot", u_slot, f32, (m,), dev)
@@ -102,18 +114,21 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace.for_call(lib, dev, stream, m=m, cells=cells,
                              table=cells * n_max, aux=cells)
+    ptrs = ctypes.c_void_p * len(leaves)
+    pays = ptrs(*(pay.data_ptr() for pay, _ in leaves))
+    vals = ptrs(*(val.data_ptr() for _, val in leaves))
     with torch.cuda.device(dev):
         status = lib.sa_one_shot_ingest(
-            times.data_ptr(), stratum_ids.data_ptr(), payload.data_ptr(),
+            times.data_ptr(), stratum_ids.data_ptr(), ctypes.addressof(pays),
             mask.data_ptr(), u_accept.data_ptr(), u_slot.data_ptr(),
             max_time.data_ptr(), open_interval.data_ptr(),
             on_time.data_ptr(), late.data_ptr(), dropped.data_ptr(),
             chunks.data_ptr(), items.data_ptr(), slot_interval.data_ptr(),
             adopt.data_ptr(), counts.data_ptr(), capacity.data_ptr(),
-            values.data_ptr(), counters.data_ptr(), ws.winner.data_ptr(),
-            ws.status.data_ptr(), ws.lists.data_ptr(), ws.list_n.data_ptr(),
-            ws.counters.data_ptr(), ws.aux.data_ptr(), m, k, s_cnt, n_max,
-            ctypes.c_float(float(recip)),
+            ctypes.addressof(vals), counters.data_ptr(),
+            ws.winner.data_ptr(), ws.status.data_ptr(), ws.lists.data_ptr(),
+            ws.list_n.data_ptr(), ws.counters.data_ptr(), ws.aux.data_ptr(),
+            m, k, s_cnt, n_max, len(leaves), ctypes.c_float(float(recip)),
             ctypes.c_float(float(np.float32(allowed_lateness))), stream)
     if status != 0:
         _workspace.drop(dev, stream)

@@ -43,8 +43,11 @@ def stratified_stats(values, stratum_ids, mask, num_strata: int):
 
 def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot,
                     **state) -> ref.OneShotResult:
-    """The whole ingest of one chunk, in place on the carried tensors."""
-    if _on_cpu(state["values"], "one_shot_ingest"):
+    """The whole ingest of one chunk, in place on the carried tensors;
+    ``payload`` and ``values`` a tensor each or two trees of one
+    structure."""
+    leaves = ref.tree_flatten(state["values"])[0]
+    if not leaves or _on_cpu(leaves[0], "one_shot_ingest"):
         return ref.one_shot_ingest(times, stratum_ids, payload, mask,
                                    u_accept, u_slot, **state)
     return _one_shot.one_shot_ingest(times, stratum_ids, payload, mask,

@@ -19,25 +19,15 @@ _NEG_TIME = float(np.float32(-3.0e38))
 _IMIN = -(2 ** 31) + 1
 
 
-def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
-                   u_accept: torch.Tensor, u_slot: torch.Tensor,
-                   mask: torch.Tensor, counts: torch.Tensor,
-                   capacity: torch.Tensor,
-                   values: torch.Tensor) -> torch.Tensor:
-    """Fold an ``[M]`` chunk into ``values [S, N_max]`` with exact
-    sequential Vitter semantics, given pre-drawn uniforms.
-
-    The rank/scatter-max form of the reference's ``apply_chunk_uniforms``:
-    item ``j`` of stratum ``s`` is the ``counts[s] + rank_j + 1``-th
-    arrival, accepted if it still fills the reservoir or if
-    ``u·c < N_s`` (f32), and the latest accepted item wins each cell.
-
-    ``values`` is updated IN PLACE (the ring is owned by the caller and
-    never re-materialised); returns the new ``[S]`` int32 counts.
-    """
+def _fold_winners(stratum_ids: torch.Tensor, u_accept: torch.Tensor,
+                  u_slot: torch.Tensor, mask: torch.Tensor,
+                  counts: torch.Tensor, capacity: torch.Tensor, n_max: int):
+    """The fold's decisions: the ``[S·N_max]`` int64 winner of each ring
+    cell (the index of the last accepted item that claims it, -1 for
+    none) and the new ``[S]`` int32 counts."""
     m = stratum_ids.shape[0]
-    s_cnt, n_max = values.shape
-    dev = values.device
+    s_cnt = counts.shape[0]
+    dev = counts.device
     sid = torch.where(mask, stratum_ids.to(torch.int32), s_cnt)
     occ = rank_within_stratum(sid)
     clamped = torch.clamp(sid, max=s_cnt - 1).long()
@@ -57,11 +47,40 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
     winner = torch.full((s_cnt * n_max + 1,), -1, dtype=torch.int64,
                         device=dev)
     winner.scatter_reduce_(0, flat, order, reduce="amax")
-    winner = winner[: s_cnt * n_max]
-    src = torch.clamp(winner, min=0)
+    return (winner[: s_cnt * n_max],
+            counts + bincount(sid.long(), s_cnt + 1)[:s_cnt])
+
+
+def _write_winners(winner: torch.Tensor, payload: torch.Tensor,
+                   values: torch.Tensor) -> None:
+    """Each won cell of ``values`` (any shape, ``S·N_max`` cells) takes
+    its winner's payload, in place."""
     flat_values = values.view(-1)
-    flat_values.copy_(torch.where(winner >= 0, payload[src], flat_values))
-    return counts + bincount(sid.long(), s_cnt + 1)[:s_cnt]
+    flat_values.copy_(torch.where(winner >= 0,
+                                  payload[torch.clamp(winner, min=0)],
+                                  flat_values))
+
+
+def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
+                   u_accept: torch.Tensor, u_slot: torch.Tensor,
+                   mask: torch.Tensor, counts: torch.Tensor,
+                   capacity: torch.Tensor,
+                   values: torch.Tensor) -> torch.Tensor:
+    """Fold an ``[M]`` chunk into ``values [S, N_max]`` with exact
+    sequential Vitter semantics, given pre-drawn uniforms.
+
+    The rank/scatter-max form of the reference's ``apply_chunk_uniforms``:
+    item ``j`` of stratum ``s`` is the ``counts[s] + rank_j + 1``-th
+    arrival, accepted if it still fills the reservoir or if
+    ``u·c < N_s`` (f32), and the latest accepted item wins each cell.
+
+    ``values`` is updated IN PLACE (the ring is owned by the caller and
+    never re-materialised); returns the new ``[S]`` int32 counts.
+    """
+    winner, new_counts = _fold_winners(stratum_ids, u_accept, u_slot, mask,
+                                       counts, capacity, values.shape[1])
+    _write_winners(winner, payload, values)
+    return new_counts
 
 
 def _window_level(v: torch.Tensor, sid: torch.Tensor, pos: torch.Tensor,
@@ -174,7 +193,7 @@ class OneShotResult:
     """What one ingest call leaves behind (the reference's
     ``OneShotResult``); every field is the caller's tensor, updated in
     place."""
-    values: torch.Tensor          # [K, S, N_max] ring
+    values: object                # [K, S, N_max] ring, or a tree of them
     counts: torch.Tensor          # [K, S] i32 cell arrival counts
     capacity: torch.Tensor        # [K, S] i32 cell capacities
     slot_interval: torch.Tensor   # [K] i32 interval held per ring slot
@@ -188,21 +207,56 @@ class OneShotResult:
     counters: torch.Tensor        # [6, S] i32 obs rows (COUNTER_FIELDS)
 
 
-def check_one_shot_payload(payload, values) -> None:
-    """One payload leaf of a 4-byte type, as both versions take."""
-    if not isinstance(payload, torch.Tensor) or \
-            not isinstance(values, torch.Tensor):
-        raise NotImplementedError(
-            "one_shot_ingest takes one payload tensor; payloads of "
-            "several leaves come with ROADMAP Queue 1 item 12e")
-    if payload.dtype not in (torch.float32, torch.int32) or \
-            values.dtype != payload.dtype:
-        raise TypeError(f"one_shot_ingest: payload {payload.dtype} and "
-                        f"values {values.dtype} must be one 4-byte type "
-                        "(float32 or int32)")
-    if values.ndim != 3:
-        raise ValueError(f"values must be [K, S, N_max], got "
-                         f"{tuple(values.shape)}")
+def tree_flatten(tree) -> tuple:
+    """The leaves of a payload tree and its structure, as
+    ``jax.tree_util.tree_flatten`` takes them: dict keys sorted, tuple
+    and list items in order, anything else a leaf."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+        kind = ("dict", tuple(keys))
+    elif isinstance(tree, (tuple, list)):
+        parts = [tree_flatten(v) for v in tree]
+        kind = (type(tree).__name__, len(tree))
+    else:
+        return [tree], "*"
+    return ([leaf for p in parts for leaf in p[0]],
+            (kind, tuple(p[1] for p in parts)))
+
+
+def check_one_shot_payload(payload, values, m: int, k: int,
+                           s: int) -> list:
+    """The ``(payload, values)`` leaf pairs of one call, as both versions
+    take them: ``payload`` a tensor or a tree (dict, tuple, list) of
+    ``[M]`` leaves with ``values``'s structure, each values leaf
+    ``[K, S, N_max]`` (one ``N_max``) and each payload leaf of its
+    values leaf's dtype, float32 or int32 (the two may be mixed in a
+    tree). Refuses what the reference refuses, for its reasons."""
+    pay, pay_def = tree_flatten(payload)
+    val, val_def = tree_flatten(values)
+    if pay_def != val_def:
+        raise ValueError(f"payload structure {pay_def} != values "
+                         f"structure {val_def}")
+    if not val:
+        raise ValueError("one_shot_ingest: the payload has no leaves")
+    if not all(isinstance(t, torch.Tensor) for t in pay + val):
+        raise TypeError("one_shot_ingest: every payload and values leaf "
+                        "must be a tensor")
+    n_max = val[0].shape[-1] if val[0].ndim else 0
+    for p, v in zip(pay, val):
+        if tuple(v.shape) != (k, s, n_max):
+            raise ValueError(
+                "one_shot_ingest handles scalar payload layouts only "
+                f"([M] items into [K, S, N_max] rings); got values leaf "
+                f"{tuple(v.shape)}")
+        if tuple(p.shape) != (m,) or p.dtype != v.dtype:
+            raise ValueError(
+                f"payload leaf {tuple(p.shape)}/{p.dtype} does not match "
+                f"items [{m}] / values dtype {v.dtype}")
+        if p.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"one_shot_ingest: payload leaf {p.dtype} must "
+                            "be a 4-byte type (float32 or int32)")
+    return list(zip(pay, val))
 
 
 def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
@@ -219,14 +273,16 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     ``max_time - f32(lateness)`` and evicted against the POST-chunk
     newest interval; late means older than the PRE-chunk newest interval.
     Recycled slots reset their counts and adopt ``adopt`` (clamped to
-    ``N_max`` by the caller). The fold is :func:`reservoir_fold` over the
-    flattened ``[K·S, N_max]`` view, and the counter rows are
-    ``obs/metrics.ingest_update``'s.
+    ``N_max`` by the caller). The fold is :func:`reservoir_fold`'s over
+    the flattened ``[K·S, N_max]`` view, its decisions taken once and
+    every payload leaf written at its winners' cells; the counter rows
+    are ``obs/metrics.ingest_update``'s.
     """
-    check_one_shot_payload(payload, values)
-    k, s_cnt, n_max = values.shape
+    k, s_cnt = counts.shape
     m = times.shape[0]
-    dev = values.device
+    leaves = check_one_shot_payload(payload, values, m, k, s_cnt)
+    n_max = leaves[0][1].shape[-1]
+    dev = counts.device
     i32 = torch.int32
     recip = float(np.float32(1.0) / np.float32(span))
     wmark = max_time - float(np.float32(allowed_lateness))   # pre-chunk
@@ -247,9 +303,11 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
 
     live = mask & ~(times < wmark) & ~(tgt < new_open - k + 1)
     cell = torch.remainder(tgt, k) * s_cnt + stratum_ids.to(i32)
-    new_counts = reservoir_fold(cell, payload, u_accept, u_slot, live,
-                                counts.view(-1), capacity.view(-1),
-                                values.view(k * s_cnt, n_max))
+    winner, new_counts = _fold_winners(cell, u_accept, u_slot, live,
+                                       counts.view(-1), capacity.view(-1),
+                                       n_max)
+    for pay, val in leaves:
+        _write_winners(winner, pay, val)
     counts.copy_(new_counts.view(k, s_cnt))
 
     def per_stratum(pred):

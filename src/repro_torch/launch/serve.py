@@ -47,6 +47,14 @@ def main(argv=None) -> int:
     key = prng.PRNGKey(1, device=dev)
     batch = {"tokens": prng.randint(
         key, (args.requests, args.prompt_len), 0, cfg.vocab_size)}
+    if cfg.family == "encdec":
+        batch["frames"] = prng.normal(
+            prng.fold_in(key, 1),
+            (args.requests, args.prompt_len, cfg.d_model))
+    if cfg.family == "vlm":
+        batch["patches"] = prng.normal(
+            prng.fold_in(key, 2),
+            (args.requests, cfg.num_patches, cfg.d_model))
     tenants = prng.randint(prng.fold_in(key, 3), (args.requests,), 0,
                            args.tenants)
     out = server.generate(batch, steps=args.steps, tenant_ids=tenants)

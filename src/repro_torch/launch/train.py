@@ -9,8 +9,11 @@ the train step minimises the Horvitz–Thompson-weighted loss.
 Checkpoints capture params, optimizer, OASRS state and the pipeline's
 epoch cursor, in the reference's layout.
 
-The default ``--arch xlstm-350m`` raises ``UnportedModelError`` (ROADMAP
-item 12c); the dense family trains.
+As the reference's, the batch holds ``tokens`` and ``weights`` only, so
+the encdec and vlm families (whose loss also needs ``frames`` or
+``patches``) cannot be trained through this CLI; their training goes
+through ``train/train_step.make_train_step`` with a batch that carries
+them.
 
 Usage (CPU-scale demo):
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\

@@ -11,6 +11,8 @@ of the MLP), walked in that order. The per-layer views come from one
 gradient once. ``remat == "full"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
 its scan body. Serving runs under ``torch.inference_mode()``.
+``extra_embeds`` (the vlm family's patch embeddings, ``models/vlm``) are
+prepended to the token embeddings, the positions running over both.
 """
 from __future__ import annotations
 
@@ -27,9 +29,6 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec, map_tree
 
-
-class UnportedModelError(NotImplementedError):
-    """A model family or phase the port does not have yet."""
 
 #: The stacks of a params tree, in the order they run, and whether each
 #: holds MoE layers.
@@ -121,12 +120,24 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     return _layer_prefill(lp, x, positions, cfg, use_moe)[0]
 
 
-def hidden_states(params: dict, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """Token embeddings → final hidden states ``[B, S, D]``;
-    differentiable, each layer recomputed in the backward when
-    ``cfg.remat == "full"`` and a gradient is being taken."""
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+           extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings ``[B, S, D]``, after ``extra_embeds`` ``[B, P,
+    D]`` when given."""
     x = nn.embed(params["embed"], tokens).to(cfg.dtype)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(cfg.dtype), x], dim=1)
+    return x
+
+
+def hidden_states(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  extra_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Token (after optional prepended modality) embeddings → final
+    hidden states ``[B, P + S, D]``; differentiable, each layer
+    recomputed in the backward when ``cfg.remat == "full"`` and a
+    gradient is being taken."""
+    x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for lp, use_moe in _stacks(params):
@@ -162,20 +173,25 @@ def _xent_from_hidden(params: dict, h: torch.Tensor, targets: torch.Tensor,
 
 
 def lm_loss(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            seq_weights: Optional[torch.Tensor] = None):
+            seq_weights: Optional[torch.Tensor] = None,
+            extra_embeds: Optional[torch.Tensor] = None):
     """Weighted causal-LM loss ``Σ_b w_b ℓ̄_b / Σ_b w_b`` and its metrics.
 
     ``seq_weights``: OASRS stratum weights ``W_i`` per sequence, the
     Horvitz–Thompson estimator of the full-stream loss. The inputs are
     the whole sequences and the targets the sequences rolled by one, the
-    last position masked, as the reference's.
+    last position masked, as the reference's. With ``extra_embeds`` the
+    hidden states of their positions are cut off: the loss covers the
+    text only.
     """
     b = tokens.shape[0]
     targets = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(targets.shape, dtype=torch.float32,
                       device=tokens.device)
     mask[:, -1] = 0.0
-    h = hidden_states(params, tokens, cfg)
+    h = hidden_states(params, tokens, cfg, extra_embeds)
+    if extra_embeds is not None:
+        h = h[:, extra_embeds.shape[1]:]
     nll = _xent_from_hidden(params, h, targets, mask, cfg)
     per_seq = torch.sum(nll, dim=1) / torch.clamp(torch.sum(mask, dim=1),
                                                   min=1.0)
@@ -192,15 +208,18 @@ def lm_loss(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            window: int = 0, max_len: int = 0):
+            window: int = 0, max_len: int = 0,
+            extra_embeds: Optional[torch.Tensor] = None):
     """Run the whole prompt, build the KV cache, return the last token's
     f32 logits ``[B, 1, vocab]`` and the cache.
 
     ``max_len``: cache allocation (prompt length + decode budget); 0 (and
     anything shorter than the prompt) allocates exactly the prompt. The
-    cache is allocated once and each layer's K/V written into it.
+    cache is allocated once and each layer's K/V written into it. With
+    ``extra_embeds`` the prompt is they and the tokens: the cache holds
+    and the position counts both.
     """
-    x = nn.embed(params["embed"], tokens).to(cfg.dtype)
+    x = _embed(params, tokens, cfg, extra_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     layers = _stacks(params)

@@ -1,7 +1,10 @@
-"""Shared parity checks of one decoder-only family, reference against
-port, on the CPU (``test_torch_xlstm.py``, ``_moe.py``, ``_rglru.py``).
+"""Shared parity checks of one model family, reference against port, on
+the CPU (``test_torch_xlstm.py``, ``_moe.py``, ``_rglru.py``,
+``_encdec.py``, ``_vlm.py``).
 
-The same numpy inputs, made from a seed, and the reference's weights
+The same numpy inputs, made from a seed (with the frontend stubs'
+``frames`` or ``patches`` for the encdec and vlm families,
+:func:`extras`), and the reference's weights
 carried over by ``params_from_reference`` go through both packages at
 the family's smoke config; the reference's whole-model calls are jitted,
 as its own server and train step jit them. Tolerances are the dense family's
@@ -22,11 +25,15 @@ from repro import configs as jcfgs
 from repro.models import api as japi
 from repro.models import param as jparam
 from repro.serve import serve_step as jserve
+from repro.train import optimizer as jopt
+from repro.train import train_step as jts
 from repro_torch import configs as tcfgs
 from repro_torch import prng
 from repro_torch.models import api as tapi
 from repro_torch.models import param as tparam
 from repro_torch.serve import serve_step as tserve
+from repro_torch.train import optimizer as topt
+from repro_torch.train import train_step as tts
 
 RTOL, ATOL = 1e-5, 1e-6              # cells and blocks, f32
 MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5  # whole model, f32
@@ -74,6 +81,29 @@ def models(jcfg, seed=0):
 def tokens(seed, shape, vocab=512):
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(
         np.int32)
+
+
+def extras(jcfg, seed, batch, seq):
+    """The frontend stubs' inputs of ``jcfg``'s family, f32 from
+    ``seed``: encdec ``frames [B, seq + 19, D]`` (the memory longer than
+    the target and a ragged last attention block at the smoke chunks of
+    32), vlm ``patches [B, P, D]``; none for the decoder-only ones."""
+    rng = np.random.default_rng(seed + 1000)
+    if jcfg.family == "encdec":
+        return {"frames": rng.normal(size=(batch, seq + 19, jcfg.d_model))
+                .astype(np.float32)}
+    if jcfg.family == "vlm":
+        return {"patches": rng.normal(
+            size=(batch, jcfg.num_patches, jcfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def batches(jcfg, toks, seed, **more):
+    """One numpy batch (``tokens``, the family's :func:`extras` and
+    ``more``) for each package: ``(jax batch, torch batch)``."""
+    b = dict(tokens=toks, **extras(jcfg, seed, *toks.shape), **more)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(np.array(v)) for k, v in b.items()})
 
 
 def as_np(t):
@@ -128,20 +158,23 @@ def check_init_bitwise(arch, dtype):
 
 
 def check_prefill_decode(arch, steps=3, seed=0, shape=(3, 21),
-                         rtol=MODEL_RTOL, atol=MODEL_ATOL, dtype="float32"):
-    """``prefill_fn`` then ``steps`` of ``decode_fn`` on the reference's
-    greedy tokens: logits and every leaf of the serving state within the
-    tolerance, integers (positions) bit for bit. Returns the reference's
-    and the port's states after prefill and after the decode steps."""
+                         rtol=MODEL_RTOL, atol=MODEL_ATOL, dtype="float32",
+                         max_len=0):
+    """``prefill_fn`` (with ``max_len``: 0 allocates exactly the prompt,
+    so every decode step rewrites its last slot in both packages) then
+    ``steps`` of ``decode_fn`` on the reference's greedy tokens: logits
+    and every leaf of the serving state within the tolerance, integers
+    (positions) bit for bit. Returns the reference's and the port's
+    states after prefill and after the decode steps."""
     jcfg, tcfg = cfgs(arch, dtype)
     jp, tp = models(jcfg, seed)
-    toks = tokens(seed, shape)
-    prefill = jax.jit(lambda p, t: japi.prefill_fn(jcfg)(p, {"tokens": t}))
+    jb, tb = batches(jcfg, tokens(seed, shape), seed)
+    prefill = jax.jit(lambda p, b: japi.prefill_fn(jcfg)(p, b,
+                                                          max_len=max_len))
     decode = jax.jit(japi.decode_fn(jcfg))
-    jl, jst = prefill(jp, jnp.asarray(toks))
+    jl, jst = prefill(jp, jb)
     with torch.inference_mode():
-        tl, tst = tapi.prefill_fn(tcfg)(tp, {"tokens": torch.from_numpy(
-            toks)})
+        tl, tst = tapi.prefill_fn(tcfg)(tp, tb, max_len=max_len)
     seen = [(jax.device_get(tapi.state_tree(jst)), tparam.map_tree(
         lambda _p, t: t.clone(), tapi.state_tree(tst)))]
 
@@ -167,15 +200,12 @@ def check_loss_and_grads(arch, seed=0, **kw):
     """``loss_fn`` and its grads in f32 on a weighted batch."""
     jcfg, tcfg = cfgs(arch, **kw)
     jp, tp = models(jcfg, seed)
-    toks = tokens(seed + 3, (3, 16))
     w = np.random.default_rng(seed).uniform(0.5, 3.0, 3).astype(np.float32)
+    jb, tb = batches(jcfg, tokens(seed + 3, (3, 16)), seed, weights=w)
     (jl, _), jg = jax.jit(jax.value_and_grad(
-        lambda p: japi.loss_fn(jcfg)(p, {"tokens": jnp.asarray(toks),
-                                         "weights": jnp.asarray(w)}),
-        has_aux=True))(jp)
+        lambda p: japi.loss_fn(jcfg)(p, jb), has_aux=True))(jp)
     live = tparam.map_tree(lambda _p, t: t.clone().requires_grad_(True), tp)
-    tl, tm = tapi.loss_fn(tcfg)(live, {"tokens": torch.from_numpy(toks),
-                                       "weights": torch.from_numpy(w)})
+    tl, tm = tapi.loss_fn(tcfg)(live, tb)
     flat = [t for _, t in tparam.leaves(live)]
     grads = dict(zip([p for p, _ in tparam.leaves(live)],
                      torch.autograd.grad(tl, flat)))
@@ -191,6 +221,71 @@ def check_loss_and_grads(arch, seed=0, **kw):
                 GRAD_RTOL, atol=NEAR_ZERO * largest, near_zero=NEAR_ZERO)
 
 
+def check_train_step(arch, seed=0, microbatches=1):
+    """One f32 ``make_train_step`` step of the smoke config from the same
+    state (the port's weights carried to the reference) on a weighted
+    batch (split into ``microbatches``, every key of it, frames and
+    patches included) against the reference's jitted step, as
+    ``test_torch_train``'s
+    ``test_family_train_step_matches_reference``: the loss within
+    ``LOSS_RTOL``, the grad norm and the moments within ``GRAD_RTOL`` (or
+    ``NEAR_ZERO`` of the tree's largest), master and params where the
+    first moment is above 1e-3 of the tree's largest, the step bit for
+    bit."""
+    jcfg, tcfg = cfgs(arch)
+    tp = tparam.init_params(tapi.skeleton(tcfg), prng.PRNGKey(seed), "cpu")
+    oc = dict(warmup_steps=3)
+    js = jopt.init_state(tparam.params_to_reference(tp), None,
+                         jopt.OptConfig(**oc))
+    ts = topt.train_state_from_reference(jax.device_get(js), "cpu")
+    w = np.random.default_rng(seed).uniform(0.5, 3.0, 4).astype(np.float32)
+    jb, tb = batches(jcfg, tokens(seed + 5, (4, 16)), seed, weights=w)
+    js, jm = jax.jit(jts.make_train_step(jcfg, jopt.OptConfig(**oc),
+                                         microbatches))(js, jb)
+    ts, tm = tts.make_train_step(tcfg, topt.OptConfig(**oc),
+                                 microbatches)(ts, tb)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=GRAD_RTOL)
+    assert int(ts.step) == int(js.step) == 1
+    mu = dict(tparam.leaves(jax.device_get(js.mu)))
+    mu_top = max(float(np.max(np.abs(a))) for a in mu.values())
+    for f in ("mu", "nu", "master", "params"):
+        tree = jax.device_get(getattr(js, f))
+        largest = max(float(np.max(np.abs(a)))
+                      for _, a in tparam.leaves(tree))
+        jl, tl = dict(tparam.leaves(tree)), dict(tparam.leaves(
+            getattr(ts, f)))
+        assert jl.keys() == tl.keys()
+        for p in jl:
+            want, got = np.asarray(jl[p]), as_np(tl[p])
+            if f in ("master", "params"):
+                moved = np.abs(mu[p]) > 1e-3 * mu_top
+                want, got = want[moved], got[moved]
+            np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                                       atol=NEAR_ZERO * largest,
+                                       err_msg=f"{f}.{p}")
+
+
+def check_launch_serve(arch, monkeypatch, capsys):
+    """``launch/serve --arch`` in both packages under the same fixed-step
+    clock, the port on the CPU: the same output line (the prompts,
+    frames, patches and tenants the same bits, so the same tokens)."""
+    from repro.launch import serve as jlaunch
+    from repro_torch.launch import serve as tlaunch
+    monkeypatch.setattr(jserve, "time", FixedStepClock())
+    monkeypatch.setattr(tserve, "time", FixedStepClock())
+    argv = ["--arch", arch, "--requests", "3", "--prompt-len", "8",
+            "--steps", "2", "--tenants", "2"]
+    jlaunch.main(argv)
+    want = capsys.readouterr().out
+    assert tlaunch.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got.startswith("[serve] generated (3, 3) tokens; ")
+    assert got == want
+
+
 def check_bf16(arch, seed=0):
     """The family in bf16 in both packages: the loss within
     ``BF16_LOSS_RTOL`` and the prefill's logits within ``BF16_LOGIT_TOL``
@@ -201,18 +296,14 @@ def check_bf16(arch, seed=0):
     bounds. Returns the two gaps."""
     jcfg, tcfg = cfgs(arch, "bfloat16")
     jp, tp = models(jcfg, seed)
-    toks = tokens(seed + 1, (2, 24))
-    jl = float(jax.jit(japi.loss_fn(jcfg))(
-        jp, {"tokens": jnp.asarray(toks)})[0])
+    jb, tb = batches(jcfg, tokens(seed + 1, (2, 24)), seed)
+    jl = float(jax.jit(japi.loss_fn(jcfg))(jp, jb)[0])
     with torch.no_grad():
-        tl = float(tapi.loss_fn(tcfg)(tp, {"tokens": torch.from_numpy(
-            toks)})[0])
+        tl = float(tapi.loss_fn(tcfg)(tp, tb)[0])
     np.testing.assert_allclose(tl, jl, rtol=BF16_LOSS_RTOL)
-    jlog, _ = jax.jit(japi.prefill_fn(jcfg))(
-        jp, {"tokens": jnp.asarray(toks)})
+    jlog, _ = jax.jit(japi.prefill_fn(jcfg))(jp, jb)
     with torch.inference_mode():
-        tlog, _ = tapi.prefill_fn(tcfg)(tp, {"tokens": torch.from_numpy(
-            toks)})
+        tlog, _ = tapi.prefill_fn(tcfg)(tp, tb)
     a = np.asarray(jlog)
     err = float(np.max(np.abs(tlog.numpy() - a)) / np.max(np.abs(a)))
     assert err <= BF16_LOGIT_TOL, err
@@ -260,9 +351,9 @@ def check_generate(arch, monkeypatch, capacity=4, steps=6, seed=11):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, 512, (5, 12)).astype(np.int32)
     tenants = rng.integers(0, 4, 5).astype(np.int32)
-    jout = js.generate({"tokens": jnp.asarray(toks)}, steps=steps,
-                       tenant_ids=jnp.asarray(tenants))
-    tout = ts.generate({"tokens": torch.from_numpy(toks)}, steps=steps,
+    jb, tb = batches(jcfg, toks, seed)
+    jout = js.generate(jb, steps=steps, tenant_ids=jnp.asarray(tenants))
+    tout = ts.generate(tb, steps=steps,
                        tenant_ids=torch.from_numpy(tenants))
     assert len(gaps) == steps + 1 and min(gaps) > GAP, gaps
     assert tout.dtype == torch.int32

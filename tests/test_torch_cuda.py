@@ -104,6 +104,29 @@ ONE_SHOT_FIELDS = ("values", "counts", "capacity", "slot_interval",
                    "chunks", "items", "counters")
 
 
+def two_leaves(items, state, seed):
+    """A one-shot case with a payload of two leaves, ``{"val": f32, "key":
+    i32}`` (the heavy-hitter keys riding beside the values, as the
+    reference's pytree payloads), the ring likewise: ``val`` is the
+    case's own f32 payload and ring, ``key`` drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    m = items["times"].shape[0]
+    ring = state["values"]
+    return (dict(items, payload={
+                "val": items["payload"],
+                "key": rng.integers(0, 9999, m).astype(np.int32)}),
+            dict(state, values={
+                "val": ring,
+                "key": rng.integers(0, 9999, ring.shape).astype(np.int32)}))
+
+
+def to_tree(dev, arrays):
+    """numpy arrays (and dicts of them) as tensors on ``dev``."""
+    return {k: to_tree(dev, v) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v)).to(dev)
+            for k, v in arrays.items()}
+
+
 def stats_inputs(seed, m, s=4, mask_p=0.8):
     """numpy ``(values, stratum_ids, mask)`` of one stats pass."""
     rng = np.random.default_rng(seed)
@@ -415,6 +438,36 @@ def test_cuda_one_shot_many_tiles_matches_plain(cuda_device, case):
     items, state = one_shot_inputs(23, m=BIG_M, **BIG_ONE_SHOT[case])
     it = _to(cuda_device, items)
     _one_shot_both(it, _to(cuda_device, state), _to(cuda_device, state))
+    assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["collisions", "crossing", "replacement"])
+def test_cuda_one_shot_two_leaves_matches_plain(cuda_device, case):
+    """A payload of an f32 and an i32 leaf: one launch of the kernel,
+    every field and both ring leaves bit for bit the plain version's, the
+    f32 leaf bit for bit a one-leaf call's on the same state (one set of
+    decisions), the scratch clean after it."""
+    one, state = one_shot_inputs(23, m=BIG_M, **BIG_ONE_SHOT[case])
+    items, state2 = two_leaves(one, state, 41)
+    it, sk, sp = (to_tree(cuda_device, d) for d in (items, state2, state2))
+    before = ops.launch_counts()["one_shot_ingest"]
+    one_shot.one_shot_ingest(**it, span=1.0, allowed_lateness=0.5, **sk)
+    assert ops.launch_counts()["one_shot_ingest"] == before + 1
+    ref.one_shot_ingest(**it, span=1.0, allowed_lateness=0.5, **sp)
+    single = to_tree(cuda_device, state)
+    one_shot.one_shot_ingest(**to_tree(cuda_device, one), span=1.0,
+                             allowed_lateness=0.5, **single)
+    for f in ONE_SHOT_FIELDS:
+        if f == "values":
+            for leaf in ("val", "key"):
+                assert_same_bits(sk[f][leaf], sp[f][leaf], leaf)
+            assert_same_bits(sk[f]["val"], single[f], "one leaf")
+        else:
+            assert_same_bits(sk[f], sp[f], f)
+            assert_same_bits(sk[f], single[f], f)
+    assert not torch.equal(sk["values"]["key"].cpu(),
+                           torch.from_numpy(state2["values"]["key"]))
     assert_workspace_clean(cuda_device)
 
 

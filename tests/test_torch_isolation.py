@@ -57,7 +57,7 @@ def test_port_files_found():
             "phi4_mini_3_8b.py", "optimizer.py", "train_step.py",
             "straggler.py", "checkpoint.py", "train.py",
             "torch_approx_training.py", "xlstm.py", "moe.py",
-            "rglru.py", "chip_compare.py"} <= names
+            "rglru.py", "encdec.py", "vlm.py", "chip_compare.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

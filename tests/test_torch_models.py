@@ -5,8 +5,8 @@ Configs field by field (dtype by name); parameter counts and bytes for
 every full config (the skeletons of the ported families leaf for leaf);
 ``init_params`` bit for bit (f32 and bf16, whole and sliced draws); the
 ssm, moe and hybrid families' entry points on the port's weights carried
-to the reference; the encdec and vlm families refused naming ROADMAP item
-12c; the layers (``rmsnorm``, ``mlp`` with its four
+to the reference, and the encdec and vlm families' (their frames and
+patches as the reference takes them); the layers (``rmsnorm``, ``mlp`` with its four
 activations, ``rope``, chunked attention causal / windowed / non-causal /
 ragged, ``decode_attention``, ``write_token`` with the clamp and the ring)
 in f32 at rtol 1e-5, atol 1e-6; and ``prefill`` / ``decode_step`` of the
@@ -40,12 +40,13 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import param as tparam
 from repro_torch.models import transformer as ttr
 from repro_torch.models.config import ModelConfig as TConfig
-from repro_torch.models.transformer import UnportedModelError
+from _torch_family import batches
 
 ARCH = "phi4-mini-3.8b"
 PORTED = [a for a in jcfgs.ARCHS
           if jcfgs.get_config(a).family in tapi.PORTED]
-UNPORTED = [a for a in jcfgs.ARCHS if a not in PORTED]
+#: The archs whose families have a frontend stub (encdec, vlm).
+STUBBED = ["seamless-m4t-large-v2", "internvl2-76b"]
 RTOL, ATOL = 1e-5, 1e-6              # layers, f32
 MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5  # whole model, f32
 
@@ -131,29 +132,21 @@ def _specs(skel):
 
 @pytest.mark.parametrize("arch", jcfgs.ARCHS)
 def test_param_counts_match_reference(arch):
-    """Every full config: the skeletons of the ported families (dense,
-    moe, hybrid, ssm) leaf for leaf, lists of blocks included, and the
-    counts; the other families' skeletons (not ported) refused, their
-    counts taken over the reference's leaves."""
+    """Every full config: the skeletons leaf for leaf, lists of blocks
+    included, and the counts."""
     jcfg, tcfg = jcfgs.get_config(arch), tcfgs.get_config(arch)
     jskel = japi.skeleton(jcfg)
     want = (jparam.count_params(jskel), jparam.param_bytes(jskel))
-    if arch in PORTED:
-        tskel = tapi.skeleton(tcfg)
-        assert _specs(tskel) == _specs(jskel)
-    else:
-        with pytest.raises(UnportedModelError, match="item 12"):
-            tapi.skeleton(tcfg)
-        specs = jax.tree_util.tree_leaves(
-            jskel, is_leaf=lambda x: isinstance(x, jparam.ParamSpec))
-        tskel = {str(i): tparam.ParamSpec(
-            s.shape, s.logical, getattr(torch, _dtype_name(s.dtype)),
-            s.init, s.scale) for i, s in enumerate(specs)}
+    assert arch in PORTED
+    tskel = tapi.skeleton(tcfg)
+    assert _specs(tskel) == _specs(jskel)
     assert (tparam.count_params(tskel), tparam.param_bytes(tskel)) == want
     full = {ARCH: (4_450_618_368, 8_901_636_096),
             "xlstm-350m": (392_922_208, 786_461_056),
             "granite-moe-3b-a800m": (3_374_295_552, 6_752_722_944),
-            "recurrentgemma-9b": (10_444_984_320, 20_890_812_416)}
+            "recurrentgemma-9b": (10_444_984_320, 20_890_812_416),
+            "seamless-m4t-large-v2": (2_034_784_256, 4_069_818_368),
+            "internvl2-76b": (70_553_706_496, 141_110_050_816)}
     if arch in full:
         assert want == full[arch]
 
@@ -207,17 +200,44 @@ def test_params_carry_over_round_trip():
         _same_bits(a, b)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", STUBBED)
 def test_other_families_refused_naming_the_roadmap(arch):
-    _, tcfg = _cfg(arch)
-    for fn in (tapi.skeleton, tapi.prefill_fn, tapi.decode_fn,
-               tapi.loss_fn):
-        with pytest.raises(UnportedModelError, match="item 12c"):
-            fn(tcfg)
+    """The families with a frontend stub, refused naming ROADMAP item 12c
+    until they were ported, now run through every entry point a user
+    calls, the port's ``init_params`` carried to the reference and the
+    same frames or patches in both: the smoke skeleton leaf for leaf, the
+    prefill's and one decode step's logits and the weighted loss within
+    the whole model's rtol 1e-4 / atol 1e-5, ``init_decode_state``'s
+    leaves shape for shape and the positions equal."""
+    jcfg, tcfg = _cfg(arch)
+    tskel = tapi.skeleton(tcfg)
+    assert _specs(tskel) == _specs(japi.skeleton(jcfg))
+    tp = tparam.init_params(tskel, prng.PRNGKey(0), device="cpu")
+    jp = tparam.params_to_reference(tp)
+    toks = np.random.default_rng(4).integers(0, 512, (2, 12)).astype(
+        np.int32)
+    jb, tb = batches(jcfg, toks, 4, weights=np.array([1.0, 2.5],
+                                                     np.float32))
+    jl, jst = jax.jit(japi.prefill_fn(jcfg))(jp, jb)
+    nxt = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
+    jl2, _ = jax.jit(japi.decode_fn(jcfg))(jp, jst, jnp.asarray(nxt))
+    jloss = jax.jit(japi.loss_fn(jcfg))(jp, jb)[0]
+    with torch.inference_mode():
+        tl, tst = tapi.prefill_fn(tcfg)(tp, tb)
+        tl2, _ = tapi.decode_fn(tcfg)(tp, tst, _t(nxt))
+        tloss = tapi.loss_fn(tcfg)(tp, tb)[0]
+    for got, want in ((tl, jl), (tl2, jl2), (tloss, jloss)):
+        _close(got, want, MODEL_RTOL, MODEL_ATOL)
+    js = japi.init_decode_state(jcfg, 2, 20)
+    ts = tapi.init_decode_state(tcfg, 2, 20, device="cpu")
+    assert [(p, tuple(t.shape)) for p, t in tparam.leaves(
+        tapi.state_tree(ts))] == [(p, np.shape(a)) for p, a in
+                                  tparam.leaves(tapi.state_tree(js))]
+    assert int(tapi.state_tree(ts)["position"]) == 20
 
 
 @pytest.mark.parametrize("arch", [a for a in PORTED if jcfgs.get_config(
-    a).family != "dense"])
+    a).family != "dense" and a not in STUBBED])
 def test_other_families_match_reference(arch):
     """The decoder-only families beyond dense (ssm, moe, hybrid), each
     through the entry points a user calls, the port's ``init_params``

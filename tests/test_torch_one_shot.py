@@ -16,11 +16,19 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import one_shot
 from repro_torch.obs import metrics as obm
 from repro_torch.runtime import watermark as wm
-from test_torch_cuda import ONE_SHOT_CASES, ONE_SHOT_FIELDS, one_shot_inputs
+from test_torch_cuda import (ONE_SHOT_CASES, ONE_SHOT_FIELDS,
+                             one_shot_inputs, to_tree, two_leaves)
 
 
 def _torch(d):
-    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    return to_tree("cpu", d)
+
+
+def _np(x):
+    """A tensor, array or dict of them as numpy."""
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _port(items, state, span, lateness):
@@ -29,16 +37,18 @@ def _port(items, state, span, lateness):
                               allowed_lateness=lateness, **t)
     for f in ONE_SHOT_FIELDS:            # every carried tensor, in place
         assert getattr(out, f) is t[f], f
-    return {f: getattr(out, f).numpy() for f in ONE_SHOT_FIELDS}
+    return {f: _np(getattr(out, f)) for f in ONE_SHOT_FIELDS}
 
 
 def _pallas(items, state, span, lateness, block_m=128):
     out = jres.one_shot_ingest(
-        *(jnp.asarray(items[k]) for k in ("times", "stratum_ids", "payload",
-                                          "mask", "u_accept", "u_slot")),
+        *(jax.tree.map(jnp.asarray, items[k])
+          for k in ("times", "stratum_ids", "payload", "mask", "u_accept",
+                    "u_slot")),
         span=span, allowed_lateness=lateness, block_m=block_m,
-        interpret=True, **{k: jnp.asarray(v) for k, v in state.items()})
-    return {f: np.asarray(getattr(out, f)) for f in ONE_SHOT_FIELDS}
+        interpret=True, **{k: jax.tree.map(jnp.asarray, v)
+                           for k, v in state.items()})
+    return {f: _np(jax.device_get(getattr(out, f))) for f in ONE_SHOT_FIELDS}
 
 
 def _oracle(items, state, span, lateness):
@@ -50,9 +60,13 @@ def _oracle(items, state, span, lateness):
 
 def _assert_bitwise(a, b):
     for f in ONE_SHOT_FIELDS:
-        x, y = np.asarray(a[f]), np.asarray(b[f])
-        assert x.dtype == y.dtype and x.shape == y.shape, f
-        assert x.tobytes() == y.tobytes(), f
+        pairs = ([(f"{f}.{k}", a[f][k], b[f][k]) for k in a[f]]
+                 if isinstance(a[f], dict) else [(f, a[f], b[f])])
+        assert not isinstance(b[f], dict) or b[f].keys() == a[f].keys(), f
+        for name, x, y in pairs:
+            x, y = np.asarray(x), np.asarray(y)
+            assert x.dtype == y.dtype and x.shape == y.shape, name
+            assert x.tobytes() == y.tobytes(), name
 
 
 @pytest.mark.parametrize("case", sorted(ONE_SHOT_CASES))
@@ -123,15 +137,52 @@ def test_counters_stack_and_unstack():
     np.testing.assert_array_equal(obm.stack_counters(m).numpy(), rows)
 
 
+@pytest.mark.parametrize("case", ["ragged", "crossing", "over_capacity"])
+def test_plain_one_shot_two_leaves_matches_pallas(case):
+    """A dict payload of an f32 and an i32 leaf (the reference's pytree
+    payloads, ``tests/test_onekernel.py``'s heavy-hitter keys): the plain
+    version bit for bit the reference's kernel in interpret mode on every
+    field and both leaves, and its f32 leaf bit for bit a one-leaf call's
+    on the same state."""
+    one, state = one_shot_inputs(33, **ONE_SHOT_CASES[case])
+    items, state2 = two_leaves(one, state, 34)
+    port = _port(items, state2, 1.0, 0.5)
+    _assert_bitwise(port, _pallas(items, state2, 1.0, 0.5))
+    single = _port(one, state, 1.0, 0.5)
+    _assert_bitwise(dict(port, values=port["values"]["val"]), single)
+    assert (port["values"]["key"] != state2["values"]["key"]).any()
+
+
 def test_one_shot_refuses_what_it_does_not_take():
+    """What the reference refuses (``tests/test_onekernel.py::
+    test_kernel_payload_structure_validation``): a payload whose structure
+    is not the ring's, a ring leaf that is not ``[K, S, N_max]``, a leaf
+    of another dtype than its ring's; and what the port's kernels do not
+    take: 8-byte leaves, CPU tensors in the CUDA wrapper."""
     items, state = one_shot_inputs(1, m=32)
     t_items, t_state = _torch(items), _torch(state)
     kw = dict(span=1.0, allowed_lateness=0.5)
     pay = t_items.pop("payload")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        ops.one_shot_ingest(payload={"val": pay}, **t_items, **kw, **t_state)
+    ring = t_state.pop("values")
+    with pytest.raises(ValueError, match="structure"):
+        ops.one_shot_ingest(payload={"val": pay}, **t_items, **kw,
+                            **t_state, values=ring)
+    with pytest.raises(ValueError, match="structure"):
+        ops.one_shot_ingest(payload={"val": pay, "key": pay.int()},
+                            **t_items, **kw, **t_state,
+                            values={"val": ring, "k": ring.int()})
+    with pytest.raises(ValueError, match="scalar payload"):
+        ops.one_shot_ingest(payload={"val": pay}, **t_items, **kw,
+                            **t_state, values={"val": ring[..., None]})
+    with pytest.raises(ValueError, match="does not match"):
+        ops.one_shot_ingest(payload=(pay, pay), **t_items, **kw,
+                            **t_state, values=(ring, ring.int()))
     with pytest.raises(TypeError, match="4-byte"):
         ref.one_shot_ingest(payload=pay.double(), **t_items, **kw,
-                            **dict(t_state, values=t_state["values"].double()))
+                            **t_state, values=ring.double())
     with pytest.raises(ValueError, match="CUDA"):
-        one_shot.one_shot_ingest(payload=pay, **t_items, **kw, **t_state)
+        one_shot.one_shot_ingest(payload=pay, **t_items, **kw, **t_state,
+                                 values=ring)
+    with pytest.raises(ValueError, match="CUDA"):
+        one_shot.one_shot_ingest(payload=[pay, pay.int()], **t_items, **kw,
+                                 **t_state, values=[ring, ring.int()])

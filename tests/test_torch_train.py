@@ -47,7 +47,6 @@ from repro_torch.launch import train as tlt
 from repro_torch.models import api as tapi
 from repro_torch.models import param as tparam
 from repro_torch.models import transformer as ttr
-from repro_torch.models.transformer import UnportedModelError
 from repro_torch.stream import pipeline as tpipe
 from repro_torch.train import optimizer as topt
 from repro_torch.train import straggler as tstr
@@ -158,11 +157,29 @@ def test_lm_loss_unweighted_and_eval_step():
 
 
 def test_other_families_have_no_loss():
-    """The families with a frontend stub (encdec, vlm) have no loss yet;
-    the decoder-only ones do (``test_family_train_step_matches_reference``)."""
+    """The families with a frontend stub (encdec, vlm), without a loss
+    until they were ported, now have the reference's: ``loss_fn`` and
+    ``make_eval_step`` on a weighted batch with the same frames or
+    patches in both packages, within rtol 1e-5 (their grads and train
+    steps in ``test_torch_encdec.py`` and ``test_torch_vlm.py``)."""
+    from _torch_family import batches
     for arch in ("seamless-m4t-large-v2", "internvl2-76b"):
-        with pytest.raises(UnportedModelError, match="item 12c"):
-            tapi.loss_fn(tcfgs.get_config(arch, smoke=True))
+        jcfg = jcfgs.get_config(arch, smoke=True).replace(dtype=jnp.float32)
+        tcfg = tcfgs.get_config(arch, smoke=True).replace(
+            dtype=torch.float32)
+        jp, tp = _model(jcfg)
+        toks = np.random.default_rng(3).integers(0, 512, (4, 16)).astype(
+            np.int32)
+        w = np.random.default_rng(3).uniform(0.5, 3.0, 4).astype(
+            np.float32)
+        jb, tb = batches(jcfg, toks, 3, weights=w)
+        want = jts.make_eval_step(jcfg)(jp, jb)
+        got = tts.make_eval_step(tcfg)(tp, tb)
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=LOSS_RTOL)
+        loss, _ = tapi.loss_fn(tcfg)(tp, tb)
+        np.testing.assert_allclose(float(loss), float(want["loss"]),
+                                   rtol=LOSS_RTOL)
 
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-3b-a800m",
