@@ -207,6 +207,23 @@ Phases (any failure ends the run with a non-zero exit):
              at 2 layers, full width; encdec and vlm batches carry their
              step's frames or patches beside the sampled tokens).
              ``chiprun_out/chip_smoke_families.json``.
+16. dryrun   the multi-pod dry-run tooling (``launch/specs``,
+             ``launch/dryrun``, ``distributed/compression``): (a) in a
+             subprocess on the host, ``run_cell`` of phi4-mini-3.8b's
+             train_4k, prefill_32k and decode_32k on the (16, 16) fake
+             mesh, every record OK and its argument bytes equal to the
+             shard bytes worked out from ``param_specs`` and the input
+             shapes alone; (b) meanwhile rank 0 of that fake group runs
+             the same three programs on the card, at full width in bf16,
+             its shards of seeded random inputs on a ``cuda`` mesh (the
+             fake group moves no data): per program its local ops and
+             collectives counted, wall ms, the profiler's device-busy ms,
+             peak memory, every output finite and of its shape, the
+             roofline's compute and memory terms at the H100 figures;
+             (c) ``psum_bf16``, ``psum_int8`` and
+             ``hierarchical_grad_sync`` on a one-rank ``pod × data``
+             mesh, NCCL on the card, bit for bit the same calls over
+             gloo on the CPU. ``chiprun_out/chip_smoke_dryrun.json``.
 
 Every stream is the reference's: ``StreamAggregator`` draws, ids and
 event times bit for bit (phases paths' and sharded's disorder is drawn
@@ -224,6 +241,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -232,8 +250,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 (data sheet)
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.mesh import H100_SXM5  # noqa: E402  (the checkout's)
+
+HBM_BYTES_PER_S = H100_SXM5.hbm_bytes_per_s   # H100 SXM data sheet
+BF16_OPS_PER_S = H100_SXM5.peak_flops_bf16
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 
 K, S = 2, 3                        # ring intervals, strata
@@ -264,6 +285,7 @@ HIST_LAUNCHES = 1 + len(NL_QS) * REFINE_STEPS   # weighted_hist/emission
 LATENCY_REPS = 3                   # timed evaluations per registry
 TIMING_SEED = 14                   # inputs of every kernel's timing
 PROFILE_TRIES = 5                  # traces of one window, as needed
+DRYRUN_HOST_TIMEOUT_S = 600        # phase dryrun (a)'s subprocess
 STATS_RTOL = 1e-5                  # kernel vs the plain version's f32 sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
 ANSWER_RTOL = 1e-5                 # f32 rounding beside the 3-sigma bound
@@ -4727,6 +4749,353 @@ def phase_families(torch, seed: int, dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase dryrun: the multi-pod dry-run tooling.
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "phi4-mini-3.8b"
+DRYRUN_SHAPES = ("decode_32k", "prefill_32k", "train_4k")
+
+
+def _shard_bytes(spec, shape, sizes, itemsize) -> int:
+    n = itemsize
+    for entry, d in zip(spec, shape):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n *= d // math.prod(sizes[a] for a in axes if a is not None)
+    return n
+
+
+def argument_bytes_from_specs(arch: str, shape: str) -> int:
+    """One device's argument bytes of a (16, 16) cell, from the specs
+    alone: each param's ``param_specs`` entry (and, for train_4k, the f32
+    master and moments at their ``zero_pspec``, the step), each batch
+    input's leading dim over ``batch``, each decode-state leaf as
+    ``launch/specs`` places it (5-D caches by the cache's logical axes,
+    other leaves on their first dim equal to the batch)."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import api, param
+    from repro_torch.models.kvcache import CACHE_LOGICAL
+    from repro_torch.launch import specs
+    from repro_torch.train import optimizer as opt
+    cfg = configs.get_config(arch)
+    _, batch = configs.SHAPES[shape]
+    sizes = {"data": 16, "model": 16}
+    mesh = shd.AbstractMesh(sizes)
+    skel = api.skeleton(cfg)
+    total = 0
+    with shd.use_mesh(None, shd.build_rules(cfg, mesh)):
+        pspecs = dict(param.leaves(param.param_specs(skel, mesh)))
+        for path, s in param.leaves(skel):
+            total += _shard_bytes(pspecs[path], s.shape, sizes,
+                                  s.dtype.itemsize)
+            if shape == "train_4k":
+                z = opt.zero_pspec(pspecs[path], s.shape, mesh,
+                                   ("pod", "data"))
+                total += 3 * _shard_bytes(z, s.shape, sizes, 4)
+        total += 4 if shape == "train_4k" else 0          # the step
+        inputs = specs.input_specs(arch, shape, cfg)
+        leaves = [t for k, v in inputs.items() if k != "state"
+                  for t in [v]]
+        for t in leaves:
+            spec = shd.resolve_spec(("batch",) + (None,) * (t.dim() - 1),
+                                    t.shape, mesh)
+            total += _shard_bytes(spec, t.shape, sizes, t.element_size())
+        st = inputs.get("state")
+        for t in ((st.k, st.v, st.position) if st is not None else ()):
+            if t.dim() == 5:
+                spec = shd.resolve_spec(CACHE_LOGICAL, t.shape, mesh)
+            else:
+                spec = tuple(shd.resolve_spec(("batch",), (d,), mesh)[0]
+                             if d == batch and i == 0 else None
+                             for i, d in enumerate(t.shape))
+            total += _shard_bytes(spec, t.shape, sizes, t.element_size())
+    return total
+
+
+def dryrun_records() -> None:
+    """Phase dryrun (a), run in its own process: the (16, 16) records of
+    ``DRYRUN_SHAPES``, each beside its argument bytes from the specs,
+    printed as one JSON line."""
+    from repro_torch.launch import dryrun
+    out = []
+    for shape in DRYRUN_SHAPES:
+        rec = dryrun.run_cell(DRYRUN_ARCH, shape, verbose=False)
+        rec["argument_bytes_from_specs"] = argument_bytes_from_specs(
+            DRYRUN_ARCH, shape)
+        out.append(rec)
+    print(json.dumps(out))
+
+
+def _card_args(torch, prog, seq: int, vocab: int, dev, gen):
+    """Rank 0's shards of seeded inputs of a cell's program on the card:
+    params and master normal x 0.02, moments, caches and the step zeros,
+    a decode position at ``seq``, tokens uniform over the vocab, weights
+    one."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import TrainState
+
+    def maker(kind):
+        def make(a, sh):
+            shape = shd.local_shape(sh.spec, tuple(a.shape), sh.mesh)
+            if kind == "normal" and a.dtype.is_floating_point:
+                t = (torch.randn(shape, generator=gen, device=dev) * 0.02
+                     ).to(a.dtype)
+            elif a.dtype.is_floating_point:
+                t = torch.full(shape, 1.0 if kind == "batch" else 0.0,
+                               dtype=a.dtype, device=dev)
+            elif a.dim() == 0:
+                t = torch.full(shape, seq if kind == "state" else 0,
+                               dtype=a.dtype, device=dev)
+            else:
+                t = torch.randint(0, vocab, shape, generator=gen,
+                                  device=dev, dtype=a.dtype)
+            return shd.from_local(t, tuple(a.shape), sh.mesh,
+                                  sh.placements)
+        return lambda tree, shs: dryrun.tree_map(make, tree, shs)
+
+    out = []
+    for i, (arg, shs) in enumerate(zip(prog.args, prog.in_shardings)):
+        if isinstance(arg, TrainState):
+            out.append(TrainState(
+                params=maker("normal")(arg.params, shs.params),
+                master=maker("normal")(arg.master, shs.master),
+                mu=maker("zeros")(arg.mu, shs.mu),
+                nu=maker("zeros")(arg.nu, shs.nu),
+                step=maker("zeros")(arg.step, shs.step)))
+        else:
+            kind = ("normal" if i == 0 else
+                    "state" if prog.mode == "decode" and i == 1
+                    else "batch")
+            out.append(maker(kind)(arg, shs))
+    return tuple(out)
+
+
+def _busy_ms(prof) -> float:
+    """Union of the device intervals of a profile, ms."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def card_program(torch, shape: str, dev, seed: int) -> dict:
+    """Phase dryrun (b): rank 0 of the (16, 16) fake group runs one cell's
+    program on the card. Run 1 under the dry-run's counter (local ops,
+    FLOPs, bytes, collectives; each collective's output filled as if every
+    rank held rank 0's input, since the fake group writes none), its
+    every output checked finite and of its shape; run 2 timed on the host
+    clock, run 3 profiled (their gathers' outputs left unwritten: they
+    are timed, not checked)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.roofline import roofline_terms
+    cfg = configs.get_config(DRYRUN_ARCH)
+    seq, batch = configs.SHAPES[shape]
+    tag = f"[dryrun] (b) {shape}"
+    with mesh_lib.fake_group(256):
+        mesh = mesh_lib.make_production_mesh(device_type=dev.type)
+        prog = specs.build_program(DRYRUN_ARCH, shape, mesh,
+                                   cfg_override=cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        args = _card_args(torch, prog, seq, cfg.vocab_size, dev, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, counter, counted_s = dryrun.run_program(prog, args, cfg,
+                                                     loopback=True)
+        torch.cuda.synchronize()
+        bad = []
+        for t in dryrun.tree_leaves(out):
+            loc = t.to_local() if isinstance(t, shd.DTensor) else t
+            if isinstance(t, shd.DTensor) and tuple(loc.shape) != \
+                    shd.local_shape_and_offset(t)[0]:
+                bad.append(f"shape {tuple(loc.shape)}")
+            if loc.is_floating_point() and not bool(
+                    torch.isfinite(loc).all()):
+                bad.append(f"non-finite {tuple(t.shape)}")
+        del out
+        t0 = time.perf_counter()
+        out = _run_plain(prog, args, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        del out
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = _run_plain(prog, args, cfg)
+            torch.cuda.synchronize()
+        busy = _busy_ms(prof)
+        peak = torch.cuda.max_memory_allocated() - base
+        rec = {"flops_per_device": counter.flops,
+               "bytes_per_device": counter.bytes,
+               "collective_bytes_per_device": sum(
+                   counter.coll_bytes.values()),
+               "model_flops_per_device": 0.0}
+        terms = roofline_terms(rec, H100_SXM5)
+        del out, args
+        torch.cuda.empty_cache()
+    res = dict(shape=shape, mode=prog.mode, host_torch_ops=counter.ops,
+               flops=counter.flops, bytes=counter.bytes,
+               collective_counts=counter.coll_counts,
+               collective_bytes=rec["collective_bytes_per_device"],
+               counted_run_s=counted_s, wall_ms=wall, busy_ms=busy,
+               peak_bytes=peak, compute_ms=terms["compute_sec"] * 1e3,
+               memory_ms=terms["memory_sec"] * 1e3, bad=bad)
+    log(f"{tag}: {counter.ops:,} local torch ops, {counter.flops:.4g} "
+        f"FLOP, {counter.bytes:.4g} B, collectives {counter.coll_counts} "
+        f"({res['collective_bytes']:,} B, not moved: fake group); wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms, peak "
+        f"{peak / 2**30:.2f} GiB; roofline at {H100_SXM5.name}: compute "
+        f"{res['compute_ms']:.2f} ms, memory {res['memory_ms']:.2f} ms")
+    if bad:
+        fail(f"{tag}: outputs {bad}")
+    return res
+
+
+def _run_plain(prog, args, cfg):
+    """``prog.fn(*args)`` under the program's mesh and rules, uncounted."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    import torch
+    mesh = dryrun.tree_leaves_shardings(prog.in_shardings)[0].mesh
+    grad = contextlib.nullcontext() if prog.mode == "train" \
+        else torch.no_grad()
+    with shd.use_mesh(mesh, shd.build_rules(cfg, mesh)), \
+            implicit_replication(), grad:
+        return prog.fn(*args)
+
+
+def compression_bits(torch, dev, seed: int) -> dict:
+    """Phase dryrun (c): the compression calls on a one-rank ``pod ×
+    data`` mesh with NCCL on the card and with gloo on the CPU (one group
+    of backend ``cpu:gloo,cuda:nccl``, destroyed after), bit for bit."""
+    import tempfile
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed import compression as comp
+    gen = torch.Generator().manual_seed(seed)
+    tree = {"w": torch.randn(1024, 1024, generator=gen) * 3.0,
+            "b": [torch.randn(4096, generator=gen) * 1e-3,
+                  torch.randn(256, generator=gen).to(torch.bfloat16)]}
+    rendezvous = tempfile.TemporaryDirectory()
+    tdist.init_process_group("cpu:gloo,cuda:nccl",
+                             init_method=f"file://{rendezvous.name}/pg",
+                             world_size=1, rank=0)
+    try:
+        meshes = {k: DeviceMesh(d, torch.arange(1).view(1, 1),
+                                mesh_dim_names=("pod", "data"))
+                  for k, d in (("cpu", "cpu"), ("card", dev.type))}
+        res = {}
+        for name, fn in (
+                ("psum_bf16", lambda t, m: comp.psum_bf16(
+                    t, m.get_group("pod"))),
+                ("psum_int8", lambda t, m: comp.psum_int8(
+                    t, m.get_group("pod"))),
+                ("hier_int8", lambda t, m: comp.hierarchical_grad_sync(
+                    t, m, cross_pod="int8")),
+                ("hier_bf16", lambda t, m: comp.hierarchical_grad_sync(
+                    t, m, cross_pod="bf16")),
+                ("hier_full", lambda t, m: comp.hierarchical_grad_sync(
+                    t, m, cross_pod="none"))):
+            on_cpu = fn(tree, meshes["cpu"])
+            on_card = fn(_to(tree, dev), meshes["card"])
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b.cpu()) for a, b in zip(
+                _flat(on_cpu), _flat(on_card)))
+            res[name] = same
+            log(f"[dryrun] (c) {name}: NCCL on the card "
+                f"{'bit for bit' if same else 'DIFFERS from'} gloo on the "
+                f"CPU ({len(_flat(on_cpu))} leaves)")
+            if not same:
+                fail(f"[dryrun] (c) {name} differs between NCCL and gloo")
+        res["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+    finally:
+        tdist.destroy_process_group()
+        rendezvous.cleanup()
+    return res
+
+
+def _flat(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _flat(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _flat(v)]
+    return [tree]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def phase_dryrun(torch, seed: int, dev) -> dict:
+    """Phase dryrun (a)-(c); ``chiprun_out/chip_smoke_dryrun.json``."""
+    t_phase = time.perf_counter()
+    result = dict(card=card(), arch=DRYRUN_ARCH)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # (b)'s decode and train first, alone: the host's speed sets their
+    # wall time. (a) traces on the host beside the device-bound prefill
+    # (busy 0.99 of its wall) and (c).
+    programs = {s: card_program(torch, s, dev, seed)
+                for s in ("decode_32k", "train_4k")}
+    host = subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke as cs; cs.dryrun_records()"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        for s in DRYRUN_SHAPES:
+            if s not in programs:
+                programs[s] = card_program(torch, s, dev, seed)
+        result["compression"] = compression_bits(torch, dev, seed)
+        stdout, stderr = host.communicate(timeout=DRYRUN_HOST_TIMEOUT_S)
+    finally:
+        if host.poll() is None:
+            host.kill()
+            host.wait()
+    if host.returncode != 0:
+        fail(f"[dryrun] (a) run_cell exited {host.returncode}: "
+             f"{stderr[-2000:]}")
+    recs = json.loads(stdout.strip().splitlines()[-1])
+    for rec in recs:
+        args = rec["memory"]["argument_bytes"]
+        log(f"[dryrun] (a) {rec['arch']} x {rec['shape']} x {rec['mesh']}: "
+            f"{rec['status']} (trace {rec['trace_sec']} s, "
+            f"{rec['local_ops']:,} local ops), args {args:,} B (from the "
+            f"specs {rec['argument_bytes_from_specs']:,}), out "
+            f"{rec['memory']['output_bytes']:,} B, temp "
+            f"{rec['memory']['temp_bytes']:,} B, {rec['flops_per_device']:.4g}"
+            f" FLOP/dev, collectives {rec['collective_counts']}")
+        if rec["status"] != "OK" or args != rec["argument_bytes_from_specs"]:
+            fail(f"[dryrun] (a) {rec['shape']}: {rec['status']}, argument "
+                 f"bytes {args} != {rec['argument_bytes_from_specs']}")
+    result["records"] = recs
+    result["programs"] = {s: programs[s] for s in DRYRUN_SHAPES}
+    result["reduced"] = []
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase took {result['seconds']:.1f} s")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_dryrun.json").write_text(
+        json.dumps(result, indent=1, default=str))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4765,6 +5134,7 @@ def main(argv=None) -> int:
     serve = phase_serve(torch, args.seed, dev)["launches"]
     train = phase_train(torch, args.seed, dev)["launches"]
     families = phase_families(torch, args.seed, dev)["launches"]
+    phase_dryrun(torch, args.seed, dev)
     if args.profile:
         phase_profile(torch, args.seed, dev)
 

@@ -1,7 +1,8 @@
 """Adaptive execution: query budget → sample size, paper §2.3/§4.2/§7.
 
 Counterpart of the reference's ``core/adaptive.py``: the accuracy budget
-and one Neyman-allocation feedback step.
+one Neyman-allocation feedback step, and the throughput budget's
+uniform capacities.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import error as err
+from repro_torch.utils import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +31,20 @@ def accuracy_budget(target_half_width: float, confidence: float = 0.95,
                         z=err.Z_FOR_CONFIDENCE[confidence],
                         min_per_stratum=int(min_per_stratum),
                         max_per_stratum=int(max_per_stratum))
+
+
+def throughput_budget_capacity(
+        items_per_interval: float, sampling_fraction: float, num_strata: int,
+        min_per_stratum: int = 8, device: DeviceLike = None) -> torch.Tensor:
+    """Throughput budget: the fraction of the arriving window we can
+    afford, as uniform per-stratum capacities ``[S]`` int32 (the
+    reference's ``throughput_budget_capacity``; each item costs one token,
+    the budget buys ``fraction × arrivals``). On the card unless
+    ``device`` says otherwise."""
+    total = int(items_per_interval * sampling_fraction)
+    per = max(total // max(num_strata, 1), min_per_stratum)
+    return torch.full((num_strata,), per, dtype=torch.int32,
+                      device=resolve_device(device))
 
 
 def next_capacity(budget: BudgetConfig, stats: err.StratumStats,

@@ -14,9 +14,11 @@ Counterpart of the reference's ``models/attention.py``, block for block:
   ``preferred_element_type=jnp.float32`` dots (``layers.dot_f32``).
 
 No finished attention kernel is used (``scaled_dot_product_attention``
-would change the softmax's order and its numbers). The reference's
-sequence-parallel branch (``get_rule("attn_seq")``) is never taken on one
-card: the query block is ``min(attn_q_chunk, S)``.
+would change the softmax's order and its numbers). Under a mesh whose
+rules shard the query sequence (``get_rule("attn_seq")``, the reference's
+sequence-parallel mode) the query block is the whole sequence, as the
+reference's; otherwise it is ``min(attn_q_chunk, S)``. The reference's
+sharding annotations are kept (no-ops without a mesh).
 """
 from __future__ import annotations
 
@@ -24,11 +26,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import (DTensor, get_rule,
+                                              local_shape_and_offset, shard)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dot_f32, scalar_in
 from repro_torch.models.param import ParamSpec
 
 NEG_INF = -1e30
+Q_LOGICAL = ("batch", "attn_seq", "kv_heads", "q_group", "head_dim_tp")
+KV_LOGICAL = ("batch", None, "kv_heads", "head_dim_tp")
 
 
 def attention_skeleton(cfg: ModelConfig) -> dict:
@@ -76,15 +83,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
         cfg: ModelConfig, use_rope: bool = True):
     """x: ``[B, S, D]`` → q ``[B,S,Hkv,G,hd]``, k/v ``[B,S,Hkv,hd]``."""
-    b, s, d = x.shape
-    wq, wk, wv = params["wq"], params["wk"], params["wv"]
-    q = (x @ wq.reshape(d, -1)).view(b, s, *wq.shape[1:])
-    k = (x @ wk.reshape(d, -1)).view(b, s, *wk.shape[1:])
-    v = (x @ wv.reshape(d, -1)).view(b, s, *wv.shape[1:])
+    q, k, v = (project(x, params[w]) for w in ("wq", "wk", "wv"))
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (shard(q, *Q_LOGICAL), shard(k, *KV_LOGICAL),
+            shard(v, *KV_LOGICAL))
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,d...->bs...")``: x ``[B, S, D]`` times w ``[D, *rest]``
+    as one product against ``w`` viewed ``[D, prod(rest)]``. On ``DTensor``
+    s each rank multiplies its rows of x (replicated over the mesh dims
+    that split w's head dims) by its slice of w: no exchange, and no view
+    that flattens a sharded dim."""
+    b, s, d = x.shape
+    if isinstance(w, DTensor):
+        return shd.local_product(x, w, w.shape[1:], lambda xl, wl: (
+            xl @ wl.reshape(d, -1)).view(xl.shape[0], s, *wl.shape[1:]))
+    return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
 
 
 def _q_rows(qi: torch.Tensor) -> torch.Tensor:
@@ -117,12 +134,17 @@ def chunked_causal_attention(
 
     q: ``[B, Sq, Hkv, G, hd]``; k, v: ``[B, Skv, Hkv, hd]``. Returns
     ``[B, Sq, Hkv, G, hd]``. ``causal=False`` gives bidirectional
-    attention; Sq and Skv may differ.
+    attention; Sq and Skv may differ. On ``DTensor`` inputs each rank runs
+    the same blocks on its own shards (:func:`_local_blocks`).
     """
     b, s_in, hkv, g, hd = q.shape
     skv_in = k.shape[1]
-    dev = q.device
-    qc = min(cfg.attn_q_chunk, s_in)
+    # Sequence-parallel attention: Q's sequence axis is model-sharded, so
+    # one query block (sliced blocks would fragment the sharded dim);
+    # causality is left to the mask (at most 2x the exact-causal score
+    # FLOPs).
+    qc = s_in if get_rule("attn_seq") is not None else min(
+        cfg.attn_q_chunk, s_in)
     ck = min(cfg.attn_kv_chunk, skv_in)
     # Pad to chunk multiples. Padded keys sit at the END, so causality
     # keeps every real query off them (non-causal pads are masked);
@@ -138,25 +160,41 @@ def chunked_causal_attention(
         k = torch.nn.functional.pad(k, pad)
         v = torch.nn.functional.pad(v, pad)
     nq, nk = s // qc, skv // ck
-    scale = scalar_in(hd ** -0.5, q.dtype)
-    ar_q = torch.arange(qc, device=dev)
-    ar_k = torch.arange(ck, device=dev)
-
-    out_blocks = []
+    blocks = []                # (first query position, first/stop KV block)
     for i in range(nq):
-        qi = q[:, i * qc:(i + 1) * qc] * scale
-        qm = _q_rows(qi)
-        q_pos = i * qc + ar_q
         start = 0
         if causal and window is not None:
             # query p attends keys in (p - window, p]
             start = max(0, (i * qc - window + 1) // ck)
         stop = min(nk, -(-((i + 1) * qc) // ck)) if causal else nk
+        blocks.append((i * qc, start, stop))
+    if isinstance(q, DTensor):
+        out = _local_blocks(q, k, v, blocks, qc, ck, causal, window, skv_in)
+    else:
+        out = _blocks(q, k, v, blocks, qc, ck, causal, window, skv_in)
+    return shard(out[:, :s_in], *Q_LOGICAL)
 
-        m = torch.full((b, hkv, g, qc), NEG_INF, dtype=torch.float32,
+
+def _blocks(q, k, v, blocks, rows: int, ck: int, causal: bool,
+            window: Optional[int], skv_in: int, q0: int = 0):
+    """The online-softmax loops: query block ``n`` is rows ``[n·rows,
+    (n+1)·rows)`` of ``q``, at positions ``q0 + blocks[n][0]`` on, against
+    KV blocks ``blocks[n][1] .. blocks[n][2] - 1``."""
+    b, _, hkv, g, hd = q.shape
+    dev = q.device
+    scale = scalar_in(hd ** -0.5, q.dtype)
+    ar_q = torch.arange(rows, device=dev)
+    ar_k = torch.arange(ck, device=dev)
+
+    out_blocks = []
+    for n, (p0, start, stop) in enumerate(blocks):
+        qi = q[:, n * rows:(n + 1) * rows] * scale
+        qm = _q_rows(qi)
+        q_pos = (q0 + p0) + ar_q
+        m = torch.full((b, hkv, g, rows), NEG_INF, dtype=torch.float32,
                        device=dev)
-        l = torch.zeros((b, hkv, g, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, g, qc, hd), dtype=torch.float32,
+        l = torch.zeros((b, hkv, g, rows), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, rows, hd), dtype=torch.float32,
                           device=dev)
         for j in range(start, stop):
             kj = k[:, j * ck:(j + 1) * ck]
@@ -168,7 +206,7 @@ def chunked_causal_attention(
                 if window is not None:
                     mask &= k_pos[None, :] > q_pos[:, None] - window
             else:
-                mask = (k_pos < skv_in)[None, :].expand(qc, ck)
+                mask = (k_pos < skv_in)[None, :].expand(rows, ck)
             # additive mask, as the reference adds it
             s_ij = s_ij + torch.where(mask, 0.0, NEG_INF)
             m_new = torch.maximum(m, torch.amax(s_ij, dim=-1))
@@ -179,9 +217,27 @@ def chunked_causal_attention(
             m = m_new
         blk = (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
         out_blocks.append(blk.permute(0, 3, 1, 2, 4))   # → [b,q,h,g,d]
+    return torch.cat(out_blocks, dim=1)
 
-    out = torch.cat(out_blocks, dim=1)
-    return out[:, :s_in]
+
+def _local_blocks(q, k, v, blocks, qc, ck, causal, window, skv_in):
+    """:func:`_blocks` on each rank's shards of ``DTensor`` q, k, v placed
+    by :data:`Q_LOGICAL` / :data:`KV_LOGICAL`: batch, KV heads and query
+    groups split the work with no exchange; K/V keep the whole sequence.
+    With the query sequence sharded (one block), the rank's rows are its
+    slice of that block, at their global positions."""
+    q = shard(q, *Q_LOGICAL)
+    k, v = shard(k, *KV_LOGICAL), shard(v, *KV_LOGICAL)
+    shape, offset = local_shape_and_offset(q)
+    rows, q0 = qc, 0
+    if shape[1] != q.shape[1]:
+        (_, start, stop), = blocks
+        blocks, rows, q0 = [(0, start, stop)], shape[1], offset[1]
+    out = _blocks(*(shd.local(t, q.placements) for t in (q, k, v)), blocks,
+                  rows, ck, causal, window, skv_in, q0)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False, shape=q.shape,
+                              stride=q.stride())
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -191,8 +247,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: ``[B, 1, Hkv, G, hd]``; caches: ``[B, Smax, Hkv, hd]``; cache_len:
     ``[]`` int32 on the card (never read back). Returns ``[B, 1, Hkv, G,
-    hd]``.
+    hd]``. On a ``DTensor`` cache, :func:`_local_decode`.
     """
+    if isinstance(k_cache, DTensor):
+        return _local_decode(q, k_cache, v_cache, cache_len)
     b, _, hkv, g, hd = q.shape
     smax = k_cache.shape[1]
     qg = q[:, 0] * scalar_in(hd ** -0.5, q.dtype)        # [b,h,g,d]
@@ -206,8 +264,68 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o[:, None].to(q.dtype)
 
 
+def _local_decode(q, k_cache, v_cache, cache_len):
+    """Decode attention on each rank's cache shard (flash-decode): q is
+    placed like the cache's batch and head dims; where the cache's
+    sequence is sharded, the softmax's max and sum and the ``P·V``
+    products are all-reduced over those mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = k_cache.device_mesh
+    want, seq_dims = [], []                     # cache [B, S, Hkv, hd]
+    for d, pl in enumerate(k_cache.placements):
+        if isinstance(pl, Shard) and pl.dim in (0, 2):   # = q's dims
+            want.append(pl)
+        else:
+            want.append(Replicate())
+            if isinstance(pl, Shard) and pl.dim == 1:
+                seq_dims.append(d)
+    q = q.redistribute(mesh, want)
+    ql, kl, vl = q.to_local(), k_cache.to_local(), v_cache.to_local()
+    b, _, hkv, g, hd = ql.shape
+    smax = kl.shape[1]
+    off = local_shape_and_offset(k_cache)[1][1]
+    n = cache_len.to_local() if isinstance(cache_len, DTensor) else cache_len
+
+    def reduce(t, op):
+        return shd.all_reduce(t, op, mesh, seq_dims)
+    qg = ql[:, 0] * scalar_in(hd ** -0.5, ql.dtype)
+    s = _scores(_q_rows(qg[:, None]), kl, g)[:, :, :, 0]
+    valid = (off + torch.arange(smax, device=ql.device)) < n
+    s = s + torch.where(valid, 0.0, NEG_INF)
+    e = torch.exp(s - reduce(torch.amax(s, dim=-1, keepdim=True), "max"))
+    p = e / reduce(torch.sum(e, dim=-1, keepdim=True), "sum")
+    o = reduce(_pv(p[:, :, :, None].to(ql.dtype), vl)[:, :, :, 0], "sum")
+    return DTensor.from_local(o[:, None].to(ql.dtype), mesh, q.placements,
+                              run_check=False, shape=q.shape,
+                              stride=q.stride())
+
+
 def proj_out(params: dict, attn_out: torch.Tensor) -> torch.Tensor:
     """attn_out: ``[B, S, Hkv, G, hd]`` → ``[B, S, D]``."""
     b, s = attn_out.shape[:2]
     wo = params["wo"]
-    return attn_out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    if isinstance(wo, DTensor):
+        out = _local_rows(attn_out, wo)
+    else:
+        out = attn_out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    return shard(out, "batch", None, "embed")
+
+
+def _local_rows(attn_out, wo):
+    """:func:`proj_out` on each rank's shards: its rows (batch, and the
+    sequence in the sequence-parallel mode) of its heads times its heads'
+    rows of ``wo``; where heads are sharded the result is a pending sum
+    over those mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = wo.device_mesh
+    want = shd.placements(shd.resolve_spec(Q_LOGICAL, attn_out.shape, mesh),
+                          mesh)
+    a = attn_out.redistribute(mesh, want)
+    out = [pl if isinstance(pl, Shard) and pl.dim < 2
+           else Partial() if isinstance(pl, Shard) else Replicate()
+           for pl in a.placements]
+    al, wl = shd.local(a, out), shd.local(wo, out)
+    y = al.reshape(al.shape[0], al.shape[1], -1) @ wl.reshape(
+        -1, wl.shape[-1])
+    return shd.from_local(y, tuple(attn_out.shape[:2]) + (wo.shape[-1],),
+                          mesh, out)

@@ -19,7 +19,8 @@ F, Hkv, hd]``, computed once per prompt, and ``position``. A decode step
 writes its self-attention K/V in place at ``position`` clamped to
 ``S(max) - 1`` (XLA's clamp of ``dynamic_update_slice``), so a state
 allocated with no room past the prompt rewrites its last slot, as the
-reference's does.
+reference's does. The reference's sharding annotations are kept (no-ops
+without a mesh).
 """
 from __future__ import annotations
 
@@ -28,7 +29,10 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
+from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
@@ -100,14 +104,14 @@ def _enc_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     o = attn.chunked_causal_attention(q, k, v, cfg, causal=False)
     x = x + attn.proj_out(lp["attn"], o)
     h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + nn.mlp(lp["mlp"], h, cfg)
+    return shard(x + nn.mlp(lp["mlp"], h, cfg), "batch", None, "embed")
 
 
 def encode(params: dict, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames ``[B, F, d_model]`` (the frontend stub's output) → memory
     ``[B, F, D]``."""
-    x = frames.to(cfg.dtype)
+    x = shard(frames.to(cfg.dtype), "batch", None, "embed")
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x = _walk(_enc_layer, params["encoder"], x, cfg, positions)
     return nn.rmsnorm(params["enc_final_ln"], x, cfg.norm_eps)
@@ -119,17 +123,13 @@ def encode(params: dict, frames: torch.Tensor,
 
 def _cross_q(p: dict, h: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhgk->bshgk", h, wq)``: the queries, no RoPE."""
-    b, s, d = h.shape
-    wq = p["wq"]
-    return (h @ wq.reshape(d, -1)).view(b, s, *wq.shape[1:])
+    return attn.project(h, p["wq"])
 
 
 def _cross_kv(p: dict, memory: torch.Tensor) -> tuple:
     """``einsum("bfd,dhk->bfhk", memory, wk / wv)``: the memory's keys
     and values, no RoPE."""
-    b, f, d = memory.shape
-    return tuple((memory @ p[w].reshape(d, -1)).view(b, f, *p[w].shape[1:])
-                 for w in ("wk", "wv"))
+    return tuple(attn.project(memory, p[w]) for w in ("wk", "wv"))
 
 
 def _dec_layer_prefill(lp: dict, x: torch.Tensor, memory: torch.Tensor,
@@ -146,12 +146,14 @@ def _dec_layer_prefill(lp: dict, x: torch.Tensor, memory: torch.Tensor,
     ox = attn.chunked_causal_attention(qx, km, vm, cfg, causal=False)
     x = x + attn.proj_out(lp["cross_attn"], ox)
     h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + nn.mlp(lp["mlp"], h, cfg), k, v, km, vm
+    x = shard(x + nn.mlp(lp["mlp"], h, cfg), "batch", None, "embed")
+    return x, k, v, km, vm
 
 
 def _dec_layer(lp: dict, x: torch.Tensor, memory: torch.Tensor,
                positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return _dec_layer_prefill(lp, x, memory, positions, cfg)[0]
+    x = _dec_layer_prefill(lp, x, memory, positions, cfg)[0]
+    return shard(x, "batch", None, "embed")
 
 
 def encdec_loss(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
@@ -162,7 +164,7 @@ def encdec_loss(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
     masked, the f32 logits of every position at once, weighted as
     ``transformer.lm_loss``."""
     memory = encode(params, frames, cfg)
-    targets = torch.roll(tokens, -1, dims=1)
+    targets = nn.next_tokens(tokens)
     mask = torch.ones(targets.shape, dtype=torch.float32,
                       device=tokens.device)
     mask[:, -1] = 0.0
@@ -171,8 +173,7 @@ def encdec_loss(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
     x = _walk(_dec_layer, params["decoder"], x, cfg, memory, positions)
     h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = nn.unembed(params["unembed"], h)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    lse, picked = nn.xent_parts(logits, targets)
     per_seq = torch.sum((lse - picked) * mask, dim=1) / torch.clamp(
         torch.sum(mask, dim=1), min=1.0)
     w = (seq_weights if seq_weights is not None else torch.ones(
@@ -197,22 +198,15 @@ def encdec_prefill(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
     layers = _layers(params["decoder"])
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     alloc = max(max_len, s)
-    state = {
-        "self_k": torch.zeros((len(layers), b, alloc, hkv, hd),
-                              dtype=cfg.dtype, device=dev),
-        "self_v": torch.zeros((len(layers), b, alloc, hkv, hd),
-                              dtype=cfg.dtype, device=dev),
-        "cross_k": torch.empty((len(layers), b, f, hkv, hd),
-                               dtype=cfg.dtype, device=dev),
-        "cross_v": torch.empty((len(layers), b, f, hkv, hd),
-                               dtype=cfg.dtype, device=dev),
-    }
+    shapes = {"self": (len(layers), b, alloc, hkv, hd),
+              "cross": (len(layers), b, f, hkv, hd)}
+    state = {f"{n}_{t}": shd.zeros(shapes[n], kvc.CACHE_LOGICAL, cfg.dtype,
+                                   dev)
+             for n in ("self", "cross") for t in ("k", "v")}
     for i, lp in enumerate(layers):
         x, k, v, km, vm = _dec_layer_prefill(lp, x, memory, positions, cfg)
-        state["self_k"][i, :, :s] = k
-        state["self_v"][i, :, :s] = v
-        state["cross_k"][i] = km
-        state["cross_v"][i] = vm
+        kvc.write_prompt(state["self_k"], state["self_v"], i, k, v, s)
+        kvc.write_prompt(state["cross_k"], state["cross_v"], i, km, vm, f)
     h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = nn.unembed(params["unembed"], h[:, -1:])
     state["position"] = torch.full((), s, dtype=torch.int32, device=dev)
@@ -238,8 +232,7 @@ def encdec_decode_step(params: dict, state: dict, tokens: torch.Tensor,
         sk, sv = self_k[i], self_v[i]
         h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = attn.qkv(lp["self_attn"], h, posv, cfg)
-        sk.index_copy_(1, slot, k.to(sk.dtype))
-        sv.index_copy_(1, slot, v.to(sv.dtype))
+        kvc.write_at(sk, sv, slot, k, v)
         o = attn.decode_attention(q, sk, sv, valid)
         x = x + attn.proj_out(lp["self_attn"], o)
         h = nn.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
@@ -248,7 +241,7 @@ def encdec_decode_step(params: dict, state: dict, tokens: torch.Tensor,
                                    state["cross_v"][i], frames)
         x = x + attn.proj_out(lp["cross_attn"], ox)
         h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + nn.mlp(lp["mlp"], h, cfg)
+        x = shard(x + nn.mlp(lp["mlp"], h, cfg), "batch", None, "embed")
     h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = nn.unembed(params["unembed"], h)
     return logits, dict(state, position=pos + 1)

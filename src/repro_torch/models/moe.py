@@ -21,8 +21,12 @@ are one tensor axis where the reference vmaps. The combine sums each
 token's k contributions in the reference's scatter order (k = 0, 1, ...
 onto zeros), as a gather: the card's ``index_add_`` adds in atomic
 order and would change bf16 outputs from run to run. The reference's
-expert-parallel sharding annotations have no meaning on one card and are
-dropped.
+expert-parallel sharding annotations are kept (no-ops without a mesh).
+Under a mesh the dispatch plan, the scatter into the expert buffers and
+the combine run shard-local on each rank's groups
+(``sharding.on_batch_shards``),
+as the reference's comment has them, and the expert products run on the
+buffers placed over ``experts`` / ``expert_mlp``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
 from repro_torch.utils import rank_within_stratum
@@ -113,7 +119,8 @@ def _dispatch_indices(eids: torch.Tensor, gates: torch.Tensor,
 def route(params: dict, xg: torch.Tensor, cfg: ModelConfig,
           key: Optional[torch.Tensor] = None):
     """The router and the dispatch plan of ``xg [G, T, D]``: ``(eids,
-    gates, dst, keep, gate scale)``, the last three ``[G, T·k]``."""
+    gates, dst, keep, gate scale)``, the last three ``[G, T·k]``. ``key``:
+    the reservoir policy's base key, or ``[G, 2]`` keys, one per group."""
     g, tg, _ = xg.shape
     e, k = cfg.num_experts, cfg.num_experts_per_token
     logits = xg.float() @ params["router"]                    # [G, T, E]
@@ -128,11 +135,50 @@ def route(params: dict, xg: torch.Tensor, cfg: ModelConfig,
     keys = None
     if cfg.reservoir_routing:
         base = key if key is not None else prng.PRNGKey(0, xg.device)
-        keys = prng.split(base, g)
+        # a [G, 2] key is already one key per group
+        keys = base if base.dim() == 2 else prng.split(base, g)
     dst, keep, gsc = _dispatch_indices(
         eids.reshape(g, tg * k), gates.reshape(g, tg * k),
         capacity_of(cfg, tg), e, keys)
     return eids, gates, dst, keep, gsc
+
+
+def _experts(params: dict, xbuf: torch.Tensor) -> torch.Tensor:
+    """Per-expert gated FFN of ``xbuf [G, E, C, D]``, one batched product
+    per weight over experts → ``[G, E·C, D]``."""
+    groups, e, capacity, d = xbuf.shape
+    xe = xbuf.transpose(0, 1).reshape(e, groups * capacity, d)
+    h = shard(torch.bmm(xe, params["w_in"]), "experts", "batch",
+              "expert_mlp")
+    h = F.silu(torch.bmm(xe, params["w_gate"])) * h
+    ye = shard(torch.bmm(h, params["w_out"]), "experts", "batch", None)
+    return ye.view(e, groups, capacity, d).transpose(0, 1).reshape(
+        groups, e * capacity, d)
+
+
+def _local_experts(params: dict, xbuf) -> torch.Tensor:
+    """:func:`_experts` on each rank's groups and experts (``xbuf``
+    placed ``("batch", "experts", None, None)``, the weights by their
+    logical axes): the result is sharded like ``xbuf`` on its groups and
+    on the ``E·C`` dim where experts are sharded, and a pending sum where
+    ``expert_mlp`` splits the hidden dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    w_in = params["w_in"]
+    mesh = w_in.device_mesh
+    out = []
+    for xp, wp in zip(xbuf.placements, w_in.placements):
+        if isinstance(xp, Shard):
+            out.append(xp)
+        elif isinstance(wp, Shard) and wp.dim == 2:
+            out.append(Partial())
+        else:
+            out.append(Replicate())
+    with shd.local_region():
+        y = _experts({k: shd.local(params[k], out)
+                      for k in ("w_in", "w_gate", "w_out")},
+                     shd.local(xbuf, out))
+    groups, e, capacity, d = xbuf.shape
+    return shd.from_local(y, (groups, e * capacity, d), mesh, out)
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -144,41 +190,56 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     groups, tg = (b, s) if s > 1 else (1, b)
     xg = x.reshape(groups, tg, d)
     capacity = capacity_of(cfg, tg)
-    _, _, dst, keep, gsc = route(params, xg, cfg, key)
+    def dispatch(g0, xg, router):
+        gkey = key
+        if cfg.reservoir_routing and xg.shape[0] != groups:
+            base = key if key is not None else prng.PRNGKey(0, xg.device)
+            gkey = prng.split(base, groups)[g0:g0 + xg.shape[0]]
+        _, _, dst, keep, gsc = route({"router": router}, xg, cfg, gkey)
+        # Scatter the tokens into per-expert buffers [G, E·C (+1 overflow
+        # row), D]: token t's k assignments are entries t·k ... t·k + k - 1.
+        # Kept assignments have distinct slots; the dropped ones all land
+        # on the overflow row, which is cut off.
+        xa = xg.repeat_interleave(k, dim=1)                   # [G, T·k, D]
+        buf = torch.zeros(xg.shape[0], e * capacity + 1, d, dtype=x.dtype,
+                          device=x.device)
+        buf = buf.scatter(1, dst.long()[..., None].expand(-1, -1, d), xa)
+        # the overflow row cut off on the rank: on a mesh, the backward of
+        # a view that splits the E·C dim fails where the experts do not
+        # divide evenly over ``model`` (its grad is a pending sum there)
+        return buf[:, :-1].reshape(xg.shape[0], e, capacity, d), dst, \
+            keep, gsc
 
-    # Scatter the tokens into per-expert buffers [G, E·C (+1 overflow
-    # row), D]: token t's k assignments are entries t·k ... t·k + k - 1.
-    # Kept assignments have distinct slots; the dropped ones all land on
-    # the overflow row, which is cut off.
-    xa = xg.repeat_interleave(k, dim=1)                       # [G, T·k, D]
-    buf = torch.zeros(groups, e * capacity + 1, d, dtype=x.dtype,
-                      device=x.device)
-    buf = buf.scatter(1, dst.long()[..., None].expand(-1, -1, d), xa)
-    xbuf = buf[:, :-1].reshape(groups, e, capacity, d)
+    xbuf, dst, keep, gsc = shd.on_batch_shards(dispatch, groups, xg,
+                                               whole=(params["router"],))
+    xbuf = shard(xbuf, "batch", "experts", None, None)
 
-    # Per-expert gated FFN: one batched product per weight, over experts.
-    xe = xbuf.transpose(0, 1).reshape(e, groups * capacity, d)
-    h = torch.bmm(xe, params["w_in"])
-    h = F.silu(torch.bmm(xe, params["w_gate"])) * h
-    ye = torch.bmm(h, params["w_out"])                        # [E, G·C, D]
-    ybuf = ye.view(e, groups, capacity, d).transpose(0, 1).reshape(
-        groups, e * capacity, d)
+    if isinstance(xbuf, shd.DTensor):
+        ybuf = _local_experts(params, xbuf)
+    else:
+        ybuf = _experts(params, xbuf)
+    ybuf = shard(ybuf, "batch", None, None)
 
-    # Gather back, weight, and add each token's k contributions in order.
-    slot = torch.clamp(dst, max=e * capacity - 1).long()
-    ya = torch.gather(ybuf, 1, slot[..., None].expand(-1, -1, d))
-    w = (gsc * keep.to(torch.float32)).to(ya.dtype)
-    contrib = (ya * w[..., None]).view(groups, tg, k, d)
-    y = torch.zeros(groups, tg, d, dtype=contrib.dtype, device=x.device)
-    for j in range(k):
-        y = y + contrib[:, :, j]
-    y = y.reshape(b, s, d)
+    def combine(_g0, ybuf, dst, keep, gsc):
+        # Gather back, weight, and add each token's k contributions in
+        # order.
+        slot = torch.clamp(dst, max=e * capacity - 1).long()
+        ya = torch.gather(ybuf, 1, slot[..., None].expand(-1, -1, d))
+        w = (gsc * keep.to(torch.float32)).to(ya.dtype)
+        contrib = (ya * w[..., None]).view(ybuf.shape[0], tg, k, d)
+        y = torch.zeros(ybuf.shape[0], tg, d, dtype=contrib.dtype,
+                        device=x.device)
+        for j in range(k):
+            y = y + contrib[:, :, j]
+        return y
 
+    y = shd.on_batch_shards(combine, groups, ybuf, dst, keep,
+                              gsc).reshape(b, s, d)
     if cfg.num_shared_experts:
         sh = params["shared"]
         hs = F.silu(x @ sh["w_gate"]) * (x @ sh["w_in"])
         y = y + hs @ sh["w_out"]
-    return y.to(x.dtype)
+    return shard(y.to(x.dtype), "batch", None, "embed")
 
 
 def load_balancing_loss(probs: torch.Tensor, eids: torch.Tensor,

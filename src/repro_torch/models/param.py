@@ -11,8 +11,12 @@ tensors whose paths are the reference's tree paths
 stacked ``[L, ...]`` layouts and its per-block lists (the ssm and hybrid
 families hold ``blocks`` as a list of dicts of different structure).
 
-The reference's ``abstract_params``, ``param_shardings`` and
-``param_specs`` wait for the port of ``distributed/sharding``.
+For the dry-run, :func:`abstract_params` gives ``meta`` tensors of the
+skeleton's shapes and dtypes (nothing allocated), :func:`param_specs`
+the reference's ``PartitionSpec`` per leaf (as tuples) and
+:func:`param_shardings` a ``NamedSharding`` per leaf on a
+``DeviceMesh``, the counterparts of the reference's functions of the
+same names.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.distributed import sharding as shd
 from repro_torch.utils import DeviceLike, resolve_device
 
 #: Elements drawn per slice of one leaf's normals: a slice's temporaries
@@ -77,6 +82,26 @@ def map_tree(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
     if isinstance(tree, list):
         return [one(i, v) for i, v in enumerate(tree)]
     return {k: one(k, v) for k, v in tree.items()}
+
+
+def abstract_params(skeleton: dict, device="meta") -> dict:
+    """Tensors of the skeleton's shapes and dtypes on ``device`` (``meta``
+    by default: nothing is allocated)."""
+    return map_tree(lambda _p, s: torch.empty(s.shape, dtype=s.dtype,
+                                              device=device), skeleton)
+
+
+def param_specs(skeleton: dict, mesh=None) -> dict:
+    """The resolved spec of every leaf (``sharding.resolve_spec``)."""
+    return map_tree(lambda _p, s: shd.resolve_spec(s.logical, s.shape, mesh),
+                    skeleton)
+
+
+def param_shardings(skeleton: dict, mesh=None) -> dict:
+    """A ``sharding.NamedSharding`` per leaf (None leaves without a
+    mesh)."""
+    return map_tree(lambda _p, s: shd.named_sharding(s.logical, s.shape,
+                                                     mesh), skeleton)
 
 
 def _numel(shape) -> int:

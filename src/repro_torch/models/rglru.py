@@ -10,7 +10,7 @@ state. The attention blocks attend within ``local_window`` keys and
 decode against a ring of that many slots: position ``p`` lives at slot
 ``p % window``, written on the device through a tensor index (no read
 of the position back to the host). The reference's sharding annotations
-are dropped.
+are kept (no-ops without a mesh).
 """
 from __future__ import annotations
 
@@ -20,7 +20,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
+from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
@@ -120,8 +123,22 @@ def rglru_scan(bp: dict, x: torch.Tensor,
     a = torch.exp(log_a)
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
-    h = linear_scan(a, b)
+    if isinstance(a, shd.DTensor):
+        h = _local_scan(a, b)
+    else:
+        h = linear_scan(a, b)
     return h.to(x.dtype), h[:, -1]
+
+
+def _local_scan(a, b):
+    """:func:`linear_scan` on each rank's shards (batch rows and recurrent
+    channels are independent): a and b placed ``("batch", None, "rnn")``,
+    the whole sequence on every rank."""
+    a, b = (shard(t, "batch", None, "rnn") for t in (a, b))
+    with shd.local_region():
+        h = linear_scan(shd.local(a, b.placements),
+                        shd.local(b, b.placements))
+    return shd.from_local(h, tuple(b.shape), b.device_mesh, b.placements)
 
 
 def rglru_step(bp: dict, x: torch.Tensor, h: torch.Tensor) -> tuple:
@@ -140,7 +157,7 @@ def _rec_block_fwd(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     y = nn.rmsnorm(bp["ln1"], x, cfg.norm_eps)
     # jax.nn.gelu's default is the tanh approximation.
     lhs = F.gelu((y @ bp["w_gelu"]).float(), approximate="tanh").to(x.dtype)
-    rhs = y @ bp["w_rec"]
+    rhs = shard(y @ bp["w_rec"], "batch", None, "rnn")
     if decode:
         conv, new_tail = nn.causal_conv(bp["conv_w"], bp["conv_b"], rhs,
                                          state["conv"])
@@ -152,15 +169,27 @@ def _rec_block_fwd(bp: dict, x: torch.Tensor, cfg: ModelConfig,
         out, h_last = rglru_scan(bp, conv)
         new_state = {"h": h_last, "conv": tail}
     merged = (lhs.float() * out.float()).to(x.dtype)
-    x = x + merged @ bp["w_out"]
+    # the out-projection's pending sum resolved onto the residual's layout
+    x = x + shard(merged @ bp["w_out"], "batch", None, "embed")
     h2 = nn.rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + nn.mlp(bp["mlp"], h2, cfg), new_state
+    return shard(x + nn.mlp(bp["mlp"], h2, cfg), "batch", None,
+                 "embed"), new_state
 
 
 def ring_tail(kv: torch.Tensor, window: int) -> torch.Tensor:
     """A prefill's last ``window`` K or V ``[B, S, Hkv, hd]`` as a ring of
     ``window`` slots: zero-padded at the end while ``S < window``, else
-    rolled so that position ``p`` sits at slot ``p % window``."""
+    rolled so that position ``p`` sits at slot ``p % window``. On a
+    ``DTensor`` each rank its own rows and heads (the sequence is whole on
+    every rank; torch 2.11's ``DTensor`` has no strategy for ``roll`` and
+    fails to plan this ``pad``)."""
+    if isinstance(kv, shd.DTensor):
+        kv = shard(kv, *attn.KV_LOGICAL)
+        pl = kv.placements
+        with shd.local_region():
+            tail = ring_tail(shd.local(kv, pl), window)
+        return shd.from_local(tail, (kv.shape[0], window) + tuple(
+            kv.shape[2:]), kv.device_mesh, pl)
     s = kv.shape[1]
     tail = F.pad(kv[:, -window:], (0, 0, 0, 0, 0, max(window - s, 0)))
     if s >= window:
@@ -179,8 +208,7 @@ def _attn_block_fwd(bp: dict, x: torch.Tensor, positions: torch.Tensor,
         # The ring's slot pos % w, written in place on the device.
         slot = torch.remainder(pos.reshape(1).long(), w)
         lk, lv = state["k"], state["v"]
-        lk.index_copy_(1, slot, k.to(lk.dtype))
-        lv.index_copy_(1, slot, v.to(lv.dtype))
+        kvc.write_at(lk, lv, slot, k, v)
         o = attn.decode_attention(q, lk, lv, torch.clamp(pos + 1, max=w))
         new_state = {"k": lk, "v": lv}
     else:
@@ -188,7 +216,8 @@ def _attn_block_fwd(bp: dict, x: torch.Tensor, positions: torch.Tensor,
         new_state = {"k": ring_tail(k, w), "v": ring_tail(v, w)}
     x = x + attn.proj_out(bp["attn"], o)
     h2 = nn.rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + nn.mlp(bp["mlp"], h2, cfg), new_state
+    return shard(x + nn.mlp(bp["mlp"], h2, cfg), "batch", None,
+                 "embed"), new_state
 
 
 # ---------------------------------------------------------------------------

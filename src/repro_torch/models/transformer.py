@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as nn
@@ -103,10 +104,10 @@ def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig,
     return nn.mlp(lp["mlp"], h, cfg)
 
 
-def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                   cfg: ModelConfig, use_moe: bool,
-                   window: Optional[int] = None):
-    """Forward one layer and return its K/V for the cache."""
+def _layer_body(lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, use_moe: bool,
+                window: Optional[int] = None):
+    """One layer's output and its K/V."""
     h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv(lp["attn"], h, positions, cfg)
     o = attn.chunked_causal_attention(q, k, v, cfg, window=window)
@@ -115,9 +116,18 @@ def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + _ffn(lp, h, cfg, use_moe), k, v
 
 
+def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, use_moe: bool,
+                   window: Optional[int] = None):
+    """Forward one layer and return its K/V for the cache."""
+    x, k, v = _layer_body(lp, x, positions, cfg, use_moe, window)
+    return shard(x, "batch", None, "embed"), k, v
+
+
 def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, use_moe: bool) -> torch.Tensor:
-    return _layer_prefill(lp, x, positions, cfg, use_moe)[0]
+    x = _layer_body(lp, x, positions, cfg, use_moe)[0]
+    return shard(x, "batch", "seq_res", "embed")
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -139,6 +149,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     gradient is being taken."""
     x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x = shard(x, "batch", "seq_res", "embed")
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for lp, use_moe in _stacks(params):
         if remat:
@@ -157,9 +168,7 @@ def _xent_from_hidden(params: dict, h: torch.Tensor, targets: torch.Tensor,
     ``logit_chunk`` positions at a time, so the whole ``[B, S, vocab]``
     logits never exist at once."""
     def chunk_nll(h_c, t_c):
-        logits = nn.unembed(params["unembed"], h_c)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
+        lse, picked = nn.xent_parts(nn.unembed(params["unembed"], h_c), t_c)
         return lse - picked
 
     s = h.shape[1]
@@ -185,7 +194,7 @@ def lm_loss(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     text only.
     """
     b = tokens.shape[0]
-    targets = torch.roll(tokens, -1, dims=1)
+    targets = nn.next_tokens(tokens)
     mask = torch.ones(targets.shape, dtype=torch.float32,
                       device=tokens.device)
     mask[:, -1] = 0.0
@@ -222,6 +231,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     x = _embed(params, tokens, cfg, extra_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    x = shard(x, "batch", None, "embed")
     layers = _stacks(params)
     kept = min(s, window) if window else s
     alloc = kept if window else max(max_len, s)
@@ -230,12 +240,13 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     for i, (lp, use_moe) in enumerate(layers):
         x, k, v = _layer_prefill(lp, x, positions, cfg, use_moe,
                                  window=window or None)
-        cache.k[i, :, :kept] = k[:, s - kept:]
-        cache.v[i, :, :kept] = v[:, s - kept:]
+        kvc.write_prompt(cache.k, cache.v, i, k, v, kept)
     h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = nn.unembed(params["unembed"], h[:, -1:])
     cache.position.fill_(kept)
-    return logits, cache
+    return logits, dataclasses.replace(
+        cache, k=shard(cache.k, *kvc.CACHE_LOGICAL),
+        v=shard(cache.v, *kvc.CACHE_LOGICAL))
 
 
 def _layer_decode(lp: dict, x: torch.Tensor, layer_k: torch.Tensor,
@@ -249,7 +260,7 @@ def _layer_decode(lp: dict, x: torch.Tensor, layer_k: torch.Tensor,
     o = attn.decode_attention(q, layer_k, layer_v, valid)
     x = x + attn.proj_out(lp["attn"], o)
     h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + _ffn(lp, h, cfg, use_moe)
+    return shard(x + _ffn(lp, h, cfg, use_moe), "batch", None, "embed")
 
 
 def decode_step(params: dict, cache: kvc.KVCache, tokens: torch.Tensor,
@@ -267,4 +278,6 @@ def decode_step(params: dict, cache: kvc.KVCache, tokens: torch.Tensor,
                           use_moe)
     h = nn.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = nn.unembed(params["unembed"], h)
-    return logits, dataclasses.replace(cache, position=cache.position + 1)
+    return logits, dataclasses.replace(
+        cache, k=shard(cache.k, *kvc.CACHE_LOGICAL),
+        v=shard(cache.v, *kvc.CACHE_LOGICAL), position=cache.position + 1)

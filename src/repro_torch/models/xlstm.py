@@ -12,7 +12,9 @@ the reference's ``jax.checkpoint`` per block: at xlstm-350m's width an
 mLSTM state ``C`` is ``[8, 4, 512, 512]`` f32, 33.5 MB per time step,
 and without recomputation every block's steps would stay alive for the
 backward. ``d_ff=0``: blocks carry their own up/down projections, there
-is no separate FFN. The reference's sharding annotations are dropped.
+is no separate FFN. The reference's sharding annotations are kept
+(no-ops without a mesh); under a mesh the cells' time loops and the
+group norm run shard-local on each rank's batch rows.
 
 Dtypes follow the reference's promotion: ``cpath @ w_if`` multiplies a
 bf16 activation by an f32 weight, which JAX computes in f32; ``cpath @
@@ -27,6 +29,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
@@ -132,6 +136,11 @@ def _groupnorm(x: torch.Tensor, scale: torch.Tensor, heads: int,
                eps: float = 1e-5) -> torch.Tensor:
     """Per-head group norm over the feature axis. x: ``[..., D]``; the
     variance is the population one (``jnp.var``'s ``ddof=0``)."""
+    if isinstance(x, shd.DTensor):
+        # the head split needs whole features: each rank's batch rows
+        return shd.on_batch_shards(
+            lambda _b0, xl, sc: _groupnorm(xl, sc, heads, eps),
+            x.shape[0], x, whole=(scale,))
     shp = x.shape
     xh = x.reshape(shp[:-1] + (heads, shp[-1] // heads)).float()
     mu = torch.mean(xh, dim=-1, keepdim=True)
@@ -153,7 +162,7 @@ def _mlstm_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     nh = cfg.num_heads
     y = nn.rmsnorm(bp["ln"], x, cfg.norm_eps)
-    up = y @ bp["w_up"]                                       # [B,S,di]
+    up = shard(y @ bp["w_up"], "batch", None, "rnn")          # [B,S,di]
     z = y @ bp["w_z"]
     conv, new_tail = nn.causal_conv(
         bp["conv_w"], bp["conv_b"], up,
@@ -169,26 +178,32 @@ def _mlstm_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     k = heads(cpath @ bp["wk"]).float()
     v = heads(up @ bp["wv"]).float()
     # bf16 activation × f32 weight: an f32 product, as JAX promotes it.
-    gates = cpath.float() @ bp["w_if"] + bp["b_if"]
+    gates = shard(cpath.float() @ bp["w_if"] + bp["b_if"], "batch", None,
+                  None)
     i_til = gates[..., :nh].transpose(1, 2)                   # [B,H,S]
     f_til = nn.log_sigmoid(gates[..., nh:]).transpose(1, 2)
 
-    if state is None:
-        carry = (_zeros((b, nh, hd, hd), x), _zeros((b, nh, hd), x),
-                 _zeros((b, nh), x))
-    else:
-        carry = (state["c"], state["n"], state["m"])
-    outs = []
-    for qt, kt, vt, it, ft in zip(q.unbind(2), k.unbind(2), v.unbind(2),
-                                  i_til.unbind(2), f_til.unbind(2)):
-        h_out, carry = _mlstm_cell(qt, kt, vt, it, ft, carry)
-        outs.append(h_out)
-    h_seq = torch.stack(outs, dim=1).reshape(b, s, di)        # [B,S,di]
+    def scan(_b0, q, k, v, i_til, f_til, *state):
+        bl = q.shape[0]
+        if not state:
+            state = (_zeros((bl, nh, hd, hd), q), _zeros((bl, nh, hd), q),
+                     _zeros((bl, nh), q))
+        outs = []
+        for qt, kt, vt, it, ft in zip(q.unbind(2), k.unbind(2), v.unbind(2),
+                                      i_til.unbind(2), f_til.unbind(2)):
+            h_out, state = _mlstm_cell(qt, kt, vt, it, ft, state)
+            outs.append(h_out)
+        # [B,S,di]
+        return (torch.stack(outs, dim=1).reshape(bl, s, di),) + state
+
+    carry = () if state is None else (state["c"], state["n"], state["m"])
+    h_seq, c_n, n_n, m_n = shd.on_batch_shards(scan, b, q, k, v, i_til,
+                                               f_til, *carry)
     out = _groupnorm(h_seq.to(cfg.dtype), bp["gn"], nh)
     out = out * F.silu(z)
     x = x + out @ bp["w_down"]
-    c_n, n_n, m_n = carry
-    return x, {"conv": new_tail, "c": c_n, "n": n_n, "m": m_n}
+    return shard(x, "batch", None, "embed"), {
+        "conv": new_tail, "c": c_n, "n": n_n, "m": m_n}
 
 
 def _slstm_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -205,20 +220,25 @@ def _slstm_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     z = (y @ bp["w_z"]).float() + bp["b_z"]
     o = (y @ bp["w_o"]).float() + bp["b_o"]
 
-    if state is None:
-        carry = (_zeros((b, d), x), _zeros((b, d), x), _zeros((b, d), x))
-    else:
-        carry = (state["c"], state["n"], state["m"])
-    outs = []
-    for it, ft, zt, ot in zip(i_til.unbind(1), f_til.unbind(1),
-                              z.unbind(1), o.unbind(1)):
-        h_out, carry = _slstm_cell(it, ft, zt, ot, carry)
-        outs.append(h_out)
-    h_seq = torch.stack(outs, dim=1)                          # [B,S,D]
+    def scan(_b0, i_til, f_til, z, o, *state):
+        if not state:
+            bl = i_til.shape[0]
+            state = (_zeros((bl, d), i_til), _zeros((bl, d), i_til),
+                     _zeros((bl, d), i_til))
+        outs = []
+        for it, ft, zt, ot in zip(i_til.unbind(1), f_til.unbind(1),
+                                  z.unbind(1), o.unbind(1)):
+            h_out, state = _slstm_cell(it, ft, zt, ot, state)
+            outs.append(h_out)
+        return (torch.stack(outs, dim=1),) + state           # [B,S,D]
+
+    carry = () if state is None else (state["c"], state["n"], state["m"])
+    h_seq, c_n, n_n, m_n = shd.on_batch_shards(scan, b, i_til, f_til, z, o,
+                                               *carry)
     out = _groupnorm(h_seq.to(cfg.dtype), bp["gn"], cfg.num_heads)
     x = x + out @ bp["w_down"]
-    c_n, n_n, m_n = carry
-    return x, {"conv": new_tail, "c": c_n, "n": n_n, "m": m_n}
+    return shard(x, "batch", None, "embed"), {
+        "conv": new_tail, "c": c_n, "n": n_n, "m": m_n}
 
 
 # ---------------------------------------------------------------------------

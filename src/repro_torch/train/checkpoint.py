@@ -13,8 +13,10 @@ Leaves are numbered in the order of the reference's
 ``jax.tree_util.tree_flatten``: dict keys sorted, a ``TrainState``'s
 fields in order (params, master, mu, nu, step), an ``OASRSState``'s in
 order (values, counts, capacity, key; the key as its two ``uint32``
-words). The reference's ``shardings`` (re-placing on another mesh) wait
-for ROADMAP item 12d.
+words). ``restore(..., shardings=)`` re-places each leaf on a mesh (the
+reference's elastic re-mesh path): a tree like the target's of
+``sharding.NamedSharding`` (or None) leaves, each leaf placed with
+``distribute_tensor`` from the bytes every rank reads.
 """
 from __future__ import annotations
 
@@ -172,10 +174,9 @@ def restore(directory: str, step: int, target: Any,
             shardings: Any = None) -> Any:
     """Restore into ``target``'s structure: each leaf a fresh tensor on
     its target leaf's device (the CPU for a leaf that is not a tensor),
-    in the file's dtype (a PRNG key's ``uint32`` words as int64)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto a mesh waits for ROADMAP item 12d")
+    in the file's dtype (a PRNG key's ``uint32`` words as int64); a leaf
+    whose ``shardings`` leaf is a ``NamedSharding`` becomes a ``DTensor``
+    placed by it (each rank keeps its own shard, no communication)."""
     ckpt_dir = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:
         manifest = json.load(f)
@@ -193,6 +194,12 @@ def restore(directory: str, step: int, target: Any,
                              f"{tuple(meta['shape'])} != target {shape}")
         dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
         out.append(_leaf_tensor(raw, meta, key, dev))
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+        placed = [s for s, _ in _flatten(shardings)]
+        out = [t if sh is None else distribute_tensor(
+            t, sh.mesh, sh.placements, src_data_rank=None)
+            for t, sh in zip(out, placed)]
     return _unflatten(target, iter(out))
 
 

@@ -14,9 +14,13 @@ of its largest leaf (805 M elements) would need 3 GiB per temporary.
 ``apply_updates`` consumes the grads: each leaf is dropped from the tree
 once its update is done.
 
-The ZeRO shardings (``zero_pspec``, ``state_shardings``) wait for the
-port of ``distributed/sharding`` (ROADMAP item 12d); ``init_state`` takes
-``mesh=None`` only.
+On a mesh (the reference's ZeRO shardings: :func:`zero_pspec`,
+:func:`state_shardings`, :func:`init_state` with a mesh) the params are
+``DTensor`` s placed by their logical axes and the f32 master and moments
+are also split over the data axes. :func:`apply_updates` then brings each
+grad to its moments' placement (a reduce-scatter where the grad is a
+pending sum), updates every rank's shards in place, and gathers the new
+params back to their own placement.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.param import (leaves, map_tree, params_from_reference,
                                       params_to_reference)
 from repro_torch.utils import DeviceLike, resolve_device
@@ -62,21 +67,69 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def init_state(params: dict, mesh: Optional[Any], opt_cfg: OptConfig,
+def zero_pspec(pspec: tuple, shape: tuple, mesh, zero_axes: tuple) -> tuple:
+    """Fold the DP axes into the first divisible unsharded dim of
+    ``pspec`` (the reference's ``zero_pspec``; specs as tuples)."""
+    if mesh is None:
+        return pspec
+    sizes = shd.axis_sizes(mesh)
+    free = [a for a in zero_axes if a in sizes]
+    if not free:
+        return pspec
+    dp = int(np.prod([sizes[a] for a in free]))
+    parts = list(pspec) + [None] * (len(shape) - len(pspec))
+    for i, (cur, dim) in enumerate(zip(parts, shape)):
+        if cur is None and dim % dp == 0:
+            parts[i] = tuple(free) if len(free) > 1 else free[0]
+            return tuple(parts)
+    return pspec  # nothing divisible: stay param-sharded
+
+
+def state_shardings(skeleton: dict, mesh, opt_cfg: OptConfig) -> TrainState:
+    """A :class:`TrainState` of ``sharding.NamedSharding`` s: params by
+    their logical axes, master and moments ZeRO-split, step replicated
+    (None everywhere without a mesh)."""
+    def pshard(_p, s):
+        return shd.named_sharding(s.logical, s.shape, mesh)
+
+    def zshard(_p, s):
+        if mesh is None:
+            return None
+        base = shd.resolve_spec(s.logical, s.shape, mesh)
+        return shd.NamedSharding(
+            mesh, zero_pspec(base, s.shape, mesh, opt_cfg.zero_axes))
+
+    zero = map_tree(zshard, skeleton)
+    scalar = shd.NamedSharding(mesh, ()) if mesh is not None else None
+    return TrainState(params=map_tree(pshard, skeleton), master=zero,
+                      mu=zero, nu=zero, step=scalar)
+
+
+def init_state(params: dict, mesh, opt_cfg: OptConfig,
                skeleton: Optional[dict] = None) -> TrainState:
     """The state of step 0: an f32 master copy of the params (fresh
-    tensors), zero moments, step 0. ``skeleton`` only places the state on
-    a mesh in the reference; on one card it changes nothing."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "init_state on a mesh (the ZeRO shardings) waits for ROADMAP "
-            "item 12d; pass mesh=None")
-    master = map_tree(lambda _p, x: x.to(torch.float32, copy=True), params)
+    tensors), zero moments, step 0. On a mesh the master and moments are
+    ``DTensor`` s ZeRO-split from each leaf's spec (from ``skeleton``'s
+    logical axes, or replicated without one, as the reference)."""
+    def master_of(path, x):
+        x32 = x.to(torch.float32, copy=True)
+        if mesh is None:
+            return x32
+        sk = skel.get(path)
+        base = (shd.resolve_spec(sk.logical, sk.shape, mesh) if sk
+                else (None,) * x.dim())
+        want = shd.NamedSharding(mesh, zero_pspec(base, tuple(x.shape), mesh,
+                                                  opt_cfg.zero_axes))
+        if isinstance(x32, shd.DTensor):
+            return x32.redistribute(mesh, want.placements)
+        return shd.distribute(x32, want)
+
+    skel = dict(leaves(skeleton)) if skeleton is not None else {}
+    master = map_tree(master_of, params)
+    zeros = map_tree(lambda _p, x: torch.zeros_like(x), master)
     if not opt_cfg.use_master:
         master = map_tree(lambda _p, x: torch.zeros(
             (), dtype=torch.float32, device=x.device), params)
-    zeros = map_tree(lambda _p, x: torch.zeros(
-        x.shape, dtype=torch.float32, device=x.device), params)
     dev = next(leaves(params))[1].device
     return TrainState(
         params=params, master=master, mu=zeros,
@@ -92,6 +145,11 @@ def lr_at(opt_cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _slices(t: torch.Tensor):
+    if isinstance(t, shd.DTensor):
+        # a rank's shards are small: whole, and no flattening of a
+        # sharded dim
+        yield t
+        return
     flat = t.view(-1)
     for a in range(0, flat.numel(), UPDATE_SLICE):
         yield flat[a:a + UPDATE_SLICE]
@@ -133,32 +191,42 @@ def apply_updates(state: TrainState, grads: dict, opt_cfg: OptConfig
     math in f32. The returned state shares every tensor with ``state``
     but ``step``; ``grads`` is clipped in place and emptied leaf by leaf
     as the update consumes it."""
+    if isinstance(next(leaves(state.mu))[1], shd.DTensor):
+        # ZeRO: each grad to its moments' placement before the norm.
+        zp = {p: t.placements for p, t in leaves(state.mu)}
+        grads = map_tree(lambda p, g: g.redistribute(g.device_mesh, zp[p]),
+                         grads)
     grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
     step = state.step + 1
     lr = lr_at(opt_cfg, step)
     sf = step.to(torch.float32)
+    if isinstance(sf, shd.DTensor):
+        # a [1] copy: xla_pow's table lookups must not take a 0-dim index
+        # (a host read of the step)
+        sf = sf.to_local().reshape(1)
     c1 = 1.0 - prng.xla_pow(torch.full_like(sf, _f32(opt_cfg.b1)), sf)
     c2 = 1.0 - prng.xla_pow(torch.full_like(sf, _f32(opt_cfg.b2)), sf)
-    b1, b2 = opt_cfg.b1, opt_cfg.b2
-    eps, wd = _f32(opt_cfg.eps), opt_cfg.weight_decay
     paths = [p for p, _ in leaves(grads)]
+    scalars = None                 # lr, c1, c2 on this rank, on a mesh
     for path, g, mu, nu, master, p in zip(
             paths, (t for _, t in leaves(grads)),
             (t for _, t in leaves(state.mu)),
             (t for _, t in leaves(state.nu)),
             (t for _, t in leaves(state.master)),
             (t for _, t in leaves(state.params))):
+        if isinstance(p, shd.DTensor):
+            if scalars is None:
+                scalars = tuple(_local(t).reshape(()) for t in (lr, c1, c2))
+            _update_shards(g, mu, nu, master, p, opt_cfg, *scalars)
+            _drop(grads, path)
+            continue
         parts = zip(_slices(g), _slices(mu), _slices(nu), _slices(p),
                     _slices(master) if opt_cfg.use_master
                     else (None for _ in _slices(p)))
         for g_s, mu_s, nu_s, p_s, m_s in parts:
-            t = g_s.to(torch.float32)
-            mu_s.mul_(b1).add_(t, alpha=1 - b1)
-            nu_s.mul_(b2).addcmul_(t, t, value=1 - b2)
-            torch.div(nu_s, c2, out=t).sqrt_().add_(eps)
-            delta = torch.div(mu_s, c1).div_(t)
             base = m_s if m_s is not None else p_s.to(torch.float32)
-            delta.add_(base, alpha=wd).mul_(lr)
+            delta = _adamw(g_s.to(torch.float32), mu_s, nu_s, base, opt_cfg,
+                           lr, c1, c2)
             if m_s is not None:
                 m_s.sub_(delta)
                 p_s.copy_(m_s)
@@ -168,6 +236,43 @@ def apply_updates(state: TrainState, grads: dict, opt_cfg: OptConfig
     new_state = TrainState(params=state.params, master=state.master,
                            mu=state.mu, nu=state.nu, step=step)
     return new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, shd.DTensor) else t
+
+
+def _adamw(t, mu_s, nu_s, base, opt_cfg: OptConfig, lr, c1, c2):
+    """The AdamW arithmetic of one slice, IN PLACE: ``t`` is the slice's
+    f32 grad (overwritten), the moments ``mu_s`` / ``nu_s`` are updated,
+    and the step ``lr·(delta + wd·base)`` is returned (the new value is
+    ``base`` less it)."""
+    b1, b2 = opt_cfg.b1, opt_cfg.b2
+    mu_s.mul_(b1).add_(t, alpha=1 - b1)
+    nu_s.mul_(b2).addcmul_(t, t, value=1 - b2)
+    torch.div(nu_s, c2, out=t).sqrt_().add_(_f32(opt_cfg.eps))
+    delta = torch.div(mu_s, c1).div_(t)
+    return delta.add_(base, alpha=opt_cfg.weight_decay).mul_(lr)
+
+
+def _update_shards(g, mu, nu, master, p, opt_cfg: OptConfig, lr, c1, c2):
+    """One leaf's AdamW step on a mesh: :func:`_adamw` on this rank's
+    shards of the grad (already at the moments' placement), moments and
+    master; the new param, cast in the moments' placement, gathered to
+    the param's own placement."""
+    mesh = mu.device_mesh
+    zp = mu.placements
+    if opt_cfg.use_master:
+        base = master.to_local()
+    else:
+        base = p.redistribute(mesh, zp).to_local().to(torch.float32)
+    delta = _adamw(_local(g).to(torch.float32), mu.to_local(), nu.to_local(),
+                   base, opt_cfg, lr, c1, c2)
+    new = base.sub_(delta) if opt_cfg.use_master else base - delta
+    new_p = shd.DTensor.from_local(new.to(p.dtype), mesh, zp,
+                                   run_check=False, shape=p.shape,
+                                   stride=p.stride())
+    p.copy_(new_p.redistribute(mesh, p.placements))
 
 
 # ---------------------------------------------------------------------------

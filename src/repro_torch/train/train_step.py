@@ -8,8 +8,9 @@ estimate of the full-stream gradient at a fraction of the work: the
 paper's throughput⇄accuracy dial applied to training.
 
 Gradients come from autograd on detached, grad-requiring views of the
-params (no ``.grad`` is ever accumulated on the state's tensors). The
-reference's ``shard_batch`` annotations wait for ROADMAP item 12d.
+params (no ``.grad`` is ever accumulated on the state's tensors).
+:func:`shard_batch` places the batch's leading dim over the data axes
+under a mesh (the reference's ``shard_batch``; a no-op without one).
 """
 from __future__ import annotations
 
@@ -17,10 +18,21 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import leaves, map_tree
 from repro_torch.train import optimizer as opt
+
+
+def shard_batch(batch: dict) -> dict:
+    """Every leaf of rank >= 1 placed with its leading dim over
+    ``batch``."""
+    def ann(x):
+        if x.dim() >= 1:
+            return shard(x, *(["batch"] + [None] * (x.dim() - 1)))
+        return x
+    return {k: ann(v) for k, v in batch.items()}
 
 
 def _grads(loss_fn: Callable, params: dict, batch: dict):
@@ -49,6 +61,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt.OptConfig,
     loss_fn = api.loss_fn(cfg)
 
     def train_step(state: opt.TrainState, batch: dict):
+        batch = shard_batch(batch)
         if num_microbatches == 1:
             loss, metrics, grads = _grads(loss_fn, state.params, batch)
         else:

@@ -1462,3 +1462,38 @@ def test_cuda_family_matches_cpu(cuda_device, monkeypatch, arch):
     assert torch.equal(cpu[4], card[4].cpu())
     for f in ("values", "counts", "capacity", "key"):
         assert torch.equal(getattr(cpu[5], f), getattr(card[5], f).cpu()), f
+
+
+@pytest.mark.cuda
+def test_cuda_compression_nccl_matches_gloo(cuda_device, tmp_path):
+    """``distributed/compression`` on a one-rank ``pod × data`` mesh: NCCL
+    on the card bit for bit the same calls over gloo on the CPU (one group
+    of backend ``cpu:gloo,cuda:nccl``, destroyed after)."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed import compression as comp
+    gen = torch.Generator().manual_seed(5)
+    tree = {"w": torch.randn(64, 48, generator=gen) * 3.0,
+            "b": [torch.randn(300, generator=gen) * 1e-3,
+                  torch.randn(17, generator=gen).to(torch.bfloat16)]}
+    tdist.init_process_group("cpu:gloo,cuda:nccl",
+                             init_method=f"file://{tmp_path}/pg",
+                             world_size=1, rank=0)
+    try:
+        meshes = [DeviceMesh(d, torch.arange(1).view(1, 1),
+                             mesh_dim_names=("pod", "data"))
+                  for d in ("cpu", "cuda")]
+        calls = [lambda t, m: comp.psum_bf16(t, m.get_group("pod")),
+                 lambda t, m: comp.psum_int8(t, m.get_group("pod"))] + [
+            lambda t, m, k=k: comp.hierarchical_grad_sync(t, m, cross_pod=k)
+            for k in ("int8", "bf16", "none")]
+        for fn in calls:
+            on_cpu = fn(tree, meshes[0])
+            on_card = fn({"w": tree["w"].to(cuda_device),
+                          "b": [t.to(cuda_device) for t in tree["b"]]},
+                         meshes[1])
+            assert torch.equal(on_cpu["w"], on_card["w"].cpu())
+            for a, b in zip(on_cpu["b"], on_card["b"]):
+                assert torch.equal(a, b.cpu())
+    finally:
+        tdist.destroy_process_group()

@@ -57,21 +57,21 @@ def shard_inputs(seed=0):
                 aux=aux.astype(np.uint32))
 
 
-def spawn_ranks(fn, args, tmp_path, nprocs=W):
+def spawn_ranks(fn, args, tmp_path, nprocs=W, timeout_s=JOIN_TIMEOUT_S):
     """Run ``fn(rank, nprocs, init_method, *args)`` in ``nprocs`` spawned
     processes with a ``file://`` rendezvous under ``tmp_path``; fails the
     test (and stops the ranks) if they are not done within
-    ``JOIN_TIMEOUT_S``."""
+    ``timeout_s``."""
     init = f"file://{tmp_path}/pg"
     ctx = mp.start_processes(fn, args=(nprocs, init) + tuple(args),
                              nprocs=nprocs, join=False,
                              start_method="spawn")
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
-            pytest.fail(f"{nprocs} ranks not done in {JOIN_TIMEOUT_S} s")
+            pytest.fail(f"{nprocs} ranks not done in {timeout_s} s")
 
 
 def init_group(rank, world, init):

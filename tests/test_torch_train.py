@@ -48,6 +48,7 @@ from repro_torch.models import api as tapi
 from repro_torch.models import param as tparam
 from repro_torch.models import transformer as ttr
 from repro_torch.stream import pipeline as tpipe
+from repro_torch.distributed import sharding as tshd
 from repro_torch.train import optimizer as topt
 from repro_torch.train import straggler as tstr
 from repro_torch.train import train_step as tts
@@ -336,8 +337,10 @@ def test_apply_updates_consumes_the_grads_in_place():
     assert list(tparam.leaves(grads)) == []
     assert new.mu["final_ln"]["scale"].data_ptr() == ptr
     assert new.params is tp and int(new.step) == 1
-    with pytest.raises(NotImplementedError, match="12d"):
-        topt.init_state(tp, object(), topt.OptConfig())
+    # On a mesh the moments fold the data axes into a free divisible dim.
+    mesh = tshd.AbstractMesh({"data": 2, "model": 4})
+    assert topt.zero_pspec(("model", None), (8, 6), mesh,
+                           ("pod", "data")) == ("model", "data")
 
 
 # ---------------------------------------------------------------------------

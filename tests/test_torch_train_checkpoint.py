@@ -198,8 +198,9 @@ def test_restore_shape_mismatch_raises(tmp_path):
     tckpt.save(str(tmp_path), 1, {"w": torch.ones(4)})
     with pytest.raises(ValueError, match="shape"):
         tckpt.restore(str(tmp_path), 1, {"w": torch.ones(5)})
-    with pytest.raises(NotImplementedError, match="12d"):
-        tckpt.restore(str(tmp_path), 1, {"w": torch.ones(4)}, shardings=1)
+    with pytest.raises(ValueError, match="shape"):
+        tckpt.restore(str(tmp_path), 1, {"w": torch.ones(5)},
+                      shardings={"w": None})
 
 
 def test_resumed_run_continues_the_uninterrupted_one(tmp_path):
