@@ -224,6 +224,19 @@ Phases (any failure ends the run with a non-zero exit):
              ``hierarchical_grad_sync`` on a one-rank ``pod × data``
              mesh, NCCL on the card, bit for bit the same calls over
              gloo on the CPU. ``chiprun_out/chip_smoke_dryrun.json``.
+17. payloads (a) the fold kernel on payload trees at the main path's
+             chunk (524,288 items into [6, 1,048,576] cells): ``{"val":
+             f32, "key": i32}`` and ten leaves (``f32 [3]``, bf16, bool,
+             i64, six f32), a replacement and a filling chunk, every leaf
+             and the counts bit for bit the plain version's, the scratch
+             clean after every call; the device and event times of the
+             scalar call and both trees in turns (2, 2 and 3 kernels per
+             call, no memset), each beside its bound; (b) the six
+             examples ``examples/torch_*.py`` at their default sizes on
+             the card, each one's wall time and last estimate line, their
+             launches counted in the kernels' JSON line.
+             ``chiprun_out/chip_smoke_payloads.json``,
+             ``chiprun_out/chip_smoke_examples.txt``.
 
 Every stream is the reference's: ``StreamAggregator`` draws, ids and
 event times bit for bit (phases paths' and sharded's disorder is drawn
@@ -239,9 +252,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4304,7 +4320,9 @@ def train_first_batch(torch, run, dev) -> dict:
     cap = max(run.batch // run.num_domains, 1)
     res = oasrs.init(run.num_domains, cap,
                      prng.fold_in(prng.PRNGKey(run.seed), 1),
-                     max_capacity=4 * cap, dtype=torch.int32, device="cpu")
+                     max_capacity=4 * cap,
+                     payload_spec=oasrs.PayloadSpec(dtype=torch.int32),
+                     device="cpu")
     tokens, domains = synthetic_token_window(spec, 0, run.seed, "cpu")
     _, idx, w, valid = tlt.sample_window(res, tokens, domains)
     batch = tlt.assemble_batch(tokens, idx, w, valid, run.batch)
@@ -4570,7 +4588,9 @@ def phase_train(torch, seed: int, dev, smoke: bool = False,
     # The sampled windows against a CPU run of the same sample_window.
     res = oasrs.init(run.num_domains, cap,
                      prng.fold_in(prng.PRNGKey(seed), 1),
-                     max_capacity=4 * cap, dtype=torch.int32, device="cpu")
+                     max_capacity=4 * cap,
+                     payload_spec=oasrs.PayloadSpec(dtype=torch.int32),
+                     device="cpu")
     spec = TokenWindowSpec(window, run.seq_len, run.num_domains,
                            cfg.vocab_size)
     for e, (dom, idx, w, valid) in enumerate(probe.windows):
@@ -4890,7 +4910,7 @@ def card_program(torch, shape: str, dev, seed: int) -> dict:
     """Phase dryrun (b): rank 0 of the (16, 16) fake group runs one cell's
     program on the card. Run 1 under the dry-run's counter (local ops,
     FLOPs, bytes, collectives; each collective's output filled as if every
-    rank held rank 0's input, since the fake group writes none), its
+    other rank held zeros, since the fake group writes none), its
     every output checked finite and of its shape; run 2 timed on the host
     clock, run 3 profiled (their gathers' outputs left unwritten: they
     are timed, not checked)."""
@@ -5096,6 +5116,174 @@ def phase_dryrun(torch, seed: int, dev) -> dict:
     return result
 
 
+PAYLOAD_TREES = ("two", "mixed10")  # phase payloads (a)
+#: Phase payloads (b): each example and the prefix of its estimate lines.
+EXAMPLES = (("quickstart", "window "), ("network_traffic", "  "),
+            ("taxi_rides", "windowed overall"),
+            ("streaming_runtime", "final windowed bytes"),
+            ("observability", "avg: hw95"), ("serve_telemetry", "window "))
+
+
+def payload_tree(torch, gen, name: str, lead: tuple) -> dict:
+    """One of phase payloads' trees, each leaf ``[*lead, *item]``:
+    ``"two"`` ``{"val": f32, "key": i32}``; ``"mixed10"`` ten leaves,
+    ``f32 [3]``, bf16, bool, i64 and six f32 scalars (two write groups
+    of the kernel)."""
+    dev = gen.device
+
+    def f32(*item):
+        return torch.randn(lead + item, generator=gen, device=dev) * 100.0
+
+    def ints(bound, dtype):
+        return torch.randint(-bound, bound, lead, generator=gen, device=dev,
+                             dtype=dtype)
+    if name == "two":
+        return {"val": f32(), "key": ints(2 ** 31 - 1, torch.int32)}
+    tree = {"vec": f32(3), "half": f32().to(torch.bfloat16),
+            "flag": torch.rand(lead, generator=gen, device=dev) < 0.5,
+            "id": ints(2 ** 40, torch.int64)}
+    tree.update({f"f{i}": f32() for i in range(6)})
+    return tree
+
+
+def row_bytes(tree: dict) -> int:
+    """Bytes of one item's row summed over a tree's ``[M, ...]`` leaves."""
+    return sum(t[0].numel() * t.element_size() for t in tree.values())
+
+
+def payloads_fold(torch, dev) -> dict:
+    """(a) Kernel 1 on payload trees at the main path's chunk: the
+    replacement chunk of ``fold_timing`` (the same draws) and a filling
+    chunk, each folding both trees of :data:`PAYLOAD_TREES` into fresh
+    random rings, every leaf and the counts bit for bit the plain
+    version's, the scratch clean after every call; then the device and
+    event times of the scalar call and of both trees in turns, their
+    launches per call and bounds."""
+    from repro_torch.kernels import ref, reservoir
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TIMING_SEED)
+    cells = K * S
+    i32 = dict(dtype=torch.int32, device=dev)
+    inp = fold_inputs(
+        torch, gen, M, cells,
+        torch.randint(2_000_000, 3_000_000, (cells,), generator=gen, **i32),
+        torch.randint(1, N_MAX + 1, (cells,), generator=gen, **i32))
+    ring = torch.randn((cells, N_MAX), generator=gen, device=dev)
+    trees = {n: (payload_tree(torch, gen, n, (M,)),
+                 payload_tree(torch, gen, n, (cells, N_MAX)))
+             for n in PAYLOAD_TREES}
+    filling = dict(inp, counts=torch.zeros(cells, **i32),
+                   capacity=torch.full((cells,), N_MAX, **i32))
+    for case, args in (("replacement", inp), ("filling", filling)):
+        for name, (pay, start) in trees.items():
+            vk, vp = clone_tree(start), clone_tree(start)
+            args = dict(args, payload=pay)
+            ck = reservoir.reservoir_fold(values=vk, **args)
+            cp = ref.reservoir_fold(values=vp, **args)
+            bad = [k for k in start if not same_bits(torch, vk[k], vp[k])]
+            if not torch.equal(ck, cp):
+                bad.append("counts")
+            written = {k: int((vk[k] != start[k]).reshape(cells * N_MAX, -1)
+                              .any(dim=1).sum()) for k in start}
+            clean = workspace_clean(torch)
+            log(f"[payloads] (a) {name} ({len(start)} leaves), {case}: "
+                f"bitwise={not bad}, cells written per leaf "
+                f"{min(written.values())}-{max(written.values())}, "
+                f"scratch clean={clean}")
+            if bad or not clean or not all(written.values()):
+                fail(f"payloads (a): the fold kernel on {name}, {case}, "
+                     f"differs from its plain version in {bad}, wrote "
+                     f"{written} cells or left its scratch dirty ({clean})")
+            del vk, vp
+
+    need = fold_need(torch, inp)
+    n_ops = 12 * M
+    calls = {"scalar": lambda: reservoir.reservoir_fold(values=ring, **inp)}
+    nbytes = {"scalar": need["bytes"]}
+    for name, (pay, start) in trees.items():
+        calls[name] = (lambda p=pay, v=start: reservoir.reservoir_fold(
+            values=v, **dict(inp, payload=p)))
+        nbytes[name] = (need["bytes"] - 8 * need["won"]
+                        + 2 * need["won"] * row_bytes(pay))
+    order = ("scalar",) + PAYLOAD_TREES + PAYLOAD_TREES[::-1] + ("scalar",)
+    device = {n: [] for n in calls}
+    event = {n: [] for n in calls}
+    kernels = {}
+    for n in order:
+        prof = device_profile(calls[n], torch)
+        device[n].append(sum(v[0] for v in prof.values()))
+        event[n].append(time_ms(calls[n], torch))
+        kernels[n] = log_launches(f"payloads (a) {n}", prof)
+    want = {"scalar": (2, 0), "two": (2, 0), "mixed10": (3, 0)}
+    if kernels != want:
+        fail(f"payloads (a): kernels and memsets per call {kernels}, "
+             f"expected {want}")
+    bound = {n: max(b / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+             for n, b in nbytes.items()}
+    for n in calls:
+        log(f"[payloads] (a) {n}: device ms in turns "
+            f"{[round(x, 5) for x in device[n]]}, events "
+            f"{[round(x, 4) for x in event[n]]}, bound {bound[n]:.4f} ms "
+            f"({nbytes[n]} B: {need['won']} cells won)")
+    return dict(device_ms=device, event_ms=event, bound_ms=bound,
+                bytes=nbytes, kernels_per_call=kernels, won=need["won"],
+                order=list(order))
+
+
+def run_example(torch, name: str, prefix: str) -> dict:
+    """One ``examples/torch_<name>.py`` at its default size on the card,
+    in this process: its wall time and its last estimate line; every
+    estimate line finite. Its output goes to
+    ``chiprun_out/chip_smoke_examples.txt``."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    with open(ROOT / "chiprun_out" / "chip_smoke_examples.txt", "a") as f:
+        f.write(f"==== examples/torch_{name}.py ({wall:.3f} s)\n{out}\n")
+    lines = [l for l in out.splitlines() if l.startswith(prefix)]
+    bad = [l for l in lines if re.search(r"\b(nan|inf)\b", l, re.I)]
+    if not lines or bad:
+        fail(f"payloads (b): {name} printed no estimate line or a "
+             f"non-finite one: {bad}")
+    log(f"[payloads] (b) {name}: {wall:.3f} s; last estimate: "
+        f"{lines[-1].strip()}")
+    return dict(wall_s=wall, last=lines[-1].strip())
+
+
+def phase_payloads(torch, dev) -> dict:
+    """(a) :func:`payloads_fold`; (b) the six examples of the port at
+    their default sizes on the card, with the kernels' counts set to 0
+    just before and read just after; ``chiprun_out/
+    chip_smoke_payloads.json``."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    fold = payloads_fold(torch, dev)
+    (ROOT / "chiprun_out" / "chip_smoke_examples.txt").write_text("")
+    ops.reset_launch_counts()
+    examples = {name: run_example(torch, name, prefix)
+                for name, prefix in EXAMPLES}
+    launches = ops.launch_counts()
+    log(f"[payloads] (b) launches of the six examples: {launches}")
+    if not (launches["reservoir_fold"] and launches["stratified_stats"]):
+        fail(f"payloads (b): the examples did not go through the fold and "
+             f"stats kernels: {launches}")
+    out = dict(fold=fold, examples=examples, launches=launches,
+               phase_s=time.perf_counter() - t0, card=card())
+    (ROOT / "chiprun_out" / "chip_smoke_payloads.json").write_text(
+        json.dumps(out, indent=1))
+    log(f"[payloads] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5135,6 +5323,7 @@ def main(argv=None) -> int:
     train = phase_train(torch, args.seed, dev)["launches"]
     families = phase_families(torch, args.seed, dev)["launches"]
     phase_dryrun(torch, args.seed, dev)
+    payloads = phase_payloads(torch, dev)["launches"]
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -5144,14 +5333,15 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/reservoir.py:36",
              launches=launches["reservoir_fold"]
              + systems["reservoir_fold"] + serve["reservoir_fold"]
-             + train["reservoir_fold"] + families["reservoir_fold"],
-             **fold),
+             + train["reservoir_fold"] + families["reservoir_fold"]
+             + payloads["reservoir_fold"], **fold),
         dict(name="stratified_stats", route="cuda",
              source="src/repro_torch/kernels/csrc/stratified_stats.cu",
              replaces="src/repro/kernels/stratified_stats.py:31",
              launches=launches["stratified_stats"]
              + systems["stratified_stats"] + serve["stratified_stats"]
-             + families["stratified_stats"], **stats),
+             + families["stratified_stats"] + payloads["stratified_stats"],
+             **stats),
         dict(name="one_shot_ingest", route="cuda",
              source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
              replaces="src/repro/kernels/reservoir.py:146",

@@ -100,9 +100,12 @@ def _psum(parts: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def local_update(state: oasrs.OASRSState, stratum_ids: torch.Tensor,
-                 payload: torch.Tensor,
+                 payload,
                  mask: Optional[torch.Tensor] = None) -> oasrs.OASRSState:
-    """Per-shard ingestion: just the local chunk fold, no collective."""
+    """Per-shard ingestion: just the local chunk fold (``payload`` a tree
+    of ``[M, ...]`` leaves), no collective. The fold runs where the state
+    lies (``kernels/ops``), so the reference's ``backend=`` has no
+    counterpart."""
     return oasrs.update_chunk(state, stratum_ids, payload, mask)
 
 

@@ -1,9 +1,10 @@
 """Online Adaptive Stratified Reservoir Sampling (OASRS), paper §3.2.
 
-Counterpart of the reference's ``core/oasrs.py`` for scalar payloads
-(one ``[S, N_max]`` reservoir tensor): the state, its fresh-buffer
-``init``, ``reset_window``, and the paper's two ingestion models with the
-reference's key schedules:
+Counterpart of the reference's ``core/oasrs.py``: the state, whose
+payload is one ``[S, N_max, ...]`` reservoir tensor or a tree (dicts,
+tuples, lists) of them described by a tree of :class:`PayloadSpec`, its
+fresh-buffer ``init``, ``reset_window``, and the paper's two ingestion
+models with the reference's key schedules:
 
 * ``update_chunk`` — the batched model (Spark Streaming): the key is
   split three ways and two ``[M]`` uniforms are drawn up front. The fold
@@ -17,8 +18,10 @@ reference's key schedules:
   depends on ``lane``.
 
 Unlike the reference's pure updates, the fold writes the reservoir
-tensor IN PLACE (the ring is never re-materialised per chunk); the
-returned state shares ``values`` with the input state.
+tensors IN PLACE (the ring is never re-materialised per chunk); the
+returned state shares ``values`` with the input state. A payload whose
+structure is not the state's raises ``ValueError``, as the reference's
+``jax.tree.map`` does.
 """
 from __future__ import annotations
 
@@ -29,13 +32,23 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import ops
-from repro_torch.utils import DeviceLike, resolve_device
+from repro_torch.utils import (DeviceLike, resolve_device, tree_flatten,
+                               tree_map)
+
+
+@dataclasses.dataclass(frozen=True)
+class PayloadSpec:
+    """One item's payload leaf, the reference's ``jax.ShapeDtypeStruct``:
+    its reservoir leaf is ``[S, N_max, *shape]`` of ``dtype``."""
+    shape: tuple = ()
+    dtype: torch.dtype = torch.float32
+
 
 @dataclasses.dataclass
 class OASRSState:
     """Per-window sampling state.
 
-    values:   ``[S, N_max]`` reservoir payloads (f32 or i32).
+    values:   ``[S, N_max, ...]`` reservoir payloads, or a tree of them.
     counts:   ``[S]`` int32 — ``C_i``, arrivals per stratum this window.
     capacity: ``[S]`` int32 — ``N_i <= N_max``, the adaptive knob.
     key:      ``[2]`` int64 PRNG key (two u32 words).
@@ -51,7 +64,8 @@ class OASRSState:
 
     @property
     def max_capacity(self) -> int:
-        return self.values.shape[-1]
+        """``N_max``: the first values leaf's axis after the strata."""
+        return tree_flatten(self.values)[0][0].shape[self.counts.dim()]
 
     def taken(self) -> torch.Tensor:
         """``Y_i = min(C_i, N_i)``."""
@@ -72,12 +86,15 @@ class OASRSState:
 
 def init(num_strata: int, capacity, key: torch.Tensor,
          max_capacity: Optional[int] = None,
-         dtype: torch.dtype = torch.float32,
+         payload_spec=PayloadSpec(),
          device: DeviceLike = None) -> OASRSState:
     """Empty state; ``capacity`` is an int or ``[S]`` ints.
 
-    ``capacity`` always gets a FRESH buffer, never a view of the
-    caller's tensor: the state is updated in place later.
+    ``payload_spec`` describes ONE item's payload: a :class:`PayloadSpec`
+    (the default, a scalar f32) or a tree of them; each leaf becomes a
+    zero ``[S, N_max, *shape]`` buffer. ``capacity`` always gets a FRESH
+    buffer, never a view of the caller's tensor: the state is updated in
+    place later.
     """
     dev = resolve_device(device)
     cap = torch.as_tensor(capacity, dtype=torch.int32)
@@ -85,21 +102,23 @@ def init(num_strata: int, capacity, key: torch.Tensor,
         max_capacity = int(cap.max())
     cap = cap.to(dev).expand(num_strata).clone()
     return OASRSState(
-        values=torch.zeros((num_strata, max_capacity), dtype=dtype,
-                           device=dev),
+        values=tree_map(lambda sp: torch.zeros(
+            (num_strata, max_capacity) + tuple(sp.shape), dtype=sp.dtype,
+            device=dev), payload_spec),
         counts=torch.zeros(num_strata, dtype=torch.int32, device=dev),
         capacity=cap,
         key=key.to(dev))
 
 
 def apply_chunk_uniforms(state: OASRSState, stratum_ids: torch.Tensor,
-                         payload: torch.Tensor, mask: torch.Tensor,
+                         payload, mask: torch.Tensor,
                          u_accept: torch.Tensor,
                          u_slot: torch.Tensor) -> OASRSState:
     """The chunk fold given pre-drawn uniforms; ``state.key`` is kept.
 
     Bit-identical to folding the chunk item by item through Algorithm 1
-    with the same uniforms. ``state.values`` is written in place.
+    with the same uniforms. ``payload`` is a tree of ``[M, ...]`` leaves
+    with the structure of ``state.values``, which is written in place.
     """
     counts = ops.reservoir_fold(stratum_ids.to(torch.int32), payload,
                                 u_accept, u_slot, mask, state.counts,
@@ -108,10 +127,10 @@ def apply_chunk_uniforms(state: OASRSState, stratum_ids: torch.Tensor,
                       capacity=state.capacity, key=state.key)
 
 
-def update_chunk(state: OASRSState, stratum_ids: torch.Tensor,
-                 payload: torch.Tensor,
+def update_chunk(state: OASRSState, stratum_ids: torch.Tensor, payload,
                  mask: Optional[torch.Tensor] = None) -> OASRSState:
-    """Fold a micro-batch of ``M`` items into the reservoirs."""
+    """Fold a micro-batch of ``M`` items (``payload`` a tree of ``[M,
+    ...]`` leaves) into the reservoirs."""
     m = stratum_ids.shape[0]
     if mask is None:
         mask = torch.ones(m, dtype=torch.bool, device=stratum_ids.device)
@@ -134,32 +153,39 @@ def reset_window(state: OASRSState) -> OASRSState:
 # Pipelined-model ingestion (Flink analog).
 # ---------------------------------------------------------------------------
 
-def _fold_item(state: OASRSState, s: torch.Tensor, payload: torch.Tensor,
+def _fold_item(state: OASRSState, s: torch.Tensor, payload,
                mk: torch.Tensor, u: torch.Tensor,
                slot_draw: torch.Tensor) -> torch.Tensor:
     """Algorithm 1 for one item given its draws (``u`` for acceptance,
-    ``slot_draw`` the replacement slot); every argument a ``[1]`` tensor,
-    since indexing with a 0-dim tensor reads it back to the host. Writes
-    the reservoir in place; returns the new counts."""
+    ``slot_draw`` the replacement slot); ``s``, ``mk``, ``u`` and
+    ``slot_draw`` are ``[1]`` tensors, since indexing with a 0-dim tensor
+    reads it back to the host, and ``payload`` a tree of one item's
+    leaves. Writes every reservoir leaf in place; returns the new
+    counts."""
     c = state.counts.index_select(0, s) + 1
     cap = state.capacity.index_select(0, s)
     filling = c <= cap
     accept = mk & (filling | (u * c.to(torch.float32)
                               < cap.to(torch.float32)))
     slot = torch.where(filling, c - 1, slot_draw)
-    flat = state.values.view(-1)
     cell = s * state.max_capacity + slot.long()
-    old = flat.index_select(0, cell)
-    flat.index_copy_(0, cell, torch.where(
-        accept, payload.reshape(1).to(flat.dtype), old))
+
+    def write(res_leaf, pay_leaf):
+        rows = res_leaf.view(-1, *res_leaf.shape[2:])
+        old = rows.index_select(0, cell)
+        rows.index_copy_(0, cell, torch.where(
+            accept.view((1,) * old.dim()),
+            pay_leaf.reshape(old.shape).to(rows.dtype), old))
+    tree_map(write, state.values, payload)
     return state.counts.index_add(0, s, mk.to(torch.int32))
 
 
-def update_item(state: OASRSState, stratum_id: torch.Tensor,
-                payload: torch.Tensor, mask=True) -> OASRSState:
+def update_item(state: OASRSState, stratum_id: torch.Tensor, payload,
+                mask=True) -> OASRSState:
     """Algorithm 1 applied to one arriving item (pipelined operator).
 
-    ``stratum_id``/``payload`` are one-element tensors, ``mask`` a bool
+    ``stratum_id`` is a one-element tensor, ``payload`` a tree of the
+    item's leaves (``[*shape]`` or ``[1, *shape]`` each), ``mask`` a bool
     or a one-element bool tensor. The key splits three ways: the next
     key, an acceptance uniform and a replacement slot ``randint(0,
     max(N_i, 1))``. The reservoir is written in place; ``counts`` is a
@@ -176,11 +202,11 @@ def update_item(state: OASRSState, stratum_id: torch.Tensor,
                       capacity=state.capacity, key=keys[0])
 
 
-def update_stream(state: OASRSState, stratum_ids: torch.Tensor,
-                  payload: torch.Tensor,
+def update_stream(state: OASRSState, stratum_ids: torch.Tensor, payload,
                   mask: Optional[torch.Tensor] = None) -> OASRSState:
-    """Pipelined ingestion of ``T`` items, one at a time: each item flows
-    through the sampler as it arrives; no batch is formed first.
+    """Pipelined ingestion of ``T`` items (``payload`` a tree of ``[T,
+    ...]`` leaves), one at a time: each item flows through the sampler as
+    it arrives; no batch is formed first.
 
     :func:`update_item`'s draws for every item at once: the key chain is
     walked first (item ``j``'s keys are ``split(key_j, 3)``, ``key_{j+1}``
@@ -203,7 +229,8 @@ def update_stream(state: OASRSState, stratum_ids: torch.Tensor,
     cap = torch.clamp(state.capacity.index_select(0, sid), min=1)
     slots = prng.randint(chain[:, 2], 1, 0, cap[:, None])
     for j in range(t):
-        counts = _fold_item(state, sid[j:j + 1], payload[j:j + 1],
+        counts = _fold_item(state, sid[j:j + 1],
+                            tree_map(lambda p: p[j:j + 1], payload),
                             mask[j:j + 1], u[j], slots[j])
         state = OASRSState(values=state.values, counts=counts,
                            capacity=state.capacity, key=state.key)
@@ -211,7 +238,7 @@ def update_stream(state: OASRSState, stratum_ids: torch.Tensor,
 
 
 def update_pipelined_chunks(state: OASRSState, stratum_ids: torch.Tensor,
-                            payload: torch.Tensor, lane: int = 64,
+                            payload, lane: int = 64,
                             mask: Optional[torch.Tensor] = None
                             ) -> OASRSState:
     """Pipelined ingestion ``lane`` items at a time: one
@@ -224,7 +251,8 @@ def update_pipelined_chunks(state: OASRSState, stratum_ids: torch.Tensor,
         mask = torch.ones(t, dtype=torch.bool, device=stratum_ids.device)
     for i in range(0, t, lane):
         state = update_chunk(state, stratum_ids[i:i + lane],
-                             payload[i:i + lane], mask[i:i + lane])
+                             tree_map(lambda p: p[i:i + lane], payload),
+                             mask[i:i + lane])
     return state
 
 
@@ -234,11 +262,11 @@ def update_pipelined_chunks(state: OASRSState, stratum_ids: torch.Tensor,
 
 def sample_with_weights(
     state: OASRSState,
-    extract: Callable[[torch.Tensor], torch.Tensor] = lambda p: p,
+    extract: Callable[[object], torch.Tensor] = lambda p: p,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(x, w, valid)`` flattened over all reservoir slots: slot ``k``'s
-    extracted value, its stratum's weight ``W_i`` and whether it holds a
-    sampled item."""
+    extracted value (``extract`` maps the values tree to ``[S, N_max]``),
+    its stratum's weight ``W_i`` and whether it holds a sampled item."""
     xs = extract(state.values)
     w = state.weights()[..., None].expand(xs.shape)
     return (xs.reshape(-1), w.reshape(-1),

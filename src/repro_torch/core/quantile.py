@@ -29,7 +29,7 @@ device across rounds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -37,6 +37,8 @@ from repro_torch import prng
 from repro_torch.core import error as err
 from repro_torch.core.oasrs import OASRSState
 from repro_torch.kernels import ops
+
+Extract = Callable[[object], torch.Tensor]
 
 _BIG = 3.0e38   # +inf stand-in that survives float32 arithmetic
 
@@ -71,10 +73,23 @@ class SampleView:
         return x, w, valid, gid[:, None].expand(g, n).reshape(-1)
 
 
-def sample_view(state: OASRSState) -> SampleView:
-    """Project one OASRS state onto its weighted sample."""
-    return SampleView(values=state.values.to(torch.float32),
-                      counts=state.counts, taken=state.taken())
+def reservoir_values(state: OASRSState, extract: Extract) -> torch.Tensor:
+    """``extract`` of the state's values tree, refused unless it is
+    ``[S, N_max]``-leading (the reference's check and message)."""
+    xs = extract(state.values)
+    if tuple(xs.shape[:2]) != (state.num_strata, state.max_capacity):
+        raise ValueError("extract must return [S, N_max]-leading array, "
+                         f"got {tuple(xs.shape)}")
+    return xs
+
+
+def sample_view(state: OASRSState,
+                extract: Extract = lambda v: v) -> SampleView:
+    """Project one OASRS state onto its weighted sample (``extract`` maps
+    its values tree to ``[S, N_max]``)."""
+    return SampleView(
+        values=reservoir_values(state, extract).to(torch.float32),
+        counts=state.counts, taken=state.taken())
 
 
 def _levels(qs, device) -> torch.Tensor:
@@ -245,20 +260,22 @@ def bootstrap_quantiles(view: SampleView, qs, num_replicates: int,
 # Public query.
 # ---------------------------------------------------------------------------
 
-def query_quantile(source, qs, method: str = "sort", num_bins: int = 32,
+def query_quantile(source, qs, extract: Extract = lambda v: v,
+                   method: str = "sort", num_bins: int = 32,
                    num_steps: int = 4, num_replicates: int = 64,
                    key: Optional[torch.Tensor] = None) -> err.Estimate:
     """Approximate stream quantiles with bootstrap error bounds.
 
-    ``source`` is an :class:`OASRSState` (the key then defaults to a fold
-    of its key) or a :class:`SampleView` (pass ``key=``). ``method`` is
+    ``source`` is an :class:`OASRSState` (``extract`` maps its values to
+    ``[S, N_max]``; the key defaults to a fold of its key) or a
+    :class:`SampleView` (pass ``key=``). ``method`` is
     ``"sort"`` or ``"hist"``; ``num_replicates=0`` reports zero variance.
     Returns ``value [Q]`` and the bootstrap ``variance [Q]``.
     """
     if isinstance(source, OASRSState):
         if key is None:
             key = prng.fold_in(source.key, 0x51A17)
-        view = sample_view(source)
+        view = sample_view(source, extract)
     else:
         view = source
         if key is None and num_replicates > 0:

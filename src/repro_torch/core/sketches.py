@@ -39,9 +39,9 @@ class HeavyHitters:
     sample_weight: torch.Tensor
 
 
-def _view(source) -> qt.SampleView:
+def _view(source, extract: qt.Extract) -> qt.SampleView:
     if isinstance(source, OASRSState):
-        return qt.sample_view(source)
+        return qt.sample_view(source, extract)
     return source
 
 
@@ -78,9 +78,11 @@ def _segment_sums(ws: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     return out[:m]
 
 
-def query_heavy_hitters(source, k: int) -> HeavyHitters:
-    """Approximate top-k heaviest keys with Eq. 6 frequency bounds."""
-    view = _view(source)
+def query_heavy_hitters(source, k: int,
+                        extract: qt.Extract = lambda v: v) -> HeavyHitters:
+    """Approximate top-k heaviest keys with Eq. 6 frequency bounds
+    (``extract`` maps a state's values to ``[S, N_max]``)."""
+    view = _view(source, extract)
     x, w, valid, _ = view.flat()
     order, seg, seg_keys = _segments(x, valid)
     seg_w = _segment_sums(torch.where(valid, w, 0.0)[order], seg)
@@ -116,14 +118,15 @@ def _chao1(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return d + f1 * (f1 - 1.0) / (2.0 * (f2 + 1.0))
 
 
-def query_distinct(source, num_replicates: int = 64,
+def query_distinct(source, extract: qt.Extract = lambda v: v,
+                   num_replicates: int = 64,
                    key: Optional[torch.Tensor] = None) -> err.Estimate:
     """Approximate distinct count: Chao1 on the pooled sample (a lower
     bound on the stream's distinct count), with the stratified-bootstrap
     replicate variance."""
     if isinstance(source, OASRSState) and key is None:
         key = prng.fold_in(source.key, 0xD157)
-    view = _view(source)
+    view = _view(source, extract)
     if key is None and num_replicates > 0:
         raise ValueError("pass key= when querying a bare SampleView")
     valid = view.slot_mask().reshape(-1)

@@ -19,18 +19,12 @@ the inputs are not modified.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import torch
 import torch.distributed as tdist
 
-
-def _tree_map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+from repro_torch.utils import tree_map as _tree_map
 
 
 def _sum(t: torch.Tensor, group, op=tdist.ReduceOp.SUM) -> torch.Tensor:

@@ -126,6 +126,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_fold_tile_lists.restype = i
     lib.sa_reservoir_fold.argtypes = [p] * 14 + [i, i, i, p]
     lib.sa_reservoir_fold.restype = i
+    lib.sa_reservoir_fold_rows.argtypes = [p] * 15 + [i] * 4 + [p]
+    lib.sa_reservoir_fold_rows.restype = i
     lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p]
     lib.sa_stratified_stats.restype = i
     lib.sa_stats_scratch_words.argtypes = [ll, i]

@@ -34,6 +34,15 @@
 // Loads are 4-byte words, 32 neighbouring ones per warp, because the
 // item-order rank takes a warp's items 32 at a time in order.
 //
+// A payload of several leaves, or of one leaf that is not a 4-byte
+// scalar (a leaf [M, *item] of any dtype is one row of prod(item) *
+// itemsize bytes per item), takes the same claim and then one write
+// launch per group of at most kMaxLeaves leaves (fold_write_rows): each
+// winner copies its row of every leaf of the group, in 4-byte words where
+// the row and both base pointers allow it, else in bytes; only the last
+// group's launch puts the winner words back to -1 and clears the
+// look-back words and the tile counter.
+//
 // Limits: S <= 1024 (the claim keeps 16 x (S + 1) + 3 S int32 in shared
 // memory, 78 KB at the limit) and S * N_max + 1 < 2^31 (int32 ring index);
 // the wrapper checks both.
@@ -93,6 +102,82 @@ __global__ void __launch_bounds__(kThreads)
               lists, list_n);
 }
 
+// The leaves of one write launch of a payload tree, by value: base
+// pointers, the bytes of one item's row, and whether the row is copied in
+// 4-byte words.
+struct RowLeaves {
+  const uint8_t* payload[kMaxLeaves];
+  uint8_t* values[kMaxLeaves];
+  long long row_bytes[kMaxLeaves];
+  int words[kMaxLeaves];
+  int n;                                      // 1 <= n <= kMaxLeaves
+};
+
+__device__ __forceinline__ void copy_row(const RowLeaves& lv, int l, int j,
+                                         int cell) {
+  const long long rb = lv.row_bytes[l];
+  if (lv.words[l]) {
+    const long long nw = rb >> 2;
+    const uint32_t* src =
+        reinterpret_cast<const uint32_t*>(lv.payload[l]) + j * nw;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(lv.values[l]) + cell * nw;
+    for (long long i = 0; i < nw; ++i) dst[i] = src[i];
+  } else {
+    const uint8_t* src = lv.payload[l] + j * rb;
+    uint8_t* dst = lv.values[l] + cell * rb;
+    for (long long i = 0; i < rb; ++i) dst[i] = src[i];
+  }
+}
+
+// The write pass of a payload tree for one group of leaves: one block per
+// tile of the claim, each warp over its own list, a lane per entry. An
+// entry whose item still holds its cell copies its row of every leaf of
+// the group; in the last group it then resets the cell's winner word (a
+// cell has one winning entry, and a losing entry never finds its own
+// index there, before or after the reset).
+__global__ void __launch_bounds__(kThreads)
+    fold_write_rows(const int2* __restrict__ lists,
+                    const int32_t* __restrict__ list_n,
+                    const __grid_constant__ RowLeaves lv,
+                    int32_t* __restrict__ winner,
+                    unsigned long long* __restrict__ status, int cells,
+                    int last, int32_t* __restrict__ tile_ctr) {
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int2* list = lists + (size_t)tile * kTile + warp * kWarpItems;
+  const int n = list_n[tile * kWarps + warp];
+  for (int q = lane; q < n; q += 32) {
+    const int2 e = list[q];
+    if (winner[e.y] != e.x) continue;
+    for (int l = 0; l < lv.n; ++l) copy_row(lv, l, e.x, e.y);
+    if (last) winner[e.y] = -1;
+  }
+  if (!last) return;
+  for (int c = threadIdx.x; c < cells; c += kThreads)
+    status[(size_t)c * gridDim.x + tile] = 0;
+  if (tile == 0 && threadIdx.x == 0) *tile_ctr = 0;
+}
+
+// The claim launch, shared by the scalar and the tree entry points.
+int launch_claim(const void* sid, const void* u_accept, const void* u_slot,
+                 const void* mask, const void* counts, const void* capacity,
+                 void* counts_out, void* winner, void* status, void* lists,
+                 void* list_n, void* ctrs, int m, int s_cnt, int n_max,
+                 int n_tiles, cudaStream_t stream) {
+  const size_t smem = sizeof(int32_t) * claim_smem_words(s_cnt);
+  cudaError_t err = allow_smem(fold_claim, smem);
+  if (err != cudaSuccess) return (int)err;
+  fold_claim<<<n_tiles, kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(sid), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(u_accept), static_cast<const float*>(u_slot),
+      m, s_cnt, n_max, n_tiles, static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(capacity),
+      static_cast<int32_t*>(counts_out), static_cast<int32_t*>(winner),
+      static_cast<unsigned long long*>(status), static_cast<int2*>(lists),
+      static_cast<int32_t*>(list_n), static_cast<int32_t*>(ctrs));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Items one tile (one block of either launch) covers, and its lists.
@@ -114,25 +199,58 @@ extern "C" int sa_reservoir_fold(const void* sid, const void* payload,
                                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_tiles = m > 0 ? (m + kTile - 1) / kTile : 1;
-  const size_t smem = sizeof(int32_t) * claim_smem_words(s_cnt);
-  auto* win_p = static_cast<int32_t*>(winner);
-  auto* status_p = static_cast<unsigned long long*>(status);
-  auto* lists_p = static_cast<int2*>(lists);
-  auto* list_n_p = static_cast<int32_t*>(list_n);
-  auto* tile_ctr = static_cast<int32_t*>(ctrs);
-  cudaError_t err = allow_smem(fold_claim, smem);
-  if (err != cudaSuccess) return (int)err;
-  fold_claim<<<n_tiles, kThreads, smem, stream>>>(
-      static_cast<const int32_t*>(sid), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(u_accept), static_cast<const float*>(u_slot),
-      m, s_cnt, n_max, n_tiles, static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(capacity),
-      static_cast<int32_t*>(counts_out), win_p, status_p, lists_p, list_n_p,
-      tile_ctr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int err = launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
+                         counts_out, winner, status, lists, list_n, ctrs, m,
+                         s_cnt, n_max, n_tiles, stream);
+  if (err != 0) return err;
   fold_write<<<n_tiles, kThreads, 0, stream>>>(
-      lists_p, list_n_p, static_cast<const uint32_t*>(payload), win_p,
-      static_cast<uint32_t*>(values), status_p, s_cnt, tile_ctr);
+      static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
+      static_cast<const uint32_t*>(payload), static_cast<int32_t*>(winner),
+      static_cast<uint32_t*>(values),
+      static_cast<unsigned long long*>(status), s_cnt,
+      static_cast<int32_t*>(ctrs));
   return (int)cudaGetLastError();
+}
+
+// The fold of a payload tree: payloads and values are host arrays of
+// n_leaves pointers (leaf l [M, *item] into [S, N_max, *item], row_bytes[l]
+// bytes an item), any dtype; the scratch as sa_reservoir_fold's. One claim
+// launch, then one write launch per group of kMaxLeaves leaves.
+extern "C" int sa_reservoir_fold_rows(
+    const void* sid, const void* const* payloads, const void* u_accept,
+    const void* u_slot, const void* mask, const void* counts,
+    const void* capacity, void* const* values, const long long* row_bytes,
+    void* counts_out, void* winner, void* status, void* lists, void* list_n,
+    void* ctrs, int m, int s_cnt, int n_max, int n_leaves,
+    void* stream_ptr) {
+  if (n_leaves < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int n_tiles = m > 0 ? (m + kTile - 1) / kTile : 1;
+  int err = launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
+                         counts_out, winner, status, lists, list_n, ctrs, m,
+                         s_cnt, n_max, n_tiles, stream);
+  if (err != 0) return err;
+  for (int g = 0; g < n_leaves; g += kMaxLeaves) {
+    RowLeaves lv;
+    lv.n = n_leaves - g < kMaxLeaves ? n_leaves - g : kMaxLeaves;
+    for (int l = 0; l < kMaxLeaves; ++l) {
+      const bool used = l < lv.n;
+      lv.payload[l] =
+          used ? static_cast<const uint8_t*>(payloads[g + l]) : nullptr;
+      lv.values[l] = used ? static_cast<uint8_t*>(values[g + l]) : nullptr;
+      lv.row_bytes[l] = used ? row_bytes[g + l] : 0;
+      lv.words[l] = used && row_bytes[g + l] % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(lv.payload[l]) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(lv.values[l]) % 4 == 0;
+    }
+    const int last = g + kMaxLeaves >= n_leaves;
+    fold_write_rows<<<n_tiles, kThreads, 0, stream>>>(
+        static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
+        lv, static_cast<int32_t*>(winner),
+        static_cast<unsigned long long*>(status), s_cnt, last,
+        static_cast<int32_t*>(ctrs));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }

@@ -14,6 +14,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import reservoir as _reservoir
 from repro_torch.kernels import stratified_stats as _stats
 from repro_torch.kernels import weighted_hist as _whist
+from repro_torch.utils import tree_flatten
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -26,8 +27,11 @@ def _on_cpu(t: torch.Tensor, name: str) -> bool:
 
 def reservoir_fold(stratum_ids, payload, u_accept, u_slot, mask, counts,
                    capacity, values) -> torch.Tensor:
-    """Fold a chunk into ``values [S, N_max]`` in place; new counts out."""
-    if _on_cpu(values, "reservoir_fold"):
+    """Fold a chunk into ``values [S, N_max, ...]`` in place; new counts
+    out. ``payload`` and ``values`` a tensor each or two trees of one
+    structure."""
+    leaves = tree_flatten(values)[0]
+    if not leaves or _on_cpu(leaves[0], "reservoir_fold"):
         return ref.reservoir_fold(stratum_ids, payload, u_accept, u_slot,
                                   mask, counts, capacity, values)
     return _reservoir.reservoir_fold(stratum_ids, payload, u_accept, u_slot,
@@ -46,7 +50,7 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot,
     """The whole ingest of one chunk, in place on the carried tensors;
     ``payload`` and ``values`` a tensor each or two trees of one
     structure."""
-    leaves = ref.tree_flatten(state["values"])[0]
+    leaves = tree_flatten(state["values"])[0]
     if not leaves or _on_cpu(leaves[0], "one_shot_ingest"):
         return ref.one_shot_ingest(times, stratum_ids, payload, mask,
                                    u_accept, u_slot, **state)

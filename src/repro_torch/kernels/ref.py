@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.utils import bincount, rank_within_stratum
+from repro_torch.utils import bincount, rank_within_stratum, tree_flatten
 
 #: f32 -inf and int32 minimum stand-ins of the reference's masked maxima.
 _NEG_TIME = float(np.float32(-3.0e38))
@@ -53,33 +53,69 @@ def _fold_winners(stratum_ids: torch.Tensor, u_accept: torch.Tensor,
 
 def _write_winners(winner: torch.Tensor, payload: torch.Tensor,
                    values: torch.Tensor) -> None:
-    """Each won cell of ``values`` (any shape, ``S·N_max`` cells) takes
-    its winner's payload, in place."""
-    flat_values = values.view(-1)
-    flat_values.copy_(torch.where(winner >= 0,
-                                  payload[torch.clamp(winner, min=0)],
-                                  flat_values))
+    """Each won cell of ``values`` (``S·N_max`` cells of any leading
+    shape, then one item's shape) takes its winner's row of ``payload
+    [M, *item]``, in place."""
+    if payload.shape[0] == 0:
+        return
+    rows = values.view(winner.shape[0], -1)
+    src = payload.reshape(payload.shape[0], -1)
+    rows.copy_(torch.where((winner >= 0)[:, None],
+                           src[torch.clamp(winner, min=0)], rows))
 
 
-def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
+def check_fold_payload(payload, values, m: int) -> list:
+    """The ``(payload, values)`` leaf pairs of one fold, as both versions
+    take them: ``values`` a tensor ``[S, N_max, *item]`` or a tree of
+    them (one ``S`` and ``N_max``), ``payload`` the same structure of
+    ``[M, *item]`` leaves. A structure mismatch raises ``ValueError``, as
+    the reference's ``jax.tree.map`` does."""
+    pay, pay_def = tree_flatten(payload)
+    val, val_def = tree_flatten(values)
+    if pay_def != val_def:
+        raise ValueError(f"payload structure {pay_def} != values "
+                         f"structure {val_def}")
+    if not val:
+        raise ValueError("reservoir_fold: the payload has no leaves")
+    if not all(isinstance(t, torch.Tensor) for t in pay + val):
+        raise TypeError("reservoir_fold: every payload and values leaf "
+                        "must be a tensor")
+    lead = tuple(val[0].shape[:2])
+    for p, v in zip(pay, val):
+        if v.dim() < 2 or tuple(v.shape[:2]) != lead:
+            raise ValueError(f"values leaf {tuple(v.shape)} is not "
+                             f"[S, N_max, ...] with [S, N_max] = {lead}")
+        if tuple(p.shape) != (m,) + tuple(v.shape[2:]):
+            raise ValueError(f"payload leaf {tuple(p.shape)} does not "
+                             f"match items [{m}] of values leaf "
+                             f"{tuple(v.shape)}")
+    return list(zip(pay, val))
+
+
+def reservoir_fold(stratum_ids: torch.Tensor, payload,
                    u_accept: torch.Tensor, u_slot: torch.Tensor,
                    mask: torch.Tensor, counts: torch.Tensor,
-                   capacity: torch.Tensor,
-                   values: torch.Tensor) -> torch.Tensor:
-    """Fold an ``[M]`` chunk into ``values [S, N_max]`` with exact
+                   capacity: torch.Tensor, values) -> torch.Tensor:
+    """Fold an ``[M]`` chunk into ``values [S, N_max, ...]`` (or a tree of
+    such leaves, ``payload`` the same tree of ``[M, ...]``) with exact
     sequential Vitter semantics, given pre-drawn uniforms.
 
     The rank/scatter-max form of the reference's ``apply_chunk_uniforms``:
     item ``j`` of stratum ``s`` is the ``counts[s] + rank_j + 1``-th
     arrival, accepted if it still fills the reservoir or if
-    ``u·c < N_s`` (f32), and the latest accepted item wins each cell.
+    ``u·c < N_s`` (f32), and the latest accepted item wins each cell;
+    the decisions are taken once and every leaf's row is written at its
+    winners' cells.
 
     ``values`` is updated IN PLACE (the ring is owned by the caller and
     never re-materialised); returns the new ``[S]`` int32 counts.
     """
+    leaves = check_fold_payload(payload, values, stratum_ids.shape[0])
     winner, new_counts = _fold_winners(stratum_ids, u_accept, u_slot, mask,
-                                       counts, capacity, values.shape[1])
-    _write_winners(winner, payload, values)
+                                       counts, capacity,
+                                       leaves[0][1].shape[1])
+    for pay, val in leaves:
+        _write_winners(winner, pay, val)
     return new_counts
 
 
@@ -205,23 +241,6 @@ class OneShotResult:
     chunks: torch.Tensor          # () i32 chunks folded
     items: torch.Tensor           # () i32 masked items folded
     counters: torch.Tensor        # [6, S] i32 obs rows (COUNTER_FIELDS)
-
-
-def tree_flatten(tree) -> tuple:
-    """The leaves of a payload tree and its structure, as
-    ``jax.tree_util.tree_flatten`` takes them: dict keys sorted, tuple
-    and list items in order, anything else a leaf."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [tree_flatten(tree[k]) for k in keys]
-        kind = ("dict", tuple(keys))
-    elif isinstance(tree, (tuple, list)):
-        parts = [tree_flatten(v) for v in tree]
-        kind = (type(tree).__name__, len(tree))
-    else:
-        return [tree], "*"
-    return ([leaf for p in parts for leaf in p[0]],
-            (kind, tuple(p[1] for p in parts)))
 
 
 def check_one_shot_payload(payload, values, m: int, k: int,

@@ -4,7 +4,10 @@ Counterpart of the reference's ``kernels/reservoir.py::reservoir_fold``
 (the TPU kernel ``_fold_kernel``) with the same signature: pre-drawn
 uniforms in, ``values [S, N_max]`` updated in place. Takes CUDA tensors
 only; ``kernels/ops.py`` sends CPU tensors to the plain version in
-``kernels/ref.py``.
+``kernels/ref.py``. Unlike the reference's kernel, which refuses a
+payload tree, it also takes one: ``values`` a tree of ``[S, N_max,
+*item]`` leaves of any dtype and ``payload`` the same tree of ``[M,
+*item]`` leaves.
 
 The fold is bound by memory: it must read the mask of every item, the
 stratum of each live item, ``u_accept`` of each live item past its
@@ -12,19 +15,29 @@ cell's capacity, ``u_slot`` of each such item accepted and the payload
 of each ring cell won, and write that cell. The kernel is two launches:
 a single-pass look-back scan that ranks, decides and claims ring cells
 with ``atomicMax`` (it reads the stratum, mask and both uniforms of
-every item once), and a write of the winners. Its winner table (4 B per
-ring cell) is never cleared per call: it is all -1 between calls, kept
-with the rest of the scratch in ``kernels/_workspace`` per device and
-stream, and dropped if a launch reports an error.
+every item once), and a write of the winners. A payload other than one
+4-byte scalar leaf takes the same claim and one write launch per group of
+at most :data:`MAX_LEAVES` leaves, each copying every winner's row of
+its leaves. Its winner table (4 B per ring cell) is never cleared per
+call: it is all -1 between calls, kept with the rest of the scratch in
+``kernels/_workspace`` per device and stream, and dropped if a launch
+reports an error.
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build, _workspace
+from repro_torch.kernels.ref import check_fold_payload
 
 #: The claim keeps 16 warps x (S + 1) + 3 S int32 in shared memory.
 MAX_STRATA = 1024
+#: Leaves of one write launch of a payload tree (``kMaxLeaves`` in
+#: ``csrc/fold_device.cuh``); more go in groups.
+MAX_LEAVES = 8
 
 
 def _check(name, t, dtype, shape, device):
@@ -41,30 +54,33 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"reservoir_fold: {name} is not contiguous")
 
 
-def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
+def reservoir_fold(stratum_ids: torch.Tensor, payload,
                    u_accept: torch.Tensor, u_slot: torch.Tensor,
                    mask: torch.Tensor, counts: torch.Tensor,
-                   capacity: torch.Tensor,
-                   values: torch.Tensor) -> torch.Tensor:
+                   capacity: torch.Tensor, values) -> torch.Tensor:
     """Fold an ``[M]`` chunk into ``values`` (in place) on the card.
 
     ``stratum_ids`` int32 ``[M]`` in ``[0, S)``, ``payload`` ``[M]`` of
-    ``values``' dtype (f32 or i32), ``u_accept``/``u_slot`` f32 ``[M]``,
-    ``mask`` bool ``[M]``, ``counts``/``capacity`` int32 ``[S]``. Returns
-    the new ``[S]`` int32 counts.
+    ``values``' dtype (f32 or i32) into ``values [S, N_max]``, or a tree
+    of ``[M, *item]`` leaves into the same tree of ``[S, N_max, *item]``
+    leaves of their dtypes; ``u_accept``/``u_slot`` f32 ``[M]``, ``mask``
+    bool ``[M]``, ``counts``/``capacity`` int32 ``[S]``. Returns the new
+    ``[S]`` int32 counts.
     """
-    if not values.is_cuda:
+    m = stratum_ids.shape[0]
+    leaves = check_fold_payload(payload, values, m)
+    val0 = leaves[0][1]
+    if not val0.is_cuda:
         raise ValueError("reservoir_fold kernel needs CUDA tensors; "
                          "kernels.ops dispatches CPU tensors")
-    if values.ndim != 2:
-        raise ValueError(f"values must be [S, N_max], got {values.shape}")
-    s_cnt, n_max = values.shape
-    m = stratum_ids.shape[0]
-    dev = values.device
-    _check("values", values, (torch.float32, torch.int32), (s_cnt, n_max),
-           dev)
+    s_cnt, n_max = val0.shape[:2]
+    dev = val0.device
+    scalar = len(leaves) == 1 and val0.dim() == 2 and val0.dtype in (
+        torch.float32, torch.int32)
+    for i, (pay, val) in enumerate(leaves):
+        _check(f"values leaf {i}", val, val.dtype, tuple(val.shape), dev)
+        _check(f"payload leaf {i}", pay, val.dtype, tuple(pay.shape), dev)
     _check("stratum_ids", stratum_ids, torch.int32, (m,), dev)
-    _check("payload", payload, values.dtype, (m,), dev)
     _check("u_accept", u_accept, torch.float32, (m,), dev)
     _check("u_slot", u_slot, torch.float32, (m,), dev)
     _check("mask", mask, torch.bool, (m,), dev)
@@ -83,14 +99,29 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace.for_call(lib, dev, stream, m=m, cells=s_cnt,
                              table=s_cnt * n_max)
+    scratch = (counts_out.data_ptr(), ws.winner.data_ptr(),
+               ws.status.data_ptr(), ws.lists.data_ptr(),
+               ws.list_n.data_ptr(), ws.counters.data_ptr())
     with torch.cuda.device(dev):
-        status = lib.sa_reservoir_fold(
-            stratum_ids.data_ptr(), payload.data_ptr(), u_accept.data_ptr(),
-            u_slot.data_ptr(), mask.data_ptr(), counts.data_ptr(),
-            capacity.data_ptr(), values.data_ptr(), counts_out.data_ptr(),
-            ws.winner.data_ptr(), ws.status.data_ptr(), ws.lists.data_ptr(),
-            ws.list_n.data_ptr(), ws.counters.data_ptr(), m, s_cnt, n_max,
-            stream)
+        if scalar:
+            status = lib.sa_reservoir_fold(
+                stratum_ids.data_ptr(), leaves[0][0].data_ptr(),
+                u_accept.data_ptr(), u_slot.data_ptr(), mask.data_ptr(),
+                counts.data_ptr(), capacity.data_ptr(), val0.data_ptr(),
+                *scratch, m, s_cnt, n_max, stream)
+        else:
+            ptrs = ctypes.c_void_p * len(leaves)
+            pays = ptrs(*(pay.data_ptr() for pay, _ in leaves))
+            vals = ptrs(*(val.data_ptr() for _, val in leaves))
+            rows = (ctypes.c_longlong * len(leaves))(*(
+                math.prod(val.shape[2:]) * val.element_size()
+                for _, val in leaves))
+            status = lib.sa_reservoir_fold_rows(
+                stratum_ids.data_ptr(), ctypes.addressof(pays),
+                u_accept.data_ptr(), u_slot.data_ptr(), mask.data_ptr(),
+                counts.data_ptr(), capacity.data_ptr(),
+                ctypes.addressof(vals), ctypes.addressof(rows), *scratch, m,
+                s_cnt, n_max, len(leaves), stream)
     if status != 0:
         _workspace.drop(dev, stream)
     _build.check(status, "reservoir_fold")

@@ -177,16 +177,22 @@ class Counter(TorchDispatchMode):
 
 
 def _loop_back(op: str, args, out) -> None:
-    """Fill a collective's output as if every rank held this rank's input
-    (the fake group leaves a gather's or a scatter's output unwritten):
-    a gather repeats the input, a reduce-scatter keeps its first chunk, an
-    all-to-all its input. All-reduces are in place and keep the input."""
+    """Fill a collective's output as if every other rank held zeros (the
+    fake group leaves a gather's or a scatter's output unwritten): a
+    gather puts this rank's input first and zeros after it, a
+    reduce-scatter keeps its first chunk, an all-to-all its input;
+    all-reduces are in place and keep the input. Rank 0's program then
+    computes one consistent function, whose backward is its gradient:
+    each collective's backward (a gather's slice, a reduce-scatter's
+    gather) is the adjoint of its filled forward. (Repeating the input
+    in a gather instead compounds, layer by layer, in a sequence-parallel
+    backward.)"""
     if not isinstance(out, torch.Tensor) or op.startswith("all_reduce"):
         return
     src = args[0]
     if op.startswith("all_gather"):
-        out.copy_(src.repeat((out.shape[0] // src.shape[0],)
-                             + (1,) * (src.dim() - 1)))
+        out.zero_()
+        out[:src.shape[0]].copy_(src)
     elif op.startswith("reduce_scatter"):
         out.copy_(src[:out.shape[0]])
     elif op.startswith("all_to_all"):
@@ -234,8 +240,8 @@ def run_program(prog: CellProgram, args: tuple, cfg,
                 loopback: bool = False) -> tuple:
     """``prog.fn(*args)`` under the program's mesh and rules, counted;
     returns ``(outputs, counter, seconds)``. ``loopback``: real tensors on
-    a fake group, each collective's output filled from this rank's input
-    (:func:`_loop_back`)."""
+    a fake group, each collective's output filled as if every other rank
+    held zeros (:func:`_loop_back`)."""
     from torch.distributed.tensor.experimental import implicit_replication
     mesh = tree_leaves_shardings(prog.in_shardings)[0].mesh
     counter = Counter([t.to_local() for t in tree_leaves(args)

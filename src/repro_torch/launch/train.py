@@ -100,7 +100,9 @@ def train(run: RunConfig, device: DeviceLike = None,
     # Per-domain reservoirs sized so Σ N_i ≈ batch.
     cap = max(run.batch // run.num_domains, 1)
     res = oasrs.init(run.num_domains, cap, prng.fold_in(key, 1),
-                     max_capacity=4 * cap, dtype=torch.int32, device=dev)
+                     max_capacity=4 * cap,
+                     payload_spec=oasrs.PayloadSpec(dtype=torch.int32),
+                     device=dev)
 
     ckpt = (ckpt_lib.AsyncCheckpointer(run.checkpoint_dir)
             if run.checkpoint_dir else None)

@@ -17,7 +17,10 @@ No finished attention kernel is used (``scaled_dot_product_attention``
 would change the softmax's order and its numbers). Under a mesh whose
 rules shard the query sequence (``get_rule("attn_seq")``, the reference's
 sequence-parallel mode) the query block is the whole sequence, as the
-reference's; otherwise it is ``min(attn_q_chunk, S)``. The reference's
+reference's, and each rank projects q, k and v from its part of the
+sequence, k and v then gathered along it, as XLA partitions the
+reference's program; otherwise the block is ``min(attn_q_chunk, S)``.
+The reference's
 sharding annotations are kept (no-ops without a mesh).
 """
 from __future__ import annotations
@@ -83,10 +86,48 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
         cfg: ModelConfig, use_rope: bool = True):
     """x: ``[B, S, D]`` → q ``[B,S,Hkv,G,hd]``, k/v ``[B,S,Hkv,hd]``."""
+    if isinstance(x, DTensor) and get_rule("attn_seq") is not None:
+        out = _seq_parallel_qkv(params, x, positions, cfg, use_rope)
+        if out is not None:
+            return out
     q, k, v = (project(x, params[w]) for w in ("wq", "wk", "wv"))
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    return (shard(q, *Q_LOGICAL), shard(k, *KV_LOGICAL),
+            shard(v, *KV_LOGICAL))
+
+
+def _seq_parallel_qkv(params: dict, x: DTensor, positions: torch.Tensor,
+                      cfg: ModelConfig, use_rope: bool):
+    """:func:`qkv` in the sequence-parallel mode, as XLA partitions it:
+    each rank projects its rows (its batch rows, its part of the
+    sequence) into q, k and v; q keeps that placement (``Q_LOGICAL``) and
+    k, v are gathered along the sequence (``KV_LOGICAL``), whose backward
+    hands each rank its part's gradient. None where the sequence does not
+    split over the mesh (a decode step) or a weight is not replicated:
+    the caller then projects as without this mode."""
+    from torch.distributed.tensor import Replicate, Shard
+    xs = shard(x, "batch", "attn_seq", None)
+    ws = [params[w] for w in ("wq", "wk", "wv")]
+    if not any(isinstance(p, Shard) and p.dim == 1 for p in xs.placements) \
+            or not all(isinstance(w, DTensor) and all(
+                isinstance(p, Replicate) for p in w.placements) for w in ws):
+        return None
+    mesh, out = xs.device_mesh, xs.placements
+    b, s, d = xs.shape
+    shape, offset = local_shape_and_offset(xs)
+    xl = shd.local(xs, out)
+    pos = positions[offset[1]:offset[1] + shape[1]]
+    parts = []
+    for w in ws:
+        wl = shd.local(w, out)
+        t = (xl @ wl.reshape(d, -1)).view(*shape[:2], *wl.shape[1:])
+        if use_rope and w is not ws[2]:
+            t = rope(t, pos, cfg.rope_theta)
+        parts.append(shd.from_local(t, (b, s) + tuple(w.shape[1:]), mesh,
+                                    out))
+    q, k, v = parts
     return (shard(q, *Q_LOGICAL), shard(k, *KV_LOGICAL),
             shard(v, *KV_LOGICAL))
 

@@ -1,7 +1,8 @@
-"""Shared small utilities: device choice, ranking, counting, key labels."""
+"""Shared small utilities: device choice, ranking, counting, key labels,
+and the one walker of payload trees."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
@@ -58,3 +59,52 @@ def fold_in_str(key: torch.Tensor, label: str) -> torch.Tensor:
     for ch in label:
         h = (h * 131 + ord(ch)) % (2**31 - 1)
     return prng.fold_in(key, h)
+
+
+def tree_flatten(tree) -> tuple:
+    """The leaves of a tree and its structure, as
+    ``jax.tree_util.tree_flatten`` takes them: dict keys sorted, tuple
+    and list items in order, anything else a leaf."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+        kind = ("dict", tuple(keys))
+    elif isinstance(tree, (tuple, list)):
+        parts = [tree_flatten(v) for v in tree]
+        kind = (type(tree).__name__, len(tree))
+    else:
+        return [tree], "*"
+    return ([leaf for p in parts for leaf in p[0]],
+            (kind, tuple(p[1] for p in parts)))
+
+
+def tree_unflatten(structure, leaves) -> Any:
+    """The tree of ``structure`` (from :func:`tree_flatten`) holding
+    ``leaves`` in their flattened order."""
+    it = iter(leaves)
+
+    def build(st):
+        if st == "*":
+            return next(it)
+        (kind, arg), subs = st
+        items = [build(sub) for sub in subs]
+        if kind == "dict":
+            return dict(zip(arg, items))
+        return tuple(items) if kind == "tuple" else list(items)
+    return build(structure)
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """``fn`` over the leaves of ``tree`` and of each tree of ``rest`` at
+    the same place; a tree of another structure raises ``ValueError``, as
+    ``jax.tree.map`` does."""
+    leaves, structure = tree_flatten(tree)
+    others = []
+    for other in rest:
+        o_leaves, o_structure = tree_flatten(other)
+        if o_structure != structure:
+            raise ValueError(f"tree structure {o_structure} != "
+                             f"{structure}")
+        others.append(o_leaves)
+    return tree_unflatten(structure,
+                          [fn(*xs) for xs in zip(leaves, *others)])

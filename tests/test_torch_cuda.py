@@ -215,6 +215,60 @@ def test_cuda_fold_matches_plain(cuda_device, phase, m, mask_p):
     assert torch.equal(ck, cp)
 
 
+#: Payload trees of the fold kernel, as phase payloads (a) of
+#: ``chip_smoke.py`` folds them: leaf -> (item shape, dtype). "mixed10"
+#: takes two write launches (8 + 2 leaves); "bytes" has rows that are no
+#: multiple of 4 bytes (copied in bytes).
+FOLD_TREES = {
+    "two": {"val": ((), torch.float32), "key": ((), torch.int32)},
+    "mixed10": {"vec": ((3,), torch.float32), "half": ((), torch.bfloat16),
+                "flag": ((), torch.bool), "id": ((), torch.int64),
+                **{f"f{i}": ((), torch.float32) for i in range(6)}},
+    "bytes": {"i8": ((), torch.int8), "flag": ((), torch.bool),
+              "half3": ((3,), torch.bfloat16)},
+}
+
+
+def tree_leaf(gen, shape, dtype):
+    """A seeded leaf of ``shape`` and ``dtype`` (on the CPU)."""
+    if dtype == torch.bool:
+        return torch.rand(shape, generator=gen) < 0.5
+    if dtype.is_floating_point:
+        return (torch.randn(shape, generator=gen) * 100.0).to(dtype)
+    return torch.randint(-100, 100, shape, generator=gen, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", sorted(FOLD_TREES))
+@pytest.mark.parametrize("phase", ["filling", "replacement"])
+def test_cuda_fold_tree_matches_plain(cuda_device, tree, phase):
+    """Kernel 1 on a payload tree: every leaf and the counts bit for bit
+    the plain version's, one launch counted, the scratch clean after."""
+    inp = {k: torch.from_numpy(np.array(v)).to(cuda_device)
+           for k, v in fold_inputs(8, 1000, *PHASES[phase]).items()}
+    inp.pop("values")
+    gen = torch.Generator().manual_seed(3)
+    leaves = FOLD_TREES[tree]
+    inp["payload"] = {k: tree_leaf(gen, (1000,) + sh, dt).to(cuda_device)
+                      for k, (sh, dt) in leaves.items()}
+    start = {k: tree_leaf(gen, (4, 64) + sh, dt).to(cuda_device)
+             for k, (sh, dt) in leaves.items()}
+    vk = {k: v.clone() for k, v in start.items()}
+    vp = {k: v.clone() for k, v in start.items()}
+    before = reservoir.reservoir_fold.launches
+    ck = reservoir.reservoir_fold(values=vk, **inp)
+    cp = ref.reservoir_fold(values=vp, **inp)
+    assert reservoir.reservoir_fold.launches == before + 1
+    assert torch.equal(ck, cp)
+    for k in leaves:
+        a, b = vk[k], vp[k]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), k
+        assert bool((vk[k] != start[k]).any()), k
+    assert_workspace_clean(cuda_device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,mask_p", [(1024, 0.8), (1000, 0.8), (0, 1.0)])
 def test_cuda_stats_matches_plain(cuda_device, m, mask_p):

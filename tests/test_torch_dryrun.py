@@ -192,16 +192,20 @@ def _hlo_dots_and_collectives(text):
 #: (64 x 8) product whole on every ``model`` rank, where XLA splits the
 #: experts (2-3 % at this width, where the router is 8 of the block's
 #: columns). With phi4-mini's own 2 KV heads the mode is ``attn_seq``:
-#: the port computes K and V over the whole sequence on every ``model``
-#: rank (replicated, as their rules say), XLA over each rank's part of the
-#: sequence before gathering them.
+#: both project Q and K from each rank's part of the sequence and gather
+#: K along it, and the collectives per kind agree. The residue is XLA's: it
+#: gathers x and projects V over the whole sequence, and gathers the
+#: attention output and applies ``wo`` over the whole sequence, on every
+#: ``model`` rank, where the port projects V and applies ``wo`` on the
+#: rank's part (prefill: 2 layers x (3,145,728 + 6,291,456) FLOPs more
+#: in XLA's program; train: that forward only).
 XLA_FLOPS = {
     **{("phi4-mini-3.8b", "kv4", s): (1.0, 1.0) for s in SMOKE_SHAPES},
     **{("granite-moe-3b-a800m", "kv4", s): (1.0, 1.04)
        for s in SMOKE_SHAPES},
     ("phi4-mini-3.8b", "own", "decode_32k"): (1.0, 1.0),
-    ("phi4-mini-3.8b", "own", "prefill_32k"): (1.0, 1.1),
-    ("phi4-mini-3.8b", "own", "train_4k"): (1.0, 1.3),
+    ("phi4-mini-3.8b", "own", "prefill_32k"): (0.79, 0.8),
+    ("phi4-mini-3.8b", "own", "train_4k"): (0.91, 0.92),
 }
 
 
@@ -225,8 +229,7 @@ def test_counted_flops_against_xla(arch, heads, shape):
     low, high = XLA_FLOPS[(arch, heads, shape)]
     assert low * xla_flops <= counter.flops <= high * xla_flops, (
         counter.flops, xla_flops)
-    if arch == "phi4-mini-3.8b" and shape != "train_4k" and (
-            heads == "kv4" or shape == "decode_32k"):
+    if arch == "phi4-mini-3.8b" and shape != "train_4k":
         assert {k: v for k, v in counter.coll_counts.items() if v} == \
             xla_kinds
 

@@ -27,8 +27,10 @@ from repro_torch.utils import NoCudaDeviceError
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
-    ROOT / "examples" / "torch_approx_training.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_compare.py"] + [
+    ROOT / "examples" / f"torch_{name}.py" for name in (
+        "approx_training", "quickstart", "network_traffic", "taxi_rides",
+        "streaming_runtime", "observability", "serve_telemetry")]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

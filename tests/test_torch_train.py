@@ -411,7 +411,9 @@ def test_sample_window_and_batch_bitwise():
     jres = joasrs.init(8, 1, jax.ShapeDtypeStruct((), jnp.int32),
                        jax.random.fold_in(key, 1), max_capacity=4)
     tres = toasrs.init(8, 1, prng.fold_in(prng.PRNGKey(0), 1),
-                       max_capacity=4, dtype=torch.int32, device="cpu")
+                       max_capacity=4,
+                       payload_spec=toasrs.PayloadSpec(dtype=torch.int32),
+                       device="cpu")
     jfn = jax.jit(jlt.sample_window)
     for epoch, window in enumerate((16, 16, 64, 5, 16, 64)):
         spec = (window, 32, 8, 512)
