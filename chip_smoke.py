@@ -237,6 +237,23 @@ Phases (any failure ends the run with a non-zero exit):
              launches counted in the kernels' JSON line.
              ``chiprun_out/chip_smoke_payloads.json``,
              ``chiprun_out/chip_smoke_examples.txt``.
+18. large_keys
+             the four kernels past the key counts a block's shared
+             memory holds, where each takes its large-key form: the fold
+             at 1,025, 15,360 and 262,144 cells, the one-shot at K·S =
+             1,025, 60 x 64 and 4 x 65,536, the stats at 513, 15,360 and
+             262,144 rows and the histogram at 97 x 33, 15,360 x 32 and
+             262,144 x 32 keys (the main path's 524,288-item chunks, the
+             stress's 4,194,304), each against its plain version (the
+             fold and one-shot bit for bit; counts bit for bit and sums
+             within rtol, the same bits twice), the scratch clean, then
+             timed: device ms, kernels per call, bound by bytes; then a
+             one-minute window sliding every second over 64 sub-streams
+             on 4 shards (K = 60, S = 64, W = 4, N_max = 512 a shard)
+             through the pipelined fused and onekernel paths for two
+             emissions (sum, mean, count and a hist median), each held to
+             one fused run on the CPU, its launches counted in the JSON
+             line. ``chiprun_out/chip_smoke_large_keys.json``.
 
 Every stream is the reference's: ``StreamAggregator`` draws, ids and
 event times bit for bit (phases paths' and sharded's disorder is drawn
@@ -300,7 +317,7 @@ REFINE_BINS, REFINE_STEPS = 32, 4  # quantile_refine's defaults
 HIST_LAUNCHES = 1 + len(NL_QS) * REFINE_STEPS   # weighted_hist/emission
 LATENCY_REPS = 3                   # timed evaluations per registry
 TIMING_SEED = 14                   # inputs of every kernel's timing
-PROFILE_TRIES = 5                  # traces of one window, as needed
+PROFILE_TRIES = 10                 # traces of one window, as needed
 DRYRUN_HOST_TIMEOUT_S = 600        # phase dryrun (a)'s subprocess
 STATS_RTOL = 1e-5                  # kernel vs the plain version's f32 sums
 S2_RTOL = 1e-3                     # f32 s2 (three digits cancel) vs f64
@@ -423,18 +440,21 @@ def device_profile(fn, torch, reps: int = 10) -> dict:
     """Per call of ``fn``, from a ``torch.profiler`` trace of ``reps``
     calls: ``{name: (device ms, launches)}`` of each kernel and memset.
     ``fn`` launches the same work every call, so each name's count is a
-    whole multiple of ``reps``; the tracer now and then drops events (a
-    window with no device activity, or one kernel in ten missing), and
-    such a window is profiled again, up to ``PROFILE_TRIES`` times."""
+    whole multiple of the calls traced; the tracer now and then drops
+    events (a window with no device activity, or one kernel in ten
+    missing; phase payloads (a) loses the first window of nearly every
+    call, and once lost five in a row), and such a window is profiled
+    again with twice the calls, up to ``PROFILE_TRIES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
+    for t in range(PROFILE_TRIES):
+        calls = reps << min(t, 4)
         split = {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         for e in prof.events():
@@ -443,12 +463,13 @@ def device_profile(fn, torch, reps: int = 10) -> dict:
                     "(anonymous namespace)::", "").split("(")[0])
                 us, n = split.get(name, (0.0, 0))
                 split[name] = (us + e.time_range.elapsed_us(), n + 1)
-        if split and all(n % reps == 0 for _, n in split.values()):
+        if split and all(n % calls == 0 for _, n in split.values()):
             break
-        log(f"[profile] trace of {reps} calls dropped device events "
+        log(f"[profile] trace of {calls} calls dropped device events "
             f"({', '.join(f'{k} x{n}' for k, (_, n) in split.items())}); "
             f"profiling again")
-    return {k: (us / reps / 1e3, n / reps) for k, (us, n) in split.items()}
+    return {k: (us / calls / 1e3, n / calls)
+            for k, (us, n) in split.items()}
 
 
 def log_launches(tag: str, prof: dict) -> tuple:
@@ -486,15 +507,15 @@ def listed_items(torch, m: int) -> int:
 
 def workspace_clean(torch) -> bool:
     """The kernels' kept scratch is as the next call needs it: the winner
-    table all -1, the look-back words, the counters and the tickets all
-    0."""
+    table all -1, the look-back words, the counters, the tickets and the
+    large-key sort's totals and counters all 0."""
     from repro_torch.kernels import _workspace
     dev = torch.device("cuda", torch.cuda.current_device())
     ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
-    return bool((ws.winner == -1).all()) and not bool(
-        ws.status.any()) and not bool(ws.counters.any()) and not bool(
-        ws.tickets.any())
+    return bool((ws.winner == -1).all()) and not any(
+        bool(t.any()) for t in (ws.status, ws.counters, ws.tickets,
+                                ws.sort_zeroed))
 
 
 def log_split(tag: str, split: dict, event_ms: float) -> None:
@@ -645,17 +666,17 @@ def item_needs(torch, base, new_counts, capacity) -> dict:
     return dict(live=live, fill=fill, tested=live - fill)
 
 
-def fold_need(torch, inp) -> dict:
-    """Bytes the fold of ``inp`` must move, from one probe call of the
-    kernel: the mask of every item; the stratum of each live item; u_accept
-    of each item past capacity; u_slot of each such item accepted; the
-    payload and the ring word of each cell won; counts in and out and
-    capacity. Scattered words count at their 4 bytes, though DRAM moves a
-    32-byte sector for each."""
+def fold_need(torch, inp, n_max: int = N_MAX) -> dict:
+    """Bytes the fold of ``inp`` into a ring of ``n_max`` slots a stratum
+    must move, from one probe call of the kernel: the mask of every item;
+    the stratum of each live item; u_accept of each item past capacity;
+    u_slot of each such item accepted; the payload and the ring word of
+    each cell won; counts in and out and capacity. Scattered words count
+    at their 4 bytes, though DRAM moves a 32-byte sector for each."""
     from repro_torch.kernels import reservoir
     m = inp["stratum_ids"].numel()
     cells = inp["counts"].numel()
-    probe = torch.full((cells, N_MAX), float("nan"),
+    probe = torch.full((cells, n_max), float("nan"),
                        device=inp["counts"].device)
     new_counts = reservoir.reservoir_fold(values=probe, **inp)
     won = int((~torch.isnan(probe)).sum())
@@ -986,16 +1007,19 @@ def phase_profile(torch, seed: int, dev) -> None:
 
 
 def one_shot_case(torch, gen, m, *, counts, capacity, adopt, slot_interval,
-                  max_time, open_interval, t_lo, t_hi, mask_p=0.97):
-    """Full-shape inputs of one one-shot call: ``(items, state)``."""
+                  max_time, open_interval, t_lo, t_hi, mask_p=0.97,
+                  n_max=N_MAX):
+    """Full-shape inputs of one one-shot call: ``(items, state)``, the
+    ring ``[K, S, n_max]`` for ``[K, S]`` counts."""
     dev = gen.device
     i32 = dict(dtype=torch.int32, device=dev)
+    k, s = counts.shape
 
     def rand(n):
         return torch.rand(n, generator=gen, device=dev)
     items = dict(
         times=t_lo + (t_hi - t_lo) * rand(m),
-        stratum_ids=torch.randint(0, S, (m,), generator=gen, **i32),
+        stratum_ids=torch.randint(0, s, (m,), generator=gen, **i32),
         payload=torch.randn(m, generator=gen, device=dev) * 100.0,
         mask=rand(m) < mask_p, u_accept=rand(m), u_slot=rand(m))
     state = dict(
@@ -1006,8 +1030,8 @@ def one_shot_case(torch, gen, m, *, counts, capacity, adopt, slot_interval,
         items=torch.tensor(99, **i32),
         slot_interval=torch.tensor(slot_interval, **i32), adopt=adopt,
         counts=counts, capacity=capacity,
-        values=torch.randn((K, S, N_MAX), generator=gen, device=dev),
-        counters=torch.randint(0, 1000, (6, S), generator=gen, **i32))
+        values=torch.randn((k, s, n_max), generator=gen, device=dev),
+        counters=torch.randint(0, 1000, (6, s), generator=gen, **i32))
     return items, state
 
 
@@ -1292,8 +1316,9 @@ def one_shot_need(torch, items, state) -> dict:
     capacities of reset slots."""
     from repro_torch.kernels.one_shot import one_shot_ingest
     m = items["times"].numel()
-    probe = dict({k: v.clone() for k, v in state.items()},
-                 values=torch.full((K, S, N_MAX), float("nan"),
+    k, s = state["counts"].shape
+    probe = dict({n: v.clone() for n, v in state.items()},
+                 values=torch.full(state["values"].shape, float("nan"),
                                    device=state["counts"].device))
     one_shot_ingest(**items, **ONE_SHOT_KW, **probe)
     won = int((~torch.isnan(probe["values"])).sum())
@@ -1309,8 +1334,8 @@ def one_shot_need(torch, items, state) -> dict:
     resets = int(reset.sum())
     nbytes = (m + 8 * masked_in + 4 * need["tested"]
               + 4 * (accepted - need["fill"]) + 8 * won
-              + 4 * (3 * K * S + 11 * S + 2 * K + 14)
-              + 4 * (resets * S + (S if resets else 0)))
+              + 4 * (3 * k * s + 11 * s + 2 * k + 14)
+              + 4 * (resets * s + (s if resets else 0)))
     return dict(need, bytes=nbytes, masked_in=masked_in, accepted=accepted,
                 won=won)
 
@@ -5284,6 +5309,315 @@ def phase_payloads(torch, dev) -> dict:
     return out
 
 
+# Phase large_keys: the four kernels past the key counts a block's shared
+# memory holds (each takes its large-key form there), at a threshold plus
+# one, at a sliding-window deployment (K = 60 one-second intervals of a
+# one-minute window, S = 64 sub-streams, W = 4 shards on the vmap
+# placement, N_max = 512 a shard) and at a per-key stress (S = 65,536,
+# K = 4, N_max = 64).
+#: fold: (case, cells, N_max, items)
+LK_FOLD = (("past", 1_025, 512, M), ("sliding", 15_360, 512, M),
+           ("stress", 262_144, 64, 4_194_304))
+#: one-shot: (case, K, S, N_max, items)
+LK_ONE_SHOT = (("past", 5, 205, 512, M),
+               ("sliding", 60, 64, 512, M // W_SHARDS),
+               ("stress", 4, 65_536, 64, 4_194_304))
+#: stats: (case, rows, slots a row), the emission's [rows x slots] view
+LK_STATS = (("past", 513, 1_024), ("sliding", 15_360, 512),
+            ("stress", 262_144, 64))
+#: histogram: (case, rows, bins, slots a row)
+LK_WHIST = (("past", 97, 33, 1_024), ("sliding", 15_360, 32, 512),
+            ("stress", 262_144, 32, 64))
+#: the sliding deployment's executor: a one-minute window sliding every
+#: second over 64 sub-streams on 4 shards, N_max = 512 a shard; chunks of
+#: LK_M_SHARD items a shard, a quarter second each, an emission every
+#: LK_EMIT chunks, LK_CHUNKS chunks (two emissions).
+LK_EXEC = dict(num_intervals=60, num_strata=64, num_shards=4,
+               capacity=2_048, max_capacity=2_048, interval_span=1.0,
+               allowed_lateness=0.5)
+LK_M_SHARD, LK_EMIT, LK_CHUNKS = 8_192, 2, 4
+#: launches per call of each kernel's small-key form
+SMALL_FORM_LAUNCHES = {"fold": 2, "one_shot": 3, "stats": 1, "whist": 1}
+
+
+def large_row(torch, kernel, case, fn, need_bytes, **shape) -> dict:
+    """Times one large-key call ``fn``: CUDA events around back-to-back
+    calls, the profiler's kernels and memsets per call (a Memcpy of a
+    state restore shown apart), the bound from the bytes the function
+    needs; fails if the call ran the small-key form's launch count."""
+    ev = time_ms(fn, torch, reps=10, warm=2)
+    prof = device_profile(fn, torch, reps=5)
+    restore = {k: prof.pop(k) for k in list(prof) if "Memcpy" in k}
+    kernels, memsets = log_launches(f"large_keys {kernel} {case}", prof)
+    dev_ms = sum(v[0] for v in prof.values())
+    log_split(f"large_keys {kernel} {case}",
+              {k: v[0] for k, v in prof.items()}, ev)
+    bound = need_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[large_keys] {kernel} {case} {shape}: device {dev_ms:.4f} ms "
+        f"({kernels:g} kernels, {memsets:g} memsets per call), events "
+        f"{ev:.4f} ms, bound {bound:.4f} ms by bytes ({need_bytes} B); "
+        f"{card()}")
+    if kernels <= SMALL_FORM_LAUNCHES[kernel]:
+        fail(f"large_keys {kernel} {case}: {kernels:g} kernels per call, "
+             "not the large-key form")
+    return dict(kernel=kernel, case=case, shape=shape, device_ms=dev_ms,
+                split={k: v[0] for k, v in prof.items()},
+                events_ms=ev, kernels=kernels, memsets=memsets,
+                restore={k: v[0] for k, v in restore.items()},
+                bound_ms=bound, bytes=need_bytes)
+
+
+def large_fold(torch, gen, case, cells, n_max, m) -> dict:
+    from repro_torch.kernels import ref, reservoir
+    dev = gen.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    inp = fold_inputs(torch, gen, m, cells,
+                      torch.randint(n_max, 4 * n_max, (cells,),
+                                    generator=gen, **i32),
+                      torch.randint(1, n_max + 1, (cells,), generator=gen,
+                                    **i32))
+    ring = torch.randn((cells, n_max), generator=gen, device=dev)
+    vk, vp = ring.clone(), ring.clone()
+    same = (torch.equal(reservoir.reservoir_fold(values=vk, **inp),
+                        ref.reservoir_fold(values=vp, **inp))
+            and same_bits(torch, vk, vp))
+    clean = workspace_clean(torch)
+    log(f"[large_keys] fold {case}: bitwise={same} scratch clean={clean}")
+    if not (same and clean):
+        fail(f"large_keys fold {case}: differs from its plain version or "
+             "left its scratch dirty")
+    need = fold_need(torch, inp, n_max)
+    return large_row(torch, "fold", case,
+                     lambda: reservoir.reservoir_fold(values=vk, **inp),
+                     need["bytes"], cells=cells, n_max=n_max, items=m)
+
+
+def large_one_shot(torch, gen, case, k, s, n_max, m) -> dict:
+    """The one-shot at a replacement chunk in which every masked-in item
+    is live (as ``one_shot_timing``: the frontier at 9.9 s, the items in
+    [9.45, 9.85) s), the counts put back before each timed call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.one_shot import one_shot_ingest
+    dev = gen.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    open_iv = 1
+    slots = torch.arange(k, **i32)
+    items, state = one_shot_case(
+        torch, gen, m,
+        counts=torch.randint(n_max, 4 * n_max, (k, s), generator=gen, **i32),
+        capacity=torch.randint(1, n_max + 1, (k, s), generator=gen, **i32),
+        adopt=torch.randint(1, n_max, (s,), generator=gen, **i32),
+        slot_interval=(open_iv - torch.remainder(open_iv - slots, k)).tolist(),
+        max_time=9.9, open_interval=open_iv, t_lo=9.45, t_hi=9.85,
+        n_max=n_max)
+    sk = {n: v.clone() for n, v in state.items()}
+    sp = {n: v.clone() for n, v in state.items()}
+    one_shot_ingest(**items, **ONE_SHOT_KW, **sk)
+    ref.one_shot_ingest(**items, **ONE_SHOT_KW, **sp)
+    same = all(same_bits(torch, sk[n], sp[n]) for n in state)
+    clean = workspace_clean(torch)
+    log(f"[large_keys] one_shot {case}: bitwise={same} scratch clean="
+        f"{clean}")
+    if not (same and clean):
+        fail(f"large_keys one_shot {case}: differs from its plain version "
+             "or left its scratch dirty")
+    need = one_shot_need(torch, items, state)
+    counts0 = state["counts"].clone()
+
+    def call():
+        state["counts"].copy_(counts0)
+        one_shot_ingest(**items, **ONE_SHOT_KW, **state)
+    return large_row(torch, "one_shot", case, call, need["bytes"], k=k, s=s,
+                     n_max=n_max, items=m)
+
+
+def rows_view(torch, gen, g, n):
+    """The emission's ``[g x n]`` slot view flattened: Gaussian values,
+    row ids as keys, a per-row sample size as the slot mask."""
+    dev = gen.device
+    x = (100.0 + 10.0 * torch.randn((g, n), generator=gen, device=dev)
+         ).reshape(-1)
+    taken = torch.randint(n // 2, n + 1, (g,), generator=gen, device=dev)
+    mask = (torch.arange(n, device=dev)[None, :] < taken[:, None]
+            ).reshape(-1)
+    sid = torch.arange(g, dtype=torch.int32, device=dev).repeat_interleave(n)
+    return x, sid, mask
+
+
+def large_stats(torch, gen, case, g, n) -> dict:
+    from repro_torch.kernels import stratified_stats as sk
+    x, sid, mask = rows_view(torch, gen, g, n)
+    if case == "past":                    # and random strata
+        rand = torch.randint(0, g, sid.shape, generator=gen,
+                             device=sid.device, dtype=torch.int32)
+        check_stats(torch, case + " random", x, rand, mask, g)
+    check_stats(torch, case, x, sid, mask, g)
+    need = stats_need(torch, x, sid, mask, g)
+    return large_row(torch, "stats", case,
+                     lambda: sk.stratified_stats(x, sid, mask, g),
+                     need["bytes"], rows=g, slots=x.numel())
+
+
+def check_stats(torch, case, x, sid, mask, g) -> None:
+    from repro_torch.kernels import ref, stratified_stats as sk
+    kc, ks, kq = sk.stratified_stats(x, sid, mask, g)
+    again = sk.stratified_stats(x, sid, mask, g)
+    pc, ps, pq = ref.stratified_stats(x, sid, mask, g)
+    rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+              for a, b in ((ks, ps), (kq, pq)))
+    same = all(same_bits(torch, a, b) for a, b in zip(again, (kc, ks, kq)))
+    clean = workspace_clean(torch)
+    log(f"[large_keys] stats {case}: counts bitwise={torch.equal(kc, pc)} "
+        f"sums rel err {rel:.3e} (rtol {STATS_RTOL}) second call same "
+        f"bits={same} scratch clean={clean}")
+    if not (torch.equal(kc, pc) and rel <= STATS_RTOL and same and clean):
+        fail(f"large_keys stats {case}: differs from its plain version")
+
+
+def large_whist(torch, gen, case, g, b, n) -> dict:
+    from repro_torch.core.quantile import _unit_edges
+    from repro_torch.kernels import ref, weighted_hist as wk
+    x, cell, mask = rows_view(torch, gen, g, n)
+    w = (1.0 + 3.0 * torch.rand(g, generator=gen, device=x.device))[
+        cell.long()]
+    lo, hi = float(x[mask].min()), float(x[mask].max())
+    edges = lo + (hi - lo) * _unit_edges(b, x.device)
+    kh, kc = wk.weighted_hist(x, cell, w, mask, edges, g)
+    again = wk.weighted_hist(x, cell, w, mask, edges, g)
+    ph, pc = ref.weighted_hist(x, cell, w, mask, edges, g)
+    rel = float(((kh - ph).abs() / ph.abs().clamp(min=1e-30)).max())
+    same = all(same_bits(torch, a, c) for a, c in zip(again, (kh, kc)))
+    clean = workspace_clean(torch)
+    log(f"[large_keys] whist {case}: counts bitwise={torch.equal(kc, pc)} "
+        f"mass rel err {rel:.3e} (rtol {STATS_RTOL}) second call same "
+        f"bits={same} scratch clean={clean} in bins {int(kc.sum())}")
+    if not (torch.equal(kc, pc) and rel <= STATS_RTOL and same and clean):
+        fail(f"large_keys whist {case}: differs from its plain version")
+    need = whist_need(torch, x, cell, w, mask, edges, g)
+    return large_row(torch, "whist", case,
+                     lambda: wk.weighted_hist(x, cell, w, mask, edges, g),
+                     need["bytes"], rows=g, bins=b, slots=x.numel())
+
+
+def lk_registry():
+    """The sliding deployment's queries: sum, mean, count and the
+    median by histogram refinement (4 histograms of W·K·S x 32 keys an
+    emission; no bootstrap, so the CPU twin stays in time)."""
+    return linear_registry().register("median", "quantile", qs=(0.5,),
+                                      method="hist", num_replicates=0)
+
+
+def lk_chunks(torch, seed: int) -> list:
+    """LK_CHUNKS ``[4, LK_M_SHARD]`` chunks on the CPU, a quarter second
+    each, every shard on the same ramp (``stamp_sharded``): 64 Gaussian
+    sub-streams, means 10 to 10,000."""
+    from repro_torch.runtime.records import stamp_sharded
+    gen = torch.Generator().manual_seed(seed)
+    w, s = LK_EXEC["num_shards"], LK_EXEC["num_strata"]
+    mus = torch.logspace(1.0, 4.0, s)
+    rate = LK_M_SHARD / 0.25
+    out = []
+    for e in range(LK_CHUNKS):
+        sid = torch.randint(0, s, (w, LK_M_SHARD), generator=gen,
+                            dtype=torch.int32)
+        vals = mus[sid.long()] * (1.0 + 0.1 * torch.randn(
+            (w, LK_M_SHARD), generator=gen))
+        out.append(stamp_sharded(vals, sid, e * LK_M_SHARD / rate, rate))
+    return out
+
+
+def lk_executor(torch, dev, ingest, chunks) -> tuple:
+    """The sliding deployment's pipelined executor on ``dev``: its
+    emissions' answers and final state (numpy), and the kernels' launches
+    in the run (the counts set to 0 just before, read just after)."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import convert
+    from repro_torch.runtime.executor import PipelinedExecutor, RuntimeConfig
+    from repro_torch.runtime.records import TimestampedChunk
+    cfg = RuntimeConfig(**LK_EXEC, emit_every=LK_EMIT, ingest=ingest)
+    ex = PipelinedExecutor(cfg, lk_registry(), prng.PRNGKey(3), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for c in chunks:
+        ex.push(TimestampedChunk(*(getattr(c, f).to(dev) for f in (
+            "values", "stratum_ids", "times", "mask"))))
+    ems = list(ex.emissions)
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([convert.results_to_numpy(em.results) for em in ems],
+            convert.state_to_numpy(ex.state), launches, wall)
+
+
+def lk_paths(torch, dev) -> dict:
+    """The sliding deployment through the pipelined fused and onekernel
+    paths on the card, held to one fused run on the CPU (the two paths
+    end in the same state bit for bit): the state bit for bit, every
+    answer within ANSWER_RTOL; each path's launches checked."""
+    chunks = lk_chunks(torch, 26)
+    cpu_ems, cpu_state, _, cpu_wall = lk_executor(torch, "cpu", "fused",
+                                                  chunks)
+    if len(cpu_ems) != LK_CHUNKS // LK_EMIT:
+        fail(f"large_keys executor: {len(cpu_ems)} emissions on the CPU")
+    cells = (LK_EXEC["num_shards"] * LK_EXEC["num_intervals"]
+             * LK_EXEC["num_strata"])
+    out = dict(cpu_wall_s=cpu_wall, cells=cells, paths={})
+    for ingest in ("fused", "onekernel"):
+        ems, state, launches, wall = lk_executor(torch, dev, ingest, chunks)
+        bad = [b for p in ("window", "slot_interval", "open_interval", "wm",
+                           "metrics")
+               for b in same_state(state[p], cpu_state[p], p)]
+        worst = 0.0
+        for a, b in zip(ems, cpu_ems):
+            for name in b:
+                x, y = np.asarray(a[name]["value"]), np.asarray(
+                    b[name]["value"])
+                worst = max(worst, float(np.max(np.abs(x - y) / np.maximum(
+                    np.abs(y), 1e-30))))
+        want = dict(stratified_stats=1, weighted_hist=REFINE_STEPS)
+        want["one_shot_ingest" if ingest == "onekernel"
+             else "reservoir_fold"] = 1
+        missing = [k for k in want if not launches[k]]
+        log(f"[large_keys] executor {ingest} on the card ({cells} cells, "
+            f"W = 4, N_max 512 a shard): {len(ems)} emissions, state "
+            f"bitwise to the CPU's={not bad} (differs: {bad}), answers' "
+            f"worst rel err {worst:.3e} (rtol {ANSWER_RTOL}), launches "
+            f"{launches}, wall {wall:.3f} s (CPU twin {cpu_wall:.3f} s)")
+        if bad or len(ems) != len(cpu_ems) or worst > ANSWER_RTOL:
+            fail(f"large_keys executor {ingest}: differs from its CPU twin")
+        if missing:
+            fail(f"large_keys executor {ingest}: no launch of {missing}")
+        out["paths"][ingest] = dict(launches=launches, wall_s=wall,
+                                    worst_rel_err=worst)
+    return out
+
+
+def phase_large_keys(torch, dev) -> dict:
+    """The large-key forms of the four kernels against their plain
+    versions at LK_FOLD / LK_ONE_SHOT / LK_STATS / LK_WHIST (bitwise, or
+    counts bitwise and sums within STATS_RTOL, the same bits twice, the
+    scratch clean), each timed with its launches and its bound by bytes;
+    then the sliding deployment's executor (:func:`lk_paths`);
+    ``chiprun_out/chip_smoke_large_keys.json``."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TIMING_SEED)
+    rows = [large_fold(torch, gen, *c) for c in LK_FOLD]
+    rows += [large_one_shot(torch, gen, *c) for c in LK_ONE_SHOT]
+    rows += [large_stats(torch, gen, *c) for c in LK_STATS]
+    rows += [large_whist(torch, gen, *c) for c in LK_WHIST]
+    torch.cuda.empty_cache()
+    paths = lk_paths(torch, dev)
+    out = dict(rows=rows, executor=paths, card=card(),
+               phase_s=time.perf_counter() - t0)
+    (ROOT / "chiprun_out" / "chip_smoke_large_keys.json").write_text(
+        json.dumps(out, indent=1))
+    log(f"[large_keys] phase {out['phase_s']:.1f} s; {card()}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5324,6 +5658,10 @@ def main(argv=None) -> int:
     families = phase_families(torch, args.seed, dev)["launches"]
     phase_dryrun(torch, args.seed, dev)
     payloads = phase_payloads(torch, dev)["launches"]
+    large_paths = phase_large_keys(torch, dev)["executor"]["paths"]
+    large = {k: sum(p["launches"][k] for p in large_paths.values())
+             for k in ("reservoir_fold", "stratified_stats",
+                       "one_shot_ingest", "weighted_hist")}
     if args.profile:
         phase_profile(torch, args.seed, dev)
 
@@ -5334,22 +5672,25 @@ def main(argv=None) -> int:
              launches=launches["reservoir_fold"]
              + systems["reservoir_fold"] + serve["reservoir_fold"]
              + train["reservoir_fold"] + families["reservoir_fold"]
-             + payloads["reservoir_fold"], **fold),
+             + payloads["reservoir_fold"] + large["reservoir_fold"],
+             **fold),
         dict(name="stratified_stats", route="cuda",
              source="src/repro_torch/kernels/csrc/stratified_stats.cu",
              replaces="src/repro/kernels/stratified_stats.py:31",
              launches=launches["stratified_stats"]
              + systems["stratified_stats"] + serve["stratified_stats"]
-             + families["stratified_stats"] + payloads["stratified_stats"],
-             **stats),
+             + families["stratified_stats"] + payloads["stratified_stats"]
+             + large["stratified_stats"], **stats),
         dict(name="one_shot_ingest", route="cuda",
              source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
              replaces="src/repro/kernels/reservoir.py:146",
-             launches=paths["launches"]["one_shot_ingest"], **one_shot),
+             launches=paths["launches"]["one_shot_ingest"]
+             + large["one_shot_ingest"], **one_shot),
         dict(name="weighted_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/weighted_hist.cu",
              replaces="src/repro/kernels/weighted_hist.py:35",
-             launches=nonlinear["launches"]["weighted_hist"], **whist),
+             launches=nonlinear["launches"]["weighted_hist"]
+             + large["weighted_hist"], **whist),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card())

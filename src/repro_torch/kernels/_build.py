@@ -124,23 +124,33 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_fold_tile_items.restype = i
     lib.sa_fold_tile_lists.argtypes = []
     lib.sa_fold_tile_lists.restype = i
-    lib.sa_reservoir_fold.argtypes = [p] * 14 + [i, i, i, p]
+    lib.sa_reservoir_fold.argtypes = [p] * 15 + [i, i, i, p]
     lib.sa_reservoir_fold.restype = i
-    lib.sa_reservoir_fold_rows.argtypes = [p] * 15 + [i] * 4 + [p]
+    lib.sa_reservoir_fold_rows.argtypes = [p] * 16 + [i] * 4 + [p]
     lib.sa_reservoir_fold_rows.restype = i
-    lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p]
+    lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p, p]
     lib.sa_stratified_stats.restype = i
     lib.sa_stats_scratch_words.argtypes = [ll, i]
     lib.sa_stats_scratch_words.restype = ll
-    lib.sa_one_shot_ingest.argtypes = ([p] * 25 + [i] * 5
+    lib.sa_stats_part_words.argtypes = [ll]
+    lib.sa_stats_part_words.restype = ll
+    lib.sa_one_shot_ingest.argtypes = ([p] * 26 + [i] * 5
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
     lib.sa_whist_scratch_words.argtypes = [ll, i]
     lib.sa_whist_scratch_words.restype = ll
+    lib.sa_whist_part_words.argtypes = [ll]
+    lib.sa_whist_part_words.restype = ll
     lib.sa_reduce_zeroed.argtypes = [i]
     lib.sa_reduce_zeroed.restype = i
-    lib.sa_weighted_hist.argtypes = [p] * 5 + [ll, i, i] + [p] * 5
+    lib.sa_weighted_hist.argtypes = [p] * 5 + [ll, i, i] + [p] * 6
     lib.sa_weighted_hist.restype = i
+    lib.sa_sort_status_words.argtypes = [ll, i]
+    lib.sa_sort_status_words.restype = ll
+    lib.sa_sort_zeroed_words.argtypes = []
+    lib.sa_sort_zeroed_words.restype = i
+    lib.sa_key_sort.argtypes = [p, i, i, p, p, p, p]
+    lib.sa_key_sort.restype = i
 
 
 def check(status: int, name: str) -> None:

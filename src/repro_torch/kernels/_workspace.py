@@ -23,6 +23,15 @@ The stats and histogram kernels (one launch each) keep:
 * ``rows``: f32 block and group rows of partial sums, written before
   they are read in every call.
 
+The large-key forms of all four (past the key counts shared memory
+holds) sort each item's key stably and keep:
+
+* ``sort_zeroed``: int32 digit totals and two counters of the sort, all 0
+  between calls (its last pass clears them).
+* ``keys``, ``sort_keys``, ``sort_idx``, ``sort_status``, ``head``,
+  ``base``, ``cap`` and ``part``: written before they are read in every
+  call; they grow with the items and the keys, never with their product.
+
 So the table is filled once, when it is made or grown. There is one
 workspace per (device, stream): calls on one stream run in the order they
 were issued, so no two calls use a workspace at once, and a call on
@@ -32,6 +41,8 @@ wrapper drops the workspace (:func:`drop`) and the next call makes a
 fresh one.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -52,6 +63,15 @@ class Workspace:
         self.aux = self._make(0)
         self.tickets = self._make(0, 0)
         self.rows = self._make(0, dtype=torch.float32)
+        self.keys = self._make(0)
+        self.sort_keys = self._make(0)
+        self.sort_idx = self._make(0)
+        self.sort_status = self._make(0, dtype=torch.int64)
+        self.sort_zeroed = self._make(0, 0)
+        self.head = self._make(0)
+        self.base = self._make(0)
+        self.cap = self._make(0)
+        self.part = self._make(0, dtype=torch.float32)
 
     def _make(self, n: int, fill=None, dtype=_I32) -> torch.Tensor:
         if fill is None:
@@ -85,6 +105,36 @@ class Workspace:
         if self.tickets.numel() < tickets:
             self.tickets = self._make(tickets, 0)
         return self
+
+    def large(self, lib, *, m: int, keys: int, part: int = 0):
+        """Grow the large-key scratch for ``m`` items over ``keys`` keys
+        (``part`` f32 words of tile parts); the host array of its pointers
+        that the kernels take (``LargeSlot`` in ``csrc/key_sort.cuh``)."""
+        grow = [("keys", m, None, _I32), ("sort_keys", 2 * m, None, _I32),
+                ("sort_idx", 2 * m, None, _I32),
+                ("sort_status", lib.sa_sort_status_words(m, key_bits(keys)),
+                 None, torch.int64),
+                ("sort_zeroed", lib.sa_sort_zeroed_words(), 0, _I32),
+                ("head", keys, None, _I32), ("base", keys, None, _I32),
+                ("cap", keys, None, _I32),
+                ("part", part, None, torch.float32)]
+        for name, n, fill, dtype in grow:
+            if getattr(self, name).numel() < n:
+                setattr(self, name, self._make(n, fill, dtype))
+        half = 4 * m
+        ptrs = (self.keys.data_ptr(), self.sort_keys.data_ptr(),
+                self.sort_idx.data_ptr(), self.sort_keys.data_ptr() + half,
+                self.sort_idx.data_ptr() + half, self.sort_status.data_ptr(),
+                self.sort_zeroed.data_ptr(), self.head.data_ptr(),
+                self.base.data_ptr(), self.cap.data_ptr(),
+                self.part.data_ptr())
+        return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def key_bits(keys: int) -> int:
+    """Bits of the sort keys ``[0, keys]`` (``keys`` is the sentinel of
+    an item with no key), as ``key_bits`` in ``csrc/key_sort.cuh``."""
+    return max(int(keys).bit_length(), 1)
 
 
 _SPACES: dict = {}

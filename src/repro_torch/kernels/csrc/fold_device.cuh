@@ -283,13 +283,15 @@ __device__ __forceinline__ void claim_items(
 }
 
 // Each accepted item of the tile's lists that still holds its cell
-// writes its payload there (every leaf's word) and resets the cell's
-// winner word. A warp takes its own list: its first 32 entries are read
+// writes its payload there (every leaf's word) and, when kReset, resets
+// the cell's winner word (only the last group of a payload's leaves
+// resets). A warp takes its own list: its first 32 entries are read
 // before the count is, the rest kItems a lane at a time. The pass is
 // bound by L2 transactions (a scattered sector for each winner read and
 // reset, payload read and ring write), so it reads no more list entries
 // than that. The first leaf's payload is read beside the winner word;
 // the other leaves', only by the items that won.
+template <bool kReset = true>
 __device__ __forceinline__ void write_entries(int first, int count, int n,
                                               const int2* __restrict__ list,
                                               const Leaves& lv,
@@ -315,11 +317,12 @@ __device__ __forceinline__ void write_entries(int first, int count, int n,
 #pragma unroll
       for (int l = 1; l < kMaxLeaves; ++l)
         if (l < lv.n) lv.values[l][e[q].y] = lv.payload[l][e[q].x];
-      winner[e[q].y] = -1;
+      if (kReset) winner[e[q].y] = -1;
     }
   }
 }
 
+template <bool kReset = true>
 __device__ __forceinline__ void write_winners(
     int tile, const int2* __restrict__ lists,
     const int32_t* __restrict__ list_n, const Leaves& lv,
@@ -327,9 +330,95 @@ __device__ __forceinline__ void write_winners(
   const int warp = threadIdx.x >> 5;
   const int2* list = lists + (size_t)tile * kTile + warp * kWarpItems;
   const int n = list_n[tile * kWarps + warp];
-  write_entries(0, 1, n, list, lv, winner);
+  write_entries<kReset>(0, 1, n, list, lv, winner);
   if (n > 32)                                // warp-uniform
-    write_entries(32, kItems - 1, n, list, lv, winner);
+    write_entries<kReset>(32, kItems - 1, n, list, lv, winner);
+}
+
+// ---------------------------------------------------------------------
+// The large-key form of the claim, for more cells than the claim's
+// shared memory holds (claim_smem_words) or than the look-back words
+// (tiles x cells) should take. The live items are sorted stably by cell
+// (key_sort.cuh: an LSD radix sort over (cell, item index)), so each
+// cell's items are one run in item order, and an item's rank in its cell
+// is its sorted position less the run's first. Scratch grows with the
+// items and the cells, not with their product. Then the claim runs over
+// the sorted positions, tiled as the small form's, and writes the same
+// per-warp lists, so the write launches are the small form's.
+// ---------------------------------------------------------------------
+
+// head[c] = the first sorted position of cell c, for every cell that has
+// live items (cells is the sort's sentinel: no cell); the entries of the
+// other cells are not read. Grid-stride over the sorted positions.
+__device__ __forceinline__ void mark_heads(const int32_t* __restrict__ skeys,
+                                           int m, int cells,
+                                           int32_t* __restrict__ head) {
+  const int stride = gridDim.x * kThreads;
+  for (int p = blockIdx.x * kThreads + threadIdx.x; p < m; p += stride) {
+    const int c = skeys[p];
+    if (c < cells && (p == 0 || skeys[p - 1] != c)) head[c] = p;
+  }
+}
+
+// The fold's heads: head[] of the sorted cells, and every cell's new
+// count first set to its count before the chunk (the claim then writes
+// the cells that have items).
+__global__ void __launch_bounds__(kThreads)
+    fold_heads(const int32_t* __restrict__ skeys, int m, int cells,
+               int32_t* __restrict__ head, const int32_t* __restrict__ counts,
+               int32_t* __restrict__ counts_out) {
+  mark_heads(skeys, m, cells, head);
+  for (int c = blockIdx.x * kThreads + threadIdx.x; c < cells;
+       c += gridDim.x * kThreads)
+    counts_out[c] = counts[c];
+}
+
+// The claim over sorted positions: position p holds item j = sidx[p] of
+// cell c = skeys[p], its arrival index base[c] + (p - head[c]) + 1; the
+// verdict and ring cell as the small form's, atomicMax on the winner
+// table, and the entry (j, ring cell) in its warp's list (the same lists
+// the write launches read). The last position of each cell's run writes
+// its new count. base[c] is the count before the chunk, cap[c] = N_c.
+__global__ void __launch_bounds__(kThreads)
+    fold_sorted_claim(const int32_t* __restrict__ skeys,
+                      const int32_t* __restrict__ sidx,
+                      const float* __restrict__ u_accept,
+                      const float* __restrict__ u_slot, int m, int cells,
+                      int n_max, const int32_t* __restrict__ head,
+                      const int32_t* __restrict__ base,
+                      const int32_t* __restrict__ cap,
+                      int32_t* __restrict__ counts_out,
+                      int32_t* __restrict__ winner,
+                      int2* __restrict__ lists,
+                      int32_t* __restrict__ list_n) {
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int2* list = lists + (size_t)tile * kTile + warp * kWarpItems;
+  int c[kItems], j[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {    // all loads independent: one trip
+    const long long p = item_index(tile, r);
+    c[r] = p < m ? skeys[p] : cells;
+    j[r] = p < m ? sidx[p] : 0;
+  }
+  int listed = 0;                            // the same in every lane
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int p = (int)item_index(tile, r);
+    int32_t f = -1;
+    if (c[r] < cells) {
+      const int arrival = base[c[r]] + (p - head[c[r]]) + 1;
+      if (p + 1 == m || skeys[p + 1] != c[r]) counts_out[c[r]] = arrival;
+      f = vitter_cell(c[r], arrival, cap[c[r]], u_accept[j[r]],
+                      u_slot[j[r]], n_max);
+      if (f >= 0) atomicMax(&winner[f], j[r]);
+    }
+    const unsigned won = __ballot_sync(kFull, f >= 0);
+    if (f >= 0) list[listed + __popc(won & below)] = make_int2(j[r], f);
+    listed += __popc(won);
+  }
+  if (lane == 0) list_n[tile * kWarps + warp] = listed;
 }
 
 // The fold's write pass: one block per tile of the claim, one leaf.

@@ -64,15 +64,40 @@
 // max_time - f32(lateness) (__fsub_rn); the fold's verdicts are its own
 // __fmul_rn products. The library is built with -fmad=false.
 //
-// Limits: K*S <= 1024 (so S <= 1024; the claim keeps 16 x (K*S + 1) +
-// 4 K*S int32 and the per-warp rows 32 S + 4 int32 in shared memory,
-// 208 KB of the 227 KB a block may have at K = 1, S = 1024) and
-// K*S*N_max + 1 < 2^31 (int32 ring index); the wrapper checks them.
+// Payload leaves: groups of kMaxLeaves, one write launch each; only the
+// last group's launch (osi_write) resets the winner words and writes the
+// carried state, the others (osi_write_group) copy their leaves' words.
+//
+// Large-key form. The route-and-claim launch keeps 16 x (K*S + 1) +
+// 4 K*S int32 and the per-warp rows 32 S + 4 int32 in shared memory
+// (208 KB of the 227 KB a block may have at K = 1, S = 1024) and K*S
+// look-back words per tile, so past K*S = 1,024 (the wrapper's MAX_CELLS)
+// the wrapper asks for the large-key form, whose scratch grows with M +
+// K*S:
+//   1. osi_frontier     as above;
+//   2. osi_route_keys   each item's verdict and cell (K*S for none) into
+//                       the sort keys; the ingested, accepted, late and
+//                       dropped rows by one integer atomicAdd per (warp,
+//                       stratum, row) straight into the counter rows, the
+//                       totals as above;
+//   3. key_sort         the cells sorted stably (key_sort.cuh);
+//   4. osi_heads        each cell's first sorted position, and every
+//                       cell's slot reset into scratch (its count before
+//                       the chunk and its capacity);
+//   5. fold_sorted_claim the claim over the sorted positions, writing the
+//                       new counts of the cells with items (fold_device.cuh);
+//   6. osi_write_large  the winners' payloads, then grid-wide the carried
+//                       counts and capacities, the replaced and occupancy
+//                       rows from the scratch, and in block 0 the slot
+//                       table, frontier, newest interval and chunks.
+// The only limit left is K*S*N_max + 1 < 2^31 (int32 ring index), which
+// the wrapper checks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fold_device.cuh"
+#include "key_sort.cuh"
 
 namespace {
 
@@ -410,6 +435,187 @@ __global__ void __launch_bounds__(kThreads)
     slot_interval[slot] = desired_interval(new_open, slot, k);
 }
 
+// A write launch of a group of leaves that is not the payload's last:
+// the winners copy their words and leave the winner table as it is, for
+// the next group (one block per tile of the claim).
+__global__ void __launch_bounds__(kThreads)
+    osi_write_group(const int2* __restrict__ lists,
+                    const int32_t* __restrict__ list_n,
+                    const __grid_constant__ Leaves leaves,
+                    int32_t* __restrict__ winner) {
+  write_winners<false>(blockIdx.x, lists, list_n, leaves, winner);
+}
+
+// The large-key form's routing: the verdicts and cells of
+// osi_route_claim, each item's cell (or k * s, no cell) written as its
+// sort key, and the counter rows by global integer atomics (exact in any
+// order, so the rows are the same every run).
+__global__ void __launch_bounds__(kThreads)
+    osi_route_keys(const float* __restrict__ times,
+                   const int32_t* __restrict__ sid,
+                   const uint8_t* __restrict__ mask, int m, float recip,
+                   float lateness, int k, int s,
+                   const float* __restrict__ max_time,
+                   const int32_t* __restrict__ open_interval,
+                   const unsigned* __restrict__ ctrs,
+                   int32_t* __restrict__ keys, int32_t* __restrict__ rows,
+                   int32_t* __restrict__ on_time, int32_t* __restrict__ late,
+                   int32_t* __restrict__ dropped,
+                   int32_t* __restrict__ items) {
+  const int cells = k * s;
+  __shared__ int32_t tot[4];       // on-time, late, dropped, items
+  __shared__ float wmark_s;
+  __shared__ int32_t open_before_s, new_open_s;
+  if (threadIdx.x < 4) tot[threadIdx.x] = 0;
+  if (threadIdx.x == 0) {
+    const int32_t open_before = open_interval[0];
+    wmark_s = __fsub_rn(max_time[0], lateness);      // PRE-chunk watermark
+    open_before_s = open_before;
+    new_open_s = max(open_before, dec_interval(ctrs[kCtrInterval]));
+  }
+  __syncthreads();
+  const float wmark = wmark_s;
+  const int32_t open_before = open_before_s, new_open = new_open_s;
+  const int32_t oldest_live = new_open - k + 1;
+  const int32_t open_slot = pymod(new_open, k);
+  const int lane = threadIdx.x & 31;
+  int32_t n_on_time = 0, n_late = 0, n_dropped = 0, n_items = 0;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const long long j = item_index(blockIdx.x, r);
+    bool mk = false;
+    float tv = 0.0f;
+    int st = -1;
+    if (j < m) {
+      mk = mask[j] != 0;
+      tv = times[j];
+      st = sid[j];
+    }
+    const int32_t tgt = interval_of(tv, recip);
+    const bool live = mk && !(tv < wmark) && !(tgt < oldest_live);
+    const bool late_v = live && tgt < open_before;
+    const int sr = st >= 0 && st < s ? st : -1;
+    const int32_t back = new_open - tgt;
+    const int slot = back <= open_slot ? open_slot - back : open_slot - back + k;
+    if (j < m) keys[j] = live && sr >= 0 ? slot * s + sr : cells;
+    const unsigned grp = __match_any_sync(kFull, sr);
+    const unsigned b_in = __ballot_sync(kFull, mk);
+    const unsigned b_live = __ballot_sync(kFull, live);
+    const unsigned b_late = __ballot_sync(kFull, late_v);
+    if (sr >= 0 && lane == __ffs(grp) - 1) {
+      const int32_t n_in = __popc(b_in & grp), n_lv = __popc(b_live & grp);
+      const int32_t n_lt = __popc(b_late & grp);
+      if (n_in) atomicAdd(&rows[sr], n_in);                   // ingested
+      if (n_lv) atomicAdd(&rows[s + sr], n_lv);               // accepted
+      if (n_lt) atomicAdd(&rows[2 * s + sr], n_lt);           // late
+      if (n_in - n_lv) atomicAdd(&rows[3 * s + sr], n_in - n_lv);
+    }
+    n_on_time += __popc(b_live & ~b_late);
+    n_late += __popc(b_late);
+    n_dropped += __popc(b_in & ~b_live);
+    n_items += __popc(b_in);
+  }
+  if (lane == 0) {
+    if (n_on_time) atomicAdd(&tot[0], n_on_time);
+    if (n_late) atomicAdd(&tot[1], n_late);
+    if (n_dropped) atomicAdd(&tot[2], n_dropped);
+    if (n_items) atomicAdd(&tot[3], n_items);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (tot[0]) atomicAdd(on_time, tot[0]);
+    if (tot[1]) atomicAdd(late, tot[1]);
+    if (tot[2]) atomicAdd(dropped, tot[2]);
+    if (tot[3]) atomicAdd(items, tot[3]);
+  }
+}
+
+// The large-key form's heads, and the slot reset of every cell into
+// scratch: base[c] its count before the chunk (0 if its slot resets),
+// cap[c] its capacity (adopt's if its slot resets), new_counts[c] = base[c]
+// (the claim then writes the cells that have items).
+__global__ void __launch_bounds__(kThreads)
+    osi_heads(const int32_t* __restrict__ skeys, int m, int k, int s,
+              const int32_t* __restrict__ open_interval,
+              const unsigned* __restrict__ ctrs,
+              const int32_t* __restrict__ slot_interval,
+              const int32_t* __restrict__ adopt,
+              const int32_t* __restrict__ counts,
+              const int32_t* __restrict__ capacity,
+              int32_t* __restrict__ head, int32_t* __restrict__ base,
+              int32_t* __restrict__ cap, int32_t* __restrict__ new_counts) {
+  const int cells = k * s;
+  mark_heads(skeys, m, cells, head);
+  const int32_t new_open =
+      max(open_interval[0], dec_interval(ctrs[kCtrInterval]));
+  for (int c = blockIdx.x * kThreads + threadIdx.x; c < cells;
+       c += gridDim.x * kThreads) {
+    const int slot = c / s;
+    const bool reset = desired_interval(new_open, slot, k) != slot_interval[slot];
+    const int32_t c0 = reset ? 0 : counts[c];
+    base[c] = c0;
+    cap[c] = reset ? adopt[c - slot * s] : capacity[c];
+    new_counts[c] = c0;
+  }
+}
+
+// The large-key form's last launch: the winners' payloads (winner words
+// reset), then, from the scratch of osi_heads and the claim, the carried
+// counts and capacities and the replaced and occupancy rows grid-wide (no
+// block of this launch reads the carried state), and in block 0 the
+// frontier, newest interval, slot table and chunks; the frontier words
+// and the tile counter are left 0.
+__global__ void __launch_bounds__(kThreads)
+    osi_write_large(const int2* __restrict__ lists,
+                    const int32_t* __restrict__ list_n,
+                    const __grid_constant__ Leaves leaves,
+                    int32_t* __restrict__ winner, int k, int s,
+                    const int32_t* __restrict__ base,
+                    const int32_t* __restrict__ cap,
+                    const int32_t* __restrict__ new_counts,
+                    float* __restrict__ max_time,
+                    int32_t* __restrict__ open_interval,
+                    int32_t* __restrict__ slot_interval,
+                    int32_t* __restrict__ counts,
+                    int32_t* __restrict__ capacity,
+                    int32_t* __restrict__ rows, int32_t* __restrict__ chunks,
+                    unsigned* __restrict__ ctrs) {
+  __shared__ int32_t new_open_s;
+  const int cells = k * s;
+  write_winners(blockIdx.x, lists, list_n, leaves, winner);
+  const int stride = gridDim.x * kThreads;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  for (int c = first; c < cells; c += stride) {
+    counts[c] = new_counts[c];
+    capacity[c] = cap[c];
+  }
+  for (int sr = first; sr < s; sr += stride) {
+    int32_t repl = 0, occ = 0;
+    for (int slot = 0; slot < k; ++slot) {
+      const int c = slot * s + sr;
+      const int32_t a = base[c], b = new_counts[c], n = cap[c];
+      const int32_t f0 = min(a, n), f1 = min(b, n);
+      repl += (b - a) - (f1 - f0);
+      occ += f1;
+    }
+    rows[4 * s + sr] += repl;               // replaced
+    rows[5 * s + sr] = occ;                 // occupancy gauge
+  }
+  if (blockIdx.x != 0) return;
+  if (threadIdx.x == 0) {
+    const int32_t new_open =
+        max(open_interval[0], dec_interval(ctrs[kCtrInterval]));
+    max_time[0] = fmaxf(max_time[0], dec_time(ctrs[kCtrTime]));
+    open_interval[0] = new_open;
+    new_open_s = new_open;
+    chunks[0] += 1;
+    ctrs[kCtrTile] = ctrs[kCtrTime] = ctrs[kCtrInterval] = 0;
+  }
+  __syncthreads();
+  for (int slot = threadIdx.x; slot < k; slot += kThreads)
+    slot_interval[slot] = desired_interval(new_open_s, slot, k);
+}
+
 int tiles_of(int m) { return m > 0 ? (m + kTile - 1) / kTile : 1; }
 
 }  // namespace
@@ -420,10 +626,13 @@ int tiles_of(int m) { return m > 0 ? (m + kTile - 1) / kTile : 1; }
 // dropped/chunks/items i32[], slot_interval i32[K], counts/capacity
 // i32[K, S], values a host array of n_leaves pointers to [K, S, N_max]
 // 4-byte words (leaf i takes payload i), counters i32[6, S]; adopt i32[S]
-// (read only, <= N_max). 1 <= n_leaves <= kMaxLeaves.
+// (read only, <= N_max). n_leaves >= 1, written kMaxLeaves a launch.
 // Scratch kept by the caller between calls, as for sa_reservoir_fold
 // (winner i32[K*S*N_max] all -1, status u64[K*S*n_tiles] all 0, ctrs
 // i32[3] all 0, lists, list_n), and aux i32[K*S] (the new counts).
+// lg: null for the small form, else the large-key form's scratch
+// (key_sort.cuh's slots kLgKeys to kLgCap); the large form uses no
+// look-back words of its own (status is untouched).
 extern "C" int sa_one_shot_ingest(
     const void* times, const void* sid, const void* const* payloads,
     const void* mask, const void* u_accept, const void* u_slot,
@@ -431,22 +640,29 @@ extern "C" int sa_one_shot_ingest(
     void* dropped, void* chunks, void* items, void* slot_interval,
     const void* adopt, void* counts, void* capacity, void* const* values,
     void* counters, void* winner, void* status, void* lists, void* list_n,
-    void* ctrs, void* aux, int m, int k, int s, int n_max, int n_leaves,
-    float recip, float lateness, void* stream_ptr) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
-  Leaves leaves;
-  for (int l = 0; l < kMaxLeaves; ++l) {
-    leaves.payload[l] =
-        l < n_leaves ? static_cast<const uint32_t*>(payloads[l]) : nullptr;
-    leaves.values[l] = l < n_leaves ? static_cast<uint32_t*>(values[l])
-                                    : nullptr;
-  }
-  leaves.n = n_leaves;
+    void* ctrs, void* aux, void* const* lg, int m, int k, int s, int n_max,
+    int n_leaves, float recip, float lateness, void* stream_ptr) {
+  if (n_leaves < 1) return (int)cudaErrorInvalidValue;
+  // The leaves of the group that starts at leaf g.
+  auto group = [&](int g) {
+    Leaves lv;
+    lv.n = n_leaves - g < kMaxLeaves ? n_leaves - g : kMaxLeaves;
+    for (int l = 0; l < kMaxLeaves; ++l) {
+      lv.payload[l] = l < lv.n ? static_cast<const uint32_t*>(payloads[g + l])
+                               : nullptr;
+      lv.values[l] = l < lv.n ? static_cast<uint32_t*>(values[g + l])
+                              : nullptr;
+    }
+    return lv;
+  };
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int cells = k * s;
   const int n_tiles = tiles_of(m);
   auto* mask_p = static_cast<const uint8_t*>(mask);
   auto* times_p = static_cast<const float*>(times);
+  auto* sid_p = static_cast<const int32_t*>(sid);
+  auto* ua_p = static_cast<const float*>(u_accept);
+  auto* us_p = static_cast<const float*>(u_slot);
   auto* adopt_p = static_cast<const int32_t*>(adopt);
   auto* counts_p = static_cast<int32_t*>(counts);
   auto* cap_p = static_cast<int32_t*>(capacity);
@@ -459,27 +675,67 @@ extern "C" int sa_one_shot_ingest(
   auto* max_time_p = static_cast<float*>(max_time);
   auto* open_p = static_cast<int32_t*>(open_interval);
   auto* slot_iv = static_cast<int32_t*>(slot_interval);
+  auto* rows_p = static_cast<int32_t*>(counters);
+  auto* on_time_p = static_cast<int32_t*>(on_time);
+  auto* late_p = static_cast<int32_t*>(late);
+  auto* dropped_p = static_cast<int32_t*>(dropped);
+  auto* items_p = static_cast<int32_t*>(items);
+  auto* chunks_p = static_cast<int32_t*>(chunks);
   osi_frontier<<<n_tiles, kThreads, 0, stream>>>(times_p, mask_p, m, recip,
                                                  ctrs_p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int smem = (int)sizeof(int32_t) *
-                   (claim_smem_words(cells) + cells + 4 + 2 * kWarps * s);
-  err = allow_smem(osi_route_claim, smem);
-  if (err != cudaSuccess) return (int)err;
-  osi_route_claim<<<n_tiles, kThreads, smem, stream>>>(
-      times_p, static_cast<const int32_t*>(sid), mask_p,
-      static_cast<const float*>(u_accept), static_cast<const float*>(u_slot),
-      m, recip, lateness, k, s, n_max, n_tiles, max_time_p, open_p, slot_iv,
-      adopt_p, counts_p, cap_p, new_counts, win_p, status_p, lists_p,
-      list_n_p, ctrs_p, static_cast<int32_t*>(counters),
-      static_cast<int32_t*>(on_time), static_cast<int32_t*>(late),
-      static_cast<int32_t*>(dropped), static_cast<int32_t*>(items),
-      static_cast<int32_t*>(chunks));
+  auto* base_p = lg ? static_cast<int32_t*>(lg[kLgBase]) : nullptr;
+  auto* caps_p = lg ? static_cast<int32_t*>(lg[kLgCap]) : nullptr;
+  if (lg) {
+    auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
+    auto* head = static_cast<int32_t*>(lg[kLgHead]);
+    osi_route_keys<<<n_tiles, kThreads, 0, stream>>>(
+        times_p, sid_p, mask_p, m, recip, lateness, k, s, max_time_p, open_p,
+        ctrs_p, keys, rows_p, on_time_p, late_p, dropped_p, items_p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int32_t *skeys, *sidx;
+    const int e = ks_sort(keys, m, key_bits(cells), sort_scratch(lg), &skeys,
+                          &sidx, stream);
+    if (e != 0) return e;
+    osi_heads<<<n_tiles, kThreads, 0, stream>>>(
+        skeys, m, k, s, open_p, ctrs_p, slot_iv, adopt_p, counts_p, cap_p,
+        head, base_p, caps_p, new_counts);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    fold_sorted_claim<<<n_tiles, kThreads, 0, stream>>>(
+        skeys, sidx, ua_p, us_p, m, cells, n_max, head, base_p, caps_p,
+        new_counts, win_p, lists_p, list_n_p);
+  } else {
+    const int smem = (int)sizeof(int32_t) *
+                     (claim_smem_words(cells) + cells + 4 + 2 * kWarps * s);
+    err = allow_smem(osi_route_claim, smem);
+    if (err != cudaSuccess) return (int)err;
+    osi_route_claim<<<n_tiles, kThreads, smem, stream>>>(
+        times_p, sid_p, mask_p, ua_p, us_p, m, recip, lateness, k, s, n_max,
+        n_tiles, max_time_p, open_p, slot_iv, adopt_p, counts_p, cap_p,
+        new_counts, win_p, status_p, lists_p, list_n_p, ctrs_p, rows_p,
+        on_time_p, late_p, dropped_p, items_p, chunks_p);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  osi_write<<<n_tiles, kThreads, 0, stream>>>(
-      lists_p, list_n_p, leaves, win_p, status_p, k, s, new_counts, adopt_p,
-      max_time_p, open_p, slot_iv, counts_p, cap_p, ctrs_p);
+  int g = 0;
+  for (; g + kMaxLeaves < n_leaves; g += kMaxLeaves) {
+    osi_write_group<<<n_tiles, kThreads, 0, stream>>>(lists_p, list_n_p,
+                                                      group(g), win_p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (lg) {
+    osi_write_large<<<n_tiles, kThreads, 0, stream>>>(
+        lists_p, list_n_p, group(g), win_p, k, s, base_p, caps_p, new_counts,
+        max_time_p, open_p, slot_iv, counts_p, cap_p, rows_p, chunks_p,
+        ctrs_p);
+  } else {
+    osi_write<<<n_tiles, kThreads, 0, stream>>>(
+        lists_p, list_n_p, group(g), win_p, status_p, k, s, new_counts,
+        adopt_p, max_time_p, open_p, slot_iv, counts_p, cap_p, ctrs_p);
+  }
   return (int)cudaGetLastError();
 }

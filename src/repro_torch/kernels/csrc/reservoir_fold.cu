@@ -43,14 +43,23 @@
 // group's launch puts the winner words back to -1 and clears the
 // look-back words and the tile counter.
 //
-// Limits: S <= 1024 (the claim keeps 16 x (S + 1) + 3 S int32 in shared
-// memory, 78 KB at the limit) and S * N_max + 1 < 2^31 (int32 ring index);
-// the wrapper checks both.
+// Large-key form. The claim keeps 16 x (S + 1) + 3 S int32 in shared
+// memory (78 KB at S = 1,024) and S look-back words per tile, so past
+// S = 1,024 (the wrapper's MAX_STRATA) the wrapper asks for the large-key
+// form instead: fold_keys writes each item's cell (S for none), key_sort
+// sorts the cells stably, fold_heads finds each cell's first sorted
+// position, and fold_sorted_claim claims over the sorted positions
+// (fold_device.cuh), writing the same per-warp lists, so the write
+// launches are the same. Its scratch grows with M + S, not with tiles x
+// S; 2 + passes + 2 launches (passes = 2 up to 65,535 strata), then the
+// writes. The only limit left is S * N_max + 1 < 2^31 (int32 ring
+// index), which the wrapper checks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fold_device.cuh"
+#include "key_sort.cuh"
 
 namespace {
 
@@ -158,6 +167,56 @@ __global__ void __launch_bounds__(kThreads)
   if (tile == 0 && threadIdx.x == 0) *tile_ctr = 0;
 }
 
+// The large-key form's sort keys: each item's stratum, or s_cnt (no
+// cell) when it is masked out or its stratum is outside [0, S).
+__global__ void __launch_bounds__(kThreads)
+    fold_keys(const int32_t* __restrict__ sid,
+              const uint8_t* __restrict__ mask, int m, int s_cnt,
+              int32_t* __restrict__ keys) {
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const long long j = item_index(blockIdx.x, r);
+    if (j < m) {
+      const int s = sid[j];
+      keys[j] = mask[j] != 0 && s >= 0 && s < s_cnt ? s : s_cnt;
+    }
+  }
+}
+
+// The claim of the large-key form: keys, sort, heads, sorted claim (the
+// scratch in the host array lg, key_sort.cuh's slots).
+int launch_large_claim(const void* sid, const void* u_accept,
+                       const void* u_slot, const void* mask,
+                       const void* counts, const void* capacity,
+                       void* counts_out, void* winner, void* lists,
+                       void* list_n, void* const* lg, int m, int s_cnt,
+                       int n_max, int n_tiles, cudaStream_t stream) {
+  auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
+  auto* head = static_cast<int32_t*>(lg[kLgHead]);
+  fold_keys<<<n_tiles, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(sid), static_cast<const uint8_t*>(mask), m,
+      s_cnt, keys);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int32_t *skeys, *sidx;
+  const int err = ks_sort(keys, m, key_bits(s_cnt), sort_scratch(lg), &skeys,
+                          &sidx, stream);
+  if (err != 0) return err;
+  fold_heads<<<n_tiles, kThreads, 0, stream>>>(
+      skeys, m, s_cnt, head, static_cast<const int32_t*>(counts),
+      static_cast<int32_t*>(counts_out));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  fold_sorted_claim<<<n_tiles, kThreads, 0, stream>>>(
+      skeys, sidx, static_cast<const float*>(u_accept),
+      static_cast<const float*>(u_slot), m, s_cnt, n_max, head,
+      static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(capacity), static_cast<int32_t*>(counts_out),
+      static_cast<int32_t*>(winner), static_cast<int2*>(lists),
+      static_cast<int32_t*>(list_n));
+  return (int)cudaGetLastError();
+}
+
 // The claim launch, shared by the scalar and the tree entry points.
 int launch_claim(const void* sid, const void* u_accept, const void* u_slot,
                  const void* mask, const void* counts, const void* capacity,
@@ -189,47 +248,59 @@ extern "C" int sa_fold_tile_lists() { return kWarps; }
 // first); lists int2[n_tiles * kTile] and list_n i32[n_tiles * kWarps],
 // no state. The kernels leave winner, status and ctrs as they found them.
 // values and payload are 4-byte words (f32 or i32), copied as bits.
+// lg: null for the small form, else the large-key form's scratch
+// (key_sort.cuh's slots kLgKeys to kLgHead); the large form uses no
+// look-back words of its own (status is untouched).
 extern "C" int sa_reservoir_fold(const void* sid, const void* payload,
                                  const void* u_accept, const void* u_slot,
                                  const void* mask, const void* counts,
                                  const void* capacity, void* values,
                                  void* counts_out, void* winner,
                                  void* status, void* lists, void* list_n,
-                                 void* ctrs, int m, int s_cnt, int n_max,
-                                 void* stream_ptr) {
+                                 void* ctrs, void* const* lg, int m,
+                                 int s_cnt, int n_max, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_tiles = m > 0 ? (m + kTile - 1) / kTile : 1;
-  int err = launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
-                         counts_out, winner, status, lists, list_n, ctrs, m,
-                         s_cnt, n_max, n_tiles, stream);
+  int err = lg ? launch_large_claim(sid, u_accept, u_slot, mask, counts,
+                                    capacity, counts_out, winner, lists,
+                                    list_n, lg, m, s_cnt, n_max, n_tiles,
+                                    stream)
+               : launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
+                              counts_out, winner, status, lists, list_n,
+                              ctrs, m, s_cnt, n_max, n_tiles, stream);
   if (err != 0) return err;
   fold_write<<<n_tiles, kThreads, 0, stream>>>(
       static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
       static_cast<const uint32_t*>(payload), static_cast<int32_t*>(winner),
       static_cast<uint32_t*>(values),
-      static_cast<unsigned long long*>(status), s_cnt,
+      static_cast<unsigned long long*>(status), lg ? 0 : s_cnt,
       static_cast<int32_t*>(ctrs));
   return (int)cudaGetLastError();
 }
 
 // The fold of a payload tree: payloads and values are host arrays of
 // n_leaves pointers (leaf l [M, *item] into [S, N_max, *item], row_bytes[l]
-// bytes an item), any dtype; the scratch as sa_reservoir_fold's. One claim
-// launch, then one write launch per group of kMaxLeaves leaves.
+// bytes an item), any dtype; the scratch and lg as sa_reservoir_fold's.
+// The claim, then one write launch per group of kMaxLeaves leaves.
 extern "C" int sa_reservoir_fold_rows(
     const void* sid, const void* const* payloads, const void* u_accept,
     const void* u_slot, const void* mask, const void* counts,
     const void* capacity, void* const* values, const long long* row_bytes,
     void* counts_out, void* winner, void* status, void* lists, void* list_n,
-    void* ctrs, int m, int s_cnt, int n_max, int n_leaves,
+    void* ctrs, void* const* lg, int m, int s_cnt, int n_max, int n_leaves,
     void* stream_ptr) {
   if (n_leaves < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_tiles = m > 0 ? (m + kTile - 1) / kTile : 1;
-  int err = launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
-                         counts_out, winner, status, lists, list_n, ctrs, m,
-                         s_cnt, n_max, n_tiles, stream);
+  int err = lg ? launch_large_claim(sid, u_accept, u_slot, mask, counts,
+                                    capacity, counts_out, winner, lists,
+                                    list_n, lg, m, s_cnt, n_max, n_tiles,
+                                    stream)
+               : launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
+                              counts_out, winner, status, lists, list_n,
+                              ctrs, m, s_cnt, n_max, n_tiles, stream);
   if (err != 0) return err;
+  const int status_cells = lg ? 0 : s_cnt;
   for (int g = 0; g < n_leaves; g += kMaxLeaves) {
     RowLeaves lv;
     lv.n = n_leaves - g < kMaxLeaves ? n_leaves - g : kMaxLeaves;
@@ -247,7 +318,7 @@ extern "C" int sa_reservoir_fold_rows(
     fold_write_rows<<<n_tiles, kThreads, 0, stream>>>(
         static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
         lv, static_cast<int32_t*>(winner),
-        static_cast<unsigned long long*>(status), s_cnt, last,
+        static_cast<unsigned long long*>(status), status_cells, last,
         static_cast<int32_t*>(ctrs));
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

@@ -47,11 +47,18 @@
 // emission's shape, at most 73. Counts are integers, so they are exact.
 //
 // Shared memory: 8 warps' rows of S (f32, f32) sums and one row of S
-// int32 counts, so S <= 512 takes at most 34,816 B.
+// int32 counts, 34,816 B at S = 512; the workspace holds a row of S per
+// block and group. Past S = 512 (the wrapper's MAX_STRATA) the wrapper
+// asks for the large-key form instead: stats_keys writes each item's
+// stratum (S for a masked-out item or one outside [0, S)), key_sort sorts
+// them stably, and masked_reduce.cuh's segmented reduction sums each
+// stratum's run of sorted items in a fixed tree (2 + passes + 3
+// launches, scratch that grows with M + S).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_sort.cuh"
 #include "masked_reduce.cuh"
 
 namespace {
@@ -116,7 +123,42 @@ __global__ void __launch_bounds__(kThreads, 4)
   finish<2>(rows, cnt, s_cnt, red, zeroed, sums, counts);
 }
 
+// The large-key form's sort keys: each live item's stratum, else s_cnt.
+__global__ void __launch_bounds__(kThreads)
+    stats_keys(const int32_t* __restrict__ sid,
+               const uint8_t* __restrict__ mask, int m, int s_cnt,
+               int32_t* __restrict__ keys) {
+  for (int j = blockIdx.x * kThreads + threadIdx.x; j < m;
+       j += gridDim.x * kThreads) {
+    const int s = sid[j];
+    keys[j] = mask[j] != 0 && s >= 0 && s < s_cnt ? s : s_cnt;
+  }
+}
+
+int stats_large(const float* values, const int32_t* sid, const uint8_t* mask,
+                int m, int s_cnt, void* const* lg, float* counts, float* sums,
+                cudaStream_t stream) {
+  auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
+  stats_keys<<<seg_tiles_of(m), kThreads, 0, stream>>>(sid, mask, m, s_cnt,
+                                                       keys);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int32_t *skeys, *sidx;
+  const int err = ks_sort(keys, m, key_bits(s_cnt), sort_scratch(lg), &skeys,
+                          &sidx, stream);
+  if (err != 0) return err;
+  return seg_reduce<2>(skeys, sidx, values, m, s_cnt,
+                       static_cast<int32_t*>(lg[kLgHead]),
+                       static_cast<float*>(lg[kLgPart]), sums, counts,
+                       stream);
+}
+
 }  // namespace
+
+// f32 words of the large-key form's tile parts for m items.
+extern "C" long long sa_stats_part_words(long long m) {
+  return seg_part_words(m, 2);
+}
 
 // Words (f32) of the workspace rows a call of m items over S strata
 // needs; the zeroed words are sa_reduce_zeroed(S) int32.
@@ -126,12 +168,21 @@ extern "C" long long sa_stats_scratch_words(long long m, int s_cnt) {
 
 // Outputs: counts f32 [S], then sums and sumsqs f32 [S] contiguous
 // (sums[0..S) and sums[S..2S)). red and zeroed are the caller's
-// workspace; the kernel leaves the zeroed words 0.
+// workspace; the kernel leaves the zeroed words 0. lg: null for the
+// one-launch form, else the large-key form's scratch (key_sort.cuh's
+// slots kLgKeys to kLgHead and kLgPart).
 extern "C" int sa_stratified_stats(const void* values, const void* sid,
                                    const void* mask, long long m, int s_cnt,
                                    void* red, void* zeroed, void* counts,
-                                   void* sums, void* stream_ptr) {
+                                   void* sums, void* const* lg,
+                                   void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (lg)
+    return stats_large(static_cast<const float*>(values),
+                       static_cast<const int32_t*>(sid),
+                       static_cast<const uint8_t*>(mask), (int)m, s_cnt, lg,
+                       static_cast<float*>(counts), static_cast<float*>(sums),
+                       stream);
   const size_t smem = (size_t)(2 * kWarps + 1) * s_cnt * 4;
   const cudaError_t err = allow_smem(stats_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -63,13 +63,19 @@
 // [0, G) add nothing.
 //
 // Shared memory: 8 warps' rows of G*B f32 sums, one row of G*B int32
-// counts, the bin table, the edges and their padded copy, so G*B <= 3200
-// (the wrapper's MAX_CELLS_BINS) takes at most 150,024 B of the 227 KB a
-// block can use.
+// counts, the bin table, the edges and their padded copy: 150,024 B of
+// the 227 KB a block can use at G*B = 3200. Past that (the wrapper's
+// MAX_CELLS_BINS) the wrapper asks for the large-key form instead:
+// whist_keys finds each item's bin as above (the same bin table) and
+// writes its key cell * B + bin (G*B for none), key_sort sorts the keys
+// stably, and masked_reduce.cuh's segmented reduction sums each key's
+// run of sorted weights in a fixed tree (2 + passes + 3 launches, scratch
+// that grows with M + G*B; the cap is on G*B, not on B).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_sort.cuh"
 #include "masked_reduce.cuh"
 
 namespace {
@@ -150,6 +156,37 @@ __device__ __forceinline__ int last_edge_at_most(const float* e, int nb,
   return b;
 }
 
+// The bin table over the edges e (their padded copy es) in shared
+// memory, after a barrier: each thread builds entries k and k + 1 of the
+// table (kLut == kThreads) and the widest bucket comes from a warp max,
+// one barrier in all. *s_width is 0 on entry.
+__device__ __forceinline__ Edges bin_table(const float* e, const float* es,
+                                           int* lut, int nb, int top,
+                                           int* s_width) {
+  Edges ed{e, es, lut, nb, ordered(e[0]), 0, 0, e[0], e[nb]};
+  const unsigned range = (unsigned)ordered(ed.hi) - (unsigned)ed.base;
+  while ((range >> ed.shift) >= (unsigned)kLut) ++ed.shift;
+  {
+    int entry[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long v = (long long)ed.base +
+                          ((long long)(threadIdx.x + h) << ed.shift);
+      entry[h] = v > 0x7fffffffLL ? nb - 1
+                                  : last_edge_at_most(e, nb, top, (int)v);
+    }
+    lut[threadIdx.x] = entry[0];
+    if (threadIdx.x == kLut - 1) lut[kLut] = entry[1];
+    const int width =
+        (int)__reduce_max_sync(kFull, (unsigned)(entry[1] - entry[0]));
+    if ((threadIdx.x & 31) == 0) atomicMax(s_width, width);
+  }
+  __syncthreads();
+  if (*s_width > 0)                  // steps + ... + 1 >= s_width
+    for (ed.steps = 1; 2 * ed.steps <= *s_width;) ed.steps *= 2;
+  return ed;
+}
+
 __global__ void __launch_bounds__(kThreads, 4)
     weighted_hist_kernel(const float* __restrict__ values,
                          const int32_t* __restrict__ cell_ids,
@@ -186,29 +223,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     es[k] = k < nb ? edges[k] : __int_as_float(0x7fffffff);
   if (threadIdx.x == 0) s_width = 0;
   __syncthreads();
-  Edges ed{e, es, lut, nb, ordered(e[0]), 0, 0, e[0], e[nb]};
-  const unsigned range = (unsigned)ordered(ed.hi) - (unsigned)ed.base;
-  while ((range >> ed.shift) >= (unsigned)kLut) ++ed.shift;
-  // Each thread builds entries k and k + 1 of the table (kLut == kThreads)
-  // and the widest bucket comes from a warp max, one barrier in all.
-  {
-    int entry[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long v = (long long)ed.base +
-                          ((long long)(threadIdx.x + h) << ed.shift);
-      entry[h] = v > 0x7fffffffLL ? nb - 1
-                                  : last_edge_at_most(e, nb, top, (int)v);
-    }
-    lut[threadIdx.x] = entry[0];
-    if (threadIdx.x == kLut - 1) lut[kLut] = entry[1];
-    const int width =
-        (int)__reduce_max_sync(kFull, (unsigned)(entry[1] - entry[0]));
-    if ((threadIdx.x & 31) == 0) atomicMax(&s_width, width);
-  }
-  __syncthreads();
-  if (s_width > 0)                   // steps + ... + 1 >= s_width
-    for (ed.steps = 1; 2 * ed.steps <= s_width;) ed.steps *= 2;
+  const Edges ed = bin_table(e, es, lut, nb, top, &s_width);
   const long long n_tiles = ((sp.m + sp.d + 3) / 4 + kTileVecs - 1) /
                             kTileVecs;
   const int lane = threadIdx.x & 31;
@@ -255,7 +270,84 @@ size_t smem_bytes(int g_cnt, int nb) {
          (size_t)(kLut + 1 + nb + 1 + nb + top) * 4;
 }
 
+// The large-key form's sort keys: cell * nb + bin for each item in a bin
+// (the bins found as weighted_hist_kernel finds them), g_cnt * nb for the
+// others. Shared memory: the bin table and the edges, smem_bytes(0, nb).
+__global__ void __launch_bounds__(kThreads, 4)
+    whist_keys(const float* __restrict__ values,
+               const int32_t* __restrict__ cell_ids,
+               const uint8_t* __restrict__ mask,
+               const float* __restrict__ edges, Span sp, int g_cnt, int nb,
+               int32_t* __restrict__ keys) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_width;
+  int top = nb > 1 ? 1 : 0;
+  while (2 * top <= nb - 1) top *= 2;
+  int* lut = reinterpret_cast<int*>(smem);                     // [kLut + 1]
+  float* e = reinterpret_cast<float*>(lut + kLut + 1);         // [nb + 1]
+  float* es = e + nb + 1;                                      // [nb + top]
+  for (int k = threadIdx.x; k <= nb; k += kThreads) e[k] = edges[k];
+  for (int k = threadIdx.x; k < nb + top; k += kThreads)
+    es[k] = k < nb ? edges[k] : __int_as_float(0x7fffffff);
+  if (threadIdx.x == 0) s_width = 0;
+  __syncthreads();
+  const Edges ed = bin_table(e, es, lut, nb, top, &s_width);
+  const int none = g_cnt * nb;
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const long long n_tiles = ((sp.m + sp.d + 3) / 4 + kTileVecs - 1) /
+                            kTileVecs;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    uint32_t mk[kVecs], in_bin[kVecs];
+    float4 x[kVecs];
+    int4 c[kVecs];
+    int bin[kItems];
+    load_masks(mask, sp, tile, mk);
+    load_tile(values, sp, tile, mk, true, zero4, x);
+    find_bins(ed, x, mk, bin, in_bin);
+    load_tile(cell_ids, sp, tile, in_bin, sp.vec & kIdsVec,
+              make_int4(-1, -1, -1, -1), c);
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long s = vec_start(sp, tile, k) + i;
+        if (s < 0 || s >= sp.m) continue;
+        const int ci = lane_of(c[k], i), b = bin[4 * k + i];
+        keys[s] = b >= 0 && ci >= 0 && ci < g_cnt ? ci * nb + b : none;
+      }
+  }
+}
+
+int whist_large(const float* values, const int32_t* cell_ids,
+                const float* weights, const uint8_t* mask, const float* edges,
+                int m, int g_cnt, int nb, void* const* lg, float* whist,
+                float* counts, cudaStream_t stream) {
+  auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
+  const size_t smem = smem_bytes(0, nb);
+  cudaError_t e = allow_smem(whist_keys, smem);
+  if (e != cudaSuccess) return (int)e;
+  whist_keys<<<grid_blocks(m), kThreads, smem, stream>>>(
+      values, cell_ids, mask, edges,
+      make_span(m, values, mask, cell_ids, nullptr), g_cnt, nb, keys);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int n_keys = g_cnt * nb;
+  const int32_t *skeys, *sidx;
+  const int err = ks_sort(keys, m, key_bits(n_keys), sort_scratch(lg), &skeys,
+                          &sidx, stream);
+  if (err != 0) return err;
+  return seg_reduce<1>(skeys, sidx, weights, m, n_keys,
+                       static_cast<int32_t*>(lg[kLgHead]),
+                       static_cast<float*>(lg[kLgPart]), whist, counts,
+                       stream);
+}
+
 }  // namespace
+
+// f32 words of the large-key form's tile parts for m items.
+extern "C" long long sa_whist_part_words(long long m) {
+  return seg_part_words(m, 1);
+}
 
 // Words (f32) of the workspace rows a call of m items over G*B keys
 // needs.
@@ -269,13 +361,23 @@ extern "C" int sa_reduce_zeroed(int keys) { return kTickets + keys; }
 
 // Outputs whist and counts are f32 [G, B]. red and zeroed are the
 // caller's workspace (sa_whist_scratch_words, sa_reduce_zeroed); the
-// kernel leaves the zeroed words 0.
+// kernel leaves the zeroed words 0. lg: null for the one-launch form,
+// else the large-key form's scratch (key_sort.cuh's slots kLgKeys to
+// kLgHead and kLgPart).
 extern "C" int sa_weighted_hist(const void* values, const void* cell_ids,
                                 const void* weights, const void* mask,
                                 const void* edges, long long m, int g_cnt,
                                 int nb, void* red, void* zeroed, void* whist,
-                                void* counts, void* stream_ptr) {
+                                void* counts, void* const* lg,
+                                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (lg)
+    return whist_large(
+        static_cast<const float*>(values),
+        static_cast<const int32_t*>(cell_ids),
+        static_cast<const float*>(weights), static_cast<const uint8_t*>(mask),
+        static_cast<const float*>(edges), (int)m, g_cnt, nb, lg,
+        static_cast<float*>(whist), static_cast<float*>(counts), stream);
   const size_t smem = smem_bytes(g_cnt, nb);
   const cudaError_t err = allow_smem(weighted_hist_kernel, smem);
   if (err != cudaSuccess) return (int)err;

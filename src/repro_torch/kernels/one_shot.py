@@ -12,8 +12,8 @@ Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version in ``kernels/ref.py``. The payload is a tensor or, as the
 reference's, a tree of ``[M]`` leaves (f32 and i32 may be mixed) with
 the ring's structure: the fold's decisions are taken once and the write
-launch copies every leaf at each winner's cell (at most
-:data:`MAX_LEAVES`).
+launches copy every leaf at each winner's cell, :data:`MAX_LEAVES` leaves
+a launch.
 
 The ingest is bound by memory: it must read the mask of every item, the
 time and stratum of each masked-in item, and then what the fold needs
@@ -27,6 +27,16 @@ slot table, frontier and newest interval. Its scratch, the 4 B per ring
 cell winner table included, is kept per device and stream in
 ``kernels/_workspace`` and never cleared per call; it is dropped if a
 launch reports an error.
+
+Past :data:`MAX_CELLS` cells ``K·S`` the route-and-claim launch's
+per-cell tables and per-warp counter rows no longer fit a block's shared
+memory, and the wrapper takes the kernel's large-key form: the routing
+writes each live item's cell and adds the counter rows by global integer
+atomics, the cells are sorted stably (``csrc/key_sort.cu``), and the
+claim runs over the sorted items, with scratch that grows with
+``M + K·S``. Both forms compute the plain version's result bit for bit;
+the only configuration refused for size is a ring whose index does not
+fit int32.
 """
 from __future__ import annotations
 
@@ -38,11 +48,12 @@ import torch
 from repro_torch.kernels import _build, _workspace
 from repro_torch.kernels.ref import OneShotResult, check_one_shot_payload
 
-#: The route-and-claim launch keeps 16 warps x (K*S + 1) + 4 K*S int32
-#: and per-warp counter rows of 32 S + 4 int32 in shared memory.
+#: The most cells K*S of the small-key form, whose route-and-claim launch
+#: keeps 16 warps x (K*S + 1) + 4 K*S int32 and per-warp counter rows of
+#: 32 S + 4 int32 in shared memory; past it, the large-key form.
 MAX_CELLS = 1024
-#: Payload leaves of one call: the write launch takes their pointers by
-#: value (``kMaxLeaves`` in ``csrc/fold_device.cuh``).
+#: Payload leaves of one write launch, which takes their pointers by
+#: value (``kMaxLeaves`` in ``csrc/fold_device.cuh``); more go in groups.
 MAX_LEAVES = 8
 
 
@@ -77,9 +88,6 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     if not leaves[0][1].is_cuda:
         raise ValueError("one_shot_ingest kernel needs CUDA tensors; "
                          "kernels.ops dispatches CPU tensors")
-    if len(leaves) > MAX_LEAVES:
-        raise ValueError(f"one_shot_ingest: {len(leaves)} payload leaves, "
-                         f"the kernel takes at most {MAX_LEAVES}")
     n_max = leaves[0][1].shape[-1]
     i32, f32 = torch.int32, torch.float32
     for i, (pay, val) in enumerate(leaves):
@@ -101,9 +109,8 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     _check("capacity", capacity, i32, (k, s_cnt), dev)
     _check("counters", counters, i32, (6, s_cnt), dev)
     cells = k * s_cnt
-    if not 1 <= cells <= MAX_CELLS:
-        raise ValueError(f"K*S = {cells} outside [1, {MAX_CELLS}] (shared "
-                         "memory of the claim)")
+    if cells < 1:
+        raise ValueError(f"K*S = {cells}: the ingest needs a cell")
     if cells * n_max + 1 >= 2**31:
         raise ValueError(f"K*S*N_max+1 = {cells * n_max + 1} does not fit "
                          "the kernel's int32 ring index")
@@ -112,8 +119,11 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     lib = _build.build().lib
     recip = np.float32(1.0) / np.float32(span)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ws = _workspace.for_call(lib, dev, stream, m=m, cells=cells,
+    large = cells > MAX_CELLS
+    ws = _workspace.for_call(lib, dev, stream, m=m,
+                             cells=0 if large else cells,
                              table=cells * n_max, aux=cells)
+    lg = ws.large(lib, m=m, keys=cells) if large else None
     ptrs = ctypes.c_void_p * len(leaves)
     pays = ptrs(*(pay.data_ptr() for pay, _ in leaves))
     vals = ptrs(*(val.data_ptr() for _, val in leaves))
@@ -128,7 +138,8 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
             ctypes.addressof(vals), counters.data_ptr(),
             ws.winner.data_ptr(), ws.status.data_ptr(), ws.lists.data_ptr(),
             ws.list_n.data_ptr(), ws.counters.data_ptr(), ws.aux.data_ptr(),
-            m, k, s_cnt, n_max, len(leaves), ctypes.c_float(float(recip)),
+            ctypes.addressof(lg) if large else None, m, k, s_cnt, n_max,
+            len(leaves), ctypes.c_float(float(recip)),
             ctypes.c_float(float(np.float32(allowed_lateness))), stream)
     if status != 0:
         _workspace.drop(dev, stream)

@@ -202,26 +202,31 @@ def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
     ``weighted_hist_ref``).
 
     Bin ``b`` is ``[edges[b], edges[b+1])`` and the last bin is
-    right-closed: the comparisons ``x >= lo``, then ``x < hi``, then
-    ``x <= hi`` on the last bin, literally, over an ``[M, B]`` membership
-    table. Masked-out items add nothing. The mass is summed in f64 and
-    rounded once and the counts in int64, so this is the better-rounded
-    of the two versions and the kernel is held to it by rtol.
+    right-closed, as the reference's comparisons ``x >= lo``, ``x < hi``,
+    ``x <= hi`` (last bin) say. For non-decreasing edges the one bin of
+    ``x`` in ``[edges[0], edges[B]]`` is the largest ``b <= B - 1`` with
+    ``edges[b] <= x`` (duplicate edges included), found by one
+    ``searchsorted``, so the pass is ``O(M)``, not an ``[M, B]`` table.
+    Masked-out items, NaN values and cell ids outside ``[0, G)`` add
+    nothing. The mass is summed in f64 and rounded once and the counts in
+    int64, so this is the better-rounded of the two versions and the
+    kernel is held to it by rtol. No host read.
     """
     b = edges.shape[0] - 1
-    x = values.to(torch.float32)[:, None]
-    lo, hi = edges[:b][None, :], edges[1:][None, :]
-    closed = (torch.arange(b, device=values.device) == b - 1)[None, :]
-    in_bin = (x >= lo) & torch.where(closed, x <= hi, x < hi)
-    in_bin &= mask[:, None]
-    cell = torch.where(mask, stratum_ids, 0).long()
-    whist = torch.zeros((num_strata, b), dtype=torch.float64,
-                        device=values.device)
-    counts = torch.zeros((num_strata, b), dtype=torch.int64,
-                         device=values.device)
-    whist.index_add_(0, cell, in_bin * weights.double()[:, None])
-    counts.index_add_(0, cell, in_bin.long())
-    return whist.to(torch.float32), counts.to(torch.float32)
+    x = values.to(torch.float32)
+    cell = stratum_ids.long()
+    inside = (mask & (x >= edges[0]) & (x <= edges[b]) & (cell >= 0)
+              & (cell < num_strata))
+    bin_ = torch.clamp(torch.searchsorted(edges, x, right=True) - 1, 0,
+                       b - 1)
+    keys = num_strata * b
+    key = torch.where(inside, cell * b + bin_, keys)
+    whist = torch.zeros(keys + 1, dtype=torch.float64, device=values.device)
+    counts = torch.zeros(keys + 1, dtype=torch.int64, device=values.device)
+    whist.index_add_(0, key, torch.where(inside, weights.double(), 0.0))
+    counts.index_add_(0, key, inside.long())
+    return (whist[:keys].view(num_strata, b).to(torch.float32),
+            counts[:keys].view(num_strata, b).to(torch.float32))
 
 
 @dataclasses.dataclass

@@ -22,6 +22,14 @@ its leaves. Its winner table (4 B per ring cell) is never cleared per
 call: it is all -1 between calls, kept with the rest of the scratch in
 ``kernels/_workspace`` per device and stream, and dropped if a launch
 reports an error.
+
+Past :data:`MAX_STRATA` strata the claim's per-stratum tables no longer
+fit a block's shared memory, and the wrapper takes the kernel's
+large-key form: the live items sorted stably by stratum (a hand-written
+radix sort, ``csrc/key_sort.cu``), then the claim over the sorted items,
+with scratch that grows with ``M + S``. Both forms compute the plain
+version's result bit for bit; the only configuration refused for size
+is a ring whose cell index does not fit int32.
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ import torch
 from repro_torch.kernels import _build, _workspace
 from repro_torch.kernels.ref import check_fold_payload
 
-#: The claim keeps 16 warps x (S + 1) + 3 S int32 in shared memory.
+#: The most strata of the small-key claim, which keeps 16 warps x
+#: (S + 1) + 3 S int32 in shared memory; past it, the large-key form.
 MAX_STRATA = 1024
 #: Leaves of one write launch of a payload tree (``kMaxLeaves`` in
 #: ``csrc/fold_device.cuh``); more go in groups.
@@ -91,17 +100,20 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload,
                          "the kernel's int32 cell index")
     if m >= 2**31:
         raise ValueError(f"M = {m} does not fit an int32 item index")
-    if not 1 <= s_cnt <= MAX_STRATA:
-        raise ValueError(f"S = {s_cnt} outside [1, {MAX_STRATA}] "
-                         "(shared memory of the claim)")
+    if s_cnt < 1:
+        raise ValueError(f"S = {s_cnt}: the fold needs a stratum")
+    large = s_cnt > MAX_STRATA
     lib = _build.build().lib
     counts_out = torch.empty(s_cnt, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ws = _workspace.for_call(lib, dev, stream, m=m, cells=s_cnt,
+    ws = _workspace.for_call(lib, dev, stream, m=m,
+                             cells=0 if large else s_cnt,
                              table=s_cnt * n_max)
+    lg = ws.large(lib, m=m, keys=s_cnt) if large else None
     scratch = (counts_out.data_ptr(), ws.winner.data_ptr(),
                ws.status.data_ptr(), ws.lists.data_ptr(),
-               ws.list_n.data_ptr(), ws.counters.data_ptr())
+               ws.list_n.data_ptr(), ws.counters.data_ptr(),
+               ctypes.addressof(lg) if large else None)
     with torch.cuda.device(dev):
         if scalar:
             status = lib.sa_reservoir_fold(

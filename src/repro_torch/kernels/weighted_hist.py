@@ -12,8 +12,15 @@ partial sums, the tickets of the cross-block sum and the count totals
 are kept in ``kernels/_workspace`` per device and stream (tickets and
 totals 0 between calls), not allocated per call.
 
-The order of the f32 sums is fixed by ``M`` and by where ``values``
-starts within 16 bytes (the kernel's 4-item vectors are aligned to that
+Past :data:`MAX_CELLS_BINS` keys ``G·B`` a block's shared memory no
+longer holds its warps' rows, and the wrapper takes the kernel's
+large-key form: each item's ``cell·B + bin`` (the same bin table) sorted
+stably (``csrc/key_sort.cu``), then each key's run of sorted weights
+summed by a fixed tree, with scratch that grows with ``M + G·B``. Its
+sums' order is fixed by the data alone.
+
+The order of the small-key form's f32 sums is fixed by ``M`` and by where
+``values`` starts within 16 bytes (the kernel's 4-item vectors are aligned to that
 address): the same data at the same 16-byte phase gives the same bits on
 any H100, while a copy at another phase may differ in the last bits.
 The port's callers pass whole flattened tensors, so a run and its repeat
@@ -23,10 +30,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, _workspace
+import ctypes
 
-#: 8 warps' rows of G*B f32 sums, G*B int32 counts, the bin table and
-#: the edges in the shared memory of a block.
+from repro_torch.kernels import _build, _workspace
+from repro_torch.kernels.stratified_stats import LARGE_MAX_ITEMS
+
+#: The most keys G*B of the one-launch form, which keeps 8 warps' rows of
+#: G*B f32 sums, G*B int32 counts, the bin table and the edges in the
+#: shared memory of a block; past it, the large-key form.
 MAX_CELLS_BINS = 3200
 
 
@@ -59,21 +70,28 @@ def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
                          f"{tuple(edges.shape)} on {edges.device}")
     nb = edges.shape[0] - 1
     keys = num_strata * nb
-    if num_strata < 1 or keys > MAX_CELLS_BINS:
-        raise ValueError(f"G*B = {num_strata}*{nb} = {keys} outside "
-                         f"[1, MAX_CELLS_BINS = {MAX_CELLS_BINS}] (shared "
-                         "memory of a block)")
+    if num_strata < 1:
+        raise ValueError(f"G = {num_strata}: the histogram needs a cell")
+    large = keys > MAX_CELLS_BINS
+    if large and (m > LARGE_MAX_ITEMS or keys >= 2**31 - 1):
+        raise ValueError(f"M = {m} or G*B = {keys} does not fit the "
+                         "large-key form's int32 sort keys and positions")
     lib = _build.build().lib
     out = torch.empty((2, num_strata, nb), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace.for_reduce(
-        lib, dev, stream, words=lib.sa_whist_scratch_words(m, keys), keys=keys)
+        lib, dev, stream,
+        words=0 if large else lib.sa_whist_scratch_words(m, keys),
+        keys=0 if large else keys)
+    lg = ws.large(lib, m=m, keys=keys,
+                  part=lib.sa_whist_part_words(m)) if large else None
     with torch.cuda.device(dev):
         status = lib.sa_weighted_hist(
             values.data_ptr(), stratum_ids.data_ptr(), weights.data_ptr(),
             mask.data_ptr(), edges.data_ptr(), m, num_strata, nb,
             ws.rows.data_ptr(), ws.tickets.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), stream)
+            out[1].data_ptr(), ctypes.addressof(lg) if large else None,
+            stream)
     if status != 0:
         _workspace.drop(dev, stream)
     _build.check(status, "weighted_hist")

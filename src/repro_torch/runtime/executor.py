@@ -64,8 +64,10 @@ reference's names and budgets: ``pipelined.step`` and ``.emit`` 1,
 0 plus one per new micro-batch count. A trace past the budget warns and
 logs a ``retrace`` event, or raises under strict mode.
 
-Not ported (raises :class:`UnsupportedConfigError`): a ``fused`` ingest
-whose ``W·K·S`` cells pass the fold kernel's limits.
+Refused for size (raises :class:`UnsupportedConfigError`): a ring whose
+cells times ``N_max`` do not fit the kernels' int32 ring index. Past the
+key counts a block's shared memory holds, each kernel takes its
+large-key form, so every other ``W·K·S`` runs.
 """
 from __future__ import annotations
 
@@ -82,10 +84,6 @@ from repro_torch.core import error as err
 from repro_torch.core import oasrs
 from repro_torch.core import window as win
 from repro_torch.kernels import ops
-from repro_torch.kernels.one_shot import MAX_CELLS as ONE_SHOT_MAX_CELLS
-from repro_torch.kernels.reservoir import MAX_STRATA as FOLD_MAX_CELLS
-from repro_torch.kernels.stratified_stats import (
-    MAX_STRATA as STATS_MAX_CELLS)
 from repro_torch.obs import metrics as obm
 from repro_torch.obs.sentinel import (RetraceSentinel, SignatureCache,
                                       signature)
@@ -161,38 +159,26 @@ def check_supported(cfg: RuntimeConfig) -> None:
 
 
 def _check_kernel_limits(cfg: RuntimeConfig, n_max: int) -> None:
-    """The kernels' limits per launch, checked before any state exists.
-    The CPU's plain versions have none, but the check is the same on
-    every device, so that the CPU refuses what the card cannot run: the
-    fused fold takes every cell of the state (all W shards' on the vmap
-    placement, one shard's on a mesh rank), the one-shot one shard's
-    ``K·S``, the masked fold one slot's ``S``; and every emission's stats
-    call takes the merged view's ``W·K·S`` rows as its strata, on a mesh
-    rank too (after ``gather_cells``)."""
+    """The kernels' one limit per launch, checked before any state exists:
+    the ring index of every cell a fold or one-shot call takes must fit
+    int32. The CPU's plain versions have no limit, but the check is the
+    same on every device, so that the CPU refuses what the card cannot
+    run: the fused fold takes every cell of the state (all W shards' on
+    the vmap placement, one shard's on a mesh rank), the one-shot one
+    shard's ``K·S``, the masked fold one slot's ``S``. Past the key counts
+    shared memory holds (the fold's and one-shot's 1,024 cells, the stats'
+    512 rows, the histogram's 3,200 keys), each kernel takes its large-key
+    form, so no other count is refused."""
     cells = cfg.num_intervals * cfg.num_strata
-    limit = ONE_SHOT_MAX_CELLS
-    what = "the one-shot kernel's K·S"
-    if cfg.ingest == "fused":
-        if cfg.placement == "vmap":
-            cells *= cfg.num_shards
-        limit, what = FOLD_MAX_CELLS, "the fold kernel's W·K·S"
+    if cfg.ingest == "fused" and cfg.placement == "vmap":
+        cells *= cfg.num_shards
     if cfg.ingest == "masked":
-        cells, limit, what = cfg.num_strata, FOLD_MAX_CELLS, "the fold's S"
-    if cells > limit:
-        raise UnsupportedConfigError(
-            f"ingest={cfg.ingest!r} over {cells} cells: {what} is limited "
-            f"to {limit} (shared memory of the claim)")
+        cells = cfg.num_strata
     if cells * n_max + 1 >= 2 ** 31:
         raise UnsupportedConfigError(
             f"ingest={cfg.ingest!r}: {cells} cells x N_max {n_max} + 1 = "
             f"{cells * n_max + 1} does not fit the kernel's int32 ring "
             "index (limit 2**31)")
-    rows = cfg.num_shards * cfg.num_intervals * cfg.num_strata
-    if rows > STATS_MAX_CELLS:
-        raise UnsupportedConfigError(
-            f"{rows} cells W·K·S: each emission's stats call takes the "
-            f"merged view's rows as strata, and the stats kernel is "
-            f"limited to {STATS_MAX_CELLS} (shared memory)")
 
 
 @dataclasses.dataclass

@@ -153,9 +153,9 @@ WHIST_CASES = {
 
 
 def whist_inputs(seed, m, g=6, edges="uniform", values="spread",
-                 mask_p=0.9, ragged=False):
+                 mask_p=0.9, ragged=False, bins=32):
     """numpy ``(values, cell_ids, weights, mask, edges)`` of one weighted
-    histogram over ``g`` cells (32 bins; 24 with ``edges="log2"``).
+    histogram over ``g`` cells (``bins`` bins; 24 with ``edges="log2"``).
 
     ``edges``: ``"uniform"`` (33 edges over [10, 90]), ``"log2"``
     (``2^0 ... 2^24``, values log-normal flow sizes floored to whole
@@ -179,7 +179,7 @@ def whist_inputs(seed, m, g=6, edges="uniform", values="spread",
     else:
         lo, hi = {"narrow": (50.0, 50.5), "outside": (200.0, 300.0)}.get(
             edges, (10.0, 90.0))
-        e = np.linspace(lo, hi, 33).astype(np.float32)
+        e = np.linspace(lo, hi, bins + 1).astype(np.float32)
         if edges == "duplicates":
             e[[5, 6, 20]] = e[[4, 4, 19]]
         x = rng.uniform(0.0, 100.0, m).astype(np.float32)
@@ -450,6 +450,7 @@ def assert_workspace_clean(dev, stream=None):
     assert not bool(ws.status.any())
     assert not bool(ws.counters.any())
     assert not bool(ws.tickets.any())
+    assert not bool(ws.sort_zeroed.any())
 
 
 def assert_same_bits(a, b, name=""):
@@ -523,6 +524,109 @@ def test_cuda_one_shot_two_leaves_matches_plain(cuda_device, case):
     assert not torch.equal(sk["values"]["key"].cpu(),
                            torch.from_numpy(state2["values"]["key"]))
     assert_workspace_clean(cuda_device)
+
+
+#: Cells of the large-key fold and one-shot cases: one past the
+#: small-key form's 1,024, and the per-key stress's 262,144.
+LARGE_CELLS = (1_025, 262_144)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", LARGE_CELLS)
+@pytest.mark.parametrize("phase", ["filling", "replacement"])
+def test_cuda_fold_large_keys_matches_plain(cuda_device, cells, phase):
+    """The fold past MAX_STRATA strata (the large-key form): ring and
+    counts bit for bit the plain version's, the scratch clean after it,
+    over two chunks into one ring."""
+    assert cells > reservoir.MAX_STRATA
+    rng = np.random.default_rng(cells)
+    n_max = 8
+    counts = (np.zeros(cells) if phase == "filling"
+              else rng.integers(0, 40, cells)).astype(np.int32)
+    capacity = rng.integers(1, n_max + 1, cells).astype(np.int32)
+    inp = _to(cuda_device, fold_inputs(51, BIG_M, counts, capacity,
+                                       s=cells, n_max=n_max))
+    ring_k, ring_p = inp["values"].clone(), inp.pop("values")
+    for i in range(2):
+        inp["counts"] = _fold_both(inp, ring_k, ring_p)
+        assert_workspace_clean(cuda_device)
+        nxt = _to(cuda_device, fold_inputs(52 + i, BIG_M, counts, capacity,
+                                           s=cells, n_max=n_max))
+        for k in ("stratum_ids", "payload", "u_accept", "u_slot", "mask"):
+            inp[k] = nxt[k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", LARGE_CELLS)
+@pytest.mark.parametrize("case", ["replacement", "crossing"])
+def test_cuda_one_shot_large_keys_matches_plain(cuda_device, cells, case):
+    """The one-shot past MAX_CELLS cells K*S (the large-key form): every
+    field bit for bit the plain version's over two chunks, the scratch
+    clean after each."""
+    k = 5 if cells == 1_025 else 4
+    kw = dict(k=k, s=cells // k, n_max=8, counts_hi=20, cap=None)
+    if case == "crossing":
+        kw.update(max_time=3.2, open_interval=3, t_lo=2.6, t_hi=4.4)
+    _, state = one_shot_inputs(53, m=8, **kw)
+    sk, sp = _to(cuda_device, state), _to(cuda_device, state)
+    for i in range(2):
+        items, _ = one_shot_inputs(54 + i, m=BIG_M, **dict(
+            kw, t_lo=kw.get("t_lo", 0.0) + i, t_hi=kw.get("t_hi", 3.5) + i))
+        _one_shot_both(_to(cuda_device, items), sk, sp)
+        assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [12, 1_025])
+def test_cuda_one_shot_ten_leaves_matches_plain(cuda_device, cells):
+    """A payload of ten leaves (two write launches of 8 and 2), in both
+    forms: every leaf and field bit for bit the plain version's."""
+    k = 3 if cells == 12 else 5
+    one, state = one_shot_inputs(56, k=k, s=cells // k, n_max=64, m=BIG_M,
+                                 counts_hi=40, cap=None)
+    rng = np.random.default_rng(57)
+    items = dict(one, payload={f"l{i}": (1000 * rng.normal(
+        size=BIG_M)).astype(np.float32 if i % 2 else np.int32)
+        for i in range(10)})
+    ring = {f"l{i}": (1000 * rng.normal(size=state["values"].shape)).astype(
+        np.float32 if i % 2 else np.int32) for i in range(10)}
+    it = to_tree(cuda_device, items)
+    sk = to_tree(cuda_device, dict(state, values=ring))
+    sp = to_tree(cuda_device, dict(state, values=ring))
+    one_shot.one_shot_ingest(**it, span=1.0, allowed_lateness=0.5, **sk)
+    ref.one_shot_ingest(**it, span=1.0, allowed_lateness=0.5, **sp)
+    for f in ONE_SHOT_FIELDS:
+        if f == "values":
+            for leaf in ring:
+                assert_same_bits(sk[f][leaf], sp[f][leaf], leaf)
+        else:
+            assert_same_bits(sk[f], sp[f], f)
+    assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys,m", [(1_025, 1000), (1_025, 200_003),
+                                    (262_144, 4_194_304)])
+def test_cuda_key_sort_is_stable(cuda_device, keys, m):
+    """The large-key forms' radix sort: keys and item indices equal a
+    stable sort's, the sort's zeroed words 0 after it."""
+    from repro_torch.kernels import _build
+    lib = _build.build().lib
+    dev = cuda_device
+    k = torch.randint(0, keys + 1, (m,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _workspace.get(dev, stream)
+    lg = ws.large(lib, m=m, keys=keys)
+    ks = torch.empty_like(k)
+    ix = torch.empty_like(k)
+    import ctypes
+    assert lib.sa_key_sort(k.data_ptr(), m, _workspace.key_bits(keys),
+                           ctypes.addressof(lg), ks.data_ptr(),
+                           ix.data_ptr(), stream) == 0
+    want, order = torch.sort(k.long(), stable=True)
+    assert torch.equal(ks.long(), want)
+    assert torch.equal(ix.long(), order)
+    assert_workspace_clean(dev)
 
 
 @pytest.mark.cuda
@@ -627,11 +731,14 @@ def test_cuda_weighted_hist_matches_plain(cuda_device, case, m):
 
 
 @pytest.mark.cuda
-def test_cuda_weighted_hist_too_many_cells_bins_raises(cuda_device):
+@pytest.mark.parametrize("m", [100, 200_003])
+def test_cuda_weighted_hist_many_cells_bins_matches_plain(cuda_device, m):
+    """G*B = 101 x 100, past MAX_CELLS_BINS: the large-key form, held to
+    the plain version as the one-launch form is, the same bits twice."""
+    assert 101 * 100 > weighted_hist.MAX_CELLS_BINS
     x, cell, w, mask, e = (torch.from_numpy(a).to(cuda_device)
-                           for a in whist_inputs(1, 100, g=101))
-    with pytest.raises(ValueError, match="MAX_CELLS_BINS"):
-        weighted_hist.weighted_hist(x, cell, w, mask, e, 101)
+                           for a in whist_inputs(1, m, g=101, bins=100))
+    _whist_call(x, cell, w, mask, e, 101)
 
 
 #: Flat-input layouts the stats and histogram kernels take: ``(M,
@@ -730,34 +837,48 @@ def test_cuda_weighted_hist_layouts_match_plain(cuda_device, layout, edges):
         assert float(kc.sum()) == 0.0
 
 
+#: Strata of the stats limit cases: the one-launch form's most, the
+#: large-key form past it and at 65,536, and an all-masked call.
+STATS_LIMITS = {"max_strata": 512, "past_max": 513, "many": 65_536,
+                "all_masked": 4}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["max_strata", "all_masked"])
+@pytest.mark.parametrize("case", sorted(STATS_LIMITS))
 @pytest.mark.parametrize("m", [1000, 200_003])
 def test_cuda_stats_limits_match_plain(cuda_device, case, m):
-    """S = MAX_STRATA strata, and a call with every slot masked out."""
+    """S = MAX_STRATA strata, past it (the large-key form), and a call
+    with every slot masked out."""
     rng = np.random.default_rng(45)
-    s = stratified_stats.MAX_STRATA if case == "max_strata" else 4
+    s = STATS_LIMITS[case]
     vals = rng.normal(100.0, 10.0, m).astype(np.float32)
     sid = rng.integers(0, s, m).astype(np.int32)
-    mask = rng.random(m) < (0.8 if case == "max_strata" else 0.0)
+    mask = rng.random(m) < (0.0 if case == "all_masked" else 0.8)
     kc, _, _ = _stats_call(*(torch.from_numpy(a).to(cuda_device)
                              for a in (vals, sid, mask)), s)
     assert float(kc.sum()) == float(mask.sum())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["stats", "weighted_hist"])
+@pytest.mark.parametrize("kernel", ["stats", "weighted_hist", "stats_large",
+                                    "weighted_hist_large"])
 def test_cuda_fifty_calls_give_the_same_bits(cuda_device, kernel):
     """50 back-to-back calls over 2**21 + 5 items (all 512 blocks, their
-    last tickets taken in whatever order they finish): one result."""
+    last tickets taken in whatever order they finish; the large-key
+    forms' sort and segment tiles likewise): one result."""
     m = 2**21 + 5
-    if kernel == "stats":
+    if kernel.startswith("stats"):
+        s = 600 if kernel.endswith("large") else 4
+        vals, _, mask = stats_inputs(47, m)
+        sid = np.random.default_rng(48).integers(0, s, m).astype(np.int32)
         _stats_call(*(torch.from_numpy(a).to(cuda_device)
-                      for a in stats_inputs(47, m)), 4, calls=50)
+                      for a in (vals, sid, mask)), s, calls=50)
     else:
+        g = 200 if kernel.endswith("large") else 6
         x, cell, w, mask, e = (torch.from_numpy(a).to(cuda_device)
-                               for a in whist_inputs(47, m, edges="log2"))
-        _whist_call(x, cell, w, mask, e, 6, calls=50)
+                               for a in whist_inputs(47, m, g=g,
+                                                     edges="log2"))
+        _whist_call(x, cell, w, mask, e, g, calls=50)
 
 
 @pytest.mark.cuda
@@ -906,6 +1027,63 @@ def test_cuda_nonlinear_registry_matches_cpu(cuda_device, ingest, emission):
             np.testing.assert_allclose(b[name]["variance"],
                                        a[name]["variance"], rtol=1e-3,
                                        atol=1e-6)
+
+
+def hist_fault_chunks(seed=11, n=12, m=512, s=16):
+    """numpy chunks of a disordered 16-stratum stream, a quarter interval
+    each at span 1."""
+    rng = np.random.default_rng(seed)
+    mus = np.resize(np.array([10.0, 100.0, 1000.0, 50.0]), s)
+    chunks = []
+    for e in range(n):
+        sid = rng.integers(0, s, m).astype(np.int32)
+        vals = (mus[sid] * (1 + 0.2 * rng.standard_normal(m))).astype(
+            np.float32)
+        t = ((e * m + np.arange(m)) / (4.0 * m)
+             - (rng.random(m) < 0.3) * rng.random(m)).clip(0)
+        chunks.append((vals, sid, t.astype(np.float32), rng.random(m) > 0.05))
+    return chunks
+
+
+@pytest.mark.cuda
+def test_cuda_hist_quantile_past_the_histogram_cap(cuda_device):
+    """K = 8 intervals over S = 16 strata with a hist quantile: each
+    refinement round's histogram takes G·B = 128 x 32 = 4,096 keys, past
+    the one-launch form's 3,200, so it runs the large-key form (it used to
+    raise at the first emission). The card against the CPU: the same state
+    bit for bit, answers within rtol."""
+    cfg = tex.RuntimeConfig(num_strata=16, capacity=16, num_intervals=8,
+                            interval_span=1.0, allowed_lateness=0.5,
+                            emit_every=4)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        ops.reset_launch_counts()
+        reg = (treg.QueryRegistry().register("total", "sum")
+               .register("q_hist", "quantile", qs=(0.25, 0.9),
+                         method="hist", num_replicates=4))
+        ex = tex.PipelinedExecutor(cfg, reg, prng.PRNGKey(7), device=dev)
+        for c in hist_fault_chunks():
+            ex.push(TimestampedChunk(*(torch.from_numpy(a).to(dev)
+                                       for a in c)))
+        ems = ex.finalize()
+        runs.append(([convert.results_to_numpy(em.results) for em in ems],
+                     convert.state_to_numpy(ex.state), ops.launch_counts()))
+    (ce, cs, cl), (ge, gs, gl) = runs
+    assert 128 * 32 > weighted_hist.MAX_CELLS_BINS
+    assert cl["weighted_hist"] == 0
+    assert gl["weighted_hist"] == len(ge) * 2 * 4 > 0
+    for part in ("window", "slot_interval", "open_interval", "wm",
+                 "metrics"):
+        np.testing.assert_equal(gs[part], cs[part])
+    assert len(ce) == len(ge) == 3
+    for a, b in zip(ce, ge):
+        for name in a:
+            np.testing.assert_allclose(b[name]["value"], a[name]["value"],
+                                       rtol=1e-5)
+            np.testing.assert_allclose(b[name]["variance"],
+                                       a[name]["variance"], rtol=1e-3,
+                                       atol=1e-6)
+    assert_workspace_clean(cuda_device)
 
 
 # ---------------------------------------------------------------------------

@@ -278,14 +278,10 @@ def test_push_never_reads_back_a_device_value(monkeypatch):
     # checks that a mesh executor takes a checkpointer and refuses only
     # the missing process group.
     pytest.param(dict(num_shards=2, placement="mesh"), ValueError,
-                 "init_process_group", id="change0-item 7b"),
-    pytest.param(dict(num_shards=4, num_strata=100),
-                 tex.UnsupportedConfigError, "limited to 1024",
-                 id="change1-limited to 1024")])
+                 "init_process_group", id="change0-item 7b")])
 def test_unported_configurations_raise(change, exc, error):
-    """What the port refuses, by name: a fused ingest whose ``W·K·S``
-    cells pass the fold kernel's limit; and a mesh executor, which takes
-    a checkpointer, without an initialized process group."""
+    """What the port refuses, by name: a mesh executor, which takes a
+    checkpointer, without an initialized process group."""
     from repro_torch.runtime.checkpoint import Checkpointer
     cfg = tex.RuntimeConfig(**dict(dict(num_strata=3, capacity=8),
                                    **change))
@@ -296,6 +292,27 @@ def test_unported_configurations_raise(change, exc, error):
     if cfg.placement == "vmap":
         with pytest.raises(tex.UnsupportedConfigError, match=error):
             tex.init_state(cfg, prng.PRNGKey(0), device="cpu")
+
+
+def test_fused_w4_s100_matches_reference():
+    """100 sub-streams on 4 shards with 3 intervals (``W·K·S`` = 1,200
+    cells, past the fold kernel's small-key 1,024 and the stats kernel's
+    512 rows, which the port once refused at init): a few chunks pushed
+    through both packages' pipelined fused executors give the same
+    emissions and the same state bit for bit."""
+    from test_torch_sharded import sharded_chunks, sharded_kw
+    kw = sharded_kw(4, num_strata=100, emit_every=3)
+    jr, tr = _registries()
+    je = jex.PipelinedExecutor(jex.RuntimeConfig(**kw), jr,
+                               jax.random.PRNGKey(5))
+    te = tex.PipelinedExecutor(tex.RuntimeConfig(**kw), tr,
+                               prng.PRNGKey(5), device="cpu")
+    chunks = sharded_chunks(9, 6, 4, m=256, num_strata=100)
+    jems = je.run(_jchunk(c) for c in chunks)
+    tems = te.run(_tchunk(c) for c in chunks)
+    assert len(tems) == 2
+    _assert_emissions(jems, tems)
+    _assert_state_bitwise(je.state, te.state)
 
 
 @pytest.mark.parametrize("kind,kw,error", [

@@ -256,34 +256,52 @@ def test_kernel_calls_per_sharded_chunk(ingest, folds, one_shots,
 
 
 def test_fused_cells_over_the_fold_limit_raise():
-    """``W·K·S`` cells past the fold kernel's 1024 (and the int32 ring
-    index) are refused by name before any state exists."""
-    kw = sharded_kw(4, num_strata=100)           # 4 x 3 x 100 = 1200
-    with pytest.raises(tex.UnsupportedConfigError, match="limited to 1024"):
-        tex.init_state(tex.RuntimeConfig(**kw), prng.PRNGKey(0), "cpu")
+    """``W·K·S`` cells past the fold kernel's small-key 1024 (4 x 3 x 100
+    = 1200) run: the port's fused ingest bit for bit the reference's over
+    a few chunks. Only the int32 ring index is refused by name before any
+    state exists."""
+    je, te = executors("pipelined", sharded_kw(4, num_strata=100,
+                                               emit_every=100))
+    for c in sharded_chunks(13, 4, 4, m=256, num_strata=100):
+        je.push(_jchunk(c))
+        te.push(_tchunk(c))
+    _assert_state_bitwise(je.state, te.state)
+    assert te.state.window.intervals.values.shape == (4, 3, 100, 4)
     big = sharded_kw(2, num_strata=8, capacity=2 ** 27)
     with pytest.raises(tex.UnsupportedConfigError, match="int32"):
         tex.init_state(tex.RuntimeConfig(**big), prng.PRNGKey(0), "cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def stats_limit_reference():
+    """The reference's run of the 516-cell case (pipelined fused, one
+    emission), the oracle of every vmap pair below."""
+    je, _ = executors("pipelined", sharded_kw(4, num_strata=43))
+    chunks = sharded_chunks(14, 4, 4, m=128, num_strata=43)
+    return je, chunks, je.run(_jchunk(c) for c in chunks)
+
+
 @pytest.mark.parametrize("ingest,placement", [
     ("fused", "vmap"), ("masked", "vmap"), ("onekernel", "vmap"),
     ("onekernel", "mesh")])
-def test_cells_over_the_stats_limit_raise(ingest, placement):
+def test_cells_over_the_stats_limit_run(ingest, placement):
     """Each emission's stats call takes the merged view's ``W·K·S`` rows
-    as its strata, on a mesh rank too. Past the stats kernel's 512 (4 x 3
-    x 43 = 516 cells, inside the fold's and the one-shot's 1024) a
-    configuration is refused by name at init on every ingest; 512 cells
-    (4 x 2 x 64) are taken."""
+    as its strata, on a mesh rank too. Past the stats kernel's one-launch
+    512 (4 x 3 x 43 = 516 cells) every ingest's state is taken at init; on
+    the vmap placement a push of four chunks and its emission match the
+    reference's, the state bit for bit."""
     shard = 0 if placement == "mesh" else None
     kw = sharded_kw(4, num_strata=43, ingest=ingest, placement=placement)
-    with pytest.raises(tex.UnsupportedConfigError, match="limited to 512"):
-        tex.init_state(tex.RuntimeConfig(**kw), prng.PRNGKey(0), "cpu",
-                       shard=shard)
-    ok = dict(kw, num_strata=64, num_intervals=2)
-    state = tex.init_state(tex.RuntimeConfig(**ok), prng.PRNGKey(0), "cpu",
+    state = tex.init_state(tex.RuntimeConfig(**kw), prng.PRNGKey(0), "cpu",
                            shard=shard)
-    assert state.window.intervals.values.shape[1:3] == (2, 64)
+    assert state.window.intervals.values.shape[-3:-1] == (3, 43)
+    if placement == "mesh":
+        return
+    je, chunks, jems = stats_limit_reference()
+    _, te = executors("pipelined", kw)
+    tems = te.run(_tchunk(c) for c in chunks)
+    assert len(tems) == 1
+    _assert_same_run(je, te, jems, tems)
 
 
 def test_stamp_sharded_matches_reference():
