@@ -247,13 +247,19 @@ Phases (any failure ends the run with a non-zero exit):
              stress's 4,194,304), each against its plain version (the
              fold and one-shot bit for bit; counts bit for bit and sums
              within rtol, the same bits twice), the scratch clean, then
-             timed: device ms, kernels per call, bound by bytes; then a
-             one-minute window sliding every second over 64 sub-streams
-             on 4 shards (K = 60, S = 64, W = 4, N_max = 512 a shard)
-             through the pipelined fused and onekernel paths for two
-             emissions (sum, mean, count and a hist median), each held to
-             one fused run on the CPU, its launches counted in the JSON
-             line. ``chiprun_out/chip_smoke_large_keys.json``.
+             timed: device ms, kernels per call, bound by bytes; the
+             stats and histogram cases also through their row form (the
+             [G, N] view, one launch) against its plain version, the row
+             and sorted forms in turns (R S S R) with each one's bound,
+             and the library call at the same size; then a one-minute
+             window sliding every second over 64 sub-streams on 4 shards
+             (K = 60, S = 64, W = 4, N_max = 512 a shard) through the
+             pipelined fused and onekernel paths for two emissions (sum,
+             mean, count and a hist median), each held to one fused run
+             on the CPU, its stats and histogram launches all of the row
+             form, its launches counted in the JSON line, one emission's
+             evaluation in turns with the flat route (R F F R).
+             ``chiprun_out/chip_smoke_large_keys.json``.
 
 Every stream is the reference's: ``StreamAggregator`` draws, ids and
 event times bit for bit (phases paths' and sharded's disorder is drawn
@@ -2438,9 +2444,11 @@ class HeldToPlain:
     and their sums within STATS_RTOL of the plain version's sums. The
     wrapper runs once per call on the caller's tensors, so the launch
     counts stay the path's. ``calls`` counts the calls held per kernel
-    and shape."""
+    and shape; a row entry's calls count as its kernel's at the flat
+    view's shape."""
     NAMES = ("reservoir_fold", "one_shot_ingest", "stratified_stats",
-             "weighted_histogram")
+             "weighted_histogram", "stratified_stats_rows",
+             "weighted_histogram_rows")
 
     def __init__(self, torch, tag: str):
         self.torch, self.tag, self.calls = torch, tag, {}
@@ -2499,29 +2507,49 @@ class HeldToPlain:
                                        items[0].numel()), bad)
         return out
 
+    def _stats(self, out, want, g, m):
+        bad = [] if self.torch.equal(out[0], want[0]) else ["counts"]
+        bad += [f for f, i in (("sums", 1), ("sumsqs", 2))
+                if not self._sums(out[i], want[i])]
+        self._held("stratified_stats", (g, m), bad)
+        return out
+
+    def _hist(self, out, want, g, nb, m):
+        bad = [] if self.torch.equal(out[1], want[1]) else ["counts"]
+        bad += [] if self._sums(out[0], want[0]) else ["mass"]
+        self._held("weighted_hist", (g, nb, m), bad)
+        return out
+
     def stratified_stats(self, values, stratum_ids, mask, num_strata):
         from repro_torch.kernels import ref
         out = self.real["stratified_stats"](values, stratum_ids, mask,
                                             num_strata)
-        want = ref.stratified_stats(values, stratum_ids, mask, num_strata)
-        bad = [] if self.torch.equal(out[0], want[0]) else ["counts"]
-        bad += [f for f, i in (("sums", 1), ("sumsqs", 2))
-                if not self._sums(out[i], want[i])]
-        self._held("stratified_stats", (num_strata, values.numel()), bad)
-        return out
+        return self._stats(out, ref.stratified_stats(
+            values, stratum_ids, mask, num_strata), num_strata,
+            values.numel())
+
+    def stratified_stats_rows(self, values, mask):
+        from repro_torch.kernels import ref
+        out = self.real["stratified_stats_rows"](values, mask)
+        return self._stats(out, ref.stratified_stats_rows(values, mask),
+                           values.shape[0], values.numel())
 
     def weighted_histogram(self, values, stratum_ids, weights, mask, edges,
                            num_strata):
         from repro_torch.kernels import ref
         out = self.real["weighted_histogram"](values, stratum_ids, weights,
                                               mask, edges, num_strata)
-        want = ref.weighted_hist(values, stratum_ids, weights, mask, edges,
-                                 num_strata)
-        bad = [] if self.torch.equal(out[1], want[1]) else ["counts"]
-        bad += [] if self._sums(out[0], want[0]) else ["mass"]
-        self._held("weighted_hist", (num_strata, edges.numel() - 1,
-                                     values.numel()), bad)
-        return out
+        return self._hist(out, ref.weighted_hist(
+            values, stratum_ids, weights, mask, edges, num_strata),
+            num_strata, edges.numel() - 1, values.numel())
+
+    def weighted_histogram_rows(self, values, row_weights, mask, edges):
+        from repro_torch.kernels import ref
+        out = self.real["weighted_histogram_rows"](values, row_weights, mask,
+                                                   edges)
+        return self._hist(out, ref.weighted_hist_rows(
+            values, row_weights, mask, edges), values.shape[0],
+            edges.numel() - 1, values.numel())
 
     def require(self, key, n: int) -> None:
         """Fail unless ``n`` calls were held at ``key``
@@ -5314,7 +5342,8 @@ def phase_payloads(torch, dev) -> dict:
 # one, at a sliding-window deployment (K = 60 one-second intervals of a
 # one-minute window, S = 64 sub-streams, W = 4 shards on the vmap
 # placement, N_max = 512 a shard) and at a per-key stress (S = 65,536,
-# K = 4, N_max = 64).
+# K = 4, N_max = 64). The stats and the histogram, whose emission calls
+# take a [G, N] view, also through their row form.
 #: fold: (case, cells, N_max, items)
 LK_FOLD = (("past", 1_025, 512, M), ("sliding", 15_360, 512, M),
            ("stress", 262_144, 64, 4_194_304))
@@ -5340,31 +5369,66 @@ LK_M_SHARD, LK_EMIT, LK_CHUNKS = 8_192, 2, 4
 SMALL_FORM_LAUNCHES = {"fold": 2, "one_shot": 3, "stats": 1, "whist": 1}
 
 
-def large_row(torch, kernel, case, fn, need_bytes, **shape) -> dict:
-    """Times one large-key call ``fn``: CUDA events around back-to-back
-    calls, the profiler's kernels and memsets per call (a Memcpy of a
-    state restore shown apart), the bound from the bytes the function
-    needs; fails if the call ran the small-key form's launch count."""
+def lk_timed(torch, tag, fn, need_bytes, reps: int = 5) -> dict:
+    """Times one call ``fn``: CUDA events around back-to-back calls, the
+    profiler's kernels and memsets per call (a Memcpy of a state restore
+    shown apart), the bound from the bytes the function needs. ``whole``:
+    every name's count a whole multiple of the calls traced (a window the
+    tracer did not cut short); ``event_ms``: each name's mean device ms
+    per event of the window kept."""
     ev = time_ms(fn, torch, reps=10, warm=2)
-    prof = device_profile(fn, torch, reps=5)
-    restore = {k: prof.pop(k) for k in list(prof) if "Memcpy" in k}
-    kernels, memsets = log_launches(f"large_keys {kernel} {case}", prof)
-    dev_ms = sum(v[0] for v in prof.values())
-    log_split(f"large_keys {kernel} {case}",
-              {k: v[0] for k, v in prof.items()}, ev)
-    bound = need_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[large_keys] {kernel} {case} {shape}: device {dev_ms:.4f} ms "
-        f"({kernels:g} kernels, {memsets:g} memsets per call), events "
-        f"{ev:.4f} ms, bound {bound:.4f} ms by bytes ({need_bytes} B); "
-        f"{card()}")
-    if kernels <= SMALL_FORM_LAUNCHES[kernel]:
-        fail(f"large_keys {kernel} {case}: {kernels:g} kernels per call, "
-             "not the large-key form")
-    return dict(kernel=kernel, case=case, shape=shape, device_ms=dev_ms,
-                split={k: v[0] for k, v in prof.items()},
-                events_ms=ev, kernels=kernels, memsets=memsets,
-                restore={k: v[0] for k, v in restore.items()},
-                bound_ms=bound, bytes=need_bytes)
+    prof = device_profile(fn, torch, reps=reps)
+    restore = {k: prof.pop(k)[0] for k in list(prof) if "Memcpy" in k}
+    kernels, memsets = log_launches(tag, prof)
+    return dict(device_ms=sum(v[0] for v in prof.values()), events_ms=ev,
+                kernels=kernels, memsets=memsets,
+                split={k: v[0] for k, v in prof.items()}, restore=restore,
+                whole=bool(prof) and all(float(n).is_integer()
+                                         for _, n in prof.values()),
+                event_ms={k: v[0] / v[1] for k, v in prof.items()},
+                bound_ms=need_bytes / HBM_BYTES_PER_S * 1e3,
+                bytes=need_bytes)
+
+
+def row_timed(torch, tag, fn, need_bytes, owner) -> dict:
+    """:func:`lk_timed` of a row-form call ``fn`` of the wrapper ``owner``
+    over windows of 40 to 640 calls: its launches per call from the
+    wrapper's own count (``owner.forms["row"]``); the profiler must show
+    no memset and no kernel but the row kernel. A window the tracer cut
+    short (late in the script it can drop most events of a 4 us kernel,
+    window after window) gives the device ms as the mean of the events it
+    kept times the launches per call."""
+    before = owner.forms["row"]
+    fn()
+    launches = owner.forms["row"] - before
+    t = lk_timed(torch, tag, fn, need_bytes, reps=40)
+    kernels = [k for k in t["split"] if k != "memset"]
+    if not kernels or t["memsets"] or any("rows_kernel" not in k
+                                          for k in kernels):
+        fail(f"{tag}: the row form's profile shows {t['split']}")
+    if not t["whole"]:
+        t["device_ms"] = launches * sum(t["event_ms"][k] for k in kernels)
+        log(f"[{tag}] the traced windows were cut short: device "
+            f"{t['device_ms']:.4f} ms from the mean of the "
+            f"{kernels[0]} events kept, {launches} launch per call")
+    t["kernels"] = t["kernels"] if t["whole"] else float(launches)
+    return t
+
+
+def large_row(torch, kernel, case, fn, need_bytes, **shape) -> dict:
+    """Times one large-key call ``fn`` (:func:`lk_timed`); fails if the
+    call ran the small-key form's launch count."""
+    tag = f"large_keys {kernel} {case}"
+    t = lk_timed(torch, tag, fn, need_bytes)
+    log_split(tag, t["split"], t["events_ms"])
+    log(f"[large_keys] {kernel} {case} {shape}: device {t['device_ms']:.4f} "
+        f"ms ({t['kernels']:g} kernels, {t['memsets']:g} memsets per call), "
+        f"events {t['events_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+        f"bytes ({need_bytes} B); {card()}")
+    if t["kernels"] <= SMALL_FORM_LAUNCHES[kernel]:
+        fail(f"{tag}: {t['kernels']:g} kernels per call, not the large-key "
+             "form")
+    return dict(t, kernel=kernel, case=case, shape=shape)
 
 
 def large_fold(torch, gen, case, cells, n_max, m) -> dict:
@@ -5444,18 +5508,100 @@ def rows_view(torch, gen, g, n):
     return x, sid, mask
 
 
+#: launches per call of the row forms
+ROW_FORM_LAUNCHES = 1
+
+
+def row_turns(torch, kernel, case, row_fn, sorted_fn, row_bytes,
+              sorted_bytes, library_fn, **shape) -> dict:
+    """The row form and the sorted form of one case in turns (R S S R):
+    each turn's device ms, kernels per call and bound; one row-form call
+    is one kernel and no memset (:func:`row_timed`), a sorted call more;
+    the library call's events ms at the same size."""
+    from repro_torch.kernels import stratified_stats, weighted_hist
+    owner = (stratified_stats.stratified_stats if kernel == "stats"
+             else weighted_hist.weighted_hist)
+    turns = []
+    for form in ("row", "sorted", "sorted", "row"):
+        tag = f"large_keys {kernel} {case} {form}"
+        t = (row_timed(torch, tag, row_fn, row_bytes, owner)
+             if form == "row" else lk_timed(torch, tag, sorted_fn,
+                                            sorted_bytes))
+        turns.append(dict(t, form=form))
+        if form == "row" and (t["kernels"], t["memsets"]) != (
+                ROW_FORM_LAUNCHES, 0):
+            fail(f"large_keys {kernel} {case}: the row form ran "
+                 f"{t['kernels']:g} kernels, {t['memsets']:g} memsets")
+        if form == "sorted" and t["kernels"] <= SMALL_FORM_LAUNCHES[kernel]:
+            fail(f"large_keys {kernel} {case}: {t['kernels']:g} kernels "
+                 "per call, not the large-key form")
+    library_ms = time_ms(library_fn, torch, reps=10, warm=2)
+    row = [t for t in turns if t["form"] == "row"]
+    srt = [t for t in turns if t["form"] == "sorted"]
+    log(f"[large_keys] {kernel} {case} {shape} in turns R S S R: device "
+        + ", ".join(f"{t['form']} {t['device_ms']:.4f}" for t in turns)
+        + f" ms; kernels per call row {row[0]['kernels']:g}, sorted "
+        f"{srt[0]['kernels']:g}; bound row {row[0]['bound_ms']:.4f} ms "
+        f"({row[0]['bytes']} B), sorted {srt[0]['bound_ms']:.4f} ms "
+        f"({srt[0]['bytes']} B), by bytes; library {library_ms:.4f} ms; "
+        f"{card()}")
+    return dict(kernel=kernel, case=case, shape=shape, turns=turns,
+                library_ms=library_ms,
+                device_ms=min(t["device_ms"] for t in row),
+                sorted_device_ms=min(t["device_ms"] for t in srt),
+                kernels=row[0]["kernels"], memsets=row[0]["memsets"],
+                bound_ms=row[0]["bound_ms"], bytes=row[0]["bytes"],
+                sorted_bound_ms=srt[0]["bound_ms"])
+
+
+def check_rows(torch, kernel, case, got, again, want) -> None:
+    """The row form against its plain version: counts (the first output
+    of the stats, the last of the histogram) bit for bit, the sums within
+    STATS_RTOL, a second call's bits the first's, the scratch clean."""
+    ci = 0 if kernel == "stats" else len(got) - 1
+    rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+              for i, (a, b) in enumerate(zip(got, want)) if i != ci)
+    sums_bits = all(same_bits(torch, a, b)
+                    for i, (a, b) in enumerate(zip(got, want)) if i != ci)
+    counts = torch.equal(got[ci], want[ci])
+    same = all(same_bits(torch, a, b) for a, b in zip(again, got))
+    clean = workspace_clean(torch)
+    log(f"[large_keys] {kernel} {case} row form: counts bitwise={counts} "
+        f"sums rel err {rel:.3e} (rtol {STATS_RTOL}, bit for bit="
+        f"{sums_bits}) second call same bits={same} scratch clean={clean}")
+    if not (counts and rel <= STATS_RTOL and same and clean):
+        fail(f"large_keys {kernel} {case}: the row form differs from its "
+             "plain version")
+
+
 def large_stats(torch, gen, case, g, n) -> dict:
-    from repro_torch.kernels import stratified_stats as sk
+    from repro_torch.kernels import ref, stratified_stats as sk
     x, sid, mask = rows_view(torch, gen, g, n)
     if case == "past":                    # and random strata
         rand = torch.randint(0, g, sid.shape, generator=gen,
                              device=sid.device, dtype=torch.int32)
         check_stats(torch, case + " random", x, rand, mask, g)
     check_stats(torch, case, x, sid, mask, g)
+    xv, mv = x.view(g, n), mask.view(g, n)
+    if sk.stats_form(g) != "row":
+        fail(f"large_keys stats {case}: {g} rows do not take the row form")
+    check_rows(torch, "stats", case, sk.stratified_stats_rows(xv, mv),
+               sk.stratified_stats_rows(xv, mv),
+               ref.stratified_stats_rows(xv, mv))
     need = stats_need(torch, x, sid, mask, g)
-    return large_row(torch, "stats", case,
+    live = need["live"]
+    srcs = (mask.float(), torch.where(mask, x, 0.0),
+            torch.where(mask, x * x, 0.0))
+    acc = torch.zeros((3, g), device=x.device)
+
+    def library():
+        for a, v in zip(acc, srcs):
+            a.zero_().index_add_(0, sid, v)
+    return row_turns(torch, "stats", case,
+                     lambda: sk.stratified_stats_rows(xv, mv),
                      lambda: sk.stratified_stats(x, sid, mask, g),
-                     need["bytes"], rows=g, slots=x.numel())
+                     x.numel() + 4 * live + 12 * g, need["bytes"], library,
+                     rows=g, slots=x.numel(), live=live)
 
 
 def check_stats(torch, case, x, sid, mask, g) -> None:
@@ -5478,8 +5624,8 @@ def large_whist(torch, gen, case, g, b, n) -> dict:
     from repro_torch.core.quantile import _unit_edges
     from repro_torch.kernels import ref, weighted_hist as wk
     x, cell, mask = rows_view(torch, gen, g, n)
-    w = (1.0 + 3.0 * torch.rand(g, generator=gen, device=x.device))[
-        cell.long()]
+    rw = 1.0 + 3.0 * torch.rand(g, generator=gen, device=x.device)
+    w = rw[cell.long()]
     lo, hi = float(x[mask].min()), float(x[mask].max())
     edges = lo + (hi - lo) * _unit_edges(b, x.device)
     kh, kc = wk.weighted_hist(x, cell, w, mask, edges, g)
@@ -5493,10 +5639,28 @@ def large_whist(torch, gen, case, g, b, n) -> dict:
         f"bits={same} scratch clean={clean} in bins {int(kc.sum())}")
     if not (torch.equal(kc, pc) and rel <= STATS_RTOL and same and clean):
         fail(f"large_keys whist {case}: differs from its plain version")
+    xv, mv = x.view(g, n), mask.view(g, n)
+    if wk.hist_form(g, b) != "row":
+        fail(f"large_keys whist {case}: {g} x {b} keys do not take the row "
+             "form")
+    check_rows(torch, "whist", case, wk.weighted_hist_rows(xv, rw, mv, edges),
+               wk.weighted_hist_rows(xv, rw, mv, edges),
+               ref.weighted_hist_rows(xv, rw, mv, edges))
     need = whist_need(torch, x, cell, w, mask, edges, g)
-    return large_row(torch, "whist", case,
+    key_base = cell.long() * b
+    w_live = torch.where(mask, w, 0.0)
+    acc = torch.zeros(g * b, device=x.device)
+
+    def library():
+        k = torch.bucketize(x, edges, right=True) - 1
+        acc.zero_().index_add_(0, key_base + k.clamp(0, b - 1), w_live)
+    row_bytes = (x.numel() + 4 * need["live"] + 4 * g + 4 * (b + 1)
+                 + 8 * g * b)
+    return row_turns(torch, "whist", case,
+                     lambda: wk.weighted_hist_rows(xv, rw, mv, edges),
                      lambda: wk.weighted_hist(x, cell, w, mask, edges, g),
-                     need["bytes"], rows=g, bins=b, slots=x.numel())
+                     row_bytes, need["bytes"], library, rows=g, bins=b,
+                     slots=x.numel(), live=need["live"])
 
 
 def lk_registry():
@@ -5528,8 +5692,9 @@ def lk_chunks(torch, seed: int) -> list:
 
 def lk_executor(torch, dev, ingest, chunks) -> tuple:
     """The sliding deployment's pipelined executor on ``dev``: its
-    emissions' answers and final state (numpy), and the kernels' launches
-    in the run (the counts set to 0 just before, read just after)."""
+    emissions' answers and final state (numpy), the kernels' launches
+    and the stats' and histogram's forms in the run (the counts set to 0
+    just before, read just after), its wall s and the executor."""
     from repro_torch import prng
     from repro_torch.kernels import ops
     from repro_torch.runtime import convert
@@ -5544,11 +5709,58 @@ def lk_executor(torch, dev, ingest, chunks) -> tuple:
         ex.push(TimestampedChunk(*(getattr(c, f).to(dev) for f in (
             "values", "stratum_ids", "times", "mask"))))
     ems = list(ex.emissions)
-    launches = ops.launch_counts()
+    launches, forms = ops.launch_counts(), ops.form_counts()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return ([convert.results_to_numpy(em.results) for em in ems],
-            convert.state_to_numpy(ex.state), launches, wall)
+            convert.state_to_numpy(ex.state), launches, forms, wall, ex)
+
+
+@contextlib.contextmanager
+def flat_route():
+    """The emission's row entries (``ops.stratified_stats_rows``,
+    ``ops.weighted_histogram_rows``) replaced by the flat calls with row
+    ids and each row's weight on its slots, the route the emission took
+    before it had the row entries: past the caps, the sorted large-key
+    forms."""
+    from repro_torch.kernels import ops, ref
+    rows = ops.stratified_stats_rows, ops.weighted_histogram_rows
+
+    def stats(values, mask):
+        g, n = values.shape
+        return ops.stratified_stats(values.reshape(-1), ref.row_ids(
+            g, n, values.device), mask.reshape(-1), g)
+
+    def hist(values, row_weights, mask, edges):
+        g, n = values.shape
+        return ops.weighted_histogram(
+            values.reshape(-1), ref.row_ids(g, n, values.device),
+            row_weights.repeat_interleave(n), mask.reshape(-1), edges, g)
+    ops.stratified_stats_rows, ops.weighted_histogram_rows = stats, hist
+    try:
+        yield
+    finally:
+        ops.stratified_stats_rows, ops.weighted_histogram_rows = rows
+
+
+def lk_emission_turns(torch, ex) -> dict:
+    """One emission's evaluation (``ex.query()``, every standing query on
+    the state) by the host clock around a synchronise, median of
+    LATENCY_REPS, through the row entries and through the flat route in
+    turns (R F F R)."""
+    out = []
+    for route in ("row", "flat", "flat", "row"):
+        walls = []
+        with (flat_route() if route == "flat" else contextlib.nullcontext()):
+            for _ in range(LATENCY_REPS + 1):          # the first warms
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex.query()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        out.append((route, sorted(walls[1:])[len(walls[1:]) // 2]))
+    return dict(turns=out, row_ms=min(v for r, v in out if r == "row"),
+                flat_ms=min(v for r, v in out if r == "flat"))
 
 
 def lk_paths(torch, dev) -> dict:
@@ -5557,15 +5769,16 @@ def lk_paths(torch, dev) -> dict:
     end in the same state bit for bit): the state bit for bit, every
     answer within ANSWER_RTOL; each path's launches checked."""
     chunks = lk_chunks(torch, 26)
-    cpu_ems, cpu_state, _, cpu_wall = lk_executor(torch, "cpu", "fused",
-                                                  chunks)
+    cpu_ems, cpu_state, _, _, cpu_wall, _ = lk_executor(torch, "cpu",
+                                                        "fused", chunks)
     if len(cpu_ems) != LK_CHUNKS // LK_EMIT:
         fail(f"large_keys executor: {len(cpu_ems)} emissions on the CPU")
     cells = (LK_EXEC["num_shards"] * LK_EXEC["num_intervals"]
              * LK_EXEC["num_strata"])
     out = dict(cpu_wall_s=cpu_wall, cells=cells, paths={})
     for ingest in ("fused", "onekernel"):
-        ems, state, launches, wall = lk_executor(torch, dev, ingest, chunks)
+        ems, state, launches, forms, wall, ex = lk_executor(torch, dev,
+                                                            ingest, chunks)
         bad = [b for p in ("window", "slot_interval", "open_interval", "wm",
                            "metrics")
                for b in same_state(state[p], cpu_state[p], p)]
@@ -5580,17 +5793,28 @@ def lk_paths(torch, dev) -> dict:
         want["one_shot_ingest" if ingest == "onekernel"
              else "reservoir_fold"] = 1
         missing = [k for k in want if not launches[k]]
+        not_row = {k: f for k, f in forms.items()
+                   if f["row"] != launches[k]}
+        emit = lk_emission_turns(torch, ex)
         log(f"[large_keys] executor {ingest} on the card ({cells} cells, "
             f"W = 4, N_max 512 a shard): {len(ems)} emissions, state "
             f"bitwise to the CPU's={not bad} (differs: {bad}), answers' "
             f"worst rel err {worst:.3e} (rtol {ANSWER_RTOL}), launches "
-            f"{launches}, wall {wall:.3f} s (CPU twin {cpu_wall:.3f} s)")
+            f"{launches}, forms {forms}, wall {wall:.3f} s (CPU twin "
+            f"{cpu_wall:.3f} s); one emission's evaluation in turns "
+            + ", ".join(f"{r} {v:.4f}" for r, v in emit["turns"])
+            + f" ms; {card()}")
         if bad or len(ems) != len(cpu_ems) or worst > ANSWER_RTOL:
             fail(f"large_keys executor {ingest}: differs from its CPU twin")
         if missing:
             fail(f"large_keys executor {ingest}: no launch of {missing}")
-        out["paths"][ingest] = dict(launches=launches, wall_s=wall,
-                                    worst_rel_err=worst)
+        if not_row:
+            fail(f"large_keys executor {ingest}: stats or histogram calls "
+                 f"not in the row form: {not_row}")
+        out["paths"][ingest] = dict(launches=launches, forms=forms,
+                                    wall_s=wall, worst_rel_err=worst,
+                                    emission=emit)
+        del ex
     return out
 
 
@@ -5598,8 +5822,9 @@ def phase_large_keys(torch, dev) -> dict:
     """The large-key forms of the four kernels against their plain
     versions at LK_FOLD / LK_ONE_SHOT / LK_STATS / LK_WHIST (bitwise, or
     counts bitwise and sums within STATS_RTOL, the same bits twice, the
-    scratch clean), each timed with its launches and its bound by bytes;
-    then the sliding deployment's executor (:func:`lk_paths`);
+    scratch clean), each timed with its launches and its bound by bytes,
+    the stats and histogram cases in turns with their row form; then the
+    sliding deployment's executor (:func:`lk_paths`);
     ``chiprun_out/chip_smoke_large_keys.json``."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)

@@ -73,15 +73,12 @@ def stratum_stats_from_sample(xs: torch.Tensor, counts: torch.Tensor,
                               slot_mask: torch.Tensor) -> StratumStats:
     """:class:`StratumStats` of reservoir contents ``xs [G, N]``.
 
-    One stats pass over the flattened ``[G·N]`` view with row ids as the
-    stratum of each slot and the slot mask as the item mask: the
+    One stats pass over the ``[G, N]`` view, each row a stratum and the
+    slot mask the item mask (``ops.stratified_stats_rows``): the
     hand-written kernel on the card, its plain version on the CPU.
     """
-    g, n = xs.shape
-    rows = torch.arange(g, dtype=torch.int32, device=xs.device)
-    sid = rows[:, None].expand(g, n).reshape(-1)
-    _, sums, sumsqs = ops.stratified_stats(
-        xs.to(torch.float32).reshape(-1), sid, slot_mask.reshape(-1), g)
+    _, sums, sumsqs = ops.stratified_stats_rows(xs.to(torch.float32),
+                                                slot_mask)
     return StratumStats(counts=counts, taken=taken, sums=sums,
                         sumsqs=sumsqs)
 

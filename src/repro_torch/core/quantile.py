@@ -170,16 +170,16 @@ def quantile_refine(view: SampleView, qs, num_bins: int = 32,
                     num_steps: int = 4) -> torch.Tensor:
     """Sort-free histogram-refinement quantile estimator.
 
-    Per round, one weighted histogram of the whole slot buffer over the
-    current bracket (``ops.weighted_histogram``: the kernel on the card)
-    finds the bin holding the target cumulative weight, and the bracket
-    narrows to it. The carried ``below`` mass keeps ``below = Ŵ{x < lo}``,
-    so the only approximation is the last within-bin interpolation.
-    ``Q · num_steps`` histograms in all.
+    Per round, one weighted histogram of the ``[G, N]`` view over the
+    current bracket (``ops.weighted_histogram_rows``: the kernel on the
+    card) finds the bin holding the target cumulative weight, and the
+    bracket narrows to it. The carried ``below`` mass keeps
+    ``below = Ŵ{x < lo}``, so the only approximation is the last
+    within-bin interpolation. ``Q · num_steps`` histograms in all.
     """
-    x, w, valid, gid = view.flat()
+    x, w, valid = view.values, view.weights(), view.slot_mask()
     qs = _levels(qs, x.device)
-    total = torch.sum(torch.where(valid, w, 0.0))
+    total = torch.sum(torch.where(valid, w[:, None], 0.0))
     lo0 = torch.min(torch.where(valid, x, _BIG)).reshape(1)
     hi0 = torch.max(torch.where(valid, x, -_BIG)).reshape(1)
     unit = _unit_edges(num_bins, x.device)
@@ -190,8 +190,7 @@ def quantile_refine(view: SampleView, qs, num_bins: int = 32,
         below = torch.zeros(1, dtype=torch.float32, device=x.device)
         for _ in range(num_steps):
             edges = lo + torch.clamp(hi - lo, min=1e-20) * unit
-            whist, _ = ops.weighted_histogram(x, gid, w, valid, edges,
-                                              view.values.shape[0])
+            whist, _ = ops.weighted_histogram_rows(x, w, valid, edges)
             h = torch.sum(whist, dim=0)
             cum = below + fixed_order_cumsum(h)
             b = torch.clamp(_search(cum, target), 0, num_bins - 1)
@@ -206,11 +205,12 @@ def quantile_refine(view: SampleView, qs, num_bins: int = 32,
 
 def cell_counts(view: SampleView, edges: torch.Tensor) -> err.Estimate:
     """Per-bin COUNT estimates of a weighted sample (Eq. 6 per bin): one
-    ``ops.weighted_histogram`` pass of the slot counts, then
+    ``ops.weighted_histogram_rows`` pass of the slot counts, then
     :func:`~repro_torch.core.error.estimate_counts`."""
-    x, _, valid, gid = view.flat()
-    _, n_gb = ops.weighted_histogram(x, gid, torch.ones_like(x), valid,
-                                     edges, view.values.shape[0])
+    x = view.values
+    _, n_gb = ops.weighted_histogram_rows(
+        x, torch.ones(x.shape[0], dtype=torch.float32, device=x.device),
+        view.slot_mask(), edges)
     return err.estimate_counts(n_gb, view.counts, view.taken)
 
 

@@ -145,6 +145,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_reduce_zeroed.restype = i
     lib.sa_weighted_hist.argtypes = [p] * 5 + [ll, i, i] + [p] * 6
     lib.sa_weighted_hist.restype = i
+    lib.sa_stats_rows.argtypes = [p, p, ll, ll, p, p, p, p, p]
+    lib.sa_stats_rows.restype = i
+    lib.sa_stats_rows_part_words.argtypes = [ll, ll]
+    lib.sa_stats_rows_part_words.restype = ll
+    lib.sa_stats_rows_zeroed.argtypes = [ll, ll]
+    lib.sa_stats_rows_zeroed.restype = ll
+    lib.sa_whist_rows.argtypes = [p] * 4 + [ll, ll, i] + [p] * 4
+    lib.sa_whist_rows.restype = i
+    lib.sa_whist_rows_zeroed.argtypes = [ll, ll, i]
+    lib.sa_whist_rows_zeroed.restype = ll
     lib.sa_sort_status_words.argtypes = [ll, i]
     lib.sa_sort_status_words.restype = ll
     lib.sa_sort_zeroed_words.argtypes = []

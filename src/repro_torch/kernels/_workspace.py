@@ -23,6 +23,11 @@ The stats and histogram kernels (one launch each) keep:
 * ``rows``: f32 block and group rows of partial sums, written before
   they are read in every call.
 
+Their row forms (a ``[G, N]`` view) use the same two only when a row is
+cut into parts: ``tickets`` holds a ticket per row (and the histogram's
+``G·B`` count totals after them), 0 between calls; ``rows`` the stats'
+part sums.
+
 The large-key forms of all four (past the key counts shared memory
 holds) sort each item's key stably and keep:
 

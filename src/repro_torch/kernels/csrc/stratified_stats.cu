@@ -54,12 +54,27 @@
 // them stably, and masked_reduce.cuh's segmented reduction sums each
 // stratum's run of sorted items in a fixed tree (2 + passes + 3
 // launches, scratch that grows with M + S).
+//
+// The row form (stats_rows_kernel, row_reduce.cuh), for a caller whose
+// strata are the rows of a [G, N] view (the emission's), past S = 512:
+// one launch, no sort, no ids, no per-slot scratch and no cap on G. The
+// function needs every mask byte, the value of each live slot and 12
+// bytes per row. Sequential f32 additions per sum: a thread's fold (at
+// most 16), the unit's butterfly (at most 5) and its warps' tree (3 for
+// the 8 warps of a 4,096-slot part): at most 24 for N <= 4,096 (21 at
+// the sliding deployment's N = 512, 18 at N = 64); a longer row adds its
+// parts' cascade (0 for up to 256 parts, N <= 1,048,576; about
+// 2 log2(parts / 256) past that), the finisher's butterfly (5) and tree
+// (3): 32 up to N = 1,048,576. Counts are integers, so they are exact.
+// The sum order is fixed by (G, N) alone, so a second call gives the same
+// bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "key_sort.cuh"
 #include "masked_reduce.cuh"
+#include "row_reduce.cuh"
 
 namespace {
 
@@ -153,7 +168,166 @@ int stats_large(const float* values, const int32_t* sid, const uint8_t* mask,
                        stream);
 }
 
+// The row form (row_reduce.cuh): the sums of each unit of a [G, N] view
+// (a row, or a part of a long row) by its tr = 2^tr_log threads. Part p's
+// sums (x, x*x, count as int bits) go to part[3p..3p+2] when a row has
+// several parts; tickets[g] counts the row's parts done (0 between
+// calls). Outputs as sa_stratified_stats'.
+__global__ void __launch_bounds__(kThreads)
+    stats_rows_kernel(const float* __restrict__ values,
+                      const uint8_t* __restrict__ mask, long long g,
+                      long long n, int tr_log, long long parts,
+                      float* __restrict__ part, int32_t* __restrict__ tickets,
+                      float* __restrict__ counts, float* __restrict__ sums) {
+  __shared__ float s_sum[kWarps][2];
+  __shared__ int s_cnt[kWarps];
+  __shared__ int s_last;
+  const int tr = 1 << tr_log;
+  const int sub = threadIdx.x & (tr - 1);
+  const long long unit =
+      (long long)blockIdx.x * (kThreads >> tr_log) + (threadIdx.x >> tr_log);
+  const long long row = unit / parts;
+  const bool has = row < g;
+  const long long first = (unit - row * parts) * kRowPart + sub;
+  const float* __restrict__ xr = values + row * n;
+  const uint8_t* __restrict__ mr = mask + row * n;
+  // Every mask byte of the thread's slots in flight, then the values of
+  // the live ones.
+  uint8_t mk[kRowPer];
+#pragma unroll
+  for (int t = 0; t < kRowPer; ++t) {
+    const long long i = first + (long long)t * tr;
+    mk[t] = has && i < n ? __ldg(mr + i) : 0;
+  }
+  float x[kRowPer];
+#pragma unroll
+  for (int t = 0; t < kRowPer; ++t)
+    x[t] = mk[t] ? __ldg(xr + first + (long long)t * tr) : 0.0f;
+  float s = 0.0f, q = 0.0f;
+  int c = 0;
+#pragma unroll
+  for (int t = 0; t < kRowPer; ++t)
+    if (mk[t]) {
+      ++c;
+      s = __fadd_rn(s, x[t]);
+      q = __fadd_rn(q, __fmul_rn(x[t], x[t]));
+    }
+  // The unit's lanes of each warp (all of a unit's lanes when tr <= 32).
+  for (int d = (tr < 32 ? tr : 32) >> 1; d > 0; d >>= 1) {
+    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, d));
+    q = __fadd_rn(q, __shfl_xor_sync(kFull, q, d));
+    c += __shfl_xor_sync(kFull, c, d);
+  }
+  const int warp = threadIdx.x >> 5;
+  if (tr > 32) {                   // the unit's warps by a fixed tree
+    if ((threadIdx.x & 31) == 0) {
+      s_sum[warp][0] = s;
+      s_sum[warp][1] = q;
+      s_cnt[warp] = c;
+    }
+    __syncthreads();
+    if (sub == 0) {
+      float a[kWarps], b[kWarps];
+      c = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const bool in = w < (tr >> 5);
+        a[w] = in ? s_sum[warp + w][0] : 0.0f;
+        b[w] = in ? s_sum[warp + w][1] : 0.0f;
+        c += in ? s_cnt[warp + w] : 0;
+      }
+      s = tree_sum<kWarps>(a);
+      q = tree_sum<kWarps>(b);
+    }
+  }
+  if (parts == 1) {
+    if (has && sub == 0) {
+      counts[row] = __int2float_rn(c);
+      sums[row] = s;
+      sums[g + row] = q;
+    }
+    return;
+  }
+  // A row of several parts (tr = 256, a block per unit): the part's sums
+  // out, then the row's last block sums the parts.
+  if (threadIdx.x == 0) {
+    float* pp = part + 3 * unit;
+    pp[0] = s;
+    pp[1] = q;
+    pp[2] = __int_as_float(c);
+    s_last = take_ticket(tickets + row) == parts - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  const float* rp = part + 3 * row * parts;
+  float st[kCascade][2];
+  unsigned k = 0;
+  c = 0;
+  for (long long p = threadIdx.x; p < parts; p += kThreads, ++k) {
+    c += __float_as_int(__ldcg(rp + 3 * p + 2));
+    cascade_push(st, k, __ldcg(rp + 3 * p), __ldcg(rp + 3 * p + 1));
+  }
+  cascade_total(st, k, s, q);
+  for (int d = 16; d > 0; d >>= 1) {
+    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, d));
+    q = __fadd_rn(q, __shfl_xor_sync(kFull, q, d));
+    c += __shfl_xor_sync(kFull, c, d);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_sum[warp][0] = s;
+    s_sum[warp][1] = q;
+    s_cnt[warp] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a[kWarps], b[kWarps];
+    c = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      a[w] = s_sum[w][0];
+      b[w] = s_sum[w][1];
+      c += s_cnt[w];
+    }
+    counts[row] = __int2float_rn(c);
+    sums[row] = tree_sum<kWarps>(a);
+    sums[g + row] = tree_sum<kWarps>(b);
+    tickets[row] = 0;
+  }
+}
+
 }  // namespace
+
+// f32 words of the row form's part sums for a [g, n] view (0: no row is
+// cut into parts).
+extern "C" long long sa_stats_rows_part_words(long long g, long long n) {
+  const StatsRows lay = stats_rows_layout(g, n);
+  return lay.parts > 1 ? 3 * g * lay.parts : 0;
+}
+
+// Zeroed int32 words (a ticket per row) of the row form for a [g, n]
+// view; 0 between calls.
+extern "C" long long sa_stats_rows_zeroed(long long g, long long n) {
+  return stats_rows_layout(g, n).parts > 1 ? g : 0;
+}
+
+// The row form over a [g, n] view (values f32, mask bool, both
+// contiguous); outputs as sa_stratified_stats'. part and zeroed are the
+// caller's workspace (sa_stats_rows_part_words, sa_stats_rows_zeroed);
+// the kernel leaves the zeroed words 0.
+extern "C" int sa_stats_rows(const void* values, const void* mask,
+                             long long g, long long n, void* part,
+                             void* zeroed, void* counts, void* sums,
+                             void* stream_ptr) {
+  const StatsRows lay = stats_rows_layout(g, n);
+  if (lay.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  stats_rows_kernel<<<(unsigned)lay.blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const float*>(values), static_cast<const uint8_t*>(mask),
+      g, n, lay.tr_log, lay.parts, static_cast<float*>(part),
+      static_cast<int32_t*>(zeroed), static_cast<float*>(counts),
+      static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
 
 // f32 words of the large-key form's tile parts for m items.
 extern "C" long long sa_stats_part_words(long long m) {

@@ -71,12 +71,23 @@
 // stably, and masked_reduce.cuh's segmented reduction sums each key's
 // run of sorted weights in a fixed tree (2 + passes + 3 launches, scratch
 // that grows with M + G*B; the cap is on G*B, not on B).
+//
+// The row form (whist_rows_kernel, row_reduce.cuh), for a caller whose
+// cells are the rows of a [G, N] view with one weight a row (the
+// emission's), past G*B = 3200 and up to B = 4,096 (kMaxRowBins; past it
+// the large-key form): one launch, no sort, no ids, no per-slot weights.
+// The function needs every mask byte, the value of each live slot, the
+// G row weights, the edges and the two [G, B] outputs. No f32 addition:
+// a (row, bin) mass is its integer count times the row's weight, taken in
+// f64 and rounded once, so it is the plain version's f64-summed mass bit
+// for bit (counts below 2^29), and a second call gives the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "key_sort.cuh"
 #include "masked_reduce.cuh"
+#include "row_reduce.cuh"
 
 namespace {
 
@@ -342,7 +353,153 @@ int whist_large(const float* values, const int32_t* cell_ids,
                        stream);
 }
 
+// The row form (row_reduce.cuh): each block counts the items of its
+// whole rows (or of its part of one long row) per (row, bin) in shared
+// memory, by integer atomics; a (row, bin) mass is its count times the
+// row's weight. zeroed (only when a row has several parts): a ticket per
+// row, then G*B count totals, all 0 between calls. Shared memory: the
+// block's rows*B counts, then the bin table and the edges as
+// weighted_hist_kernel keeps them.
+__global__ void __launch_bounds__(kThreads)
+    whist_rows_kernel(const float* __restrict__ values,
+                      const uint8_t* __restrict__ mask,
+                      const float* __restrict__ row_w,
+                      const float* __restrict__ edges, long long g,
+                      long long n, int nb, int rows, long long parts,
+                      int32_t* __restrict__ zeroed,
+                      float* __restrict__ whist, float* __restrict__ counts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_width;
+  __shared__ int s_last;
+  int top = nb > 1 ? 1 : 0;
+  while (2 * top <= nb - 1) top *= 2;
+  const long long row0 =
+      parts == 1 ? (long long)blockIdx.x * rows : blockIdx.x / parts;
+  const long long j = parts == 1 ? 0 : blockIdx.x - row0 * parts;
+  const int my_rows = (int)(g - row0 < rows ? g - row0 : rows);
+  const long long begin = row0 * n + j * kRowBlockItems;
+  // Slots of the block: my_rows * n <= 8,192, or one part of a row.
+  const int len = (int)(parts == 1 ? my_rows * n
+                        : (n - j * kRowBlockItems < kRowBlockItems
+                               ? n - j * kRowBlockItems
+                               : kRowBlockItems));
+  const int keys = my_rows * nb;
+  int32_t* cnt = reinterpret_cast<int32_t*>(smem);            // [rows * nb]
+  int* lut = cnt + rows * nb;                                 // [kLut + 1]
+  float* e = reinterpret_cast<float*>(lut + kLut + 1);        // [nb + 1]
+  float* es = e + nb + 1;                                     // [nb + top]
+  for (int k = threadIdx.x; k < keys; k += kThreads) cnt[k] = 0;
+  for (int k = threadIdx.x; k <= nb; k += kThreads) e[k] = edges[k];
+  for (int k = threadIdx.x; k < nb + top; k += kThreads)
+    es[k] = k < nb ? edges[k] : __int_as_float(0x7fffffff);
+  if (threadIdx.x == 0) s_width = 0;
+  __syncthreads();
+  const Edges ed = bin_table(e, es, lut, nb, top, &s_width);
+  const uint8_t* __restrict__ mb = mask + begin;
+  const float* __restrict__ xb = values + begin;
+  const int step = kThreads * kItems;
+  for (int l0 = 0; l0 < len; l0 += step) {
+    // The thread's items l0 + threadIdx.x + q * 256, q < 8, as the
+    // vectors find_bins takes: every mask byte in flight, then the
+    // values of the live ones.
+    uint8_t mv[kItems];
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int l = l0 + threadIdx.x + q * kThreads;
+      mv[q] = l < len ? __ldg(mb + l) : 0;
+    }
+    float xv[kItems];
+#pragma unroll
+    for (int q = 0; q < kItems; ++q)
+      xv[q] = mv[q] ? __ldg(xb + l0 + threadIdx.x + q * kThreads) : 0.0f;
+    uint32_t mk[kVecs];
+    float4 x[kVecs];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      mk[k] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mk[k] |= (uint32_t)(mv[4 * k + i] != 0) << (8 * i);
+      x[k] = make_float4(xv[4 * k], xv[4 * k + 1], xv[4 * k + 2],
+                         xv[4 * k + 3]);
+    }
+    int bin[kItems];
+    uint32_t in_bin[kVecs];
+    find_bins(ed, x, mk, bin, in_bin);
+#pragma unroll
+    for (int q = 0; q < kItems; ++q)
+      if (bin[q] >= 0) {
+        const int r =
+            parts == 1 ? (l0 + threadIdx.x + q * kThreads) / (int)n : 0;
+        atomicAdd(cnt + r * nb + bin[q], 1);
+      }
+  }
+  __syncthreads();
+  if (parts == 1) {
+    for (int k = threadIdx.x; k < keys; k += kThreads) {
+      const int c = cnt[k];
+      const size_t o = (size_t)row0 * nb + k;
+      counts[o] = __int2float_rn(c);
+      whist[o] = c ? __double2float_rn(__dmul_rn(
+                         (double)c, (double)__ldg(row_w + row0 + k / nb)))
+                   : 0.0f;
+    }
+    return;
+  }
+  // A part of a long row: its counts into the row's totals, then the
+  // row's last block writes the row.
+  int32_t* total = zeroed + g + row0 * nb;
+  for (int k = threadIdx.x; k < nb; k += kThreads)
+    if (cnt[k]) atomicAdd(total + k, cnt[k]);
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = take_ticket(zeroed + row0) == parts - 1;
+  __syncthreads();
+  if (!s_last) return;
+  const double w = (double)__ldg(row_w + row0);
+  for (int k = threadIdx.x; k < nb; k += kThreads) {
+    const int c = atomicExch(total + k, 0);
+    const size_t o = (size_t)row0 * nb + k;
+    counts[o] = __int2float_rn(c);
+    whist[o] = c ? __double2float_rn(__dmul_rn((double)c, w)) : 0.0f;
+  }
+  if (threadIdx.x == 0) zeroed[row0] = 0;
+}
+
+size_t rows_smem_bytes(int rows, int nb) {
+  return smem_bytes(0, nb) + (size_t)rows * nb * 4;
+}
+
 }  // namespace
+
+// Zeroed int32 words (a ticket per row, then G*B count totals) of the row
+// form for a [g, n] view over nb bins; 0 between calls (0 words: no row
+// is cut into parts).
+extern "C" long long sa_whist_rows_zeroed(long long g, long long n, int nb) {
+  return hist_rows_layout(g, n, nb).parts > 1 ? g + g * nb : 0;
+}
+
+// The row form over a [g, n] view: values f32 and mask bool [g, n],
+// row_w f32 [g], edges f32 [nb + 1], all contiguous; whist and counts f32
+// [g, nb]. zeroed is the caller's workspace (sa_whist_rows_zeroed); the
+// kernel leaves it 0.
+extern "C" int sa_whist_rows(const void* values, const void* mask,
+                             const void* row_w, const void* edges,
+                             long long g, long long n, int nb, void* zeroed,
+                             void* whist, void* counts, void* stream_ptr) {
+  if (nb < 1 || nb > kMaxRowBins) return (int)cudaErrorInvalidValue;
+  const HistRows lay = hist_rows_layout(g, n, nb);
+  if (lay.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = rows_smem_bytes(lay.rows, nb);
+  const cudaError_t err = allow_smem(whist_rows_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  whist_rows_kernel<<<(unsigned)lay.blocks, kThreads, smem,
+                      static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const float*>(values), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(row_w), static_cast<const float*>(edges), g,
+      n, nb, lay.rows, lay.parts, static_cast<int32_t*>(zeroed),
+      static_cast<float*>(whist), static_cast<float*>(counts));
+  return (int)cudaGetLastError();
+}
 
 // f32 words of the large-key form's tile parts for m items.
 extern "C" long long sa_whist_part_words(long long m) {

@@ -45,6 +45,15 @@ def stratified_stats(values, stratum_ids, mask, num_strata: int):
     return _stats.stratified_stats(values, stratum_ids, mask, num_strata)
 
 
+def stratified_stats_rows(values, mask):
+    """Per-row ``(count, Σx, Σx²)`` of a ``[G, N]`` slot view whose
+    strata are its rows, f32 ``[G]``; a view is made contiguous first."""
+    values, mask = values.contiguous(), mask.contiguous()
+    if _on_cpu(values, "stratified_stats_rows"):
+        return ref.stratified_stats_rows(values, mask)
+    return _stats.stratified_stats_rows(values, mask)
+
+
 def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot,
                     **state) -> ref.OneShotResult:
     """The whole ingest of one chunk, in place on the carried tensors;
@@ -68,6 +77,17 @@ def weighted_histogram(values, stratum_ids, weights, mask, edges,
                                 num_strata)
 
 
+def weighted_histogram_rows(values, row_weights, mask, edges):
+    """Per-(row, bin) ``(whist, counts)``, both f32 ``[G, B]``, of a
+    ``[G, N]`` slot view whose cells are its rows, row ``g`` weighing
+    ``row_weights[g]``; a view is made contiguous first."""
+    values, mask = values.contiguous(), mask.contiguous()
+    if _on_cpu(values, "weighted_histogram_rows"):
+        return ref.weighted_hist_rows(values, row_weights, mask, edges)
+    return _whist.weighted_hist_rows(values, row_weights.contiguous(), mask,
+                                     edges)
+
+
 _WRAPPERS = {"reservoir_fold": _reservoir.reservoir_fold,
              "stratified_stats": _stats.stratified_stats,
              "one_shot_ingest": _one_shot.one_shot_ingest,
@@ -79,6 +99,15 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def form_counts() -> dict:
+    """Launches of each form (``small``, ``row``, ``sorted``) of the stats
+    and histogram wrappers since the last reset."""
+    return {name: dict(_WRAPPERS[name].forms)
+            for name in ("stratified_stats", "weighted_hist")}
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+        for form in getattr(fn, "forms", ()):
+            fn.forms[form] = 0

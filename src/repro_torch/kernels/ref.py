@@ -194,6 +194,33 @@ def stratified_stats(values: torch.Tensor, stratum_ids: torch.Tensor,
     return counts[:num_strata].to(torch.float32), out[0], out[1]
 
 
+def row_ids(g: int, n: int, device) -> torch.Tensor:
+    """The flat ``[G·N]`` int32 stratum of each slot of a ``[G, N]`` view:
+    its row (contiguous, as the kernels take it)."""
+    return torch.arange(g, dtype=torch.int32,
+                        device=device).repeat_interleave(n)
+
+
+def stratified_stats_rows(values: torch.Tensor, mask: torch.Tensor):
+    """Per-row ``(count, Σx·m, Σ(x·m)·x)`` of a ``[G, N]`` view, three f32
+    ``[G]``: :func:`stratified_stats` of the flat view with row ids (the
+    reference's row sums bit for bit)."""
+    g, n = values.shape
+    return stratified_stats(values.reshape(-1), row_ids(g, n, values.device),
+                            mask.reshape(-1), g)
+
+
+def weighted_hist_rows(values: torch.Tensor, row_weights: torch.Tensor,
+                       mask: torch.Tensor, edges: torch.Tensor):
+    """Per-(row, bin) ``(whist, counts)`` of a ``[G, N]`` view whose row
+    ``g`` weighs ``row_weights[g]``: :func:`weighted_hist` of the flat
+    view with row ids and each row's weight on each of its slots."""
+    g, n = values.shape
+    return weighted_hist(values.reshape(-1), row_ids(g, n, values.device),
+                         row_weights.repeat_interleave(n), mask.reshape(-1),
+                         edges, g)
+
+
 def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
                   weights: torch.Tensor, mask: torch.Tensor,
                   edges: torch.Tensor, num_strata: int):

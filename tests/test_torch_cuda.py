@@ -929,6 +929,176 @@ def test_cuda_reductions_on_two_streams(cuda_device):
         assert_workspace_clean(cuda_device, st)
 
 
+def rows_inputs(seed, g, n, mask="prefix", bins=32):
+    """numpy ``(values [g, n], row weights [g], mask [g, n], edges)`` of a
+    row-form call: Gaussian values, weights in [1, 4), 33 (``bins + 1``)
+    edges uniform over the live values. ``mask``: ``"prefix"`` (a sample
+    size per row, as the emission's slot mask, some rows with none),
+    ``"random"`` (a general mask) or ``"none"`` (every slot dead)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(100.0, 10.0, (g, n)).astype(np.float32)
+    w = rng.uniform(1.0, 4.0, g).astype(np.float32)
+    if mask == "prefix":
+        taken = rng.integers(0, n + 1, g)
+        taken[::7] = 0
+        live = np.arange(n)[None, :] < taken[:, None]
+    else:
+        live = rng.random((g, n)) < (0.7 if mask == "random" else 0.0)
+    lo, hi = (float(x[live].min()), float(x[live].max())) if live.any() \
+        else (0.0, 1.0)
+    e = np.linspace(lo, hi, bins + 1).astype(np.float32)
+    return x, w, live, e
+
+
+def _rows_calls(fn, plain, args, form, calls=2):
+    """``calls`` back-to-back row-form calls of ``fn`` (a wrapper of
+    ``kernels``) against one call of ``plain``: the runs, the plain
+    result; every run the first one's bits, each call a launch of
+    ``form``, the scratch clean after them."""
+    owner = (stratified_stats.stratified_stats
+             if fn is stratified_stats.stratified_stats_rows
+             else weighted_hist.weighted_hist)
+    before = owner.launches, dict(owner.forms)
+    runs = [fn(*args) for _ in range(calls)]
+    want = plain(*args)
+    assert owner.launches == before[0] + calls
+    assert owner.forms[form] == before[1][form] + calls
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert_same_bits(a, b)
+    assert_workspace_clean(args[0].device)
+    return runs[0], want
+
+
+#: Slots a row of the row-form cases: a slot, rows off 16-byte boundaries
+#: (3, 5, 513), the stress view's 64, and rows cut into parts (stats past
+#: 4,096 slots, the histogram past 8,192).
+ROW_NS = [1, 3, 5, 64, 513, 4_100, 17_000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["prefix", "random", "none"])
+@pytest.mark.parametrize("n", ROW_NS)
+def test_cuda_stats_rows_match_plain(cuda_device, n, mask):
+    """G = MAX_STRATA + 1 rows: the row form, counts bit for bit, sums
+    within rtol 1e-5 of the plain version, the same bits twice."""
+    g = stratified_stats.MAX_STRATA + 1
+    x, _, live, _ = rows_inputs(61, g, n, mask)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (x, live)]
+    (kc, ks, kq), (pc, ps, pq) = _rows_calls(
+        stratified_stats.stratified_stats_rows, ref.stratified_stats_rows,
+        args, "row")
+    assert torch.equal(kc, pc)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(kq, pq, rtol=1e-5, atol=0.0)
+    assert float(kc.sum()) == float(live.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["prefix", "random", "none"])
+@pytest.mark.parametrize("n", ROW_NS)
+def test_cuda_weighted_hist_rows_match_plain(cuda_device, n, mask):
+    """G = 101 rows x 32 bins, past MAX_CELLS_BINS: the row form, counts
+    and mass bit for bit the plain version's (a count times its row's
+    weight, rounded once, is the f64 sum rounded once), the same bits
+    twice."""
+    x, w, live, e = rows_inputs(62, 101, n, mask)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (x, w, live, e)]
+    (kh, kc), (ph, pc) = _rows_calls(
+        weighted_hist.weighted_hist_rows, ref.weighted_hist_rows, args,
+        "row")
+    assert 101 * 32 > weighted_hist.MAX_CELLS_BINS
+    assert torch.equal(kc, pc)
+    assert_same_bits(kh, ph, "whist")
+    assert float(kc.sum()) == float(live.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edges", ["narrow", "outside", "collapsed"])
+def test_cuda_weighted_hist_rows_edges(cuda_device, edges):
+    """The row form with few values in a bin, none, and every edge
+    equal to every value (all in the last bin)."""
+    x, w, live, _ = rows_inputs(63, 150, 300)
+    if edges == "collapsed":
+        x[:] = 1480.0
+        e = np.full(33, 1480.0, np.float32)
+    else:
+        lo = 100.0 if edges == "narrow" else 1e4
+        e = np.linspace(lo, lo + 0.5, 33).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (x, w, live, e)]
+    (kh, kc), (ph, pc) = _rows_calls(
+        weighted_hist.weighted_hist_rows, ref.weighted_hist_rows, args,
+        "row")
+    assert torch.equal(kc, pc)
+    assert_same_bits(kh, ph, "whist")
+    if edges == "collapsed":
+        assert float(kc[:, -1].sum()) == float(live.sum())
+    if edges == "outside":
+        assert float(kc.sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,g,bins,form", [
+    ("stats", 512, 32, "small"), ("stats", 513, 32, "row"),
+    ("whist", 100, 32, "small"), ("whist", 101, 32, "row"),
+    ("whist", 1, 4_096, "row"), ("whist", 1, 4_097, "sorted")])
+def test_cuda_row_entries_take_their_form(cuda_device, kernel, g, bins,
+                                          form):
+    """Each row entry's form by shape: at the caps the one-launch form on
+    the flat view with row ids, the bits of the flat call; past them the
+    row form; past MAX_ROW_BINS the sorted form; each held to its plain
+    version."""
+    x, w, live, e = rows_inputs(64, g, 1_000, bins=bins)
+    x, w, live, e = (torch.from_numpy(a).to(cuda_device)
+                     for a in (x, w, live, e))
+    flat = (x.reshape(-1), ref.row_ids(g, 1_000, cuda_device))
+    if kernel == "stats":
+        assert stratified_stats.stats_form(g) == form
+        got, want = _rows_calls(stratified_stats.stratified_stats_rows,
+                                ref.stratified_stats_rows, [x, live], form)
+        if form == "small":
+            for a, b in zip(got, stratified_stats.stratified_stats(
+                    *flat, live.reshape(-1), g)):
+                assert_same_bits(a, b)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+    else:
+        assert weighted_hist.hist_form(g, bins) == form
+        got, want = _rows_calls(weighted_hist.weighted_hist_rows,
+                                ref.weighted_hist_rows, [x, w, live, e],
+                                form)
+        if form == "small":
+            for a, b in zip(got, weighted_hist.weighted_hist(
+                    *flat, w.repeat_interleave(1_000),
+                    live.reshape(-1), e, g)):
+                assert_same_bits(a, b)
+        assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_stats_rows_past_256_parts(cuda_device):
+    """513 rows of 1,100,000 slots (269 parts a row: each row's finisher
+    folds two parts on some threads): counts and sums against float64
+    sums of the same view, the same bits twice, the scratch clean."""
+    g, n = 513, 1_100_000
+    gen = torch.Generator(device=cuda_device).manual_seed(65)
+    x = 100.0 + 10.0 * torch.randn((g, n), generator=gen, device=cuda_device)
+    live = torch.rand((g, n), generator=gen, device=cuda_device) < 0.6
+    runs = [stratified_stats.stratified_stats_rows(x, live)
+            for _ in range(2)]
+    for a, b in zip(runs[1], runs[0]):
+        assert_same_bits(a, b)
+    assert_workspace_clean(cuda_device)
+    xd = torch.where(live, x.double(), 0.0)
+    kc, ks, kq = runs[0]
+    assert torch.equal(kc, live.sum(1).float())
+    torch.testing.assert_close(ks.double(), xd.sum(1), rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(kq.double(), (xd * x.double()).sum(1),
+                               rtol=1e-5, atol=0.0)
+
+
 def _above_500(x):
     return x > 500.0
 
@@ -1206,10 +1376,11 @@ def test_cuda_reductions_see_phase_zero_values(cuda_device, monkeypatch,
     address phase: every call the emissions of a fresh executor and of
     one restored from a payload make hands them values at phase 0, on
     one shard and on W = 4 (the merged ``[W·K·S, N]`` view and its
-    interval restrictions)."""
+    interval restrictions), through the row entries the emission calls
+    (the one-launch form takes the same storage flattened)."""
     from repro_torch.runtime import checkpoint as ckp
     phases = []
-    stats, whist = ops.stratified_stats, ops.weighted_histogram
+    stats, whist = ops.stratified_stats_rows, ops.weighted_histogram_rows
 
     def stats_at(values, *a, **kw):
         phases.append(("stats", values.data_ptr() % 16))
@@ -1218,8 +1389,8 @@ def test_cuda_reductions_see_phase_zero_values(cuda_device, monkeypatch,
     def whist_at(values, *a, **kw):
         phases.append(("whist", values.data_ptr() % 16))
         return whist(values, *a, **kw)
-    monkeypatch.setattr(ops, "stratified_stats", stats_at)
-    monkeypatch.setattr(ops, "weighted_histogram", whist_at)
+    monkeypatch.setattr(ops, "stratified_stats_rows", stats_at)
+    monkeypatch.setattr(ops, "weighted_histogram_rows", whist_at)
     cfg = _recovery_cfg(ingest, emission)
     chunks = _device_chunks(cuda_device)
     if shards > 1:
