@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Time chip_smoke.py's serve and train phases for two trees in turns on
-one NVIDIA card.
+"""Time chip_smoke.py's phases for two trees in turns on one NVIDIA
+card: serve and train, or the fold and one-shot rows of phase large_keys.
 
-    python3 chip_compare.py OTHER_TREE
+    python3 chip_compare.py OTHER_TREE [--phases serve_train|large_keys]
 
 ``OTHER_TREE`` is another tree of this repo, e.g. a parent commit
 unpacked by ``git archive`` into a directory that ``.gitignore`` lists;
 ``B`` is the tree this script is in. The runs go A, B, B, A; each runs
-both phases of its tree in a process of its own, which puts the tree's
+the phases of its tree in a process of its own, which puts the tree's
 ``src`` first on ``sys.path``, loads its ``chip_smoke.py`` and builds its
-kernels. Each run prints one ``SUMMARY`` line of JSON (the phases'
-decode, prefill and step times, host ops, busy share, peak memory);
-together they go to ``chiprun_out/chip_compare.json``. Imports no JAX.
-Exits non-zero if any run failed, or when there is no card.
+kernels. Each run prints one ``SUMMARY`` line of JSON (serve and train:
+the decode, prefill and step times, host ops, busy share, peak memory;
+large_keys: each case's device ms, kernels per call, per-launch split and
+bound); together they go to ``chiprun_out/chip_compare.json``. Imports no
+JAX. Exits non-zero if any run failed, or when there is no card.
 """
 from __future__ import annotations
 
@@ -31,10 +32,25 @@ SERVE_KEYS = ("decode_median_ms", "decode_min_ms", "decode_max_ms",
 TRAIN_KEYS = ("step_median_ms", "step_min_ms", "step_max_ms",
               "update_median_ms", "tokens_per_s", "host_ops",
               "busy_share", "peak_bytes", "losses")
+LARGE_KEYS = ("kernel", "case", "shape", "device_ms", "events_ms",
+              "kernels", "memsets", "split", "bound_ms", "bytes")
 ORDER = "ABBA"
+PHASES = ("serve_train", "large_keys")
 
 
-def run_tree(tree: Path) -> dict:
+def large_keys_rows(torch, cs, dev) -> list:
+    """The fold and one-shot rows of phase large_keys (``LK_FOLD``,
+    ``LK_ONE_SHOT``): each checked against its plain version and timed by
+    the tree's own ``large_fold`` / ``large_one_shot``, from one
+    generator seeded as the phase seeds it."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.TIMING_SEED)
+    rows = [cs.large_fold(torch, gen, *c) for c in cs.LK_FOLD]
+    rows += [cs.large_one_shot(torch, gen, *c) for c in cs.LK_ONE_SHOT]
+    return [{k: r[k] for k in LARGE_KEYS} for r in rows]
+
+
+def run_tree(tree: Path, phases: str) -> dict:
     """The phases of ``tree``'s chip_smoke.py, in this process."""
     import torch
     sys.path.insert(0, str(tree / "src"))
@@ -48,10 +64,13 @@ def run_tree(tree: Path) -> dict:
     cs.phase_build()
     out = dict(tree=str(tree), card=cs.card())
     t0 = time.perf_counter()
-    r = cs.phase_serve(torch, 0, dev)
-    out["serve"] = {k: r[k] for k in SERVE_KEYS}
-    r = cs.phase_train(torch, 0, dev)
-    out["train"] = {k: r[k] for k in TRAIN_KEYS}
+    if phases == "large_keys":
+        out["large_keys"] = large_keys_rows(torch, cs, dev)
+    else:
+        r = cs.phase_serve(torch, 0, dev)
+        out["serve"] = {k: r[k] for k in SERVE_KEYS}
+        r = cs.phase_train(torch, 0, dev)
+        out["train"] = {k: r[k] for k in TRAIN_KEYS}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -59,11 +78,15 @@ def run_tree(tree: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="the other tree (A)")
+    ap.add_argument("--phases", choices=PHASES, default=PHASES[0],
+                    help="serve and train (default), or the fold and "
+                         "one-shot rows of phase large_keys")
     ap.add_argument("--child", action="store_true",
                     help="run the phases of OTHER in this process")
     args = ap.parse_args(argv)
     if args.child:
-        print("SUMMARY " + json.dumps(run_tree(args.other.resolve()),
+        print("SUMMARY " + json.dumps(run_tree(args.other.resolve(),
+                                               args.phases),
                                       default=str), flush=True)
         return 0
 
@@ -81,7 +104,7 @@ def main(argv=None) -> int:
         with open(log, "w") as f:
             p = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), str(tree),
-                 "--child"],
+                 "--child", "--phases", args.phases],
                 stdout=f, stderr=subprocess.STDOUT, cwd=tree)
         lines = [ln for ln in log.read_text().splitlines()
                  if ln.startswith("SUMMARY ")]

@@ -447,24 +447,32 @@ def device_profile(fn, torch, reps: int = 10) -> dict:
     calls: ``{name: (device ms, launches)}`` of each kernel and memset.
     ``fn`` launches the same work every call, so each name's count is a
     whole multiple of the calls traced; the tracer now and then drops
-    events (a window with no device activity, or one kernel in ten
-    missing; phase payloads (a) loses the first window of nearly every
-    call, and once lost five in a row), and such a window is profiled
-    again with twice the calls, up to ``PROFILE_TRIES`` times."""
+    events at the start of a trace (a window with no device activity,
+    or the first 55 events of every window, whatever its length), so
+    each window follows a warm-up step of as many calls that the trace
+    discards (``torch.profiler.schedule``); a window that still lost
+    events is profiled again with twice the calls, up to
+    ``PROFILE_TRIES`` times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for t in range(PROFILE_TRIES):
         calls = reps << min(t, 4)
         split = {}
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):          # the warm-up step, then the window
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # the step's own span on the card is no launch
+            if e.device_type == DeviceType.CUDA and \
+                    not e.name.startswith("ProfilerStep"):
                 name = ("memset" if "Memset" in e.name else e.name.replace(
                     "(anonymous namespace)::", "").split("(")[0])
                 us, n = split.get(name, (0.0, 0))
@@ -488,6 +496,14 @@ def log_launches(tag: str, prof: dict) -> tuple:
     return kernels, memsets
 
 
+def small_form(kernel: str, prof: dict) -> None:
+    """Log a profile's kernels and memsets per call; fail unless they are
+    the small-key form's (SMALL_FORM_LAUNCHES, no memset)."""
+    if log_launches(kernel, prof) != (SMALL_FORM_LAUNCHES[kernel], 0):
+        fail(f"{kernel}: not the small form's {SMALL_FORM_LAUNCHES[kernel]} "
+             "kernels and no memset per call")
+
+
 def one_launch(tag: str, prof: dict) -> None:
     """Log a profile's kernels and memsets per call; fail unless they are
     one kernel and no memset."""
@@ -501,27 +517,32 @@ def claim_tiles(m: int) -> int:
     return _workspace.tiles(_build.build().lib, m)
 
 
-def listed_items(torch, m: int) -> int:
-    """Accepted items of the last fold or one-shot call of ``m`` items:
-    the entries of the per-warp lists its claim pass wrote."""
+def listed_items(torch, m: int, cells: int = 0) -> int:
+    """Accepted items of the last fold or one-shot call of ``m`` items
+    over ``cells`` cells: the entries of the per-warp lists its claim
+    pass wrote (over the parted form's claim grid past 1,024 cells)."""
     from repro_torch.kernels import _build, _workspace
+    from repro_torch.kernels.reservoir import MAX_STRATA
     dev = torch.device("cuda", torch.cuda.current_device())
     ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
     lists = _build.build().lib.sa_fold_tile_lists()
-    return int(ws.list_n[:claim_tiles(m) * lists].sum())
+    tiles = (_workspace.parted_plan(cells, m).claim_grid
+             if cells > MAX_STRATA else claim_tiles(m))
+    return int(ws.list_n[:tiles * lists].sum())
 
 
 def workspace_clean(torch) -> bool:
     """The kernels' kept scratch is as the next call needs it: the winner
-    table all -1, the look-back words, the counters, the tickets and the
-    large-key sort's totals and counters all 0."""
+    table all -1, the look-back words, the counters, the tickets, the
+    large-key sort's totals and counters and the parted form's totals and
+    tickets all 0."""
     from repro_torch.kernels import _workspace
     dev = torch.device("cuda", torch.cuda.current_device())
     ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
     return bool((ws.winner == -1).all()) and not any(
         bool(t.any()) for t in (ws.status, ws.counters, ws.tickets,
-                                ws.sort_zeroed))
+                                ws.sort_zeroed, ws.part_zeroed))
 
 
 def log_split(tag: str, split: dict, event_ms: float) -> None:
@@ -629,7 +650,7 @@ def phase_fold(torch, gen):
         f"the function needs: {need['live']} live, {need['tested']} past "
         f"capacity, {need['accepted']} accepted, {need['won']} cells won)")
     log_split("fold", {k: v[0] for k, v in t["prof"].items()}, t["ms"])
-    log_launches("fold", t["prof"])
+    small_form("fold", t["prof"])
     return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=bound,
                 bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
@@ -686,7 +707,7 @@ def fold_need(torch, inp, n_max: int = N_MAX) -> dict:
                        device=inp["counts"].device)
     new_counts = reservoir.reservoir_fold(values=probe, **inp)
     won = int((~torch.isnan(probe)).sum())
-    accepted = listed_items(torch, m)
+    accepted = listed_items(torch, m, cells)
     need = item_needs(torch, inp["counts"], new_counts, inp["capacity"])
     nbytes = (m + 4 * need["live"] + 4 * need["tested"]
               + 4 * (accepted - need["fill"]) + 8 * won + 12 * cells)
@@ -1166,7 +1187,7 @@ def phase_one_shot(torch, gen):
         f"{need['accepted']} accepted, {need['won']} cells won); no single "
         "PyTorch call does the fused ingest")
     log_split("one_shot", {k: v[0] for k, v in t["prof"].items()}, t["ms"])
-    log_launches("one_shot", t["prof"])
+    small_form("one_shot", t["prof"])
     log(f"[one_shot] the counts' restore before each call: "
         f"{t['restore']} (left out of the split above)")
     two.update(one_shot_leaf_turns(torch, dev, t, need, n_ops))
@@ -1328,7 +1349,7 @@ def one_shot_need(torch, items, state) -> dict:
                                    device=state["counts"].device))
     one_shot_ingest(**items, **ONE_SHOT_KW, **probe)
     won = int((~torch.isnan(probe["values"])).sum())
-    accepted = listed_items(torch, m)
+    accepted = listed_items(torch, m, k * s)
     reset = (probe["slot_interval"] != state["slot_interval"])[:, None]
     base = torch.where(reset, 0, state["counts"])
     need = item_needs(torch, base, probe["counts"], probe["capacity"])
@@ -5367,6 +5388,9 @@ LK_EXEC = dict(num_intervals=60, num_strata=64, num_shards=4,
 LK_M_SHARD, LK_EMIT, LK_CHUNKS = 8_192, 2, 4
 #: launches per call of each kernel's small-key form
 SMALL_FORM_LAUNCHES = {"fold": 2, "one_shot": 3, "stats": 1, "whist": 1}
+#: launches per call of the fold's and the one-shot's parted form up to
+#: 2**20 cells (one partition pass), one payload leaf
+PARTED_LAUNCHES = {"fold": 4, "one_shot": 5}
 
 
 def lk_timed(torch, tag, fn, need_bytes, reps: int = 5) -> dict:
@@ -5415,20 +5439,28 @@ def row_timed(torch, tag, fn, need_bytes, owner) -> dict:
     return t
 
 
-def large_row(torch, kernel, case, fn, need_bytes, **shape) -> dict:
-    """Times one large-key call ``fn`` (:func:`lk_timed`); fails if the
-    call ran the small-key form's launch count."""
+def large_row(torch, kernel, case, fn, need_bytes, owner, **shape) -> dict:
+    """Times one parted-form call ``fn`` of the wrapper ``owner``
+    (:func:`lk_timed`), its profiler split per launch beside the device
+    ms, kernels per call and bound; fails unless the call ran the parted
+    form (``owner.forms``) in PARTED_LAUNCHES kernels and no memset."""
     tag = f"large_keys {kernel} {case}"
+    before = dict(owner.forms)
+    fn()
+    ran = {f: owner.forms[f] - before[f] for f in before}
     t = lk_timed(torch, tag, fn, need_bytes)
     log_split(tag, t["split"], t["events_ms"])
     log(f"[large_keys] {kernel} {case} {shape}: device {t['device_ms']:.4f} "
         f"ms ({t['kernels']:g} kernels, {t['memsets']:g} memsets per call), "
         f"events {t['events_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
-        f"bytes ({need_bytes} B); {card()}")
-    if t["kernels"] <= SMALL_FORM_LAUNCHES[kernel]:
-        fail(f"{tag}: {t['kernels']:g} kernels per call, not the large-key "
-             "form")
-    return dict(t, kernel=kernel, case=case, shape=shape)
+        f"bytes ({need_bytes} B), forms {ran}; {card()}")
+    if ran != {"small": 0, "parted": 1}:
+        fail(f"{tag}: the call ran the forms {ran}, not the parted form")
+    if t["whole"] and (t["kernels"], t["memsets"]) != (
+            PARTED_LAUNCHES[kernel], 0):
+        fail(f"{tag}: {t['kernels']:g} kernels and {t['memsets']:g} "
+             f"memsets per call, not {PARTED_LAUNCHES[kernel]} and none")
+    return dict(t, kernel=kernel, case=case, shape=shape, forms=ran)
 
 
 def large_fold(torch, gen, case, cells, n_max, m) -> dict:
@@ -5441,19 +5473,24 @@ def large_fold(torch, gen, case, cells, n_max, m) -> dict:
                       torch.randint(1, n_max + 1, (cells,), generator=gen,
                                     **i32))
     ring = torch.randn((cells, n_max), generator=gen, device=dev)
-    vk, vp = ring.clone(), ring.clone()
-    same = (torch.equal(reservoir.reservoir_fold(values=vk, **inp),
-                        ref.reservoir_fold(values=vp, **inp))
+    vk, vp, v2 = ring.clone(), ring.clone(), ring.clone()
+    ck = reservoir.reservoir_fold(values=vk, **inp)
+    same = (torch.equal(ck, ref.reservoir_fold(values=vp, **inp))
             and same_bits(torch, vk, vp))
     clean = workspace_clean(torch)
-    log(f"[large_keys] fold {case}: bitwise={same} scratch clean={clean}")
-    if not (same and clean):
+    twice = (torch.equal(reservoir.reservoir_fold(values=v2, **inp), ck)
+             and same_bits(torch, v2, vk))
+    clean = clean and workspace_clean(torch)
+    log(f"[large_keys] fold {case}: bitwise={same} same bits twice={twice} "
+        f"scratch clean={clean}")
+    if not (same and twice and clean):
         fail(f"large_keys fold {case}: differs from its plain version or "
-             "left its scratch dirty")
+             "from itself, or left its scratch dirty")
     need = fold_need(torch, inp, n_max)
     return large_row(torch, "fold", case,
                      lambda: reservoir.reservoir_fold(values=vk, **inp),
-                     need["bytes"], cells=cells, n_max=n_max, items=m)
+                     need["bytes"], reservoir.reservoir_fold, cells=cells,
+                     n_max=n_max, items=m)
 
 
 def large_one_shot(torch, gen, case, k, s, n_max, m) -> dict:
@@ -5474,25 +5511,28 @@ def large_one_shot(torch, gen, case, k, s, n_max, m) -> dict:
         slot_interval=(open_iv - torch.remainder(open_iv - slots, k)).tolist(),
         max_time=9.9, open_interval=open_iv, t_lo=9.45, t_hi=9.85,
         n_max=n_max)
-    sk = {n: v.clone() for n, v in state.items()}
-    sp = {n: v.clone() for n, v in state.items()}
+    sk, sp, s2 = ({n: v.clone() for n, v in state.items()}
+                  for _ in range(3))
     one_shot_ingest(**items, **ONE_SHOT_KW, **sk)
     ref.one_shot_ingest(**items, **ONE_SHOT_KW, **sp)
     same = all(same_bits(torch, sk[n], sp[n]) for n in state)
     clean = workspace_clean(torch)
-    log(f"[large_keys] one_shot {case}: bitwise={same} scratch clean="
-        f"{clean}")
-    if not (same and clean):
+    one_shot_ingest(**items, **ONE_SHOT_KW, **s2)
+    twice = all(same_bits(torch, s2[n], sk[n]) for n in state)
+    clean = clean and workspace_clean(torch)
+    log(f"[large_keys] one_shot {case}: bitwise={same} same bits twice="
+        f"{twice} scratch clean={clean}")
+    if not (same and twice and clean):
         fail(f"large_keys one_shot {case}: differs from its plain version "
-             "or left its scratch dirty")
+             "or from itself, or left its scratch dirty")
     need = one_shot_need(torch, items, state)
     counts0 = state["counts"].clone()
 
     def call():
         state["counts"].copy_(counts0)
         one_shot_ingest(**items, **ONE_SHOT_KW, **state)
-    return large_row(torch, "one_shot", case, call, need["bytes"], k=k, s=s,
-                     n_max=n_max, items=m)
+    return large_row(torch, "one_shot", case, call, need["bytes"],
+                     one_shot_ingest, k=k, s=s, n_max=n_max, items=m)
 
 
 def rows_view(torch, gen, g, n):
@@ -5690,30 +5730,75 @@ def lk_chunks(torch, seed: int) -> list:
     return out
 
 
-def lk_executor(torch, dev, ingest, chunks) -> tuple:
-    """The sliding deployment's pipelined executor on ``dev``: its
-    emissions' answers and final state (numpy), the kernels' launches
-    and the stats' and histogram's forms in the run (the counts set to 0
-    just before, read just after), its wall s and the executor."""
+def lk_new_executor(dev, ingest):
+    """The sliding deployment's pipelined executor on ``dev``."""
     from repro_torch import prng
-    from repro_torch.kernels import ops
-    from repro_torch.runtime import convert
     from repro_torch.runtime.executor import PipelinedExecutor, RuntimeConfig
-    from repro_torch.runtime.records import TimestampedChunk
     cfg = RuntimeConfig(**LK_EXEC, emit_every=LK_EMIT, ingest=ingest)
-    ex = PipelinedExecutor(cfg, lk_registry(), prng.PRNGKey(3), device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ops.reset_launch_counts()
+    return PipelinedExecutor(cfg, lk_registry(), prng.PRNGKey(3), device=dev)
+
+
+def lk_push(ex, dev, chunks) -> None:
+    from repro_torch.runtime.records import TimestampedChunk
     for c in chunks:
         ex.push(TimestampedChunk(*(getattr(c, f).to(dev) for f in (
             "values", "stratum_ids", "times", "mask"))))
+
+
+def lk_executor(torch, dev, ingest, chunks) -> tuple:
+    """The sliding deployment's pipelined executor on ``dev``: its
+    emissions' answers and final state (numpy), the kernels' launches
+    and forms in the run (the counts set to 0 just before, read just
+    after), its wall s and the executor."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import convert
+    ex = lk_new_executor(dev, ingest)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    lk_push(ex, dev, chunks)
     ems = list(ex.emissions)
     launches, forms = ops.launch_counts(), ops.form_counts()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return ([convert.results_to_numpy(em.results) for em in ems],
             convert.state_to_numpy(ex.state), launches, forms, wall, ex)
+
+
+#: kernel name prefixes of the fold's and the one-shot's launches
+INGEST_KERNELS = ("fold_", "parted_", "osi_")
+
+
+def lk_chunk_device_ms(torch, dev, ingest, chunks) -> dict:
+    """Device ms per chunk of the sliding deployment's executor on
+    ``ingest``, from a ``torch.profiler`` trace of a fresh executor's
+    pushes (its emissions included, the chunks' copies to the card
+    not): every kernel's, the fold's or one-shot's launches' and the
+    launches of each of those per chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ex = lk_new_executor(dev, ingest)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lk_push(ex, dev, chunks)
+        torch.cuda.synchronize()
+    total, split = 0.0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or "Memcpy" in e.name:
+            continue
+        us = e.time_range.elapsed_us()
+        total += us
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.removeprefix("void ")
+        if name.startswith(INGEST_KERNELS):
+            ms, n = split.get(name, (0.0, 0))
+            split[name] = (ms + us / 1e3, n + 1)
+    per = len(chunks)
+    return dict(device_ms=total / 1e3 / per,
+                ingest_ms=sum(v[0] for v in split.values()) / per,
+                ingest_split={k: (v[0] / per, v[1] / per)
+                              for k, v in split.items()})
 
 
 @contextlib.contextmanager
@@ -5789,13 +5874,16 @@ def lk_paths(torch, dev) -> dict:
                     b[name]["value"])
                 worst = max(worst, float(np.max(np.abs(x - y) / np.maximum(
                     np.abs(y), 1e-30))))
+        folder = ("one_shot_ingest" if ingest == "onekernel"
+                  else "reservoir_fold")
         want = dict(stratified_stats=1, weighted_hist=REFINE_STEPS)
-        want["one_shot_ingest" if ingest == "onekernel"
-             else "reservoir_fold"] = 1
+        want[folder] = 1
         missing = [k for k in want if not launches[k]]
-        not_row = {k: f for k, f in forms.items()
-                   if f["row"] != launches[k]}
+        not_row = {k: forms[k] for k in ("stratified_stats", "weighted_hist")
+                   if forms[k]["row"] != launches[k]}
+        not_parted = forms[folder]["parted"] != launches[folder]
         emit = lk_emission_turns(torch, ex)
+        per_chunk = lk_chunk_device_ms(torch, dev, ingest, chunks)
         log(f"[large_keys] executor {ingest} on the card ({cells} cells, "
             f"W = 4, N_max 512 a shard): {len(ems)} emissions, state "
             f"bitwise to the CPU's={not bad} (differs: {bad}), answers' "
@@ -5803,7 +5891,10 @@ def lk_paths(torch, dev) -> dict:
             f"{launches}, forms {forms}, wall {wall:.3f} s (CPU twin "
             f"{cpu_wall:.3f} s); one emission's evaluation in turns "
             + ", ".join(f"{r} {v:.4f}" for r, v in emit["turns"])
-            + f" ms; {card()}")
+            + f" ms; device ms per chunk {per_chunk['device_ms']:.4f}, of "
+            f"it the {folder} launches {per_chunk['ingest_ms']:.4f} "
+            + "(" + ", ".join(f"{k} {v[0]:.4f} x{v[1]:g}" for k, v in sorted(
+                per_chunk["ingest_split"].items())) + f"); {card()}")
         if bad or len(ems) != len(cpu_ems) or worst > ANSWER_RTOL:
             fail(f"large_keys executor {ingest}: differs from its CPU twin")
         if missing:
@@ -5811,9 +5902,12 @@ def lk_paths(torch, dev) -> dict:
         if not_row:
             fail(f"large_keys executor {ingest}: stats or histogram calls "
                  f"not in the row form: {not_row}")
+        if not_parted:
+            fail(f"large_keys executor {ingest}: {folder} calls not in the "
+                 f"parted form: {forms[folder]}")
         out["paths"][ingest] = dict(launches=launches, forms=forms,
                                     wall_s=wall, worst_rel_err=worst,
-                                    emission=emit)
+                                    emission=emit, per_chunk=per_chunk)
         del ex
     return out
 

@@ -124,9 +124,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_fold_tile_items.restype = i
     lib.sa_fold_tile_lists.argtypes = []
     lib.sa_fold_tile_lists.restype = i
-    lib.sa_reservoir_fold.argtypes = [p] * 15 + [i, i, i, p]
+    lib.sa_parted_plan_ok.argtypes = [p, ll, i]
+    lib.sa_parted_plan_ok.restype = i
+    lib.sa_reservoir_fold.argtypes = [p] * 16 + [i, i, i, p]
     lib.sa_reservoir_fold.restype = i
-    lib.sa_reservoir_fold_rows.argtypes = [p] * 16 + [i] * 4 + [p]
+    lib.sa_reservoir_fold_rows.argtypes = [p] * 17 + [i] * 4 + [p]
     lib.sa_reservoir_fold_rows.restype = i
     lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p, p]
     lib.sa_stratified_stats.restype = i
@@ -134,7 +136,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_stats_scratch_words.restype = ll
     lib.sa_stats_part_words.argtypes = [ll]
     lib.sa_stats_part_words.restype = ll
-    lib.sa_one_shot_ingest.argtypes = ([p] * 26 + [i] * 5
+    lib.sa_one_shot_ingest.argtypes = ([p] * 27 + [i] * 5
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
     lib.sa_whist_scratch_words.argtypes = [ll, i]

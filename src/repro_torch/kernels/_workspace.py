@@ -28,14 +28,28 @@ cut into parts: ``tickets`` holds a ticket per row (and the histogram's
 ``G·B`` count totals after them), 0 between calls; ``rows`` the stats'
 part sums.
 
-The large-key forms of all four (past the key counts shared memory
-holds) sort each item's key stably and keep:
+Past the cells shared memory holds, the fold and the one-shot take their
+parted form (:func:`parted_plan`; ``csrc/parted_claim.cuh``). Its
+look-back words are in ``status`` and its lists in ``lists`` /
+``list_n``, over the claim's grid; it also keeps:
+
+* ``part_zeroed``: int32 digit and part totals and tickets, then the
+  one-shot's ingested items per stratum, all 0 between calls (the scan
+  that reads the totals clears them, the claim its tickets, the
+  one-shot's last launch its counts).
+* ``part_meta``, ``part_items``, ``base`` and ``cap``: written before
+  they are read in every call.
+
+All of it grows with the items and the cells, never with their product.
+
+The large-key forms of the stats and the histogram (past the key counts
+shared memory holds) sort each item's key stably and keep:
 
 * ``sort_zeroed``: int32 digit totals and two counters of the sort, all 0
   between calls (its last pass clears them).
-* ``keys``, ``sort_keys``, ``sort_idx``, ``sort_status``, ``head``,
-  ``base``, ``cap`` and ``part``: written before they are read in every
-  call; they grow with the items and the keys, never with their product.
+* ``keys``, ``sort_keys``, ``sort_idx``, ``sort_status``, ``head`` and
+  ``part``: written before they are read in every call; they grow with
+  the items and the keys, never with their product.
 
 So the table is filled once, when it is made or grown. There is one
 workspace per (device, stream): calls on one stream run in the order they
@@ -48,10 +62,90 @@ fresh one.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 _I32 = torch.int32
+
+#: Items of one tile (``kTile`` in ``csrc/fold_device.cuh``).
+TILE_ITEMS = 2048
+#: The most keys of one look-back of the parted form: a block's shared
+#: memory holds the small form's per-warp running counts of this many
+#: (``claim_smem_words``), and a pass scans digits of at most 10 bits.
+LOOKBACK_KEYS = 1024
+#: Partition passes at most (``kPartMaxPasses``): 10 low bits and three
+#: passes of 7 cover every int32 cell index.
+MAX_PASSES = 3
+
+
+class PartedPlan(NamedTuple):
+    """How the parted form splits ``cells`` cells for ``m`` items.
+
+    A cell ``c`` is ``(c >> lo_bits, c & (2**lo_bits - 1))``: its part
+    and its low bits. The live items are partitioned stably by part in
+    ``passes`` LSD passes over the part id, pass ``d`` by the digit
+    ``(part >> shifts[d]) % 2**bits[d]`` of ``keys[d]`` values; the claim
+    then ranks each part's tiles over the low bits alone. The word counts
+    are the scratch the call needs beside its lists (a tile's entries and
+    counts for each of the ``claim_grid`` tiles)."""
+    lo_bits: int
+    parts: int
+    passes: int
+    bits: tuple
+    shifts: tuple
+    keys: tuple
+    tiles: int             # item tiles, blocks of every launch but the claim
+    claim_grid: int        # the claim's and the write launches' blocks
+    status_words: int      # int64 look-back words
+    zeroed_words: int      # int32 totals and tickets, 0 between calls
+    meta_words: int        # int32 words of the claim's map, offsets, firsts
+    item_words: int        # int32 words of the partition's output
+
+    def ints(self) -> tuple:
+        """The plan as the kernels take it (``PartedPlan`` in
+        ``csrc/parted_claim.cuh``)."""
+        pad = (0,) * (MAX_PASSES - self.passes)
+        return (self.lo_bits, self.parts, self.passes, self.tiles,
+                self.claim_grid, *self.bits, *pad, *self.shifts, *pad,
+                *self.keys, *pad)
+
+
+def parted_plan(cells: int, m: int) -> PartedPlan:
+    """The parted form's plan for ``cells`` cells and ``m`` items, a pure
+    function of the two.
+
+    The cell's bits are split into low bits and a part id as evenly as
+    the look-back's LOOKBACK_KEYS allow: up to 2**20 cells half and half
+    (7 + 7 bits at 15,360 cells, 9 + 9 at 262,144) in one partition pass;
+    past that 10 low bits and one more pass for each further 10 bits or
+    fewer of the part id. Every look-back is over at most LOOKBACK_KEYS
+    keys; the scratch grows with ``m + cells``, never with tiles x cells.
+    """
+    if cells < 2 or cells >= 2**31:
+        raise ValueError(f"parted_plan: {cells} cells is not in [2, 2**31)")
+    if m < 0 or m >= 2**31:
+        raise ValueError(f"parted_plan: {m} items is not in [0, 2**31)")
+    nbits = (cells - 1).bit_length()
+    lo_bits = (nbits + 1) // 2 if nbits <= 20 else 10
+    parts = -(-cells >> lo_bits)
+    hi_bits = max((parts - 1).bit_length(), 1)
+    passes = -(-hi_bits // 10)
+    bits = tuple(hi_bits // passes + (d < hi_bits % passes)
+                 for d in range(passes))
+    shifts = tuple(sum(bits[:d]) for d in range(passes))
+    keys = tuple(2**bits[d] if d + 1 < passes else
+                 ((parts - 1) >> shifts[d]) + 1 for d in range(passes))
+    tiles = max(-(-m // TILE_ITEMS), 1)
+    claim_grid = tiles + min(parts, m)
+    nk = sum(keys)
+    return PartedPlan(
+        lo_bits=lo_bits, parts=parts, passes=passes, bits=bits,
+        shifts=shifts, keys=keys, tiles=tiles, claim_grid=claim_grid,
+        status_words=2**lo_bits * claim_grid + tiles * nk,
+        zeroed_words=nk + (parts if passes > 1 else 0) + 1 + parts,
+        meta_words=4 * claim_grid + nk + parts + 1,
+        item_words=4 * m * (1 if passes == 1 else 2))
 
 
 class Workspace:
@@ -74,9 +168,12 @@ class Workspace:
         self.sort_status = self._make(0, dtype=torch.int64)
         self.sort_zeroed = self._make(0, 0)
         self.head = self._make(0)
+        self.part = self._make(0, dtype=torch.float32)
+        self.part_zeroed = self._make(0, 0)
+        self.part_meta = self._make(0)
+        self.part_items = self._make(0)
         self.base = self._make(0)
         self.cap = self._make(0)
-        self.part = self._make(0, dtype=torch.float32)
 
     def _make(self, n: int, fill=None, dtype=_I32) -> torch.Tensor:
         if fill is None:
@@ -102,6 +199,29 @@ class Workspace:
             self.aux = self._make(aux)
         return self
 
+    def parted(self, plan: PartedPlan, *, cells: int = 0, strata: int = 0):
+        """Grow the parted form's own scratch for ``plan`` (and the
+        one-shot's: ``cells`` words of ``base`` and ``cap``, ``strata``
+        zeroed words of the chunk's ingested items after the plan's); the
+        plan's ints and the host array of the scratch's pointers, as the
+        kernels take them (``PartedPlan``, ``PartedSlot`` in
+        ``csrc/parted_claim.cuh``)."""
+        grow = [("part_zeroed", plan.zeroed_words + strata, 0),
+                ("part_meta", plan.meta_words, None),
+                ("part_items", plan.item_words, None),
+                ("base", cells, None), ("cap", cells, None)]
+        for name, n, fill in grow:
+            if getattr(self, name).numel() < n:
+                setattr(self, name, self._make(n, fill))
+        items = self.part_items.data_ptr()
+        second = items + 4 * (plan.item_words // 2) if plan.passes > 1 else 0
+        ptrs = (self.part_zeroed.data_ptr(), self.part_meta.data_ptr(),
+                items, second or None, self.base.data_ptr(),
+                self.cap.data_ptr())
+        ints = plan.ints()
+        return ((ctypes.c_int * len(ints))(*ints),
+                (ctypes.c_void_p * len(ptrs))(*ptrs))
+
     def reserve_rows(self, *, words: int, tickets: int) -> "Workspace":
         """Grow to hold ``words`` f32 words of partial-sum rows and
         ``tickets`` zeroed words (new ones are 0)."""
@@ -120,8 +240,7 @@ class Workspace:
                 ("sort_status", lib.sa_sort_status_words(m, key_bits(keys)),
                  None, torch.int64),
                 ("sort_zeroed", lib.sa_sort_zeroed_words(), 0, _I32),
-                ("head", keys, None, _I32), ("base", keys, None, _I32),
-                ("cap", keys, None, _I32),
+                ("head", keys, None, _I32),
                 ("part", part, None, torch.float32)]
         for name, n, fill, dtype in grow:
             if getattr(self, name).numel() < n:
@@ -131,7 +250,6 @@ class Workspace:
                 self.sort_idx.data_ptr(), self.sort_keys.data_ptr() + half,
                 self.sort_idx.data_ptr() + half, self.sort_status.data_ptr(),
                 self.sort_zeroed.data_ptr(), self.head.data_ptr(),
-                self.base.data_ptr(), self.cap.data_ptr(),
                 self.part.data_ptr())
         return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
@@ -163,11 +281,15 @@ def tiles(lib, m: int) -> int:
 
 
 def for_call(lib, device: torch.device, stream: int, *, m: int, cells: int,
-             table: int, aux: int = 0) -> Workspace:
+             table: int, aux: int = 0, plan: PartedPlan = None) -> Workspace:
     """The workspace of ``(device, stream)``, grown for a call of ``m``
-    items over ``cells`` cells of a ring of ``table`` cells."""
+    items over ``cells`` cells of a ring of ``table`` cells: the small
+    form's, or with ``plan`` the parted form's."""
+    n = tiles(lib, m)
+    if plan is not None:     # lists over the claim's grid, its words
+        n, cells = plan.claim_grid, -(-plan.status_words // plan.claim_grid)
     return get(device, stream).reserve(
-        table=table, tiles=tiles(lib, m), cells=cells,
+        table=table, tiles=n, cells=cells,
         tile_items=lib.sa_fold_tile_items(),
         tile_lists=lib.sa_fold_tile_lists(), aux=aux)
 

@@ -47,6 +47,10 @@
 // outside the cells that accepted items reach: no pass over the ring, no
 // memset of it.
 //
+// Past the cells a block's shared memory holds (claim_smem_words), the
+// claim is parted_claim.cuh's parted form instead; the write launches are
+// these.
+//
 // The winner table is self-clearing: it is -1 everywhere between calls.
 // In a call only accepted items raise entries, and each raised entry has
 // exactly one winner, which resets it in the write; a losing item never
@@ -333,92 +337,6 @@ __device__ __forceinline__ void write_winners(
   write_entries<kReset>(0, 1, n, list, lv, winner);
   if (n > 32)                                // warp-uniform
     write_entries<kReset>(32, kItems - 1, n, list, lv, winner);
-}
-
-// ---------------------------------------------------------------------
-// The large-key form of the claim, for more cells than the claim's
-// shared memory holds (claim_smem_words) or than the look-back words
-// (tiles x cells) should take. The live items are sorted stably by cell
-// (key_sort.cuh: an LSD radix sort over (cell, item index)), so each
-// cell's items are one run in item order, and an item's rank in its cell
-// is its sorted position less the run's first. Scratch grows with the
-// items and the cells, not with their product. Then the claim runs over
-// the sorted positions, tiled as the small form's, and writes the same
-// per-warp lists, so the write launches are the small form's.
-// ---------------------------------------------------------------------
-
-// head[c] = the first sorted position of cell c, for every cell that has
-// live items (cells is the sort's sentinel: no cell); the entries of the
-// other cells are not read. Grid-stride over the sorted positions.
-__device__ __forceinline__ void mark_heads(const int32_t* __restrict__ skeys,
-                                           int m, int cells,
-                                           int32_t* __restrict__ head) {
-  const int stride = gridDim.x * kThreads;
-  for (int p = blockIdx.x * kThreads + threadIdx.x; p < m; p += stride) {
-    const int c = skeys[p];
-    if (c < cells && (p == 0 || skeys[p - 1] != c)) head[c] = p;
-  }
-}
-
-// The fold's heads: head[] of the sorted cells, and every cell's new
-// count first set to its count before the chunk (the claim then writes
-// the cells that have items).
-__global__ void __launch_bounds__(kThreads)
-    fold_heads(const int32_t* __restrict__ skeys, int m, int cells,
-               int32_t* __restrict__ head, const int32_t* __restrict__ counts,
-               int32_t* __restrict__ counts_out) {
-  mark_heads(skeys, m, cells, head);
-  for (int c = blockIdx.x * kThreads + threadIdx.x; c < cells;
-       c += gridDim.x * kThreads)
-    counts_out[c] = counts[c];
-}
-
-// The claim over sorted positions: position p holds item j = sidx[p] of
-// cell c = skeys[p], its arrival index base[c] + (p - head[c]) + 1; the
-// verdict and ring cell as the small form's, atomicMax on the winner
-// table, and the entry (j, ring cell) in its warp's list (the same lists
-// the write launches read). The last position of each cell's run writes
-// its new count. base[c] is the count before the chunk, cap[c] = N_c.
-__global__ void __launch_bounds__(kThreads)
-    fold_sorted_claim(const int32_t* __restrict__ skeys,
-                      const int32_t* __restrict__ sidx,
-                      const float* __restrict__ u_accept,
-                      const float* __restrict__ u_slot, int m, int cells,
-                      int n_max, const int32_t* __restrict__ head,
-                      const int32_t* __restrict__ base,
-                      const int32_t* __restrict__ cap,
-                      int32_t* __restrict__ counts_out,
-                      int32_t* __restrict__ winner,
-                      int2* __restrict__ lists,
-                      int32_t* __restrict__ list_n) {
-  const int tile = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  int2* list = lists + (size_t)tile * kTile + warp * kWarpItems;
-  int c[kItems], j[kItems];
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {    // all loads independent: one trip
-    const long long p = item_index(tile, r);
-    c[r] = p < m ? skeys[p] : cells;
-    j[r] = p < m ? sidx[p] : 0;
-  }
-  int listed = 0;                            // the same in every lane
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const int p = (int)item_index(tile, r);
-    int32_t f = -1;
-    if (c[r] < cells) {
-      const int arrival = base[c[r]] + (p - head[c[r]]) + 1;
-      if (p + 1 == m || skeys[p + 1] != c[r]) counts_out[c[r]] = arrival;
-      f = vitter_cell(c[r], arrival, cap[c[r]], u_accept[j[r]],
-                      u_slot[j[r]], n_max);
-      if (f >= 0) atomicMax(&winner[f], j[r]);
-    }
-    const unsigned won = __ballot_sync(kFull, f >= 0);
-    if (f >= 0) list[listed + __popc(won & below)] = make_int2(j[r], f);
-    listed += __popc(won);
-  }
-  if (lane == 0) list_n[tile * kWarps + warp] = listed;
 }
 
 // The fold's write pass: one block per tile of the claim, one leaf.

@@ -1,6 +1,7 @@
 // Stable LSD radix sort of int32 keys with their item indices (see
-// key_sort.cuh), for the large-key forms of the fold, the one-shot, the
-// stats and the histogram.
+// key_sort.cuh), for the large-key (sorted) forms of the stats and the
+// histogram. The fold and the one-shot take their parted form instead
+// (parted_claim.cuh).
 //
 // Replaces no TPU kernel. The TPU kernels keep their per-key state as
 // whole VMEM blocks, so they have no limit on the count of keys; this

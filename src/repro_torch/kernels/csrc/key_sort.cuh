@@ -1,6 +1,6 @@
 // A stable sort of int32 keys with their item indices, for the large-key
-// forms of the four kernels (key_sort.cu). Host side only: each source
-// that uses it calls ks_sort from its own host code.
+// forms of the stats and the histogram (key_sort.cu). Host side only: each
+// source that uses it calls ks_sort from its own host code.
 //
 // Keys lie in [0, 2^bits); the sort is an LSD radix sort of 8-bit digits
 // (ceil(bits / 8) passes, at most kSortMaxPasses), each pass a stable
@@ -44,8 +44,6 @@ enum LargeSlot {
   kLgStatus,
   kLgZeroed,
   kLgHead,     // int32 [keys]: each key's first sorted position
-  kLgBase,     // int32 [cells]: a cell's count before the chunk (one-shot)
-  kLgCap,      // int32 [cells]: a cell's capacity after the reset (one-shot)
   kLgPart,     // f32: the segmented reduction's tile partials
   kLgSlots
 };

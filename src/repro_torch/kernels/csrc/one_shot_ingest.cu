@@ -68,28 +68,36 @@
 // last group's launch (osi_write) resets the winner words and writes the
 // carried state, the others (osi_write_group) copy their leaves' words.
 //
-// Large-key form. The route-and-claim launch keeps 16 x (K*S + 1) +
-// 4 K*S int32 and the per-warp rows 32 S + 4 int32 in shared memory
-// (208 KB of the 227 KB a block may have at K = 1, S = 1024) and K*S
-// look-back words per tile, so past K*S = 1,024 (the wrapper's MAX_CELLS)
-// the wrapper asks for the large-key form, whose scratch grows with M +
-// K*S:
-//   1. osi_frontier     as above;
-//   2. osi_route_keys   each item's verdict and cell (K*S for none) into
-//                       the sort keys; the ingested, accepted, late and
-//                       dropped rows by one integer atomicAdd per (warp,
-//                       stratum, row) straight into the counter rows, the
-//                       totals as above;
-//   3. key_sort         the cells sorted stably (key_sort.cuh);
-//   4. osi_heads        each cell's first sorted position, and every
-//                       cell's slot reset into scratch (its count before
-//                       the chunk and its capacity);
-//   5. fold_sorted_claim the claim over the sorted positions, writing the
-//                       new counts of the cells with items (fold_device.cuh);
-//   6. osi_write_large  the winners' payloads, then grid-wide the carried
-//                       counts and capacities, the replaced and occupancy
-//                       rows from the scratch, and in block 0 the slot
-//                       table, frontier, newest interval and chunks.
+// Parted form. The route-and-claim launch keeps 16 x (K*S + 1) + 4 K*S
+// int32 and the per-warp rows 32 S + 4 int32 in shared memory (208 KB of
+// the 227 KB a block may have at K = 1, S = 1024) and K*S look-back words
+// per tile, so past K*S = 1,024 (the wrapper's MAX_CELLS) the wrapper asks
+// for the parted form (parted_claim.cuh), whose scratch grows with M +
+// K*S, never with tiles x K*S:
+//   1. osi_frontier      as above;
+//   2. osi_route_parts   each item's verdict and cell; the ingested
+//                        items per stratum (into scratch) and the late row
+//                        per block in shared memory (up to kSmemRowStrata
+//                        strata, else warp-aggregated global atomics), one
+//                        global add per nonzero word; the totals as above;
+//                        the live items per part; every cell's slot reset
+//                        into scratch; its last block scans the part
+//                        totals;
+//   3. parted_partition  the live items scattered stably by part (the
+//                        cell recomputed from the items, as launch 2);
+//   4. parted_claim      each part's tiles ranked and looked back over the
+//                        cell's low bits alone, then the small form's
+//                        verdicts, claims and lists; the last tile of each
+//                        part writes its cells' new counts to scratch;
+//   5. osi_write_parted  the winners' payloads, then grid-wide the carried
+//                        counts and capacities, the ingested, accepted
+//                        (the new counts less the old over a stratum's
+//                        slots), dropped, replaced and occupancy rows, and
+//                        in block 0 the slot table, frontier, newest
+//                        interval and chunks.
+// Up to 2^20 cells that is 5 launches; each further 10 bits of the part
+// id past that adds one partition pass. What bounds it beyond the small
+// form's bytes is the chain of launches (a few us each at these sizes).
 // The only limit left is K*S*N_max + 1 < 2^31 (int32 ring index), which
 // the wrapper checks.
 
@@ -97,7 +105,7 @@
 #include <stdint.h>
 
 #include "fold_device.cuh"
-#include "key_sort.cuh"
+#include "parted_claim.cuh"
 
 namespace {
 
@@ -446,74 +454,162 @@ __global__ void __launch_bounds__(kThreads)
   write_winners<false>(blockIdx.x, lists, list_n, leaves, winner);
 }
 
-// The large-key form's routing: the verdicts and cells of
-// osi_route_claim, each item's cell (or k * s, no cell) written as its
-// sort key, and the counter rows by global integer atomics (exact in any
-// order, so the rows are the same every run).
-__global__ void __launch_bounds__(kThreads)
-    osi_route_keys(const float* __restrict__ times,
-                   const int32_t* __restrict__ sid,
-                   const uint8_t* __restrict__ mask, int m, float recip,
-                   float lateness, int k, int s,
-                   const float* __restrict__ max_time,
-                   const int32_t* __restrict__ open_interval,
-                   const unsigned* __restrict__ ctrs,
-                   int32_t* __restrict__ keys, int32_t* __restrict__ rows,
-                   int32_t* __restrict__ on_time, int32_t* __restrict__ late,
-                   int32_t* __restrict__ dropped,
-                   int32_t* __restrict__ items) {
-  const int cells = k * s;
-  __shared__ int32_t tot[4];       // on-time, late, dropped, items
-  __shared__ float wmark_s;
-  __shared__ int32_t open_before_s, new_open_s;
-  if (threadIdx.x < 4) tot[threadIdx.x] = 0;
-  if (threadIdx.x == 0) {
-    const int32_t open_before = open_interval[0];
-    wmark_s = __fsub_rn(max_time[0], lateness);      // PRE-chunk watermark
-    open_before_s = open_before;
-    new_open_s = max(open_before, dec_interval(ctrs[kCtrInterval]));
+// One chunk's routing, as osi_route_claim works it out: the PRE-chunk
+// watermark, the interval before the chunk and the newest after it (the
+// frontier words of osi_frontier). cell() is an item's (slot, stratum)
+// cell, or -1 when it is not live or its stratum is outside [0, S).
+struct Route {
+  const float* times;
+  const int32_t* sid;
+  const uint8_t* mask;
+  float recip, wmark;
+  int k, s;
+  int32_t open_before, new_open, oldest_live, open_slot;
+
+  __device__ __forceinline__ int cell(long long j, bool* mk, bool* live,
+                                      bool* late_v, int* sr) const {
+    *mk = mask[j] != 0;
+    const float tv = times[j];
+    const int st = sid[j];
+    const int32_t tgt = interval_of(tv, recip);
+    *live = *mk && !(tv < wmark) && !(tgt < oldest_live);
+    *late_v = *live && tgt < open_before;
+    *sr = st >= 0 && st < s ? st : -1;
+    // A live item is at most k - 1 intervals before the newest, so its
+    // slot pymod(tgt, k) comes without a division.
+    const int32_t back = new_open - tgt;
+    const int slot =
+        back <= open_slot ? open_slot - back : open_slot - back + k;
+    return *live && *sr >= 0 ? slot * s + *sr : -1;
   }
-  __syncthreads();
-  const float wmark = wmark_s;
-  const int32_t open_before = open_before_s, new_open = new_open_s;
-  const int32_t oldest_live = new_open - k + 1;
-  const int32_t open_slot = pymod(new_open, k);
+
+  __device__ __forceinline__ int cell(long long j) const {
+    bool mk, live, late_v;
+    int sr;
+    return cell(j, &mk, &live, &late_v, &sr);
+  }
+};
+
+// The parted form's cells (parted_partition's source): begin() reads the
+// carried scalars once per block.
+struct IngestCells {
+  const float* times;
+  const int32_t* sid;
+  const uint8_t* mask;
+  float recip, lateness;
+  int k, s;
+  const float* max_time;
+  const int32_t* open_interval;
+  const unsigned* ctrs;
+
+  __device__ Route begin() const {
+    __shared__ float wmark_s;
+    __shared__ int32_t open_before_s, new_open_s;
+    if (threadIdx.x == 0) {
+      const int32_t open_before = open_interval[0];
+      wmark_s = __fsub_rn(max_time[0], lateness);    // PRE-chunk watermark
+      open_before_s = open_before;
+      new_open_s = max(open_before, dec_interval(ctrs[kCtrInterval]));
+    }
+    __syncthreads();
+    Route r{times, sid, mask, recip, wmark_s, k, s, open_before_s,
+            new_open_s, 0, 0};
+    r.oldest_live = r.new_open - k + 1;
+    r.open_slot = pymod(r.new_open, k);
+    return r;
+  }
+};
+
+// Strata whose ingested and late rows a block keeps in shared memory
+// (past them, warp-aggregated global atomics).
+constexpr int kSmemRowStrata = 4096;
+
+// The chunk's ingested items per stratum, zeroed scratch after the parted
+// form's own (osi_write_parted reads and clears it).
+__host__ __device__ __forceinline__ int32_t* ingested_scratch(
+    const PartedPlan& p, int32_t* zeroed) {
+  return past_zeroed(p, zeroed);
+}
+
+// The parted form's counting launch: each item's verdict and cell; the
+// chunk's ingested items per stratum into scratch and the late row (per
+// block in shared memory, then one global add per nonzero word; past
+// kSmemRowStrata by one global atomic per (warp, stratum, row)) and the
+// totals, integers in any order; the live items per digit
+// (parted_claim.cuh); and every cell's slot reset into scratch: base[c]
+// its count before the chunk (0 if its slot resets), cap[c] its capacity
+// (adopt's if its slot resets), new_counts[c] = base[c] (the claim then
+// writes the cells with items). The accepted row is the cells' new counts
+// less base, and dropped is ingested less accepted: osi_write_parted adds
+// both from the scratch, with no atomic per item.
+__global__ void __launch_bounds__(kThreads)
+    osi_route_parts(const IngestCells src, int m,
+                    const int32_t* __restrict__ slot_interval,
+                    const int32_t* __restrict__ adopt,
+                    const int32_t* __restrict__ counts,
+                    const int32_t* __restrict__ capacity,
+                    int32_t* __restrict__ base, int32_t* __restrict__ cap,
+                    int32_t* __restrict__ new_counts,
+                    int32_t* __restrict__ rows, int32_t* __restrict__ on_time,
+                    int32_t* __restrict__ late,
+                    int32_t* __restrict__ dropped,
+                    int32_t* __restrict__ items, const PartedPlan p,
+                    int32_t* __restrict__ zeroed,
+                    int32_t* __restrict__ meta) {
+  extern __shared__ int32_t sm[];
+  __shared__ int32_t tot[4];       // on-time, late, dropped, items
+  const int k = src.k, s = src.s, cells = k * s;
+  const bool smem_rows = s <= kSmemRowStrata;
+  int32_t* cnt = sm;
+  int32_t* rows_s = cnt + sum_keys(p);       // [2, S]: ingested, late
+  const int words = sum_keys(p) + (smem_rows ? 2 * s : 0);
+  for (int i = threadIdx.x; i < words; i += kThreads) sm[i] = 0;
+  if (threadIdx.x < 4) tot[threadIdx.x] = 0;
+  const Route rt = src.begin();    // syncs: the zeroed words are in
+  for (int c = blockIdx.x * kThreads + threadIdx.x; c < cells;
+       c += gridDim.x * kThreads) {
+    const int slot = c / s;
+    const bool reset =
+        desired_interval(rt.new_open, slot, k) != slot_interval[slot];
+    const int32_t c0 = reset ? 0 : counts[c];
+    base[c] = c0;
+    cap[c] = reset ? adopt[c - slot * s] : capacity[c];
+    new_counts[c] = c0;
+  }
+  int32_t* ing = ingested_scratch(p, zeroed);
+  int32_t* dst_in = smem_rows ? rows_s : ing;
+  int32_t* dst_late = smem_rows ? rows_s + s : rows + 2 * s;
+  int32_t* ptot = part_totals(p, zeroed);
   const int lane = threadIdx.x & 31;
   int32_t n_on_time = 0, n_late = 0, n_dropped = 0, n_items = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    bool mk[kItems], live[kItems], late_v[kItems];
+    int sr[kItems], cell[kItems];
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const long long j = item_index(blockIdx.x, r);
-    bool mk = false;
-    float tv = 0.0f;
-    int st = -1;
-    if (j < m) {
-      mk = mask[j] != 0;
-      tv = times[j];
-      st = sid[j];
+    for (int r = 0; r < kItems; ++r) {    // all loads independent: one trip
+      const long long j = item_index(tile, r);
+      mk[r] = live[r] = late_v[r] = false;
+      sr[r] = cell[r] = -1;
+      if (j < m) cell[r] = rt.cell(j, &mk[r], &live[r], &late_v[r], &sr[r]);
     }
-    const int32_t tgt = interval_of(tv, recip);
-    const bool live = mk && !(tv < wmark) && !(tgt < oldest_live);
-    const bool late_v = live && tgt < open_before;
-    const int sr = st >= 0 && st < s ? st : -1;
-    const int32_t back = new_open - tgt;
-    const int slot = back <= open_slot ? open_slot - back : open_slot - back + k;
-    if (j < m) keys[j] = live && sr >= 0 ? slot * s + sr : cells;
-    const unsigned grp = __match_any_sync(kFull, sr);
-    const unsigned b_in = __ballot_sync(kFull, mk);
-    const unsigned b_live = __ballot_sync(kFull, live);
-    const unsigned b_late = __ballot_sync(kFull, late_v);
-    if (sr >= 0 && lane == __ffs(grp) - 1) {
-      const int32_t n_in = __popc(b_in & grp), n_lv = __popc(b_live & grp);
-      const int32_t n_lt = __popc(b_late & grp);
-      if (n_in) atomicAdd(&rows[sr], n_in);                   // ingested
-      if (n_lv) atomicAdd(&rows[s + sr], n_lv);               // accepted
-      if (n_lt) atomicAdd(&rows[2 * s + sr], n_lt);           // late
-      if (n_in - n_lv) atomicAdd(&rows[3 * s + sr], n_in - n_lv);
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      const unsigned grp = __match_any_sync(kFull, sr[r]);
+      const unsigned b_in = __ballot_sync(kFull, mk[r]);
+      const unsigned b_live = __ballot_sync(kFull, live[r]);
+      const unsigned b_late = __ballot_sync(kFull, late_v[r]);
+      if (sr[r] >= 0 && lane == __ffs(grp) - 1) {
+        const int32_t n_in = __popc(b_in & grp);
+        const int32_t n_lt = __popc(b_late & grp);
+        if (n_in) atomicAdd(&dst_in[sr[r]], n_in);
+        if (n_lt) atomicAdd(&dst_late[sr[r]], n_lt);
+      }
+      n_on_time += __popc(b_live & ~b_late);
+      n_late += __popc(b_late);
+      n_dropped += __popc(b_in & ~b_live);
+      n_items += __popc(b_in);
+      count_part(cell[r], p, cnt, ptot);
     }
-    n_on_time += __popc(b_live & ~b_late);
-    n_late += __popc(b_late);
-    n_dropped += __popc(b_in & ~b_live);
-    n_items += __popc(b_in);
   }
   if (lane == 0) {
     if (n_on_time) atomicAdd(&tot[0], n_on_time);
@@ -522,51 +618,30 @@ __global__ void __launch_bounds__(kThreads)
     if (n_items) atomicAdd(&tot[3], n_items);
   }
   __syncthreads();
+  if (smem_rows)
+    for (int i = threadIdx.x; i < s; i += kThreads) {
+      if (rows_s[i]) atomicAdd(&ing[i], rows_s[i]);
+      if (rows_s[s + i]) atomicAdd(&rows[2 * s + i], rows_s[s + i]);
+    }
   if (threadIdx.x == 0) {
     if (tot[0]) atomicAdd(on_time, tot[0]);
     if (tot[1]) atomicAdd(late, tot[1]);
     if (tot[2]) atomicAdd(dropped, tot[2]);
     if (tot[3]) atomicAdd(items, tot[3]);
   }
+  count_finish(cnt, p, zeroed, meta);
 }
 
-// The large-key form's heads, and the slot reset of every cell into
-// scratch: base[c] its count before the chunk (0 if its slot resets),
-// cap[c] its capacity (adopt's if its slot resets), new_counts[c] = base[c]
-// (the claim then writes the cells that have items).
+// The parted form's last launch: the winners' payloads (winner words
+// reset), then, from the scratch of osi_route_parts
+// and the claim, the carried counts and capacities and grid-wide per
+// stratum the ingested, accepted (the new counts less base over its
+// slots), dropped, replaced and occupancy rows, the ingested scratch
+// cleared (no block of this launch reads the carried state), and in block
+// 0 the frontier, newest interval, slot table and chunks; the frontier
+// words and the tile counter are left 0.
 __global__ void __launch_bounds__(kThreads)
-    osi_heads(const int32_t* __restrict__ skeys, int m, int k, int s,
-              const int32_t* __restrict__ open_interval,
-              const unsigned* __restrict__ ctrs,
-              const int32_t* __restrict__ slot_interval,
-              const int32_t* __restrict__ adopt,
-              const int32_t* __restrict__ counts,
-              const int32_t* __restrict__ capacity,
-              int32_t* __restrict__ head, int32_t* __restrict__ base,
-              int32_t* __restrict__ cap, int32_t* __restrict__ new_counts) {
-  const int cells = k * s;
-  mark_heads(skeys, m, cells, head);
-  const int32_t new_open =
-      max(open_interval[0], dec_interval(ctrs[kCtrInterval]));
-  for (int c = blockIdx.x * kThreads + threadIdx.x; c < cells;
-       c += gridDim.x * kThreads) {
-    const int slot = c / s;
-    const bool reset = desired_interval(new_open, slot, k) != slot_interval[slot];
-    const int32_t c0 = reset ? 0 : counts[c];
-    base[c] = c0;
-    cap[c] = reset ? adopt[c - slot * s] : capacity[c];
-    new_counts[c] = c0;
-  }
-}
-
-// The large-key form's last launch: the winners' payloads (winner words
-// reset), then, from the scratch of osi_heads and the claim, the carried
-// counts and capacities and the replaced and occupancy rows grid-wide (no
-// block of this launch reads the carried state), and in block 0 the
-// frontier, newest interval, slot table and chunks; the frontier words
-// and the tile counter are left 0.
-__global__ void __launch_bounds__(kThreads)
-    osi_write_large(const int2* __restrict__ lists,
+    osi_write_parted(const int2* __restrict__ lists,
                     const int32_t* __restrict__ list_n,
                     const __grid_constant__ Leaves leaves,
                     int32_t* __restrict__ winner, int k, int s,
@@ -579,7 +654,8 @@ __global__ void __launch_bounds__(kThreads)
                     int32_t* __restrict__ counts,
                     int32_t* __restrict__ capacity,
                     int32_t* __restrict__ rows, int32_t* __restrict__ chunks,
-                    unsigned* __restrict__ ctrs) {
+                    unsigned* __restrict__ ctrs,
+                    int32_t* __restrict__ ing) {
   __shared__ int32_t new_open_s;
   const int cells = k * s;
   write_winners(blockIdx.x, lists, list_n, leaves, winner);
@@ -590,14 +666,20 @@ __global__ void __launch_bounds__(kThreads)
     capacity[c] = cap[c];
   }
   for (int sr = first; sr < s; sr += stride) {
-    int32_t repl = 0, occ = 0;
+    int32_t live = 0, repl = 0, occ = 0;
     for (int slot = 0; slot < k; ++slot) {
       const int c = slot * s + sr;
       const int32_t a = base[c], b = new_counts[c], n = cap[c];
       const int32_t f0 = min(a, n), f1 = min(b, n);
+      live += b - a;
       repl += (b - a) - (f1 - f0);
       occ += f1;
     }
+    const int32_t n_in = ing[sr];
+    ing[sr] = 0;
+    rows[sr] += n_in;                       // ingested
+    rows[s + sr] += live;                   // accepted
+    rows[3 * s + sr] += n_in - live;        // dropped
     rows[4 * s + sr] += repl;               // replaced
     rows[5 * s + sr] = occ;                 // occupancy gauge
   }
@@ -628,11 +710,12 @@ int tiles_of(int m) { return m > 0 ? (m + kTile - 1) / kTile : 1; }
 // 4-byte words (leaf i takes payload i), counters i32[6, S]; adopt i32[S]
 // (read only, <= N_max). n_leaves >= 1, written kMaxLeaves a launch.
 // Scratch kept by the caller between calls, as for sa_reservoir_fold
-// (winner i32[K*S*N_max] all -1, status u64[K*S*n_tiles] all 0, ctrs
-// i32[3] all 0, lists, list_n), and aux i32[K*S] (the new counts).
-// lg: null for the small form, else the large-key form's scratch
-// (key_sort.cuh's slots kLgKeys to kLgCap); the large form uses no
-// look-back words of its own (status is untouched).
+// (winner i32[K*S*N_max] all -1, status u64 all 0: the small form's
+// K*S*n_tiles words or the parted form's plan's, ctrs i32[3] all 0,
+// lists, list_n over the claim's tiles), and aux i32[K*S] (the new
+// counts). plan: null for the small form, else the parted form's
+// kPlanInts ints (kernels/_workspace.py::parted_plan), and pt its scratch
+// (parted_claim.cuh's slots, kPtBase and kPtCap included).
 extern "C" int sa_one_shot_ingest(
     const void* times, const void* sid, const void* const* payloads,
     const void* mask, const void* u_accept, const void* u_slot,
@@ -640,8 +723,9 @@ extern "C" int sa_one_shot_ingest(
     void* dropped, void* chunks, void* items, void* slot_interval,
     const void* adopt, void* counts, void* capacity, void* const* values,
     void* counters, void* winner, void* status, void* lists, void* list_n,
-    void* ctrs, void* aux, void* const* lg, int m, int k, int s, int n_max,
-    int n_leaves, float recip, float lateness, void* stream_ptr) {
+    void* ctrs, void* aux, const int* plan, void* const* pt, int m, int k,
+    int s, int n_max, int n_leaves, float recip, float lateness,
+    void* stream_ptr) {
   if (n_leaves < 1) return (int)cudaErrorInvalidValue;
   // The leaves of the group that starts at leaf g.
   auto group = [&](int g) {
@@ -658,6 +742,9 @@ extern "C" int sa_one_shot_ingest(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int cells = k * s;
   const int n_tiles = tiles_of(m);
+  PartedPlan p;
+  if (plan != nullptr && (!read_plan(plan, cells, m, &p) || pt == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto* mask_p = static_cast<const uint8_t*>(mask);
   auto* times_p = static_cast<const float*>(times);
   auto* sid_p = static_cast<const int32_t*>(sid);
@@ -685,28 +772,32 @@ extern "C" int sa_one_shot_ingest(
                                                  ctrs_p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto* base_p = lg ? static_cast<int32_t*>(lg[kLgBase]) : nullptr;
-  auto* caps_p = lg ? static_cast<int32_t*>(lg[kLgCap]) : nullptr;
-  if (lg) {
-    auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
-    auto* head = static_cast<int32_t*>(lg[kLgHead]);
-    osi_route_keys<<<n_tiles, kThreads, 0, stream>>>(
-        times_p, sid_p, mask_p, m, recip, lateness, k, s, max_time_p, open_p,
-        ctrs_p, keys, rows_p, on_time_p, late_p, dropped_p, items_p);
+  int grid = n_tiles;
+  if (plan != nullptr) {
+    auto* base_p = static_cast<int32_t*>(pt[kPtBase]);
+    auto* caps_p = static_cast<int32_t*>(pt[kPtCap]);
+    auto* tile_ctr = reinterpret_cast<int32_t*>(ctrs_p + kCtrTile);
+    const IngestCells src{times_p, sid_p, mask_p, recip, lateness, k, s,
+                          max_time_p, open_p, ctrs_p};
+    const int smem = (int)sizeof(int32_t) *
+                     count_smem_words(p, s <= kSmemRowStrata ? 2 * s : 0);
+    err = allow_smem(osi_route_parts, smem);
+    if (err != cudaSuccess) return (int)err;
+    osi_route_parts<<<count_grid(p), kThreads, smem, stream>>>(
+        src, m, slot_iv, adopt_p, counts_p, cap_p, base_p, caps_p,
+        new_counts, rows_p, on_time_p, late_p, dropped_p, items_p, p,
+        static_cast<int32_t*>(pt[kPtZeroed]),
+        static_cast<int32_t*>(pt[kPtMeta]));
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int32_t *skeys, *sidx;
-    const int e = ks_sort(keys, m, key_bits(cells), sort_scratch(lg), &skeys,
-                          &sidx, stream);
+    int e = launch_partition(src, ua_p, us_p, p, m, pt, status_p, tile_ctr,
+                             stream);
     if (e != 0) return e;
-    osi_heads<<<n_tiles, kThreads, 0, stream>>>(
-        skeys, m, k, s, open_p, ctrs_p, slot_iv, adopt_p, counts_p, cap_p,
-        head, base_p, caps_p, new_counts);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    fold_sorted_claim<<<n_tiles, kThreads, 0, stream>>>(
-        skeys, sidx, ua_p, us_p, m, cells, n_max, head, base_p, caps_p,
-        new_counts, win_p, lists_p, list_n_p);
+    e = launch_parted_claim(p, pt, cells, n_max, base_p, caps_p, new_counts,
+                            win_p, lists_p, list_n_p, status_p, tile_ctr,
+                            stream);
+    if (e != 0) return e;
+    grid = p.claim_grid;
   } else {
     const int smem = (int)sizeof(int32_t) *
                      (claim_smem_words(cells) + cells + 4 + 2 * kWarps * s);
@@ -717,23 +808,25 @@ extern "C" int sa_one_shot_ingest(
         n_tiles, max_time_p, open_p, slot_iv, adopt_p, counts_p, cap_p,
         new_counts, win_p, status_p, lists_p, list_n_p, ctrs_p, rows_p,
         on_time_p, late_p, dropped_p, items_p, chunks_p);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  int g = 0;
-  for (; g + kMaxLeaves < n_leaves; g += kMaxLeaves) {
-    osi_write_group<<<n_tiles, kThreads, 0, stream>>>(lists_p, list_n_p,
-                                                      group(g), win_p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (lg) {
-    osi_write_large<<<n_tiles, kThreads, 0, stream>>>(
-        lists_p, list_n_p, group(g), win_p, k, s, base_p, caps_p, new_counts,
-        max_time_p, open_p, slot_iv, counts_p, cap_p, rows_p, chunks_p,
-        ctrs_p);
+  int g = 0;
+  for (; g + kMaxLeaves < n_leaves; g += kMaxLeaves) {
+    osi_write_group<<<grid, kThreads, 0, stream>>>(lists_p, list_n_p,
+                                                   group(g), win_p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (plan != nullptr) {
+    osi_write_parted<<<grid, kThreads, 0, stream>>>(
+        lists_p, list_n_p, group(g), win_p, k, s,
+        static_cast<int32_t*>(pt[kPtBase]), static_cast<int32_t*>(pt[kPtCap]),
+        new_counts, max_time_p, open_p, slot_iv, counts_p, cap_p, rows_p,
+        chunks_p, ctrs_p,
+        ingested_scratch(p, static_cast<int32_t*>(pt[kPtZeroed])));
   } else {
-    osi_write<<<n_tiles, kThreads, 0, stream>>>(
+    osi_write<<<grid, kThreads, 0, stream>>>(
         lists_p, list_n_p, group(g), win_p, status_p, k, s, new_counts,
         adopt_p, max_time_p, open_p, slot_iv, counts_p, cap_p, ctrs_p);
   }

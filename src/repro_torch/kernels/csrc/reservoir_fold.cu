@@ -43,23 +43,29 @@
 // group's launch puts the winner words back to -1 and clears the
 // look-back words and the tile counter.
 //
-// Large-key form. The claim keeps 16 x (S + 1) + 3 S int32 in shared
-// memory (78 KB at S = 1,024) and S look-back words per tile, so past
-// S = 1,024 (the wrapper's MAX_STRATA) the wrapper asks for the large-key
-// form instead: fold_keys writes each item's cell (S for none), key_sort
-// sorts the cells stably, fold_heads finds each cell's first sorted
-// position, and fold_sorted_claim claims over the sorted positions
-// (fold_device.cuh), writing the same per-warp lists, so the write
-// launches are the same. Its scratch grows with M + S, not with tiles x
-// S; 2 + passes + 2 launches (passes = 2 up to 65,535 strata), then the
-// writes. The only limit left is S * N_max + 1 < 2^31 (int32 ring
-// index), which the wrapper checks.
+// Parted form. The claim keeps 16 x (S + 1) + 3 S int32 in shared memory
+// (78 KB at S = 1,024) and S look-back words per tile, so past S = 1,024
+// (the wrapper's MAX_STRATA) the wrapper asks for the parted form
+// (parted_claim.cuh): a stratum is (part, lo), its low lo_bits bits lo;
+// fold_parts counts the live items per part (and copies the counts), one
+// parted_partition pass scatters them stably by part (one more per
+// further 10 bits of the part id past 2^20 strata), and parted_claim
+// ranks and claims each part's tiles over lo alone, writing the same
+// per-warp lists, so the write launches are the same: 4 launches up to
+// 2^20 strata. The plan (kernels/_workspace.py::parted_plan) keeps every
+// look-back at 1,024 keys or fewer; the scratch grows with M + S, never
+// with tiles x S. What bounds it beyond the small form's bytes: the
+// chain of launches (a few us each at these sizes) and the 16 bytes a
+// live item (index, stratum, both uniforms) that the partition writes in
+// runs of a part and the claim reads in order, rather than gather a
+// sector for each uniform. The only limit left is S * N_max + 1 < 2^31
+// (int32 ring index), which the wrapper checks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fold_device.cuh"
-#include "key_sort.cuh"
+#include "parted_claim.cuh"
 
 namespace {
 
@@ -167,54 +173,81 @@ __global__ void __launch_bounds__(kThreads)
   if (tile == 0 && threadIdx.x == 0) *tile_ctr = 0;
 }
 
-// The large-key form's sort keys: each item's stratum, or s_cnt (no
-// cell) when it is masked out or its stratum is outside [0, S).
-__global__ void __launch_bounds__(kThreads)
-    fold_keys(const int32_t* __restrict__ sid,
-              const uint8_t* __restrict__ mask, int m, int s_cnt,
-              int32_t* __restrict__ keys) {
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const long long j = item_index(blockIdx.x, r);
-    if (j < m) {
-      const int s = sid[j];
-      keys[j] = mask[j] != 0 && s >= 0 && s < s_cnt ? s : s_cnt;
-    }
+// The parted form's cells: an item's stratum, or -1 (none) when it is
+// masked out or its stratum is outside [0, S).
+struct FoldCells {
+  const int32_t* sid;
+  const uint8_t* mask;
+  int s_cnt;
+  __device__ __forceinline__ const FoldCells& begin() const { return *this; }
+  __device__ __forceinline__ int cell(long long j) const {
+    const int s = sid[j];
+    return mask[j] != 0 && s >= 0 && s < s_cnt ? s : -1;
   }
+};
+
+// The parted form's counting launch: each block's live items per digit
+// (parted_claim.cuh), and every stratum's count copied to counts_out (the
+// claim then writes the strata that have items).
+__global__ void __launch_bounds__(kThreads)
+    fold_parts(const FoldCells src, int m, const PartedPlan p,
+               const int32_t* __restrict__ counts,
+               int32_t* __restrict__ counts_out,
+               int32_t* __restrict__ zeroed, int32_t* __restrict__ meta) {
+  extern __shared__ int32_t cnt[];
+  for (int i = threadIdx.x; i < sum_keys(p); i += kThreads) cnt[i] = 0;
+  for (int c = blockIdx.x * kThreads + threadIdx.x; c < src.s_cnt;
+       c += gridDim.x * kThreads)
+    counts_out[c] = counts[c];
+  __syncthreads();
+  int32_t* ptot = part_totals(p, zeroed);
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    int cell[kItems];
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {  // all loads independent: one trip
+      const long long j = item_index(tile, r);
+      cell[r] = j < m ? src.cell(j) : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) count_part(cell[r], p, cnt, ptot);
+  }
+  __syncthreads();
+  count_finish(cnt, p, zeroed, meta);
 }
 
-// The claim of the large-key form: keys, sort, heads, sorted claim (the
-// scratch in the host array lg, key_sort.cuh's slots).
-int launch_large_claim(const void* sid, const void* u_accept,
-                       const void* u_slot, const void* mask,
-                       const void* counts, const void* capacity,
-                       void* counts_out, void* winner, void* lists,
-                       void* list_n, void* const* lg, int m, int s_cnt,
-                       int n_max, int n_tiles, cudaStream_t stream) {
-  auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
-  auto* head = static_cast<int32_t*>(lg[kLgHead]);
-  fold_keys<<<n_tiles, kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(sid), static_cast<const uint8_t*>(mask), m,
-      s_cnt, keys);
-  cudaError_t e = cudaGetLastError();
+// The claim of the parted form: counts, partition, parted claim (the
+// scratch in the host array pt, parted_claim.cuh's slots).
+int launch_parted(const void* sid, const void* u_accept, const void* u_slot,
+                  const void* mask, const void* counts, const void* capacity,
+                  void* counts_out, void* winner, void* status, void* lists,
+                  void* list_n, void* ctrs, const PartedPlan& p,
+                  void* const* pt, int m, int s_cnt, int n_max,
+                  cudaStream_t stream) {
+  const FoldCells src{static_cast<const int32_t*>(sid),
+                      static_cast<const uint8_t*>(mask), s_cnt};
+  auto* st = static_cast<unsigned long long*>(status);
+  auto* tile_ctr = static_cast<int32_t*>(ctrs);
+  const size_t smem = sizeof(int32_t) * count_smem_words(p, 0);
+  cudaError_t e = allow_smem(fold_parts, smem);
   if (e != cudaSuccess) return (int)e;
-  const int32_t *skeys, *sidx;
-  const int err = ks_sort(keys, m, key_bits(s_cnt), sort_scratch(lg), &skeys,
-                          &sidx, stream);
-  if (err != 0) return err;
-  fold_heads<<<n_tiles, kThreads, 0, stream>>>(
-      skeys, m, s_cnt, head, static_cast<const int32_t*>(counts),
-      static_cast<int32_t*>(counts_out));
+  fold_parts<<<count_grid(p), kThreads, smem, stream>>>(
+      src, m, p, static_cast<const int32_t*>(counts),
+      static_cast<int32_t*>(counts_out), static_cast<int32_t*>(pt[kPtZeroed]),
+      static_cast<int32_t*>(pt[kPtMeta]));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fold_sorted_claim<<<n_tiles, kThreads, 0, stream>>>(
-      skeys, sidx, static_cast<const float*>(u_accept),
-      static_cast<const float*>(u_slot), m, s_cnt, n_max, head,
+  const int err =
+      launch_partition(src, static_cast<const float*>(u_accept),
+                       static_cast<const float*>(u_slot), p, m, pt, st,
+                       tile_ctr, stream);
+  if (err != 0) return err;
+  return launch_parted_claim(
+      p, pt, s_cnt, n_max,
       static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(capacity), static_cast<int32_t*>(counts_out),
-      static_cast<int32_t*>(winner), static_cast<int2*>(lists),
-      static_cast<int32_t*>(list_n));
-  return (int)cudaGetLastError();
+      static_cast<const int32_t*>(capacity),
+      static_cast<int32_t*>(counts_out), static_cast<int32_t*>(winner),
+      static_cast<int2*>(lists), static_cast<int32_t*>(list_n), st, tile_ctr,
+      stream);
 }
 
 // The claim launch, shared by the scalar and the tree entry points.
@@ -243,64 +276,95 @@ int launch_claim(const void* sid, const void* u_accept, const void* u_slot,
 extern "C" int sa_fold_tile_items() { return kTile; }
 extern "C" int sa_fold_tile_lists() { return kWarps; }
 
+// 1 if `plan` (kPlanInts ints) is a parted plan of `cells` cells and m
+// items that the kernels run, else 0.
+extern "C" int sa_parted_plan_ok(const int* plan, long long cells, int m) {
+  PartedPlan p;
+  return read_plan(plan, cells, m, &p) ? 1 : 0;
+}
+
 // Scratch (kept by the caller between calls): winner i32[S * N_max], all
-// -1; status u64[S * n_tiles], all 0; ctrs i32[3], 0 (the tile counter
-// first); lists int2[n_tiles * kTile] and list_n i32[n_tiles * kWarps],
-// no state. The kernels leave winner, status and ctrs as they found them.
-// values and payload are 4-byte words (f32 or i32), copied as bits.
-// lg: null for the small form, else the large-key form's scratch
-// (key_sort.cuh's slots kLgKeys to kLgHead); the large form uses no
-// look-back words of its own (status is untouched).
+// -1; status u64[S * n_tiles] (small form) or the plan's look-back words
+// (parted form), all 0; ctrs i32[3], 0 (the tile counter first); lists
+// int2[tiles * kTile] and list_n i32[tiles * kWarps] over the claim's
+// tiles, no state. The kernels leave winner, status and ctrs as they
+// found them. values and payload are 4-byte words (f32 or i32), copied
+// as bits. plan: null for the small form, else the parted form's
+// kPlanInts ints (kernels/_workspace.py::parted_plan), and pt its scratch
+// (parted_claim.cuh's slots kPtZeroed to kPtItemsB).
+namespace {
+
+// The claim of either form; *grid and *keys get the write launches' grid
+// and the look-back words per tile they clear (the small form's).
+int launch_either(const void* sid, const void* u_accept, const void* u_slot,
+                  const void* mask, const void* counts, const void* capacity,
+                  void* counts_out, void* winner, void* status, void* lists,
+                  void* list_n, void* ctrs, const int* plan, void* const* pt,
+                  int m, int s_cnt, int n_max, cudaStream_t stream, int* grid,
+                  int* keys) {
+  *grid = m > 0 ? (m + kTile - 1) / kTile : 1;
+  *keys = s_cnt;
+  if (plan == nullptr)
+    return launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
+                        counts_out, winner, status, lists, list_n, ctrs, m,
+                        s_cnt, n_max, *grid, stream);
+  PartedPlan p;
+  if (!read_plan(plan, s_cnt, m, &p) || pt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  *grid = p.claim_grid;
+  *keys = 0;                   // the parted claim clears its own words
+  return launch_parted(sid, u_accept, u_slot, mask, counts, capacity,
+                       counts_out, winner, status, lists, list_n, ctrs, p, pt,
+                       m, s_cnt, n_max, stream);
+}
+
+}  // namespace
+
 extern "C" int sa_reservoir_fold(const void* sid, const void* payload,
                                  const void* u_accept, const void* u_slot,
                                  const void* mask, const void* counts,
                                  const void* capacity, void* values,
                                  void* counts_out, void* winner,
                                  void* status, void* lists, void* list_n,
-                                 void* ctrs, void* const* lg, int m,
-                                 int s_cnt, int n_max, void* stream_ptr) {
+                                 void* ctrs, const int* plan,
+                                 void* const* pt, int m, int s_cnt,
+                                 int n_max, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_tiles = m > 0 ? (m + kTile - 1) / kTile : 1;
-  int err = lg ? launch_large_claim(sid, u_accept, u_slot, mask, counts,
-                                    capacity, counts_out, winner, lists,
-                                    list_n, lg, m, s_cnt, n_max, n_tiles,
-                                    stream)
-               : launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
-                              counts_out, winner, status, lists, list_n,
-                              ctrs, m, s_cnt, n_max, n_tiles, stream);
+  int grid, keys;
+  const int err = launch_either(sid, u_accept, u_slot, mask, counts,
+                                capacity, counts_out, winner, status, lists,
+                                list_n, ctrs, plan, pt, m, s_cnt, n_max,
+                                stream, &grid, &keys);
   if (err != 0) return err;
-  fold_write<<<n_tiles, kThreads, 0, stream>>>(
+  fold_write<<<grid, kThreads, 0, stream>>>(
       static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
       static_cast<const uint32_t*>(payload), static_cast<int32_t*>(winner),
       static_cast<uint32_t*>(values),
-      static_cast<unsigned long long*>(status), lg ? 0 : s_cnt,
+      static_cast<unsigned long long*>(status), keys,
       static_cast<int32_t*>(ctrs));
   return (int)cudaGetLastError();
 }
 
 // The fold of a payload tree: payloads and values are host arrays of
 // n_leaves pointers (leaf l [M, *item] into [S, N_max, *item], row_bytes[l]
-// bytes an item), any dtype; the scratch and lg as sa_reservoir_fold's.
-// The claim, then one write launch per group of kMaxLeaves leaves.
+// bytes an item), any dtype; the scratch, plan and pt as
+// sa_reservoir_fold's. The claim, then one write launch per group of
+// kMaxLeaves leaves.
 extern "C" int sa_reservoir_fold_rows(
     const void* sid, const void* const* payloads, const void* u_accept,
     const void* u_slot, const void* mask, const void* counts,
     const void* capacity, void* const* values, const long long* row_bytes,
     void* counts_out, void* winner, void* status, void* lists, void* list_n,
-    void* ctrs, void* const* lg, int m, int s_cnt, int n_max, int n_leaves,
-    void* stream_ptr) {
+    void* ctrs, const int* plan, void* const* pt, int m, int s_cnt,
+    int n_max, int n_leaves, void* stream_ptr) {
   if (n_leaves < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_tiles = m > 0 ? (m + kTile - 1) / kTile : 1;
-  int err = lg ? launch_large_claim(sid, u_accept, u_slot, mask, counts,
-                                    capacity, counts_out, winner, lists,
-                                    list_n, lg, m, s_cnt, n_max, n_tiles,
-                                    stream)
-               : launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
-                              counts_out, winner, status, lists, list_n,
-                              ctrs, m, s_cnt, n_max, n_tiles, stream);
+  int grid, keys;
+  const int err = launch_either(sid, u_accept, u_slot, mask, counts,
+                                capacity, counts_out, winner, status, lists,
+                                list_n, ctrs, plan, pt, m, s_cnt, n_max,
+                                stream, &grid, &keys);
   if (err != 0) return err;
-  const int status_cells = lg ? 0 : s_cnt;
   for (int g = 0; g < n_leaves; g += kMaxLeaves) {
     RowLeaves lv;
     lv.n = n_leaves - g < kMaxLeaves ? n_leaves - g : kMaxLeaves;
@@ -315,10 +379,10 @@ extern "C" int sa_reservoir_fold_rows(
                     reinterpret_cast<uintptr_t>(lv.values[l]) % 4 == 0;
     }
     const int last = g + kMaxLeaves >= n_leaves;
-    fold_write_rows<<<n_tiles, kThreads, 0, stream>>>(
+    fold_write_rows<<<grid, kThreads, 0, stream>>>(
         static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
         lv, static_cast<int32_t*>(winner),
-        static_cast<unsigned long long*>(status), status_cells, last,
+        static_cast<unsigned long long*>(status), keys, last,
         static_cast<int32_t*>(ctrs));
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

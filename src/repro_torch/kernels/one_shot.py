@@ -30,13 +30,22 @@ launch reports an error.
 
 Past :data:`MAX_CELLS` cells ``K·S`` the route-and-claim launch's
 per-cell tables and per-warp counter rows no longer fit a block's shared
-memory, and the wrapper takes the kernel's large-key form: the routing
-writes each live item's cell and adds the counter rows by global integer
-atomics, the cells are sorted stably (``csrc/key_sort.cu``), and the
-claim runs over the sorted items, with scratch that grows with
-``M + K·S``. Both forms compute the plain version's result bit for bit;
-the only configuration refused for size is a ring whose index does not
-fit int32.
+memory, and the wrapper takes the kernel's parted form
+(``csrc/parted_claim.cuh``, its split from
+:func:`~repro_torch.kernels._workspace.parted_plan`): the routing adds
+the ingested and late rows per block in shared memory (one global add
+per nonzero word; warp-aggregated global atomics past 4,096 strata; the
+accepted and dropped rows follow from the cells' new counts in the last
+launch), counts the live items per part of the cell and resets the slots
+into scratch; the live items are partitioned stably by part, and each
+part's tiles ranked and claimed over the cell's low bits alone, with the
+small form's verdicts and lists. That is 5 launches up to 2**20 cells
+(one partition pass more for each further 10 bits), every look-back over
+at most 1,024 keys, and scratch that grows with ``M + K·S``. The form is
+chosen by ``K·S`` alone; :attr:`forms` counts each form's calls. Both
+forms compute the plain version's result bit for bit; the only
+configuration refused for size is a ring whose index does not fit
+int32.
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ from repro_torch.kernels.ref import OneShotResult, check_one_shot_payload
 
 #: The most cells K*S of the small-key form, whose route-and-claim launch
 #: keeps 16 warps x (K*S + 1) + 4 K*S int32 and per-warp counter rows of
-#: 32 S + 4 int32 in shared memory; past it, the large-key form.
+#: 32 S + 4 int32 in shared memory; past it, the parted form.
 MAX_CELLS = 1024
 #: Payload leaves of one write launch, which takes their pointers by
 #: value (``kMaxLeaves`` in ``csrc/fold_device.cuh``); more go in groups.
@@ -119,11 +128,11 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     lib = _build.build().lib
     recip = np.float32(1.0) / np.float32(span)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    large = cells > MAX_CELLS
-    ws = _workspace.for_call(lib, dev, stream, m=m,
-                             cells=0 if large else cells,
-                             table=cells * n_max, aux=cells)
-    lg = ws.large(lib, m=m, keys=cells) if large else None
+    plan = _workspace.parted_plan(cells, m) if cells > MAX_CELLS else None
+    ws = _workspace.for_call(lib, dev, stream, m=m, cells=cells,
+                             table=cells * n_max, aux=cells, plan=plan)
+    if plan is not None:
+        plan_c, pt = ws.parted(plan, cells=cells, strata=s_cnt)
     ptrs = ctypes.c_void_p * len(leaves)
     pays = ptrs(*(pay.data_ptr() for pay, _ in leaves))
     vals = ptrs(*(val.data_ptr() for _, val in leaves))
@@ -138,13 +147,15 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
             ctypes.addressof(vals), counters.data_ptr(),
             ws.winner.data_ptr(), ws.status.data_ptr(), ws.lists.data_ptr(),
             ws.list_n.data_ptr(), ws.counters.data_ptr(), ws.aux.data_ptr(),
-            ctypes.addressof(lg) if large else None, m, k, s_cnt, n_max,
-            len(leaves), ctypes.c_float(float(recip)),
+            None if plan is None else ctypes.addressof(plan_c),
+            None if plan is None else ctypes.addressof(pt), m, k, s_cnt,
+            n_max, len(leaves), ctypes.c_float(float(recip)),
             ctypes.c_float(float(np.float32(allowed_lateness))), stream)
     if status != 0:
         _workspace.drop(dev, stream)
     _build.check(status, "one_shot_ingest")
     one_shot_ingest.launches += 1
+    one_shot_ingest.forms["small" if plan is None else "parted"] += 1
     return OneShotResult(
         values=values, counts=counts, capacity=capacity,
         slot_interval=slot_interval, max_time=max_time,
@@ -153,3 +164,4 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
 
 
 one_shot_ingest.launches = 0
+one_shot_ingest.forms = {"small": 0, "parted": 0}

@@ -100,10 +100,10 @@ def launch_counts() -> dict:
 
 
 def form_counts() -> dict:
-    """Launches of each form (``small``, ``row``, ``sorted``) of the stats
-    and histogram wrappers since the last reset."""
-    return {name: dict(_WRAPPERS[name].forms)
-            for name in ("stratified_stats", "weighted_hist")}
+    """Launches of each form of every wrapper since the last reset: the
+    stats and histogram ``small``, ``row`` and ``sorted``, the fold and
+    one-shot ``small`` and ``parted``."""
+    return {name: dict(fn.forms) for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:

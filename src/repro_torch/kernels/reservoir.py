@@ -24,12 +24,18 @@ call: it is all -1 between calls, kept with the rest of the scratch in
 reports an error.
 
 Past :data:`MAX_STRATA` strata the claim's per-stratum tables no longer
-fit a block's shared memory, and the wrapper takes the kernel's
-large-key form: the live items sorted stably by stratum (a hand-written
-radix sort, ``csrc/key_sort.cu``), then the claim over the sorted items,
-with scratch that grows with ``M + S``. Both forms compute the plain
-version's result bit for bit; the only configuration refused for size
-is a ring whose cell index does not fit int32.
+fit a block's shared memory, and the wrapper takes the kernel's parted
+form (``csrc/parted_claim.cuh``, its split from
+:func:`~repro_torch.kernels._workspace.parted_plan`): a stratum is (part,
+low bits); the live items are counted per part, partitioned stably by
+part, and each part's tiles ranked and claimed over the low bits alone,
+with the small form's verdicts, lists and write launches. That is 4
+launches up to 2**20 strata (one partition pass more for each further 10
+bits), every look-back over at most 1,024 keys, and scratch that grows
+with ``M + S``. The form is chosen by ``S`` alone; :attr:`forms` counts
+each form's calls. Both forms compute the plain version's result bit for
+bit; the only configuration refused for size is a ring whose cell index
+does not fit int32.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from repro_torch.kernels import _build, _workspace
 from repro_torch.kernels.ref import check_fold_payload
 
 #: The most strata of the small-key claim, which keeps 16 warps x
-#: (S + 1) + 3 S int32 in shared memory; past it, the large-key form.
+#: (S + 1) + 3 S int32 in shared memory; past it, the parted form.
 MAX_STRATA = 1024
 #: Leaves of one write launch of a payload tree (``kMaxLeaves`` in
 #: ``csrc/fold_device.cuh``); more go in groups.
@@ -102,18 +108,19 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload,
         raise ValueError(f"M = {m} does not fit an int32 item index")
     if s_cnt < 1:
         raise ValueError(f"S = {s_cnt}: the fold needs a stratum")
-    large = s_cnt > MAX_STRATA
+    plan = _workspace.parted_plan(s_cnt, m) if s_cnt > MAX_STRATA else None
     lib = _build.build().lib
     counts_out = torch.empty(s_cnt, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ws = _workspace.for_call(lib, dev, stream, m=m,
-                             cells=0 if large else s_cnt,
-                             table=s_cnt * n_max)
-    lg = ws.large(lib, m=m, keys=s_cnt) if large else None
+    ws = _workspace.for_call(lib, dev, stream, m=m, cells=s_cnt,
+                             table=s_cnt * n_max, plan=plan)
+    if plan is not None:
+        plan_c, pt = ws.parted(plan)
     scratch = (counts_out.data_ptr(), ws.winner.data_ptr(),
                ws.status.data_ptr(), ws.lists.data_ptr(),
                ws.list_n.data_ptr(), ws.counters.data_ptr(),
-               ctypes.addressof(lg) if large else None)
+               None if plan is None else ctypes.addressof(plan_c),
+               None if plan is None else ctypes.addressof(pt))
     with torch.cuda.device(dev):
         if scalar:
             status = lib.sa_reservoir_fold(
@@ -138,7 +145,9 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload,
         _workspace.drop(dev, stream)
     _build.check(status, "reservoir_fold")
     reservoir_fold.launches += 1
+    reservoir_fold.forms["small" if plan is None else "parted"] += 1
     return counts_out
 
 
 reservoir_fold.launches = 0
+reservoir_fold.forms = {"small": 0, "parted": 0}

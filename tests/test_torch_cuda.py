@@ -441,8 +441,9 @@ def _to(dev, arrays):
 
 def assert_workspace_clean(dev, stream=None):
     """The scratch the kernels keep is as the next call needs it: the
-    winner table all -1, the look-back words, counters and tickets all
-    0 (the workspace of ``stream``, by default the current one)."""
+    winner table all -1, the look-back words, counters and tickets, the
+    sort's totals and the parted form's totals and tickets all 0 (the
+    workspace of ``stream``, by default the current one)."""
     torch.cuda.synchronize()
     stream = stream or torch.cuda.current_stream(dev)
     ws = _workspace.get(dev, stream.cuda_stream)
@@ -451,6 +452,7 @@ def assert_workspace_clean(dev, stream=None):
     assert not bool(ws.counters.any())
     assert not bool(ws.tickets.any())
     assert not bool(ws.sort_zeroed.any())
+    assert not bool(ws.part_zeroed.any())
 
 
 def assert_same_bits(a, b, name=""):
@@ -526,54 +528,193 @@ def test_cuda_one_shot_two_leaves_matches_plain(cuda_device, case):
     assert_workspace_clean(cuda_device)
 
 
-#: Cells of the large-key fold and one-shot cases: one past the
-#: small-key form's 1,024, and the per-key stress's 262,144.
-LARGE_CELLS = (1_025, 262_144)
+#: Cells of the parted fold and one-shot cases: one past the small-key
+#: form's 1,024, either side of the plan's balanced splits (4,095: 6 + 6
+#: bits, 4,097: 7 + 6, 16,385: 8 + 7, 65,535: 8 + 8, 65,537: 9 + 8), the
+#: per-key stress's 262,144, and 2**20 + 1, which takes a second
+#: partition pass.
+LARGE_CELLS = (1_025, 4_095, 4_097, 16_385, 65_535, 65_537, 262_144,
+               2**20 + 1)
+#: The parted cases' keys: uniform; every live item in one cell (one part
+#: spans every tile); the keys skewed to one part; every item masked out;
+#: a chunk of one item.
+PARTED_KEYS = ("uniform", "one_cell", "one_part", "all_masked", "one_item")
+#: (cells, keys) of the parted cases: every cell count with uniform keys,
+#: the other keys at the threshold and at the stress.
+PARTED_CASES = ([(c, "uniform") for c in LARGE_CELLS]
+                + [(c, k) for c in (1_025, 262_144) for k in PARTED_KEYS[1:]])
+
+
+def parted_chunk(items, keys, cells, lo_bits, one_shot_k=1):
+    """``items`` (numpy, in place) re-keyed as ``keys`` names: the stratum
+    ids of a fold (``one_shot_k`` 1) or of a one-shot's ``[K, S]`` ring
+    (its times then all in one interval, so every live item lands in one
+    slot); returns the items, cut to one for ``"one_item"``."""
+    s = cells // one_shot_k
+    sid = items["stratum_ids"]
+    if keys == "one_cell":
+        sid[:] = s // 2
+    elif keys == "one_part":
+        sid[:] = sid % min(s, 2**lo_bits)
+    elif keys == "all_masked":
+        items["mask"][:] = False
+    if one_shot_k > 1 and keys in ("one_cell", "one_part"):
+        items["times"][:] = items["times"].max()
+    if keys == "one_item":
+        items = {k: v[:1] for k, v in items.items()}
+    return items
+
+
+def _fold_twice(inp, ring_k, ring_p, start):
+    """Both versions on one chunk, then the kernel again on ``start``:
+    the same bits."""
+    ck = _fold_both(inp, ring_k, ring_p)
+    again = start.clone()
+    assert torch.equal(reservoir.reservoir_fold(values=again, **inp), ck)
+    assert_same_bits(again, ring_k, "twice")
+    return ck
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cells", LARGE_CELLS)
+@pytest.mark.parametrize("cells,keys", PARTED_CASES)
 @pytest.mark.parametrize("phase", ["filling", "replacement"])
-def test_cuda_fold_large_keys_matches_plain(cuda_device, cells, phase):
-    """The fold past MAX_STRATA strata (the large-key form): ring and
-    counts bit for bit the plain version's, the scratch clean after it,
-    over two chunks into one ring."""
+def test_cuda_fold_large_keys_matches_plain(cuda_device, cells, phase, keys):
+    """The fold past MAX_STRATA strata (the parted form): ring and counts
+    bit for bit the plain version's, the same bits twice, the parted form
+    counted, the scratch clean after it, over two chunks into one ring."""
     assert cells > reservoir.MAX_STRATA
     rng = np.random.default_rng(cells)
     n_max = 8
     counts = (np.zeros(cells) if phase == "filling"
               else rng.integers(0, 40, cells)).astype(np.int32)
     capacity = rng.integers(1, n_max + 1, cells).astype(np.int32)
-    inp = _to(cuda_device, fold_inputs(51, BIG_M, counts, capacity,
-                                       s=cells, n_max=n_max))
-    ring_k, ring_p = inp["values"].clone(), inp.pop("values")
+    lo_bits = _workspace.parted_plan(cells, BIG_M).lo_bits
+    first = fold_inputs(51, BIG_M, counts, capacity, s=cells, n_max=n_max)
+    ring_p = torch.from_numpy(first.pop("values")).to(cuda_device)
+    ring_k = ring_p.clone()
+    inp = {k: torch.from_numpy(v).to(cuda_device) for k, v in first.items()}
     for i in range(2):
-        inp["counts"] = _fold_both(inp, ring_k, ring_p)
-        assert_workspace_clean(cuda_device)
-        nxt = _to(cuda_device, fold_inputs(52 + i, BIG_M, counts, capacity,
-                                           s=cells, n_max=n_max))
+        nxt = parted_chunk(fold_inputs(52 + i, BIG_M, counts, capacity,
+                                       s=cells, n_max=n_max), keys, cells,
+                           lo_bits)
         for k in ("stratum_ids", "payload", "u_accept", "u_slot", "mask"):
-            inp[k] = nxt[k]
+            inp[k] = torch.from_numpy(nxt[k]).to(cuda_device)
+        start = ring_k.clone()
+        before = dict(reservoir.reservoir_fold.forms)
+        inp["counts"] = _fold_twice(inp, ring_k, ring_p, start)
+        assert reservoir.reservoir_fold.forms["parted"] == before["parted"] + 2
+        assert reservoir.reservoir_fold.forms["small"] == before["small"]
+        assert_workspace_clean(cuda_device)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cells", LARGE_CELLS)
+@pytest.mark.parametrize("cells,keys", PARTED_CASES)
 @pytest.mark.parametrize("case", ["replacement", "crossing"])
-def test_cuda_one_shot_large_keys_matches_plain(cuda_device, cells, case):
-    """The one-shot past MAX_CELLS cells K*S (the large-key form): every
-    field bit for bit the plain version's over two chunks, the scratch
-    clean after each."""
-    k = 5 if cells == 1_025 else 4
+def test_cuda_one_shot_large_keys_matches_plain(cuda_device, cells, case,
+                                                keys):
+    """The one-shot past MAX_CELLS cells K*S (the parted form): every
+    field bit for bit the plain version's over two chunks, the same bits
+    twice, the parted form counted, the scratch clean after each."""
+    k = next((d for d in (5, 4, 3) if cells % d == 0), 1)
     kw = dict(k=k, s=cells // k, n_max=8, counts_hi=20, cap=None)
     if case == "crossing":
         kw.update(max_time=3.2, open_interval=3, t_lo=2.6, t_hi=4.4)
+    lo_bits = _workspace.parted_plan(cells, BIG_M).lo_bits
     _, state = one_shot_inputs(53, m=8, **kw)
     sk, sp = _to(cuda_device, state), _to(cuda_device, state)
     for i in range(2):
         items, _ = one_shot_inputs(54 + i, m=BIG_M, **dict(
             kw, t_lo=kw.get("t_lo", 0.0) + i, t_hi=kw.get("t_hi", 3.5) + i))
-        _one_shot_both(_to(cuda_device, items), sk, sp)
+        it = _to(cuda_device, parted_chunk(items, keys, cells, lo_bits, k))
+        again = {f: v.clone() for f, v in sk.items()}
+        before = dict(one_shot.one_shot_ingest.forms)
+        _one_shot_both(it, sk, sp)
+        one_shot.one_shot_ingest(**it, span=1.0, allowed_lateness=0.5,
+                                 **again)
+        for f in ONE_SHOT_FIELDS:
+            assert_same_bits(again[f], sk[f], f)
+        assert one_shot.one_shot_ingest.forms["parted"] == (
+            before["parted"] + 2)
         assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["filling", "replacement"])
+def test_cuda_fold_parted_tree_matches_plain(cuda_device, phase):
+    """The parted fold on the ten-leaf tree (two write launches): every
+    leaf and the counts bit for bit the plain version's."""
+    cells = 1_025
+    rng = np.random.default_rng(61)
+    counts = (np.zeros(cells) if phase == "filling"
+              else rng.integers(0, 40, cells)).astype(np.int32)
+    inp = _to(cuda_device, fold_inputs(
+        62, BIG_M, counts, rng.integers(1, 9, cells).astype(np.int32),
+        s=cells, n_max=8))
+    inp.pop("values")
+    gen = torch.Generator().manual_seed(5)
+    leaves = FOLD_TREES["mixed10"]
+    inp["payload"] = {k: tree_leaf(gen, (BIG_M,) + sh, dt).to(cuda_device)
+                      for k, (sh, dt) in leaves.items()}
+    start = {k: tree_leaf(gen, (cells, 8) + sh, dt).to(cuda_device)
+             for k, (sh, dt) in leaves.items()}
+    vk = {k: v.clone() for k, v in start.items()}
+    vp = {k: v.clone() for k, v in start.items()}
+    assert torch.equal(reservoir.reservoir_fold(values=vk, **inp),
+                       ref.reservoir_fold(values=vp, **inp))
+    for k in leaves:
+        a, b = vk[k], vp[k]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), k
+    assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_parted_and_small_calls_interleaved(cuda_device):
+    """Small and parted folds and one-shots in turns on one stream, one
+    scratch: bitwise after each, the scratch clean after each."""
+    rng = np.random.default_rng(63)
+    folds = []
+    for cells in (4, 1_025, 15_360):
+        counts = rng.integers(0, 40, cells).astype(np.int32)
+        cap = rng.integers(1, 9, cells).astype(np.int32)
+        inp = _to(cuda_device, fold_inputs(64, BIG_M, counts, cap, s=cells,
+                                           n_max=8))
+        ring = inp.pop("values")
+        folds.append((inp, ring.clone(), ring))
+    shots = []
+    for k, s in ((3, 4), (5, 205), (60, 64)):
+        _, state = one_shot_inputs(65, k=k, s=s, m=8, n_max=8, cap=None)
+        shots.append((k, s, _to(cuda_device, state),
+                      _to(cuda_device, state)))
+    for i in range(2):
+        for (inp, rk, rp), (k, s, sk, sp) in zip(folds, shots):
+            inp["counts"] = _fold_both(inp, rk, rp)
+            assert_workspace_clean(cuda_device)
+            items, _ = one_shot_inputs(66 + i, k=k, s=s, m=BIG_M // 2 + i,
+                                       n_max=8, t_lo=0.2 + i, t_hi=1.4 + i)
+            _one_shot_both(_to(cuda_device, items), sk, sp)
+            assert_workspace_clean(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_parted_plan_is_the_librarys(cuda_device):
+    """The library takes every plan ``_workspace.parted_plan`` makes, and
+    refuses one whose grid or split is off."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.build().lib
+    assert lib.sa_fold_tile_items() == _workspace.TILE_ITEMS
+    for cells in (1_025, 3_840, 15_360, 262_144, 2**20, 2**20 + 1,
+                  2**31 - 2):
+        for m in (0, 1, 2_049, 524_288, 4_194_304):
+            ints = _workspace.parted_plan(cells, m).ints()
+            arr = (ctypes.c_int * len(ints))(*ints)
+            assert lib.sa_parted_plan_ok(arr, cells, m) == 1
+            bad = list(ints)
+            bad[4] += 1                           # the claim's grid
+            arr = (ctypes.c_int * len(bad))(*bad)
+            assert lib.sa_parted_plan_ok(arr, cells, m) == 0
 
 
 @pytest.mark.cuda
