@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time chip_smoke.py's phases for two trees in turns on one NVIDIA
-card: serve and train, or the fold and one-shot rows of phase large_keys.
+card: serve and train, or the fold and one-shot rows of phase large_keys
+with the sliding deployment's onekernel executor.
 
     python3 chip_compare.py OTHER_TREE [--phases serve_train|large_keys]
 
@@ -12,8 +13,12 @@ the phases of its tree in a process of its own, which puts the tree's
 kernels. Each run prints one ``SUMMARY`` line of JSON (serve and train:
 the decode, prefill and step times, host ops, busy share, peak memory;
 large_keys: each case's device ms, kernels per call, per-launch split and
-bound); together they go to ``chiprun_out/chip_compare.json``. Imports no
-JAX. Exits non-zero if any run failed, or when there is no card.
+bound, the executor's device ms per chunk on its onekernel path
+(``lk_chunk_device_ms``) and, in a tree that batches the one-shot over
+shards, the batched call against W unbatched calls at each
+``SHARD_ONE_SHOT`` case); together they go to
+``chiprun_out/chip_compare.json``. Imports no JAX. Exits non-zero if any
+run failed, or when there is no card.
 """
 from __future__ import annotations
 
@@ -38,16 +43,26 @@ ORDER = "ABBA"
 PHASES = ("serve_train", "large_keys")
 
 
-def large_keys_rows(torch, cs, dev) -> list:
+def large_keys_rows(torch, cs, dev) -> dict:
     """The fold and one-shot rows of phase large_keys (``LK_FOLD``,
     ``LK_ONE_SHOT``): each checked against its plain version and timed by
     the tree's own ``large_fold`` / ``large_one_shot``, from one
-    generator seeded as the phase seeds it."""
+    generator seeded as the phase seeds it; the sliding deployment's
+    onekernel executor, device ms per chunk (``lk_chunk_device_ms``); and
+    where the tree has them, the batched one-shot's turns
+    (``one_shot_shard_turns`` at ``SHARD_ONE_SHOT``)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.TIMING_SEED)
     rows = [cs.large_fold(torch, gen, *c) for c in cs.LK_FOLD]
     rows += [cs.large_one_shot(torch, gen, *c) for c in cs.LK_ONE_SHOT]
-    return [{k: r[k] for k in LARGE_KEYS} for r in rows]
+    out = dict(rows=[{k: r[k] for k in LARGE_KEYS} for r in rows])
+    torch.cuda.empty_cache()
+    out["onekernel_chunk"] = cs.lk_chunk_device_ms(
+        torch, dev, "onekernel", cs.lk_chunks(torch, 26))
+    if hasattr(cs, "one_shot_shard_turns"):
+        out["shard_turns"] = [cs.one_shot_shard_turns(torch, gen, *c)
+                              for c in cs.SHARD_ONE_SHOT]
+    return out
 
 
 def run_tree(tree: Path, phases: str) -> dict:

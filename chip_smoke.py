@@ -43,6 +43,19 @@ Phases (any failure ends the run with a non-zero exit):
              for the fold, its times, kernels, memsets and bound at a
              replacement chunk in which every masked-in item is live,
              and its device time with one leaf and with two in turns;
+             then the call batched over W shards (``[W, ...]`` tensors,
+             the reference's vmapped kernel): at W = 1, 2 and 4, in the
+             small form on the paper's 4 workers' [4, 2, 3, 262,144]
+             ring and in the parted form on the sliding deployment's
+             [4, 60, 64, 512], shards all masked, late, crossing and
+             steady, every field bit for bit the batched plain version's
+             twice, one call counted, the scratch clean, 3 or 5 kernels
+             and no memset whatever W is; then one batched call (B)
+             against W unbatched calls (A) in turns A B B A at the
+             paper's ring with [4, 131,072] items and the sliding ring
+             with [4, 8,192] and [4, 131,072], beside the bound W times
+             a shard's bytes (``chiprun_out/
+             chip_smoke_one_shot_shards.json``);
 6. paths     the same deployment on a disordered stream (30% of items
              shifted back by U(0, 0.75) s): (a) pipelined fused, (b)
              pipelined onekernel, (c) batched onekernel, (d) pipelined
@@ -103,12 +116,14 @@ Phases (any failure ends the run with a non-zero exit):
              pipelined fused, masked and onekernel on cadence bit for bit
              equal, batched onekernel and pipelined fused on the
              watermark too, with the launches per chunk (fold 1 or
-             W x K, one-shot W) and stats per emission (2). In (a), (b)
+             W x K, one-shot 1: one call over the W shards) and stats
+             per emission (2). In (a), (b)
              and (c) every kernel call is held to its plain version on
              clones of its inputs (``HeldToPlain``): the fold over the
              24 cells of [24, 262,144] with 524,288 items and over one
-             (shard, slot)'s [3, 262,144], the one-shot on each shard's
-             [2, 3, 262,144] with 131,072 items, stats at G = 24 and
+             (shard, slot)'s [3, 262,144], the one-shot on the
+             [4, 2, 3, 262,144] ring with [4, 131,072] items, stats at
+             G = 24 and
              the histogram at G x B = 24 x 32 over the merged view;
              (d) items/s of W = 4 beside phase main's W = 1 in turns (5
              windows each), device activities and host torch ops per
@@ -133,7 +148,8 @@ Phases (any failure ends the run with a non-zero exit):
              kills after chunks 5, 8, 9, 16, 17 and 23 recover (replay at
              the payload's width, every later rescale re-done) to the
              uninterrupted schedule's emissions and final state bit for
-             bit. ``HeldToPlain`` holds every kernel call of the
+             bit. One fold or one-shot call per chunk at W = 1 and 4.
+             ``HeldToPlain`` holds every kernel call of the
              uninterrupted and checkpointed runs and of each recovery,
              which then runs again unheld for its restore and replay
              times; two timed runs (unheld) give each boundary's payload
@@ -257,7 +273,8 @@ Phases (any failure ends the run with a non-zero exit):
              pipelined fused and onekernel paths for two emissions (sum,
              mean, count and a hist median), each held to one fused run
              on the CPU, its stats and histogram launches all of the row
-             form, its launches counted in the JSON line, one emission's
+             form, one fold or one-shot call per chunk of 4 shards, its
+             launches counted in the JSON line, one emission's
              evaluation in turns with the flat route (R F F R).
              ``chiprun_out/chip_smoke_large_keys.json``.
 
@@ -1191,11 +1208,12 @@ def phase_one_shot(torch, gen):
     log(f"[one_shot] the counts' restore before each call: "
         f"{t['restore']} (left out of the split above)")
     two.update(one_shot_leaf_turns(torch, dev, t, need, n_ops))
+    shards = one_shot_shards(torch, gen)
     return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=bound,
                 bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
                 >= n_ops / F32_OPS_PER_S else "operations", library_ms=None,
-                two_leaves=two)
+                two_leaves=two, shards=shards)
 
 
 def with_key_leaf(torch, gen, items, state) -> tuple:
@@ -1365,6 +1383,185 @@ def one_shot_need(torch, items, state) -> dict:
               + 4 * (resets * s + (s if resets else 0)))
     return dict(need, bytes=nbytes, masked_in=masked_in, accepted=accepted,
                 won=won)
+
+
+def shard_case(torch, gen, kind, k, s, n_max, m) -> tuple:
+    """One shard's ``(items, state)`` of a batched one-shot call (span 5,
+    lateness 0.5, a ``[k, s, n_max]`` ring whose counts are over random
+    capacities): ``steady`` a replacement chunk in which every masked-in
+    item is live and the frontier stays (as :func:`one_shot_timing`);
+    ``late`` items older than the open interval above the watermark, and
+    dropped ones; ``crossing`` the frontier moving on an interval, a slot
+    reset and dropped items; ``all_masked`` the steady chunk with every
+    item masked out."""
+    i32 = dict(dtype=torch.int32, device=gen.device)
+    open_iv, max_time, t_lo, t_hi = {
+        "steady": (1, 9.9, 9.45, 9.85), "all_masked": (1, 9.9, 9.45, 9.85),
+        "late": (2, 10.3, 9.0, 11.0), "crossing": (1, 9.9, 9.0, 10.6)}[kind]
+    slots = torch.arange(k, **i32)
+    return one_shot_case(
+        torch, gen, m,
+        counts=torch.randint(n_max, 4 * n_max, (k, s), generator=gen, **i32),
+        capacity=torch.randint(1, n_max + 1, (k, s), generator=gen, **i32),
+        adopt=torch.randint(1, n_max, (s,), generator=gen, **i32),
+        slot_interval=(open_iv - torch.remainder(open_iv - slots, k)).tolist(),
+        max_time=max_time, open_interval=open_iv, t_lo=t_lo, t_hi=t_hi,
+        mask_p=0.0 if kind == "all_masked" else 0.97, n_max=n_max)
+
+
+def stack_shards(torch, cases) -> tuple:
+    """Shards' ``(items, state)`` stacked on a leading ``[W]`` axis."""
+    return tuple({n: torch.stack([c[i][n] for c in cases])
+                  for n in cases[0][i]} for i in (0, 1))
+
+
+def shard_views(d: dict, w: int) -> dict:
+    return {n: v[w] for n, v in d.items()}
+
+
+def per_shard(fn, items, state) -> None:
+    """``fn`` (a one-shot entry) once per shard on each shard's views of
+    the ``[W, ...]`` tensors: the W calls a sharded chunk took before the
+    shard axis."""
+    for w in range(items["times"].shape[0]):
+        fn(**shard_views(items, w), **ONE_SHOT_KW, **shard_views(state, w))
+
+
+def one_shot_form(k: int, s: int) -> str:
+    from repro_torch.kernels.one_shot import MAX_CELLS
+    return "parted" if k * s > MAX_CELLS else "small"
+
+
+def form_launches(k: int, s: int) -> int:
+    """Kernels of one one-shot call of one leaf over ``k x s`` cells."""
+    return (PARTED_LAUNCHES if one_shot_form(k, s) == "parted"
+            else SMALL_FORM_LAUNCHES)["one_shot"]
+
+
+def one_shot_shards_check(torch, gen, case, w, k, s, n_max, m) -> dict:
+    """One call batched over ``w`` shards in the states of SHARD_KINDS[w]:
+    every field of every shard bit for bit the batched plain version's,
+    twice from the same start; one call of the form counted per call; the
+    scratch clean after each; the kernels and memsets per call from the
+    profiler, which must be the unbatched call's whatever ``w`` is."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.one_shot import one_shot_ingest
+    form = one_shot_form(k, s)
+    items, state = stack_shards(torch, [
+        shard_case(torch, gen, kind, k, s, n_max, m)
+        for kind in SHARD_KINDS[w]])
+    sp = clone_tree(state)
+    ref.one_shot_ingest(**items, **ONE_SHOT_KW, **sp)
+    bad, clean, counted = [], True, []
+    for run in range(2):
+        sk = clone_tree(state)
+        forms, n0 = dict(one_shot_ingest.forms), one_shot_ingest.launches
+        one_shot_ingest(**items, **ONE_SHOT_KW, **sk)
+        counted.append((one_shot_ingest.launches - n0, {
+            f: one_shot_ingest.forms[f] - forms[f] for f in forms}))
+        bad += [f"{f} (run {run})" for f in sk
+                if not same_bits(torch, sk[f], sp[f])]
+        clean = clean and workspace_clean(torch)
+    scratch = clone_tree(state)
+    prof = device_profile(lambda: one_shot_ingest(
+        **items, **ONE_SHOT_KW, **scratch), torch)
+    kernels, memsets = log_launches(f"one_shot shards {case} W={w}", prof)
+    d = {f: (sp[f] - state[f]).tolist() for f in ("late", "dropped")}
+    resets = (sp["slot_interval"] != state["slot_interval"]).sum(-1).tolist()
+    log(f"[one_shot] batched {case} W = {w} ({SHARD_KINDS[w]}, ring "
+        f"{list(state['values'].shape)}, items {list(items['times'].shape)}"
+        f"): bitwise to the batched plain version={not bad} twice, scratch "
+        f"clean={clean}, counted {counted}; late {d['late']} dropped "
+        f"{d['dropped']} slots reset {resets}")
+    want = (1, {"small": form == "small", "parted": form == "parted"})
+    if bad or not clean or any(c != want for c in counted):
+        fail(f"one_shot batched {case} W = {w}: differs from its plain "
+             f"version ({bad}), scratch clean {clean}, counted {counted}")
+    if (kernels, memsets) != (form_launches(k, s), 0):
+        fail(f"one_shot batched {case} W = {w}: {kernels:g} kernels and "
+             f"{memsets:g} memsets per call, not {form_launches(k, s)} and "
+             "none")
+    if "crossing" in SHARD_KINDS[w] and not d["dropped"][
+            SHARD_KINDS[w].index("crossing")]:
+        fail(f"one_shot batched {case} W = {w}: the crossing shard dropped "
+             "nothing")
+    return dict(case=case, w=w, form=form, kernels=kernels,
+                memsets=memsets)
+
+
+def one_shot_shard_turns(torch, gen, case, w, k, s, n_max, m) -> dict:
+    """The batched call (B) against W unbatched calls on the shards' views
+    (A), in turns A B B A, at a steady replacement chunk on every shard
+    (the counts put back before each call, shown apart): device ms per
+    chunk (the profiler's kernels), kernels and memsets, events ms around
+    back-to-back calls; the bound W times each shard's bytes
+    (:func:`one_shot_need`) at 3.35 TB/s."""
+    from repro_torch.kernels.one_shot import one_shot_ingest
+    items, state = stack_shards(torch, [
+        shard_case(torch, gen, "steady", k, s, n_max, m) for _ in range(w)])
+    need = [one_shot_need(torch, shard_views(items, i), shard_views(state, i))
+            for i in range(w)]
+    nbytes = sum(n["bytes"] for n in need)
+    counts0 = state["counts"].clone()
+
+    def batched():
+        state["counts"].copy_(counts0)
+        one_shot_ingest(**items, **ONE_SHOT_KW, **state)
+
+    def looped():
+        state["counts"].copy_(counts0)
+        per_shard(one_shot_ingest, items, state)
+    turns = []
+    for name in "ABBA":
+        fn = looped if name == "A" else batched
+        prof = device_profile(fn, torch)
+        restore = {n: prof.pop(n) for n in list(prof) if "Memcpy" in n}
+        kernels, memsets = log_launches(f"one_shot shards {case} {name}", prof)
+        turns.append(dict(
+            calls=name, device_ms=sum(v[0] for v in prof.values()),
+            kernels=kernels, memsets=memsets, events_ms=time_ms(fn, torch),
+            split={n: v[0] for n, v in prof.items()}, restore=restore))
+        want = form_launches(k, s) * (w if name == "A" else 1)
+        if (kernels, memsets) != (want, 0):
+            fail(f"one_shot shards {case} {name}: {kernels:g} kernels and "
+                 f"{memsets:g} memsets per chunk, not {want} and none")
+    state["counts"].copy_(counts0)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log_split(f"one_shot shards {case} B", turns[1]["split"],
+              turns[1]["events_ms"])
+    log(f"[one_shot] batched {case}: W = {w}, ring "
+        f"{list(state['values'].shape)}, items {list(items['times'].shape)} "
+        f"({one_shot_form(k, s)} form): device ms per chunk in turns "
+        + ", ".join(f"{t['calls']} {t['device_ms']:.5f} ({t['kernels']:g} "
+                    f"kernels)" for t in turns)
+        + " (A: W unbatched calls, B: one batched call); events "
+        + ", ".join(f"{t['events_ms']:.5f}" for t in turns)
+        + f" ms (the counts' restore included); bound {bound:.5f} ms by "
+        f"bytes ({nbytes} B, W x a shard's: "
+        f"{[n['bytes'] for n in need]}); {card()}")
+    return dict(case=case, w=w, k=k, s=s, n_max=n_max, items=m,
+                form=one_shot_form(k, s), turns=turns, bound_ms=bound,
+                bytes=nbytes, shard_bytes=[n["bytes"] for n in need],
+                card=card())
+
+
+def one_shot_shards(torch, gen) -> dict:
+    """The one-shot batched over shards (module docstring, phase 5): the
+    checks of :func:`one_shot_shards_check` at W = 1, 2 and 4 in both
+    forms (the paper's 4 workers' small form, the sliding deployment's
+    parted form), then :func:`one_shot_shard_turns` at every
+    SHARD_ONE_SHOT case; ``chiprun_out/chip_smoke_one_shot_shards.json``.
+    Returns the device ms of each timed case's turns and its bound."""
+    checks = [one_shot_shards_check(torch, gen, case, w, k, s, n_max, m)
+              for case, _, k, s, n_max, m in SHARD_ONE_SHOT[:2]
+              for w in sorted(SHARD_KINDS)]
+    turns = [one_shot_shard_turns(torch, gen, *c) for c in SHARD_ONE_SHOT]
+    (ROOT / "chiprun_out" / "chip_smoke_one_shot_shards.json").write_text(
+        json.dumps(dict(checks=checks, turns=turns, card=card()), indent=1))
+    return {t["case"]: dict(
+        batched_ms=[x["device_ms"] for x in t["turns"] if x["calls"] == "B"],
+        looped_ms=[x["device_ms"] for x in t["turns"] if x["calls"] == "A"],
+        bound_ms=t["bound_ms"]) for t in turns}
 
 
 def make_disordered_stream(torch, seed: int, dev):
@@ -2723,7 +2920,7 @@ def phase_sharded(torch, seed: int, dev) -> dict:
             f"emission; on time {int(wm_.on_time.sum())} late "
             f"{int(wm_.late.sum())} dropped {int(wm_.dropped.sum())}")
         want = {"fused": (CHUNKS, 0), "masked": (CHUNKS * W_SHARDS * K, 0),
-                "onekernel": (0, CHUNKS * W_SHARDS)}[ingest]
+                "onekernel": (0, CHUNKS)}[ingest]
         if (n["reservoir_fold"], n["one_shot_ingest"]) != want or \
                 n["stratified_stats"] != 2 * len(out) or not out:
             fail(f"sharded (c) ({tag}): launches {n}, expected fold and "
@@ -2734,8 +2931,9 @@ def phase_sharded(torch, seed: int, dev) -> dict:
                   W_SHARDS * M_SHARD), 2 * CHUNKS)
     held.require(("reservoir_fold", (S, N_SHARD), M_SHARD),
                  CHUNKS * W_SHARDS * K)
-    held.require(("one_shot_ingest", (K, S, N_SHARD), M_SHARD),
-                 2 * CHUNKS * W_SHARDS)
+    held.require(("one_shot_ingest", (W_SHARDS, K, S, N_SHARD),
+                  W_SHARDS * M_SHARD), 2 * CHUNKS)
+    onekernel = sum(r["launches"]["one_shot_ingest"] for r in runs.values())
     if not int(wm_.late.sum()) or not int(wm_.dropped.sum()):
         fail("sharded (c): the disordered stream has no late or dropped "
              "items")
@@ -2841,7 +3039,8 @@ def phase_sharded(torch, seed: int, dev) -> dict:
             f"(torch.cuda.device_count() = {cards})")
     result = dict(card=card(), rates={str(w): r for w, r in rates.items()},
                   ingest=act, emission={str(w): e for w, e in emit.items()},
-                  emit_ms=emit_ms, crashes=crashes, launches=launches)
+                  emit_ms=emit_ms, crashes=crashes, launches=launches,
+                  one_shot_launches=onekernel)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_sharded.json").write_text(
@@ -3122,6 +3321,12 @@ def phase_rescale(torch, seed: int, dev) -> dict:
         if launches[kernel] == 0 or launches["stratified_stats"] == 0:
             fail(f"rescale ({tag}): the schedule did not run {kernel} and "
                  f"stratified_stats: {launches}")
+        # One fold (fused) or one batched one-shot call per chunk, at
+        # W = 1 and at W = 4 alike.
+        chunks = sum(n for _, n in RESCALE_SEGMENTS)
+        if launches[kernel] != chunks:
+            fail(f"rescale ({tag}): {launches[kernel]} {kernel} launches "
+                 f"for {chunks} chunks, not one per chunk")
         reference = [emission_bits(torch, em) for em in ems]
         final = state_bits(last.state)
         if not ems:
@@ -5391,6 +5596,17 @@ SMALL_FORM_LAUNCHES = {"fold": 2, "one_shot": 3, "stats": 1, "whist": 1}
 #: launches per call of the fold's and the one-shot's parted form up to
 #: 2**20 cells (one partition pass), one payload leaf
 PARTED_LAUNCHES = {"fold": 4, "one_shot": 5}
+#: the one-shot batched over shards (phase one_shot): (case, W, K, S,
+#: N_max, items a shard): the paper's 4 workers (phase sharded's ring and
+#: chunks, the small form) and the sliding deployment (LK_EXEC, the parted
+#: form) at its executor's chunk and at the paper's
+SHARD_ONE_SHOT = (("paper", W_SHARDS, K, S, N_SHARD, M_SHARD),
+                  ("sliding", 4, 60, 64, 512, LK_M_SHARD),
+                  ("sliding_131072", 4, 60, 64, 512, M_SHARD))
+#: the shards' states of the batched checks: W -> each shard's kind
+#: (:func:`shard_case`)
+SHARD_KINDS = {1: ("crossing",), 2: ("late", "crossing"),
+               4: ("steady", "late", "crossing", "all_masked")}
 
 
 def lk_timed(torch, tag, fn, need_bytes, reps: int = 5) -> dict:
@@ -5499,18 +5715,7 @@ def large_one_shot(torch, gen, case, k, s, n_max, m) -> dict:
     [9.45, 9.85) s), the counts put back before each timed call."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.one_shot import one_shot_ingest
-    dev = gen.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    open_iv = 1
-    slots = torch.arange(k, **i32)
-    items, state = one_shot_case(
-        torch, gen, m,
-        counts=torch.randint(n_max, 4 * n_max, (k, s), generator=gen, **i32),
-        capacity=torch.randint(1, n_max + 1, (k, s), generator=gen, **i32),
-        adopt=torch.randint(1, n_max, (s,), generator=gen, **i32),
-        slot_interval=(open_iv - torch.remainder(open_iv - slots, k)).tolist(),
-        max_time=9.9, open_interval=open_iv, t_lo=9.45, t_hi=9.85,
-        n_max=n_max)
+    items, state = shard_case(torch, gen, "steady", k, s, n_max, m)
     sk, sp, s2 = ({n: v.clone() for n, v in state.items()}
                   for _ in range(3))
     one_shot_ingest(**items, **ONE_SHOT_KW, **sk)
@@ -5882,6 +6087,7 @@ def lk_paths(torch, dev) -> dict:
         not_row = {k: forms[k] for k in ("stratified_stats", "weighted_hist")
                    if forms[k]["row"] != launches[k]}
         not_parted = forms[folder]["parted"] != launches[folder]
+        per_chunk_calls = launches[folder] / LK_CHUNKS
         emit = lk_emission_turns(torch, ex)
         per_chunk = lk_chunk_device_ms(torch, dev, ingest, chunks)
         log(f"[large_keys] executor {ingest} on the card ({cells} cells, "
@@ -5905,6 +6111,9 @@ def lk_paths(torch, dev) -> dict:
         if not_parted:
             fail(f"large_keys executor {ingest}: {folder} calls not in the "
                  f"parted form: {forms[folder]}")
+        if per_chunk_calls != 1:
+            fail(f"large_keys executor {ingest}: {per_chunk_calls:g} "
+                 f"{folder} calls per chunk of W = 4 shards, not one")
         out["paths"][ingest] = dict(launches=launches, forms=forms,
                                     wall_s=wall, worst_rel_err=worst,
                                     emission=emit, per_chunk=per_chunk)
@@ -5969,8 +6178,8 @@ def main(argv=None) -> int:
     whist = phase_weighted_hist(torch, gen)
     nonlinear = phase_nonlinear(torch, args.seed, dev)
     phase_recovery(torch, args.seed, dev, nonlinear)
-    phase_sharded(torch, args.seed, dev)
-    phase_rescale(torch, args.seed, dev)
+    sharded = phase_sharded(torch, args.seed, dev)["one_shot_launches"]
+    rescale = phase_rescale(torch, args.seed, dev)["paths"]["b"]["launches"]
     systems = phase_systems(torch, args.seed, dev)["launches"]
     serve = phase_serve(torch, args.seed, dev)["launches"]
     train = phase_train(torch, args.seed, dev)["launches"]
@@ -6003,8 +6212,9 @@ def main(argv=None) -> int:
         dict(name="one_shot_ingest", route="cuda",
              source="src/repro_torch/kernels/csrc/one_shot_ingest.cu",
              replaces="src/repro/kernels/reservoir.py:146",
-             launches=paths["launches"]["one_shot_ingest"]
-             + large["one_shot_ingest"], **one_shot),
+             launches=paths["launches"]["one_shot_ingest"] + sharded
+             + rescale["one_shot_ingest"] + large["one_shot_ingest"],
+             **one_shot),
         dict(name="weighted_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/weighted_hist.cu",
              replaces="src/repro/kernels/weighted_hist.py:35",

@@ -136,7 +136,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_stats_scratch_words.restype = ll
     lib.sa_stats_part_words.argtypes = [ll]
     lib.sa_stats_part_words.restype = ll
-    lib.sa_one_shot_ingest.argtypes = ([p] * 27 + [i] * 5
+    lib.sa_one_shot_ingest.argtypes = ([p] * 27 + [i] * 6
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
     lib.sa_whist_scratch_words.argtypes = [ll, i]

@@ -42,6 +42,12 @@ look-back words are in ``status`` and its lists in ``lists`` /
 
 All of it grows with the items and the cells, never with their product.
 
+A one-shot call batched over W shards keeps W of each of its arrays
+(winner table, look-back words, counters, lists, new counts and the
+parted form's), shard after shard, each the size of its unbatched call's
+(``Shards`` in ``csrc/fold_device.cuh``); what is 0 or -1 between calls
+stays so in every shard's.
+
 The large-key forms of the stats and the histogram (past the key counts
 shared memory holds) sort each item's key stably and keep:
 
@@ -182,13 +188,15 @@ class Workspace:
                           device=self.device)
 
     def reserve(self, *, table: int, tiles: int, cells: int,
-                tile_items: int, tile_lists: int,
-                aux: int = 0) -> "Workspace":
+                tile_items: int, tile_lists: int, aux: int = 0,
+                counters: int = 3) -> "Workspace":
         """Grow to hold a ring of ``table`` cells, ``tiles`` tiles of
         ``tile_items`` items and ``tile_lists`` lists over ``cells``
-        cells, and ``aux`` words."""
+        cells, ``aux`` words and ``counters`` counter words."""
         if self.winner.numel() < table:
             self.winner = self._make(table, -1)
+        if self.counters.numel() < counters:
+            self.counters = self._make(counters, 0)
         if self.status.numel() < tiles * cells:
             self.status = self._make(tiles * cells, 0, torch.int64)
         if self.lists.numel() < 2 * tiles * tile_items:
@@ -199,17 +207,19 @@ class Workspace:
             self.aux = self._make(aux)
         return self
 
-    def parted(self, plan: PartedPlan, *, cells: int = 0, strata: int = 0):
+    def parted(self, plan: PartedPlan, *, cells: int = 0, strata: int = 0,
+               shards: int = 1):
         """Grow the parted form's own scratch for ``plan`` (and the
         one-shot's: ``cells`` words of ``base`` and ``cap``, ``strata``
-        zeroed words of the chunk's ingested items after the plan's); the
-        plan's ints and the host array of the scratch's pointers, as the
-        kernels take them (``PartedPlan``, ``PartedSlot`` in
-        ``csrc/parted_claim.cuh``)."""
-        grow = [("part_zeroed", plan.zeroed_words + strata, 0),
-                ("part_meta", plan.meta_words, None),
-                ("part_items", plan.item_words, None),
-                ("base", cells, None), ("cap", cells, None)]
+        zeroed words of the chunk's ingested items after the plan's), for
+        each of ``shards`` shards; the plan's ints and the host array of
+        shard 0's scratch pointers, as the kernels take them
+        (``PartedPlan``, ``PartedSlot`` in ``csrc/parted_claim.cuh``)."""
+        meta = -(-plan.meta_words // 4) * 4    # a shard's on 16 bytes
+        grow = [("part_zeroed", shards * (plan.zeroed_words + strata), 0),
+                ("part_meta", shards * meta, None),
+                ("part_items", shards * plan.item_words, None),
+                ("base", shards * cells, None), ("cap", shards * cells, None)]
         for name, n, fill in grow:
             if getattr(self, name).numel() < n:
                 setattr(self, name, self._make(n, fill))
@@ -281,17 +291,20 @@ def tiles(lib, m: int) -> int:
 
 
 def for_call(lib, device: torch.device, stream: int, *, m: int, cells: int,
-             table: int, aux: int = 0, plan: PartedPlan = None) -> Workspace:
+             table: int, aux: int = 0, plan: PartedPlan = None,
+             shards: int = 1) -> Workspace:
     """The workspace of ``(device, stream)``, grown for a call of ``m``
     items over ``cells`` cells of a ring of ``table`` cells: the small
-    form's, or with ``plan`` the parted form's."""
+    form's, or with ``plan`` the parted form's; ``shards`` of each for a
+    call batched over shards."""
     n = tiles(lib, m)
     if plan is not None:     # lists over the claim's grid, its words
         n, cells = plan.claim_grid, -(-plan.status_words // plan.claim_grid)
     return get(device, stream).reserve(
-        table=table, tiles=n, cells=cells,
+        table=shards * table, tiles=shards * n, cells=cells,
         tile_items=lib.sa_fold_tile_items(),
-        tile_lists=lib.sa_fold_tile_lists(), aux=aux)
+        tile_lists=lib.sa_fold_tile_lists(), aux=shards * aux,
+        counters=3 * shards)
 
 
 def for_reduce(lib, device: torch.device, stream: int, *, words: int,

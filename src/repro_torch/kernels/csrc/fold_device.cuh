@@ -105,6 +105,46 @@ struct Leaves {
   int n;                                      // 1 <= n <= kMaxLeaves
 };
 
+// The shards of a call batched over a leading shard axis (the
+// reference's vmap of its kernel): a block works for shard
+// shard_index() of n, and each array of that shard starts its stride
+// (in elements, 64-bit) past the shard before's. A call of one shard
+// (every fold call) reads no stride.
+struct Shards {
+  int n;
+  long long items;     // [M] item arrays
+  long long cells;     // [cells] arrays: counts, capacities, new counts
+  long long table;     // ring cells: the winner table, each values leaf
+  long long ctrs;      // counter words (the tile counter first)
+  long long status;    // look-back words
+  long long lists;     // list entries (int2)
+  long long list_n;    // list counts
+  long long zeroed;    // parted_claim.cuh's zeroed words (and the caller's)
+  long long meta;      // its meta words
+  long long part;      // its partition entries (int4), both buffers
+};
+
+constexpr int kGridYMax = 65535;              // gridDim.y at most
+
+// The shard of this block: blockIdx.y, then blockIdx.z past 65,535
+// shards (shard_grid); a block past the last shard has none and returns.
+__device__ __forceinline__ long long shard_index() {
+  return (long long)blockIdx.z * gridDim.y + blockIdx.y;
+}
+
+// The grid of a launch of x blocks a shard over n shards.
+inline dim3 shard_grid(int x, int n) {
+  const int y = n < kGridYMax ? n : kGridYMax;
+  return dim3(x, y, (n + y - 1) / y);
+}
+
+// An unbatched call: one shard.
+inline Shards one_shard() {
+  Shards sd{};
+  sd.n = 1;
+  return sd;
+}
+
 __device__ __forceinline__ void status_store(unsigned long long* p,
                                              unsigned long long v) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
@@ -294,12 +334,16 @@ __device__ __forceinline__ void claim_items(
 // bound by L2 transactions (a scattered sector for each winner read and
 // reset, payload read and ring write), so it reads no more list entries
 // than that. The first leaf's payload is read beside the winner word;
-// the other leaves', only by the items that won.
+// the other leaves', only by the items that won. A shard's leaves start
+// pay_off items and val_off ring cells past shard 0's (the lists and the
+// winner words are the caller's shard's already).
 template <bool kReset = true>
 __device__ __forceinline__ void write_entries(int first, int count, int n,
                                               const int2* __restrict__ list,
                                               const Leaves& lv,
-                                              int32_t* __restrict__ winner) {
+                                              int32_t* __restrict__ winner,
+                                              long long pay_off,
+                                              long long val_off) {
   int2 e[kItems];
   int32_t w[kItems];
   uint32_t v[kItems];
@@ -311,16 +355,17 @@ __device__ __forceinline__ void write_entries(int first, int count, int n,
   for (int q = 0; q < kItems; ++q) {        // the payload read does not
     if (q < count && first + 32 * q + lane < n) {  // wait on the winner's
       w[q] = winner[e[q].y];
-      v[q] = lv.payload[0][e[q].x];
+      v[q] = lv.payload[0][pay_off + e[q].x];
     }
   }
 #pragma unroll
   for (int q = 0; q < kItems; ++q) {
     if (q < count && first + 32 * q + lane < n && w[q] == e[q].x) {
-      lv.values[0][e[q].y] = v[q];
+      lv.values[0][val_off + e[q].y] = v[q];
 #pragma unroll
       for (int l = 1; l < kMaxLeaves; ++l)
-        if (l < lv.n) lv.values[l][e[q].y] = lv.payload[l][e[q].x];
+        if (l < lv.n)
+          lv.values[l][val_off + e[q].y] = lv.payload[l][pay_off + e[q].x];
       if (kReset) winner[e[q].y] = -1;
     }
   }
@@ -330,13 +375,15 @@ template <bool kReset = true>
 __device__ __forceinline__ void write_winners(
     int tile, const int2* __restrict__ lists,
     const int32_t* __restrict__ list_n, const Leaves& lv,
-    int32_t* __restrict__ winner) {
+    int32_t* __restrict__ winner, long long pay_off = 0,
+    long long val_off = 0) {
   const int warp = threadIdx.x >> 5;
   const int2* list = lists + (size_t)tile * kTile + warp * kWarpItems;
   const int n = list_n[tile * kWarps + warp];
-  write_entries<kReset>(0, 1, n, list, lv, winner);
+  write_entries<kReset>(0, 1, n, list, lv, winner, pay_off, val_off);
   if (n > 32)                                // warp-uniform
-    write_entries<kReset>(32, kItems - 1, n, list, lv, winner);
+    write_entries<kReset>(32, kItems - 1, n, list, lv, winner, pay_off,
+                          val_off);
 }
 
 // The fold's write pass: one block per tile of the claim, one leaf.

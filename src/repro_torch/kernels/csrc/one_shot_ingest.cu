@@ -64,6 +64,16 @@
 // max_time - f32(lateness) (__fsub_rn); the fold's verdicts are its own
 // __fmul_rn products. The library is built with -fmad=false.
 //
+// Shards. The reference's sharded core vmaps this kernel over W shards,
+// which batches its pallas_call into one call whose grid leads with the
+// shard. Here too a call may carry a leading [W] axis on every array:
+// each launch takes the shard as a grid axis (blockIdx.y, fold_device.cuh's
+// Shards), and a block offsets every pointer by its shard's stride in
+// 64-bit arithmetic, into its shard's own scratch (counters, look-back
+// words, lists, new counts, winner table, the parted form's scratch under
+// one plan). So a sharded chunk is one call of 3 or 5 launches, not W;
+// each shard's form, plan and bits are those of its unbatched call.
+//
 // Payload leaves: groups of kMaxLeaves, one write launch each; only the
 // last group's launch (osi_write) resets the winner words and writes the
 // carried state, the others (osi_write_group) copy their leaves' words.
@@ -114,8 +124,8 @@ constexpr int32_t kIMin = -2147483647;        // -(2^31) + 1, its _IMIN
 
 // Scratch counters: the tile counter, then the chunk's frontier maxima as
 // order-preserving unsigned encodings (0, below every encoding, when no
-// item is masked in). All three are 0 between calls.
-constexpr int kCtrTile = 0, kCtrTime = 1, kCtrInterval = 2;
+// item is masked in). All three are 0 between calls; a shard has its own.
+constexpr int kCtrTile = 0, kCtrTime = 1, kCtrInterval = 2, kCtrWords = 3;
 
 __device__ __forceinline__ unsigned enc_time(float t) {
   const unsigned u = __float_as_uint(t);
@@ -165,9 +175,14 @@ __device__ __forceinline__ int32_t warp_max(int32_t v) {
 __global__ void __launch_bounds__(kThreads)
     osi_frontier(const float* __restrict__ times,
                  const uint8_t* __restrict__ mask, int m, float recip,
-                 unsigned* __restrict__ ctrs) {
+                 unsigned* __restrict__ ctrs, const Shards sd) {
   __shared__ float wt[kWarps];
   __shared__ int32_t wi[kWarps];
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  times += sh * sd.items;
+  mask += sh * sd.items;
+  ctrs += sh * sd.ctrs;
   float t = kNegTime;
   int32_t iv = kIMin;
   bool any = false;
@@ -228,9 +243,34 @@ __global__ void __launch_bounds__(kThreads)
                     int32_t* __restrict__ late,
                     int32_t* __restrict__ dropped,
                     int32_t* __restrict__ items,
-                    int32_t* __restrict__ chunks) {
+                    int32_t* __restrict__ chunks, const Shards sd) {
   const int cells = k * s;
   extern __shared__ int32_t sm[];
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  times += sh * sd.items;
+  sid += sh * sd.items;
+  mask += sh * sd.items;
+  u_accept += sh * sd.items;
+  u_slot += sh * sd.items;
+  max_time += sh;
+  open_interval += sh;
+  slot_interval += sh * k;
+  adopt += sh * s;
+  counts += sh * sd.cells;
+  capacity += sh * sd.cells;
+  new_counts += sh * sd.cells;
+  winner += sh * sd.table;
+  status += sh * sd.status;
+  lists += sh * sd.lists;
+  list_n += sh * sd.list_n;
+  ctrs += sh * sd.ctrs;
+  rows += sh * 6 * s;
+  on_time += sh;
+  late += sh;
+  dropped += sh;
+  items += sh;
+  chunks += sh;
   int32_t* wrun = sm;
   int32_t* agg = wrun + kWarps * (cells + 1);
   int32_t* base = agg + cells;
@@ -394,7 +434,21 @@ __global__ void __launch_bounds__(kThreads)
               int32_t* __restrict__ open_interval,
               int32_t* __restrict__ slot_interval,
               int32_t* __restrict__ counts, int32_t* __restrict__ capacity,
-              unsigned* __restrict__ ctrs) {
+              unsigned* __restrict__ ctrs, const Shards sd) {
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  lists += sh * sd.lists;
+  list_n += sh * sd.list_n;
+  winner += sh * sd.table;
+  status += sh * sd.status;
+  new_counts += sh * sd.cells;
+  adopt += sh * s;
+  max_time += sh;
+  open_interval += sh;
+  slot_interval += sh * k;
+  counts += sh * sd.cells;
+  capacity += sh * sd.cells;
+  ctrs += sh * sd.ctrs;
   const int tile = blockIdx.x;
   const int cells = k * s;
   // Block 0 writes the carried state, now that no route tile reads it;
@@ -417,7 +471,8 @@ __global__ void __launch_bounds__(kThreads)
       held = slot_interval[c_own / s];
     }
   }
-  write_winners(tile, lists, list_n, leaves, winner);
+  write_winners(tile, lists, list_n, leaves, winner, sh * sd.items,
+                sh * sd.table);
   for (int c = threadIdx.x; c < cells; c += kThreads)
     status[(size_t)c * gridDim.x + tile] = 0;
   if (tile != 0) return;
@@ -450,8 +505,12 @@ __global__ void __launch_bounds__(kThreads)
     osi_write_group(const int2* __restrict__ lists,
                     const int32_t* __restrict__ list_n,
                     const __grid_constant__ Leaves leaves,
-                    int32_t* __restrict__ winner) {
-  write_winners<false>(blockIdx.x, lists, list_n, leaves, winner);
+                    int32_t* __restrict__ winner, const Shards sd) {
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  write_winners<false>(blockIdx.x, lists + sh * sd.lists,
+                       list_n + sh * sd.list_n, leaves,
+                       winner + sh * sd.table, sh * sd.items, sh * sd.table);
 }
 
 // One chunk's routing, as osi_route_claim works it out: the PRE-chunk
@@ -501,6 +560,19 @@ struct IngestCells {
   const float* max_time;
   const int32_t* open_interval;
   const unsigned* ctrs;
+
+  // Shard sh's items and carried scalars.
+  __device__ __forceinline__ IngestCells at(long long sh,
+                                            const Shards& sd) const {
+    IngestCells c = *this;
+    c.times += sh * sd.items;
+    c.sid += sh * sd.items;
+    c.mask += sh * sd.items;
+    c.max_time += sh;
+    c.open_interval += sh;
+    c.ctrs += sh * sd.ctrs;
+    return c;
+  }
 
   __device__ Route begin() const {
     __shared__ float wmark_s;
@@ -555,17 +627,33 @@ __global__ void __launch_bounds__(kThreads)
                     int32_t* __restrict__ dropped,
                     int32_t* __restrict__ items, const PartedPlan p,
                     int32_t* __restrict__ zeroed,
-                    int32_t* __restrict__ meta) {
+                    int32_t* __restrict__ meta, const Shards sd) {
   extern __shared__ int32_t sm[];
   __shared__ int32_t tot[4];       // on-time, late, dropped, items
   const int k = src.k, s = src.s, cells = k * s;
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  slot_interval += sh * k;
+  adopt += sh * s;
+  counts += sh * sd.cells;
+  capacity += sh * sd.cells;
+  base += sh * sd.cells;
+  cap += sh * sd.cells;
+  new_counts += sh * sd.cells;
+  rows += sh * 6 * s;
+  on_time += sh;
+  late += sh;
+  dropped += sh;
+  items += sh;
+  zeroed += sh * sd.zeroed;
+  meta += sh * sd.meta;
   const bool smem_rows = s <= kSmemRowStrata;
   int32_t* cnt = sm;
   int32_t* rows_s = cnt + sum_keys(p);       // [2, S]: ingested, late
   const int words = sum_keys(p) + (smem_rows ? 2 * s : 0);
   for (int i = threadIdx.x; i < words; i += kThreads) sm[i] = 0;
   if (threadIdx.x < 4) tot[threadIdx.x] = 0;
-  const Route rt = src.begin();    // syncs: the zeroed words are in
+  const Route rt = src.at(sh, sd).begin();   // syncs: the zeroed words are in
   for (int c = blockIdx.x * kThreads + threadIdx.x; c < cells;
        c += gridDim.x * kThreads) {
     const int slot = c / s;
@@ -655,10 +743,28 @@ __global__ void __launch_bounds__(kThreads)
                     int32_t* __restrict__ capacity,
                     int32_t* __restrict__ rows, int32_t* __restrict__ chunks,
                     unsigned* __restrict__ ctrs,
-                    int32_t* __restrict__ ing) {
+                    int32_t* __restrict__ ing, const Shards sd) {
   __shared__ int32_t new_open_s;
   const int cells = k * s;
-  write_winners(blockIdx.x, lists, list_n, leaves, winner);
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  lists += sh * sd.lists;
+  list_n += sh * sd.list_n;
+  winner += sh * sd.table;
+  base += sh * sd.cells;
+  cap += sh * sd.cells;
+  new_counts += sh * sd.cells;
+  max_time += sh;
+  open_interval += sh;
+  slot_interval += sh * k;
+  counts += sh * sd.cells;
+  capacity += sh * sd.cells;
+  rows += sh * 6 * s;
+  chunks += sh;
+  ctrs += sh * sd.ctrs;
+  ing += sh * sd.zeroed;
+  write_winners(blockIdx.x, lists, list_n, leaves, winner, sh * sd.items,
+                sh * sd.table);
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   for (int c = first; c < cells; c += stride) {
@@ -716,6 +822,14 @@ int tiles_of(int m) { return m > 0 ? (m + kTile - 1) / kTile : 1; }
 // counts). plan: null for the small form, else the parted form's
 // kPlanInts ints (kernels/_workspace.py::parted_plan), and pt its scratch
 // (parted_claim.cuh's slots, kPtBase and kPtCap included).
+//
+// Batched over w >= 1 shards (the reference's vmap of its kernel): every
+// array above has a leading [w] axis, shard after shard, and so has the
+// scratch, each shard's the size given (the parted form's zeroed words
+// its plan's and S, its meta words its plan's rounded up to a multiple of
+// 4, pt shard 0's). Every launch takes the shard as a grid
+// axis, so a call is the same 3 (small) or 5 (parted) launches at any w;
+// the form and the plan are the per-shard K*S's.
 extern "C" int sa_one_shot_ingest(
     const void* times, const void* sid, const void* const* payloads,
     const void* mask, const void* u_accept, const void* u_slot,
@@ -724,9 +838,9 @@ extern "C" int sa_one_shot_ingest(
     const void* adopt, void* counts, void* capacity, void* const* values,
     void* counters, void* winner, void* status, void* lists, void* list_n,
     void* ctrs, void* aux, const int* plan, void* const* pt, int m, int k,
-    int s, int n_max, int n_leaves, float recip, float lateness,
+    int s, int n_max, int n_leaves, int w, float recip, float lateness,
     void* stream_ptr) {
-  if (n_leaves < 1) return (int)cudaErrorInvalidValue;
+  if (n_leaves < 1 || w < 1) return (int)cudaErrorInvalidValue;
   // The leaves of the group that starts at leaf g.
   auto group = [&](int g) {
     Leaves lv;
@@ -745,6 +859,22 @@ extern "C" int sa_one_shot_ingest(
   PartedPlan p;
   if (plan != nullptr && (!read_plan(plan, cells, m, &p) || pt == nullptr))
     return (int)cudaErrorInvalidValue;
+  Shards sd = one_shard();
+  sd.n = w;
+  sd.items = m;
+  sd.cells = cells;
+  sd.table = (long long)cells * n_max;
+  sd.ctrs = kCtrWords;
+  const int grid = plan != nullptr ? p.claim_grid : n_tiles;
+  sd.status = plan != nullptr ? (long long)pass_words(p, p.passes)
+                              : (long long)cells * n_tiles;
+  sd.lists = (long long)grid * kTile;
+  sd.list_n = (long long)grid * kWarps;
+  if (plan != nullptr) {
+    sd.zeroed = zeroed_words(p) + s;
+    sd.meta = (meta_words(p) + 3) & ~3;   // the claim's map is read as int4
+    sd.part = (long long)m * (p.passes > 1 ? 2 : 1);
+  }
   auto* mask_p = static_cast<const uint8_t*>(mask);
   auto* times_p = static_cast<const float*>(times);
   auto* sid_p = static_cast<const int32_t*>(sid);
@@ -768,11 +898,10 @@ extern "C" int sa_one_shot_ingest(
   auto* dropped_p = static_cast<int32_t*>(dropped);
   auto* items_p = static_cast<int32_t*>(items);
   auto* chunks_p = static_cast<int32_t*>(chunks);
-  osi_frontier<<<n_tiles, kThreads, 0, stream>>>(times_p, mask_p, m, recip,
-                                                 ctrs_p);
+  osi_frontier<<<shard_grid(n_tiles, w), kThreads, 0, stream>>>(
+      times_p, mask_p, m, recip, ctrs_p, sd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  int grid = n_tiles;
   if (plan != nullptr) {
     auto* base_p = static_cast<int32_t*>(pt[kPtBase]);
     auto* caps_p = static_cast<int32_t*>(pt[kPtCap]);
@@ -783,52 +912,52 @@ extern "C" int sa_one_shot_ingest(
                      count_smem_words(p, s <= kSmemRowStrata ? 2 * s : 0);
     err = allow_smem(osi_route_parts, smem);
     if (err != cudaSuccess) return (int)err;
-    osi_route_parts<<<count_grid(p), kThreads, smem, stream>>>(
+    osi_route_parts<<<shard_grid(count_grid(p), w), kThreads, smem,
+                      stream>>>(
         src, m, slot_iv, adopt_p, counts_p, cap_p, base_p, caps_p,
         new_counts, rows_p, on_time_p, late_p, dropped_p, items_p, p,
         static_cast<int32_t*>(pt[kPtZeroed]),
-        static_cast<int32_t*>(pt[kPtMeta]));
+        static_cast<int32_t*>(pt[kPtMeta]), sd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     int e = launch_partition(src, ua_p, us_p, p, m, pt, status_p, tile_ctr,
-                             stream);
+                             sd, stream);
     if (e != 0) return e;
     e = launch_parted_claim(p, pt, cells, n_max, base_p, caps_p, new_counts,
-                            win_p, lists_p, list_n_p, status_p, tile_ctr,
+                            win_p, lists_p, list_n_p, status_p, tile_ctr, sd,
                             stream);
     if (e != 0) return e;
-    grid = p.claim_grid;
   } else {
     const int smem = (int)sizeof(int32_t) *
                      (claim_smem_words(cells) + cells + 4 + 2 * kWarps * s);
     err = allow_smem(osi_route_claim, smem);
     if (err != cudaSuccess) return (int)err;
-    osi_route_claim<<<n_tiles, kThreads, smem, stream>>>(
+    osi_route_claim<<<shard_grid(n_tiles, w), kThreads, smem, stream>>>(
         times_p, sid_p, mask_p, ua_p, us_p, m, recip, lateness, k, s, n_max,
         n_tiles, max_time_p, open_p, slot_iv, adopt_p, counts_p, cap_p,
         new_counts, win_p, status_p, lists_p, list_n_p, ctrs_p, rows_p,
-        on_time_p, late_p, dropped_p, items_p, chunks_p);
+        on_time_p, late_p, dropped_p, items_p, chunks_p, sd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   int g = 0;
   for (; g + kMaxLeaves < n_leaves; g += kMaxLeaves) {
-    osi_write_group<<<grid, kThreads, 0, stream>>>(lists_p, list_n_p,
-                                                   group(g), win_p);
+    osi_write_group<<<shard_grid(grid, w), kThreads, 0, stream>>>(
+        lists_p, list_n_p, group(g), win_p, sd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (plan != nullptr) {
-    osi_write_parted<<<grid, kThreads, 0, stream>>>(
+    osi_write_parted<<<shard_grid(grid, w), kThreads, 0, stream>>>(
         lists_p, list_n_p, group(g), win_p, k, s,
         static_cast<int32_t*>(pt[kPtBase]), static_cast<int32_t*>(pt[kPtCap]),
         new_counts, max_time_p, open_p, slot_iv, counts_p, cap_p, rows_p,
         chunks_p, ctrs_p,
-        ingested_scratch(p, static_cast<int32_t*>(pt[kPtZeroed])));
+        ingested_scratch(p, static_cast<int32_t*>(pt[kPtZeroed])), sd);
   } else {
-    osi_write<<<grid, kThreads, 0, stream>>>(
+    osi_write<<<shard_grid(grid, w), kThreads, 0, stream>>>(
         lists_p, list_n_p, group(g), win_p, status_p, k, s, new_counts,
-        adopt_p, max_time_p, open_p, slot_iv, counts_p, cap_p, ctrs_p);
+        adopt_p, max_time_p, open_p, slot_iv, counts_p, cap_p, ctrs_p, sd);
   }
   return (int)cudaGetLastError();
 }

@@ -47,6 +47,10 @@
 // ticket is 0 between calls: the claim clears the partition's words, and
 // of each part the claim tile that finishes its look-back last (by a
 // ticket a part) the part's own; the scan clears the totals.
+//
+// A call batched over shards (the one-shot's, fold_device.cuh's Shards)
+// runs each launch over a grid of shards: every shard with its own
+// items, cells, ring and scratch, under one plan (the same cells and M).
 
 #pragma once
 
@@ -102,9 +106,13 @@ __host__ __device__ __forceinline__ int32_t* claim_tickets(
 }
 
 // Zeroed words of the plan (the caller's scratch may follow them).
+__host__ __device__ __forceinline__ int zeroed_words(const PartedPlan& p) {
+  return sum_keys(p) + (p.passes > 1 ? p.parts : 0) + 1 + p.parts;
+}
+
 __host__ __device__ __forceinline__ int32_t* past_zeroed(
     const PartedPlan& p, int32_t* zeroed) {
-  return claim_tickets(p, zeroed) + p.parts;
+  return zeroed + zeroed_words(p);
 }
 
 // Meta scratch, written before it is read in every call: the claim's map
@@ -122,6 +130,10 @@ __host__ __device__ __forceinline__ int meta_map_words(const PartedPlan& p) {
 __host__ __device__ __forceinline__ const int32_t* part_first(
     const PartedPlan& p, const int32_t* meta) {
   return meta + meta_map_words(p) + sum_keys(p);
+}
+
+__host__ __device__ __forceinline__ int meta_words(const PartedPlan& p) {
+  return meta_map_words(p) + sum_keys(p) + p.parts + 1;
 }
 
 // A partitioned item: its index, its cell and its two uniforms' bits.
@@ -443,12 +455,14 @@ __device__ void part_lookback(int tile, int first, int keys,
 
 // One partition pass, the stable scatter of the live items by the digit
 // of `pass` of their part: pass 0 takes each item's cell from src
-// (src.begin(), then .cell(j): -1 for none) and its uniforms, a later
-// pass the items the pass before wrote to `in`. A tile's place for digit
-// d is d's offset + the earlier tiles' items of d (look-back) + its rank.
-// The items carry their uniforms, so the claim reads them in order rather
-// than gather a sector for each. Tiles are taken in launch order; the
-// block that takes the last ticket puts the counter back.
+// (src.at(shard, sd).begin(), then .cell(j): -1 for none) and its
+// uniforms, a later pass the items the pass before wrote to `in`. A
+// tile's place for digit d is d's offset + the earlier tiles' items of d
+// (look-back) + its rank. The items carry their uniforms, so the claim
+// reads them in order rather than gather a sector for each. Tiles are
+// taken in launch order; the block that takes the last ticket puts the
+// counter back. Each shard of sd partitions its own items into its own
+// scratch.
 template <class Cells>
 __global__ void __launch_bounds__(kThreads)
     parted_partition(const Cells src, const float* __restrict__ u_accept,
@@ -457,8 +471,17 @@ __global__ void __launch_bounds__(kThreads)
                      int4* __restrict__ out,
                      const int32_t* __restrict__ meta,
                      unsigned long long* __restrict__ status,
-                     int32_t* __restrict__ tile_ctr) {
+                     int32_t* __restrict__ tile_ctr, const Shards sd) {
   extern __shared__ int32_t sm[];
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  u_accept += sh * sd.items;
+  u_slot += sh * sd.items;
+  if (in) in += sh * sd.part;
+  out += sh * sd.part;
+  meta += sh * sd.meta;
+  status += sh * sd.status;
+  tile_ctr += sh * sd.ctrs;
   const int keys = p.keys[pass];
   int32_t* wrun = sm;
   int32_t* agg = wrun + kWarps * (keys + 1);
@@ -467,7 +490,7 @@ __global__ void __launch_bounds__(kThreads)
   if (tile == (int)gridDim.x - 1 && threadIdx.x == 0) *tile_ctr = 0;
   const int n = in ? part_first(p, meta)[p.parts] : m;
   if ((long long)tile * kTile >= n) return;
-  const auto cells = src.begin();
+  const auto cells = src.at(sh, sd).begin();
   int key[kItems], rank[kItems];
   int4 e[kItems];
 #pragma unroll
@@ -509,7 +532,8 @@ __host__ __device__ __forceinline__ int parted_claim_smem_words(
 // count before the chunk, caps[c] its capacity; the last tile of each
 // part writes counts_out for the part's cells. Every block first clears
 // its share of the partition's look-back words; a block past the last
-// tile clears its list counts and stops.
+// tile clears its list counts and stops. Each shard of sd claims over its
+// own items, cells, ring and scratch.
 __global__ void __launch_bounds__(kThreads)
     parted_claim(const int4* __restrict__ items, const PartedPlan p,
                  int cells, int n_max, const int32_t* __restrict__ meta,
@@ -520,8 +544,21 @@ __global__ void __launch_bounds__(kThreads)
                  int32_t* __restrict__ list_n,
                  unsigned long long* __restrict__ status,
                  int32_t* __restrict__ zeroed,
-                 int32_t* __restrict__ tile_ctr) {
+                 int32_t* __restrict__ tile_ctr, const Shards sd) {
   extern __shared__ int32_t sm[];
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  items += sh * sd.part;
+  meta += sh * sd.meta;
+  cnt0 += sh * sd.cells;
+  caps += sh * sd.cells;
+  counts_out += sh * sd.cells;
+  winner += sh * sd.table;
+  lists += sh * sd.lists;
+  list_n += sh * sd.list_n;
+  status += sh * sd.status;
+  zeroed += sh * sd.zeroed;
+  tile_ctr += sh * sd.ctrs;
   const int lo_keys = 1 << p.lo_bits;
   int32_t* wrun = sm;
   int32_t* agg = wrun + kWarps * (lo_keys + 1);
@@ -636,12 +673,14 @@ inline int4* parted_items(const PartedPlan& p, void* const* pt) {
   return static_cast<int4*>(pt[(p.passes - 1) % 2 ? kPtItemsB : kPtItemsA]);
 }
 
-// Launches the partition passes after the counting launch.
+// Launches the partition passes after the counting launch, each over
+// the shards of sd (pt: shard 0's scratch).
 template <class Cells>
 int launch_partition(const Cells& src, const float* u_accept,
                      const float* u_slot, const PartedPlan& p, int m,
                      void* const* pt, unsigned long long* status,
-                     int32_t* tile_ctr, cudaStream_t stream) {
+                     int32_t* tile_ctr, const Shards& sd,
+                     cudaStream_t stream) {
   const int32_t* meta = static_cast<const int32_t*>(pt[kPtMeta]);
   const int4* in = nullptr;
   for (int d = 0; d < p.passes; ++d) {
@@ -649,8 +688,9 @@ int launch_partition(const Cells& src, const float* u_accept,
     const size_t smem = sizeof(int32_t) * partition_smem_words(p, d);
     cudaError_t e = allow_smem(parted_partition<Cells>, smem);
     if (e != cudaSuccess) return (int)e;
-    parted_partition<Cells><<<p.tiles, kThreads, smem, stream>>>(
-        src, u_accept, u_slot, p, d, m, in, out, meta, status, tile_ctr);
+    parted_partition<Cells><<<shard_grid(p.tiles, sd.n), kThreads, smem,
+                              stream>>>(src, u_accept, u_slot, p, d, m, in,
+                                        out, meta, status, tile_ctr, sd);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     in = out;
@@ -658,21 +698,21 @@ int launch_partition(const Cells& src, const float* u_accept,
   return 0;
 }
 
-// Launches the claim after the partition.
+// Launches the claim after the partition, over the shards of sd.
 inline int launch_parted_claim(const PartedPlan& p, void* const* pt,
                                int cells, int n_max, const int32_t* cnt0,
                                const int32_t* caps, int32_t* counts_out,
                                int32_t* winner, int2* lists, int32_t* list_n,
                                unsigned long long* status, int32_t* tile_ctr,
-                               cudaStream_t stream) {
+                               const Shards& sd, cudaStream_t stream) {
   const size_t smem = sizeof(int32_t) * parted_claim_smem_words(p);
   cudaError_t e = allow_smem(parted_claim, smem);
   if (e != cudaSuccess) return (int)e;
-  parted_claim<<<p.claim_grid, kThreads, smem, stream>>>(
+  parted_claim<<<shard_grid(p.claim_grid, sd.n), kThreads, smem, stream>>>(
       parted_items(p, pt), p, cells, n_max,
       static_cast<const int32_t*>(pt[kPtMeta]), cnt0, caps, counts_out,
       winner, lists, list_n, status, static_cast<int32_t*>(pt[kPtZeroed]),
-      tile_ctr);
+      tile_ctr, sd);
   return (int)cudaGetLastError();
 }
 

@@ -179,6 +179,10 @@ struct FoldCells {
   const int32_t* sid;
   const uint8_t* mask;
   int s_cnt;
+  __device__ __forceinline__ FoldCells at(long long sh,
+                                          const Shards& sd) const {
+    return FoldCells{sid + sh * sd.items, mask + sh * sd.items, s_cnt};
+  }
   __device__ __forceinline__ const FoldCells& begin() const { return *this; }
   __device__ __forceinline__ int cell(long long j) const {
     const int s = sid[j];
@@ -239,7 +243,7 @@ int launch_parted(const void* sid, const void* u_accept, const void* u_slot,
   const int err =
       launch_partition(src, static_cast<const float*>(u_accept),
                        static_cast<const float*>(u_slot), p, m, pt, st,
-                       tile_ctr, stream);
+                       tile_ctr, one_shard(), stream);
   if (err != 0) return err;
   return launch_parted_claim(
       p, pt, s_cnt, n_max,
@@ -247,7 +251,7 @@ int launch_parted(const void* sid, const void* u_accept, const void* u_slot,
       static_cast<const int32_t*>(capacity),
       static_cast<int32_t*>(counts_out), static_cast<int32_t*>(winner),
       static_cast<int2*>(lists), static_cast<int32_t*>(list_n), st, tile_ctr,
-      stream);
+      one_shard(), stream);
 }
 
 // The claim launch, shared by the scalar and the tree entry points.

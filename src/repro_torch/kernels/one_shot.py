@@ -46,6 +46,14 @@ chosen by ``K·S`` alone; :attr:`forms` counts each form's calls. Both
 forms compute the plain version's result bit for bit; the only
 configuration refused for size is a ring whose index does not fit
 int32.
+
+A call may be batched over W shards, as the reference's sharded core
+``vmap``s its kernel into one call whose grid leads with the shard: every
+tensor then leads with ``[W]`` (``times [W, M]``, ``counts [W, K, S]``,
+...). The kernel takes the shard as a grid axis of each launch, every
+shard with its own scratch, so the call is the same 3 or 5 launches and
+one count whatever W is; each shard's form, plan, int32 limit and bits
+are those of its unbatched call.
 """
 from __future__ import annotations
 
@@ -55,7 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, _workspace
-from repro_torch.kernels.ref import OneShotResult, check_one_shot_payload
+from repro_torch.kernels.ref import (OneShotResult, check_one_shot_payload,
+                                     one_shot_lead)
 
 #: The most cells K*S of the small-key form, whose route-and-claim launch
 #: keeps 16 warps x (K*S + 1) + 4 K*S int32 and per-warp counter rows of
@@ -85,14 +94,23 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
                     items, slot_interval, adopt, counts, capacity, values,
                     counters, span: float,
                     allowed_lateness: float) -> OneShotResult:
-    """Ingest one ``[M]`` chunk on the card, in place.
+    """Ingest one ``[M]`` chunk, or one ``[W, M]`` chunk of W shards, on
+    the card, in place.
 
     ``adopt`` is the ``[S]`` capacity a reset slot adopts, already clamped
     to ``N_max`` by the caller, as the reference's wrapper takes it.
     """
-    k, s_cnt = counts.shape
-    m = times.shape[0]
-    leaves = check_one_shot_payload(payload, values, m, k, s_cnt)
+    state = dict(max_time=max_time, open_interval=open_interval,
+                 on_time=on_time, late=late, dropped=dropped, chunks=chunks,
+                 items=items, slot_interval=slot_interval, adopt=adopt,
+                 counts=counts, capacity=capacity, values=values,
+                 counters=counters)
+    lead = one_shot_lead(times, dict(
+        stratum_ids=stratum_ids, payload=payload, mask=mask,
+        u_accept=u_accept, u_slot=u_slot, **state))
+    k, s_cnt = counts.shape[-2:]
+    m = times.shape[-1]
+    leaves = check_one_shot_payload(payload, values, m, k, s_cnt, lead)
     dev = leaves[0][1].device
     if not leaves[0][1].is_cuda:
         raise ValueError("one_shot_ingest kernel needs CUDA tensors; "
@@ -100,23 +118,25 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     n_max = leaves[0][1].shape[-1]
     i32, f32 = torch.int32, torch.float32
     for i, (pay, val) in enumerate(leaves):
-        _check(f"values leaf {i}", val, (f32, i32), (k, s_cnt, n_max), dev)
-        _check(f"payload leaf {i}", pay, val.dtype, (m,), dev)
-    _check("times", times, f32, (m,), dev)
-    _check("stratum_ids", stratum_ids, i32, (m,), dev)
-    _check("mask", mask, torch.bool, (m,), dev)
-    _check("u_accept", u_accept, f32, (m,), dev)
-    _check("u_slot", u_slot, f32, (m,), dev)
-    _check("max_time", max_time, f32, (), dev)
+        _check(f"values leaf {i}", val, (f32, i32),
+               lead + (k, s_cnt, n_max), dev)
+        _check(f"payload leaf {i}", pay, val.dtype, lead + (m,), dev)
+    _check("times", times, f32, lead + (m,), dev)
+    _check("stratum_ids", stratum_ids, i32, lead + (m,), dev)
+    _check("mask", mask, torch.bool, lead + (m,), dev)
+    _check("u_accept", u_accept, f32, lead + (m,), dev)
+    _check("u_slot", u_slot, f32, lead + (m,), dev)
+    _check("max_time", max_time, f32, lead, dev)
     for name, t in (("open_interval", open_interval), ("on_time", on_time),
                     ("late", late), ("dropped", dropped),
                     ("chunks", chunks), ("items", items)):
-        _check(name, t, i32, (), dev)
-    _check("slot_interval", slot_interval, i32, (k,), dev)
-    _check("adopt", adopt, i32, (s_cnt,), dev)
-    _check("counts", counts, i32, (k, s_cnt), dev)
-    _check("capacity", capacity, i32, (k, s_cnt), dev)
-    _check("counters", counters, i32, (6, s_cnt), dev)
+        _check(name, t, i32, lead, dev)
+    _check("slot_interval", slot_interval, i32, lead + (k,), dev)
+    _check("adopt", adopt, i32, lead + (s_cnt,), dev)
+    _check("counts", counts, i32, lead + (k, s_cnt), dev)
+    _check("capacity", capacity, i32, lead + (k, s_cnt), dev)
+    _check("counters", counters, i32, lead + (6, s_cnt), dev)
+    shards = lead[0] if lead else 1
     cells = k * s_cnt
     if cells < 1:
         raise ValueError(f"K*S = {cells}: the ingest needs a cell")
@@ -130,9 +150,11 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     plan = _workspace.parted_plan(cells, m) if cells > MAX_CELLS else None
     ws = _workspace.for_call(lib, dev, stream, m=m, cells=cells,
-                             table=cells * n_max, aux=cells, plan=plan)
+                             table=cells * n_max, aux=cells, plan=plan,
+                             shards=shards)
     if plan is not None:
-        plan_c, pt = ws.parted(plan, cells=cells, strata=s_cnt)
+        plan_c, pt = ws.parted(plan, cells=cells, strata=s_cnt,
+                               shards=shards)
     ptrs = ctypes.c_void_p * len(leaves)
     pays = ptrs(*(pay.data_ptr() for pay, _ in leaves))
     vals = ptrs(*(val.data_ptr() for _, val in leaves))
@@ -149,18 +171,14 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
             ws.list_n.data_ptr(), ws.counters.data_ptr(), ws.aux.data_ptr(),
             None if plan is None else ctypes.addressof(plan_c),
             None if plan is None else ctypes.addressof(pt), m, k, s_cnt,
-            n_max, len(leaves), ctypes.c_float(float(recip)),
+            n_max, len(leaves), shards, ctypes.c_float(float(recip)),
             ctypes.c_float(float(np.float32(allowed_lateness))), stream)
     if status != 0:
         _workspace.drop(dev, stream)
     _build.check(status, "one_shot_ingest")
     one_shot_ingest.launches += 1
     one_shot_ingest.forms["small" if plan is None else "parted"] += 1
-    return OneShotResult(
-        values=values, counts=counts, capacity=capacity,
-        slot_interval=slot_interval, max_time=max_time,
-        open_interval=open_interval, on_time=on_time, late=late,
-        dropped=dropped, chunks=chunks, items=items, counters=counters)
+    return OneShotResult.of(state)
 
 
 one_shot_ingest.launches = 0

@@ -58,7 +58,9 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot,
                     **state) -> ref.OneShotResult:
     """The whole ingest of one chunk, in place on the carried tensors;
     ``payload`` and ``values`` a tensor each or two trees of one
-    structure."""
+    structure. Every tensor may lead with a shard axis ``[W]`` (``times
+    [W, M]``): one call for all W shards, each shard's result its own
+    unbatched call's."""
     leaves = tree_flatten(state["values"])[0]
     if not leaves or _on_cpu(leaves[0], "one_shot_ingest"):
         return ref.one_shot_ingest(times, stratum_ids, payload, mask,

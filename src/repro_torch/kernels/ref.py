@@ -12,7 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.utils import bincount, rank_within_stratum, tree_flatten
+from repro_torch.utils import (bincount, rank_within_stratum, tree_flatten,
+                               tree_map)
 
 #: f32 -inf and int32 minimum stand-ins of the reference's masked maxima.
 _NEG_TIME = float(np.float32(-3.0e38))
@@ -274,15 +275,46 @@ class OneShotResult:
     items: torch.Tensor           # () i32 masked items folded
     counters: torch.Tensor        # [6, S] i32 obs rows (COUNTER_FIELDS)
 
+    @classmethod
+    def of(cls, state: dict) -> "OneShotResult":
+        """The result of a call on the carried tensors ``state`` (by
+        keyword; its read-only ``adopt`` is left out)."""
+        return cls(**{f.name: state[f.name]
+                      for f in dataclasses.fields(cls)})
 
-def check_one_shot_payload(payload, values, m: int, k: int,
-                           s: int) -> list:
+
+def one_shot_lead(times, tensors: dict) -> tuple:
+    """The leading shard axis of a one-shot call: ``()`` for one chunk
+    (``times [M]``), ``(W,)`` for a call batched over W shards (``times
+    [W, M]``, the reference's ``vmap`` of its kernel), where every other
+    tensor of ``tensors`` (name to tensor or tree) leads with the same
+    ``[W]``; a leading axis that disagrees raises ``ValueError``."""
+    if times.ndim not in (1, 2):
+        raise ValueError(f"one_shot_ingest: times has shape "
+                         f"{tuple(times.shape)}, expected [M] or [W, M]")
+    if times.ndim == 1:
+        return ()
+    w = times.shape[0]
+    for name, tree in tensors.items():
+        for t in tree_flatten(tree)[0]:
+            if isinstance(t, torch.Tensor) and (t.ndim == 0
+                                                or t.shape[0] != w):
+                raise ValueError(
+                    f"one_shot_ingest: {name} has shape {tuple(t.shape)}, "
+                    f"expected a leading shard axis of {w} (times "
+                    f"{tuple(times.shape)})")
+    return (w,)
+
+
+def check_one_shot_payload(payload, values, m: int, k: int, s: int,
+                           lead: tuple = ()) -> list:
     """The ``(payload, values)`` leaf pairs of one call, as both versions
     take them: ``payload`` a tensor or a tree (dict, tuple, list) of
     ``[M]`` leaves with ``values``'s structure, each values leaf
     ``[K, S, N_max]`` (one ``N_max``) and each payload leaf of its
     values leaf's dtype, float32 or int32 (the two may be mixed in a
-    tree). Refuses what the reference refuses, for its reasons."""
+    tree), each after the call's ``lead`` (:func:`one_shot_lead`).
+    Refuses what the reference refuses, for its reasons."""
     pay, pay_def = tree_flatten(payload)
     val, val_def = tree_flatten(values)
     if pay_def != val_def:
@@ -295,12 +327,12 @@ def check_one_shot_payload(payload, values, m: int, k: int,
                         "must be a tensor")
     n_max = val[0].shape[-1] if val[0].ndim else 0
     for p, v in zip(pay, val):
-        if tuple(v.shape) != (k, s, n_max):
+        if tuple(v.shape) != lead + (k, s, n_max):
             raise ValueError(
                 "one_shot_ingest handles scalar payload layouts only "
                 f"([M] items into [K, S, N_max] rings); got values leaf "
                 f"{tuple(v.shape)}")
-        if tuple(p.shape) != (m,) or p.dtype != v.dtype:
+        if tuple(p.shape) != lead + (m,) or p.dtype != v.dtype:
             raise ValueError(
                 f"payload leaf {tuple(p.shape)}/{p.dtype} does not match "
                 f"items [{m}] / values dtype {v.dtype}")
@@ -328,7 +360,28 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     the flattened ``[K·S, N_max]`` view, its decisions taken once and
     every payload leaf written at its winners' cells; the counter rows
     are ``obs/metrics.ingest_update``'s.
+
+    Batched over W shards (``times [W, M]`` and every other tensor with
+    the same leading ``[W]``, :func:`one_shot_lead`), it is W unbatched
+    calls, shard after shard, each on its shard's views: the reference's
+    ``vmap`` of its kernel.
     """
+    state = dict(max_time=max_time, open_interval=open_interval,
+                 on_time=on_time, late=late, dropped=dropped, chunks=chunks,
+                 items=items, slot_interval=slot_interval, adopt=adopt,
+                 counts=counts, capacity=capacity, values=values,
+                 counters=counters)
+    lead = one_shot_lead(times, dict(
+        stratum_ids=stratum_ids, payload=payload, mask=mask,
+        u_accept=u_accept, u_slot=u_slot, **state))
+    if lead:
+        for w in range(lead[0]):
+            one_shot_ingest(
+                times[w], stratum_ids[w], tree_map(lambda t: t[w], payload),
+                mask[w], u_accept[w], u_slot[w], span=span,
+                allowed_lateness=allowed_lateness,
+                **{n: tree_map(lambda t: t[w], v) for n, v in state.items()})
+        return OneShotResult.of(state)
     k, s_cnt = counts.shape
     m = times.shape[0]
     leaves = check_one_shot_payload(payload, values, m, k, s_cnt)
@@ -385,8 +438,4 @@ def one_shot_ingest(times, stratum_ids, payload, mask, u_accept, u_slot, *,
     max_time.copy_(new_max)
     open_interval.copy_(new_open)
     slot_interval.copy_(desired)
-    return OneShotResult(
-        values=values, counts=counts, capacity=capacity,
-        slot_interval=slot_interval, max_time=max_time,
-        open_interval=open_interval, on_time=on_time, late=late,
-        dropped=dropped, chunks=chunks, items=items, counters=counters)
+    return OneShotResult.of(state)

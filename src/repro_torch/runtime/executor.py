@@ -405,16 +405,18 @@ def _ingest_chunk_masked(cfg: RuntimeConfig, state: RuntimeState,
 
 def _ingest_chunk_onekernel(cfg: RuntimeConfig, state: RuntimeState,
                             chunk: TimestampedChunk) -> RuntimeState:
-    """The whole ingest in one call of the one-shot kernel per shard (its
-    plain version on the CPU), with the fused path's key schedule:
-    bitwise the fused path's state.
+    """The whole ingest in ONE call of the one-shot kernel (its plain
+    version on the CPU), with the fused path's key schedule: bitwise the
+    fused path's state.
 
-    Each call updates IN PLACE its shard's ring, cell counts and
-    capacities, slot table, watermark scalars, chunk/item totals and a
-    ``[6, S]`` stack of the counter rows, which is then split into rows
-    of their own. The watermark scalars, slot table, counts, capacities
-    and counter rows are all per shard, so a sharded chunk is W calls on
-    each shard's views of the ``[W, ...]`` state, in stream order.
+    The call is batched over the state's W shards (an unsharded state is
+    one, a mesh rank's ``[1]``-leading state its own): the reference's
+    ``vmap`` of its kernel, one call whose launches take the shard as a
+    grid axis. It updates IN PLACE the ``[W, ...]`` ring, cell counts and
+    capacities, slot tables, watermark scalars, chunk/item totals and a
+    ``[W, 6, S]`` stack of the counter rows, which is then split into
+    rows of their own; the ring is checked once to have been written in
+    place. Each shard's result is bit for bit its own unbatched call's.
     """
     k, s_cnt = cfg.num_intervals, cfg.num_strata
     w = _shards(state)
@@ -438,13 +440,10 @@ def _ingest_chunk_onekernel(cfg: RuntimeConfig, state: RuntimeState,
         capacity=rows(iv.capacity, k, s_cnt),
         values=rows(iv.values, k, s_cnt, iv.max_capacity),
         counters=rows(counters, 6, s_cnt))
-    for i in range(w):
-        out = ops.one_shot_ingest(
-            *(a[i] for a in args), **{n: t[i] for n, t in carried.items()},
-            span=cfg.interval_span, allowed_lateness=cfg.allowed_lateness)
-        if out.values.data_ptr() != carried["values"][i].data_ptr():
-            raise RuntimeError(
-                "one-shot ingest did not write the ring in place")
+    out = ops.one_shot_ingest(*args, **carried, span=cfg.interval_span,
+                              allowed_lateness=cfg.allowed_lateness)
+    if out.values.data_ptr() != carried["values"].data_ptr():
+        raise RuntimeError("one-shot ingest did not write the ring in place")
     window = win.WindowState(
         intervals=oasrs.OASRSState(values=iv.values, counts=iv.counts,
                                    capacity=iv.capacity, key=keys),

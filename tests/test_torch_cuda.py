@@ -103,18 +103,46 @@ ONE_SHOT_FIELDS = ("values", "counts", "capacity", "slot_interval",
                    "max_time", "open_interval", "on_time", "late", "dropped",
                    "chunks", "items", "counters")
 
+#: Shards of one batched one-shot call, each in another state (overrides
+#: of ``one_shot_inputs``' defaults): every item masked out; a frontier
+#: crossing an interval with late and dropped items; cells over capacity
+#: (the items inside the open interval, so no slot resets); a chunk
+#: filling empty cells.
+SHARDS = {"all_masked": ONE_SHOT_CASES["all_masked"],
+          "crossing": ONE_SHOT_CASES["crossing"],
+          "over_capacity": dict(ONE_SHOT_CASES["over_capacity"], t_hi=0.9),
+          "filling": ONE_SHOT_CASES["filling"]}
+
+
+def stack_shards(parts):
+    """numpy arrays (and dicts of them) stacked on a new leading axis."""
+    if isinstance(parts[0], dict):
+        return {k: stack_shards([p[k] for p in parts]) for k in parts[0]}
+    return np.stack(parts)
+
+
+def shard_inputs(cases, seed, **kw):
+    """numpy ``(items, state)`` of one one-shot call batched over
+    ``len(cases)`` shards: shard ``w`` is ``one_shot_inputs`` of
+    ``SHARDS[cases[w]]`` (with ``kw``), from seed ``seed + w``."""
+    shards = [one_shot_inputs(seed + w, **dict(SHARDS[c], **kw))
+              for w, c in enumerate(cases)]
+    return (stack_shards([items for items, _ in shards]),
+            stack_shards([state for _, state in shards]))
+
 
 def two_leaves(items, state, seed):
     """A one-shot case with a payload of two leaves, ``{"val": f32, "key":
     i32}`` (the heavy-hitter keys riding beside the values, as the
     reference's pytree payloads), the ring likewise: ``val`` is the
-    case's own f32 payload and ring, ``key`` drawn from ``seed``."""
+    case's own f32 payload and ring, ``key`` drawn from ``seed`` (of the
+    items' shape: ``[M]``, or ``[W, M]`` batched over shards)."""
     rng = np.random.default_rng(seed)
-    m = items["times"].shape[0]
     ring = state["values"]
     return (dict(items, payload={
                 "val": items["payload"],
-                "key": rng.integers(0, 9999, m).astype(np.int32)}),
+                "key": rng.integers(0, 9999, items["times"].shape
+                                    ).astype(np.int32)}),
             dict(state, values={
                 "val": ring,
                 "key": rng.integers(0, 9999, ring.shape).astype(np.int32)}))
@@ -743,6 +771,79 @@ def test_cuda_one_shot_ten_leaves_matches_plain(cuda_device, cells):
         else:
             assert_same_bits(sk[f], sp[f], f)
     assert_workspace_clean(cuda_device)
+
+
+#: The batched one-shot's cases: shards -> the cases of its shards, and
+#: each form's ring (the small form's 3 x 4 cells, the parted 5 x 205).
+SHARD_MIXES = {1: ("crossing",), 2: ("all_masked", "crossing"),
+               4: ("all_masked", "crossing", "over_capacity", "filling")}
+SHARD_FORMS = {"small": dict(k=3, s=4, n_max=64),
+               "parted": dict(k=5, s=205, n_max=8)}
+
+
+def _tree_bits(a, b, name):
+    if isinstance(a, dict):
+        for leaf in a:
+            assert_same_bits(a[leaf], b[leaf], f"{name}.{leaf}")
+    else:
+        assert_same_bits(a, b, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves", [1, 2])
+@pytest.mark.parametrize("form", sorted(SHARD_FORMS))
+@pytest.mark.parametrize("w", sorted(SHARD_MIXES))
+def test_cuda_one_shot_shards_match_plain(cuda_device, w, form, leaves):
+    """One call batched over W shards (all masked, crossing with late and
+    dropped items, over capacity, filling) in each form: every field of
+    every shard bit for bit the batched plain version's, twice (the same
+    bits from the same start), one launch and one call of the form
+    counted per call whatever W is, the scratch (winner table, look-back
+    words, counters, the parted form's totals) clean after each call."""
+    items, state = shard_inputs(SHARD_MIXES[w], 71, m=BIG_M,
+                                **SHARD_FORMS[form])
+    if leaves == 2:
+        items, state = two_leaves(items, state, 72)
+    it = to_tree(cuda_device, items)
+    start = to_tree(cuda_device, state)
+    sp = to_tree(cuda_device, state)
+    ref.one_shot_ingest(**it, span=1.0, allowed_lateness=0.5, **sp)
+    for _ in range(2):
+        sk = to_tree(cuda_device, state)
+        launches = one_shot.one_shot_ingest.launches
+        forms = dict(one_shot.one_shot_ingest.forms)
+        one_shot.one_shot_ingest(**it, span=1.0, allowed_lateness=0.5, **sk)
+        assert one_shot.one_shot_ingest.launches == launches + 1
+        assert one_shot.one_shot_ingest.forms[form] == forms[form] + 1
+        assert_workspace_clean(cuda_device)
+        for f in ONE_SHOT_FIELDS:
+            _tree_bits(sk[f], sp[f], f)
+    late = sp["late"] - start["late"]
+    assert int(late[SHARD_MIXES[w].index("crossing")]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_batched_and_unbatched_one_shots_interleaved(cuda_device):
+    """Batched calls of both forms (W = 3 and W = 2) and unbatched calls
+    in turns on one stream, one scratch: each bit for bit its plain
+    version, the scratch clean after each."""
+    runs = []
+    for cases, form in ((("crossing", "over_capacity", "filling"), "small"),
+                        (("over_capacity", "crossing"), "parted"),
+                        (("crossing",), "small"), (("crossing",), "parted")):
+        _, state = shard_inputs(cases, 73, m=8, **SHARD_FORMS[form])
+        if len(cases) == 1:               # an unbatched call
+            state = {k: v[0] for k, v in state.items()}
+        runs.append((cases, form, _to(cuda_device, state),
+                     _to(cuda_device, state)))
+    for i in range(2):
+        for cases, form, sk, sp in runs:
+            items, _ = shard_inputs(cases, 74 + i, m=BIG_M // 2 + i,
+                                    **SHARD_FORMS[form])
+            if len(cases) == 1:
+                items = {k: v[0] for k, v in items.items()}
+            _one_shot_both(_to(cuda_device, items), sk, sp)
+            assert_workspace_clean(cuda_device)
 
 
 @pytest.mark.cuda
@@ -1587,8 +1688,9 @@ def _sharded_device_chunks(dev, shards=4, seed=8, n=12, m=128):
 def test_cuda_sharded_paths_match_cpu(cuda_device, mode, ingest, emission):
     """W = 4 on the card and on the CPU: the same state bit for bit, the
     same emissions (answers within rtol); per chunk ONE fold over the
-    ``W·K·S`` cells (``fused``), one per (shard, slot) (``masked``) or W
-    one-shot calls (``onekernel``); two stats calls per emission."""
+    ``W·K·S`` cells (``fused``), one per (shard, slot) (``masked``) or
+    ONE one-shot call batched over the W shards (``onekernel``); two
+    stats calls per emission."""
     cfg = _sharded_cfg(ingest, emission)
     cls = tex.PipelinedExecutor if mode == "pipelined" else \
         tex.BatchedExecutor
@@ -1605,7 +1707,7 @@ def test_cuda_sharded_paths_match_cpu(cuda_device, mode, ingest, emission):
     assert not any(cl.values())
     n, w, k = 12, 4, cfg.num_intervals
     want = {"fused": (n, 0), "masked": (n * w * k, 0),
-            "onekernel": (0, n * w)}[ingest]
+            "onekernel": (0, n)}[ingest]
     assert (gl["reservoir_fold"], gl["one_shot_ingest"]) == want
     assert gl["stratified_stats"] == 2 * len(ge) > 0
     for part in ("window", "slot_interval", "open_interval", "wm",
