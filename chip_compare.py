@@ -13,10 +13,13 @@ the phases of its tree in a process of its own, which puts the tree's
 kernels. Each run prints one ``SUMMARY`` line of JSON (serve and train:
 the decode, prefill and step times, host ops, busy share, peak memory;
 large_keys: each case's device ms, kernels per call, per-launch split and
-bound, the executor's device ms per chunk on its onekernel path
-(``lk_chunk_device_ms``) and, in a tree that batches the one-shot over
-shards, the batched call against W unbatched calls at each
-``SHARD_ONE_SHOT`` case); together they go to
+bound, the small-form fold's split at the main path's chunk, the
+executor's device ms per chunk on its onekernel and masked
+paths (``lk_chunk_device_ms``) and, in a tree that batches the one-shot
+over shards, the batched call against W unbatched calls at each
+``SHARD_ONE_SHOT`` case, and in a tree that batches the fold over a
+masked chunk's W·K folds, that call against W·K unbatched calls at each
+``FOLD_BATCH_TURNS`` case); together they go to
 ``chiprun_out/chip_compare.json``. Imports no JAX. Exits non-zero if any
 run failed, or when there is no card.
 """
@@ -47,21 +50,31 @@ def large_keys_rows(torch, cs, dev) -> dict:
     """The fold and one-shot rows of phase large_keys (``LK_FOLD``,
     ``LK_ONE_SHOT``): each checked against its plain version and timed by
     the tree's own ``large_fold`` / ``large_one_shot``, from one
-    generator seeded as the phase seeds it; the sliding deployment's
-    onekernel executor, device ms per chunk (``lk_chunk_device_ms``); and
-    where the tree has them, the batched one-shot's turns
-    (``one_shot_shard_turns`` at ``SHARD_ONE_SHOT``)."""
+    generator seeded as the phase seeds it; the small-form fold at the
+    main path's chunk (``fold_timing``); the sliding deployment's
+    onekernel and masked executors, device ms per chunk
+    (``lk_chunk_device_ms``); and where the tree has them, the batched
+    one-shot's turns (``one_shot_shard_turns`` at ``SHARD_ONE_SHOT``) and
+    the batched fold's (``fold_batch_turns`` at ``FOLD_BATCH_TURNS``)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.TIMING_SEED)
     rows = [cs.large_fold(torch, gen, *c) for c in cs.LK_FOLD]
     rows += [cs.large_one_shot(torch, gen, *c) for c in cs.LK_ONE_SHOT]
     out = dict(rows=[{k: r[k] for k in LARGE_KEYS} for r in rows])
     torch.cuda.empty_cache()
-    out["onekernel_chunk"] = cs.lk_chunk_device_ms(
-        torch, dev, "onekernel", cs.lk_chunks(torch, 26))
+    small = cs.fold_timing(torch, dev)
+    out["small_fold"] = dict(ms=small["ms"], split={
+        k: v[0] for k, v in small["prof"].items()})
+    chunks = cs.lk_chunks(torch, 26)
+    for ingest in ("onekernel", "masked"):
+        out[f"{ingest}_chunk"] = cs.lk_chunk_device_ms(torch, dev, ingest,
+                                                       chunks)
     if hasattr(cs, "one_shot_shard_turns"):
         out["shard_turns"] = [cs.one_shot_shard_turns(torch, gen, *c)
                               for c in cs.SHARD_ONE_SHOT]
+    if hasattr(cs, "fold_batch_turns"):
+        out["fold_batch_turns"] = [cs.fold_batch_turns(torch, gen, *c)
+                                   for c in cs.FOLD_BATCH_TURNS]
     return out
 
 

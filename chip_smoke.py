@@ -11,7 +11,18 @@ Phases (any failure ends the run with a non-zero exit):
              into one ring (bitwise after each, the kernel's scratch
              clean after each); then its times at a replacement chunk,
              its kernels and memsets per call, and its bound from the
-             bytes the function needs at that chunk;
+             bytes the function needs at that chunk; then the call
+             batched over W·K folds (``fold_batches``: ``[W, K, ...]``
+             folds of ``[W, M]`` items, the masked ingest's one call a
+             chunk, the reference's nested vmap of its kernel): 1, 2 and
+             the paper's 4 x 2 folds of [3, 262,144] at 131,072 items a
+             shard, the sliding deployment's 4 x 60 of [64, 512] at
+             8,192, and the parted form at 1,025 strata, one and two
+             payload leaves, folds in replacement, filling and all
+             masked: every fold bit for bit the batched plain version's
+             and its own unbatched call's, one call counted, the scratch
+             clean, 2 or 4 kernels and no memset whatever W·K is
+             (``chiprun_out/chip_smoke_fold_batches.json``);
 3. stats     the stats kernel against its plain version on [6 x 1,048,576]
              slots: the emission's input, all masked, views that start
              off a 16-byte boundary, 512 random strata over a ragged M
@@ -64,7 +75,8 @@ Phases (any failure ends the run with a non-zero exit):
              state bit for bit and (b), (c) emit (a)'s emissions; (e) and
              (f) close the same intervals once each with the same answers;
              every answer lies within 3 sigma of the exact value over the
-             items the script itself finds accepted.
+             items the script itself finds accepted; (d) makes one fold
+             call a chunk, batched over its K slots.
 7. weighted_hist
              the weighted-histogram kernel against its plain version at
              the emission's shape ([6 x 1,048,576] slots): uniform, log2
@@ -115,13 +127,13 @@ Phases (any failure ends the run with a non-zero exit):
              launch per chunk; (c) on a disordered sharded stream,
              pipelined fused, masked and onekernel on cadence bit for bit
              equal, batched onekernel and pipelined fused on the
-             watermark too, with the launches per chunk (fold 1 or
-             W x K, one-shot 1: one call over the W shards) and stats
-             per emission (2). In (a), (b)
-             and (c) every kernel call is held to its plain version on
+             watermark too, with the launches per chunk (fold 1, the
+             masked path's one call over the W x K folds; one-shot 1: one
+             call over the W shards) and stats per emission (2). In (a),
+             (b) and (c) every kernel call is held to its plain version on
              clones of its inputs (``HeldToPlain``): the fold over the
-             24 cells of [24, 262,144] with 524,288 items and over one
-             (shard, slot)'s [3, 262,144], the one-shot on the
+             24 cells of [24, 262,144] with 524,288 items and over the
+             masked path's [4, 2, 3, 262,144] folds, the one-shot on the
              [4, 2, 3, 262,144] ring with [4, 131,072] items, stats at
              G = 24 and
              the histogram at G x B = 24 x 32 over the merged view;
@@ -668,6 +680,7 @@ def phase_fold(torch, gen):
         f"capacity, {need['accepted']} accepted, {need['won']} cells won)")
     log_split("fold", {k: v[0] for k, v in t["prof"].items()}, t["ms"])
     small_form("fold", t["prof"])
+    fold_batches(torch, gen)
     return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=bound,
                 bound_by="bytes" if need["bytes"] / HBM_BYTES_PER_S
@@ -1564,6 +1577,176 @@ def one_shot_shards(torch, gen) -> dict:
         bound_ms=t["bound_ms"]) for t in turns}
 
 
+def fold_batch_case(torch, gen, w, k, s, n_max, m, leaves=1,
+                    steady=False) -> tuple:
+    """``(inputs, ring)`` of one fold call batched over ``w`` shards' ``k``
+    ring slots, as the masked ingest makes them: items ``[w, m]``, each
+    masked into one slot of its shard (97 in 100 masked in at all), so a
+    ``[w, k, m]`` mask; fold ``b`` in ``FOLD_KINDS[b % 3]`` (counts over
+    random capacities, empty cells, every item masked out), or every fold
+    in replacement when ``steady``. ``leaves=2``: payload and ring
+    ``{"val": f32, "key": i32}`` (:func:`payload_tree`)."""
+    dev = gen.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    kinds = ["replacement" if steady else FOLD_KINDS[b % 3]
+             for b in range(w * k)]
+
+    def where(kind):
+        return torch.tensor([x == kind for x in kinds],
+                            device=dev).view(w, k, 1)
+    slot = torch.randint(0, k, (w, m), generator=gen, device=dev)
+    live = torch.rand((w, m), generator=gen, device=dev) < 0.97
+    mask = ((slot[:, None, :] == torch.arange(k, device=dev)[None, :, None])
+            & live[:, None, :] & ~where("all_masked"))
+    counts = torch.randint(n_max, 4 * n_max, (w, k, s), generator=gen, **i32)
+    inp = dict(stratum_ids=torch.randint(0, s, (w, m), generator=gen, **i32),
+               payload=torch.randn((w, m), generator=gen, device=dev) * 100.0,
+               u_accept=torch.rand((w, m), generator=gen, device=dev),
+               u_slot=torch.rand((w, m), generator=gen, device=dev),
+               mask=mask, counts=torch.where(where("filling"), 0, counts),
+               capacity=torch.randint(1, n_max + 1, (w, k, s),
+                                      generator=gen, **i32))
+    ring = torch.randn((w, k, s, n_max), generator=gen, device=dev)
+    if leaves == 2:
+        inp["payload"] = payload_tree(torch, gen, "two", (w, m))
+        ring = payload_tree(torch, gen, "two", (w, k, s, n_max))
+    return inp, ring
+
+
+def fold_of(d: dict, i: int, j: int) -> dict:
+    """Fold ``(i, j)``'s views of a batched call's tensors (trees too):
+    shard ``i``'s items, slot ``j``'s mask, counts, capacity and ring."""
+    def at(v, lead):
+        return ({n: at(x, lead) for n, x in v.items()}
+                if isinstance(v, dict) else v[lead])
+    return {n: at(v, (i, j) if n in ("mask", "counts", "capacity", "values")
+                  else i) for n, v in d.items()}
+
+
+def tree_leaves(v) -> dict:
+    return v if isinstance(v, dict) else {"": v}
+
+
+def fold_form(s: int) -> str:
+    from repro_torch.kernels.reservoir import MAX_STRATA
+    return "parted" if s > MAX_STRATA else "small"
+
+
+def fold_batch_check(torch, gen, case, w, k, s, n_max, m, leaves) -> dict:
+    """One fold call batched over ``w`` x ``k`` folds: the ring (every
+    leaf) and counts bit for bit the batched plain version's and those of
+    ``w·k`` unbatched kernel calls on each fold's views; one call of the
+    form counted; the scratch clean after the batched call and after the
+    unbatched ones; every leaf moved; the kernels and memsets per call
+    from the profiler, 2 / 4 and none whatever ``w·k`` is."""
+    from repro_torch.kernels import ref, reservoir
+    form = fold_form(s)
+    inp, start = fold_batch_case(torch, gen, w, k, s, n_max, m, leaves)
+    vk, vp, vu = (clone_tree({"v": start})["v"] for _ in range(3))
+    fn = reservoir.reservoir_fold
+    n0, forms0 = fn.launches, dict(fn.forms)
+    ck = fn(values=vk, **inp)
+    counted = (fn.launches - n0, {f: fn.forms[f] - forms0[f]
+                                  for f in forms0})
+    clean = workspace_clean(torch)
+    cp = ref.reservoir_fold(values=vp, **inp)
+    bad = [] if torch.equal(ck, cp) else ["counts"]
+    bad += [f"values {n}" for n, a in tree_leaves(vk).items()
+            if not same_bits(torch, a, tree_leaves(vp)[n])]
+    for i in range(w):
+        for j in range(k):
+            one = fold_of(dict(inp, values=vu), i, j)
+            if not torch.equal(fn(**one), ck[i, j]):
+                bad.append(f"unbatched counts {(i, j)}")
+    clean = clean and workspace_clean(torch)
+    bad += [f"unbatched values {n}" for n, a in tree_leaves(vu).items()
+            if not same_bits(torch, a, tree_leaves(vk)[n])]
+    still = [n for n, a in tree_leaves(vk).items()
+             if not bool((a != tree_leaves(start)[n]).any())]
+    prof = device_profile(lambda: fn(values=vk, **inp), torch)
+    kernels, memsets = log_launches(
+        f"fold batch {case} W={w} K={k} leaves={leaves}", prof)
+    want = (PARTED_LAUNCHES if form == "parted" else
+            SMALL_FORM_LAUNCHES)["fold"]
+    log(f"[fold] batched {case}: W = {w}, K = {k} ({w * k} folds, ring "
+        f"{[w, k, s, n_max]}, items {[w, m]}, {leaves} leaves, {form} "
+        f"form): bitwise to the batched plain version and to {w * k} "
+        f"unbatched calls={not bad}, scratch clean={clean}, counted "
+        f"{counted}, every leaf moved={not still}")
+    if bad or not clean or still or counted != (1, {
+            "small": form == "small", "parted": form == "parted"}):
+        fail(f"fold batched {case} W = {w} K = {k}: differs ({bad}), "
+             f"scratch clean {clean}, unmoved leaves {still}, counted "
+             f"{counted}")
+    if (kernels, memsets) != (want, 0):
+        fail(f"fold batched {case} W = {w} K = {k}: {kernels:g} kernels "
+             f"and {memsets:g} memsets per call, not {want} and none")
+    return dict(case=case, w=w, k=k, s=s, n_max=n_max, items=m,
+                leaves=leaves, form=form, kernels=kernels, memsets=memsets)
+
+
+def fold_batch_turns(torch, gen, case, w, k, s, n_max, m, leaves=1) -> dict:
+    """The batched fold call (B) against ``w·k`` unbatched calls on the
+    folds' views (A), in turns A B B A, every fold in replacement
+    (the counts are not written in place, so each call does the same
+    work): device ms per chunk (the profiler's kernels), kernels and
+    memsets, events ms around back-to-back calls; the bound, the sum of
+    the folds' bytes (:func:`fold_need`) at 3.35 TB/s."""
+    from repro_torch.kernels import reservoir
+    fn = reservoir.reservoir_fold
+    inp, ring = fold_batch_case(torch, gen, w, k, s, n_max, m, leaves,
+                                steady=True)
+    need = [fold_need(torch, fold_of(inp, i, j), n_max)["bytes"]
+            for i in range(w) for j in range(k)]
+    nbytes = sum(need)
+
+    def batched():
+        fn(values=ring, **inp)
+
+    def looped():
+        for i in range(w):
+            for j in range(k):
+                fn(**fold_of(dict(inp, values=ring), i, j))
+    turns = []
+    for name in "ABBA":
+        prof = device_profile(looped if name == "A" else batched, torch)
+        kernels, memsets = log_launches(f"fold batch {case} {name}", prof)
+        turns.append(dict(
+            calls=name, device_ms=sum(v[0] for v in prof.values()),
+            kernels=kernels, memsets=memsets,
+            events_ms=time_ms(looped if name == "A" else batched, torch),
+            split={n: v[0] for n, v in prof.items()}))
+        want = (PARTED_LAUNCHES if fold_form(s) == "parted" else
+                SMALL_FORM_LAUNCHES)["fold"] * (w * k if name == "A" else 1)
+        if (kernels, memsets) != (want, 0):
+            fail(f"fold batch {case} {name}: {kernels:g} kernels and "
+                 f"{memsets:g} memsets per chunk, not {want} and none")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log_split(f"fold batch {case} B", turns[1]["split"],
+              turns[1]["events_ms"])
+    log(f"[fold] batched {case}: W = {w}, K = {k}, ring {[w, k, s, n_max]}, "
+        f"items {[w, m]} ({fold_form(s)} form): device ms per chunk in "
+        "turns " + ", ".join(f"{t['calls']} {t['device_ms']:.5f} "
+                             f"({t['kernels']:g} kernels)" for t in turns)
+        + f" (A: {w * k} unbatched calls, B: one batched call); events "
+        + ", ".join(f"{t['events_ms']:.5f}" for t in turns)
+        + f" ms; bound {bound:.5f} ms by bytes ({nbytes} B, the folds' "
+        f"sum, {min(need)}-{max(need)} each); {card()}")
+    return dict(case=case, w=w, k=k, s=s, n_max=n_max, items=m,
+                form=fold_form(s), turns=turns, bound_ms=bound,
+                bytes=nbytes, fold_bytes=need, card=card())
+
+
+def fold_batches(torch, gen) -> list:
+    """The fold batched over W·K folds (module docstring, phase 2):
+    :func:`fold_batch_check` at every FOLD_BATCHES case;
+    ``chiprun_out/chip_smoke_fold_batches.json``."""
+    checks = [fold_batch_check(torch, gen, *c) for c in FOLD_BATCHES]
+    (ROOT / "chiprun_out" / "chip_smoke_fold_batches.json").write_text(
+        json.dumps(dict(checks=checks, card=card()), indent=1))
+    return checks
+
+
 def make_disordered_stream(torch, seed: int, dev):
     """The §5.1 stream (aggregator seed ``seed + 1``) from DISORDER_T0 s
     on, with SHIFT_P of the items shifted back by U(0, SHIFT_MAX) s (the
@@ -1716,6 +1899,10 @@ def phase_paths(torch, seed: int, dev) -> dict:
         if ingest != "onekernel" and (one != 0
                                       or launches["reservoir_fold"] == 0):
             fail(f"path {tag} did not run the fold kernel: {launches}")
+        if ingest == "masked" and launches["reservoir_fold"] != CHUNKS:
+            fail(f"path {tag}: {launches['reservoir_fold']} fold calls for "
+                 f"{CHUNKS} chunks, not one batched call over the K slots "
+                 "per chunk")
         for em in ems:
             if emission == "cadence":
                 check_answers(f"paths ({tag})", em, live_intervals(em),
@@ -2919,7 +3106,7 @@ def phase_sharded(torch, seed: int, dev) -> dict:
             f"{n['stratified_stats'] / max(len(out), 1):g} stats per "
             f"emission; on time {int(wm_.on_time.sum())} late "
             f"{int(wm_.late.sum())} dropped {int(wm_.dropped.sum())}")
-        want = {"fused": (CHUNKS, 0), "masked": (CHUNKS * W_SHARDS * K, 0),
+        want = {"fused": (CHUNKS, 0), "masked": (CHUNKS, 0),
                 "onekernel": (0, CHUNKS)}[ingest]
         if (n["reservoir_fold"], n["one_shot_ingest"]) != want or \
                 n["stratified_stats"] != 2 * len(out) or not out:
@@ -2929,8 +3116,8 @@ def phase_sharded(torch, seed: int, dev) -> dict:
         del ex
     held.require(("reservoir_fold", (W_SHARDS * K * S, N_SHARD),
                   W_SHARDS * M_SHARD), 2 * CHUNKS)
-    held.require(("reservoir_fold", (S, N_SHARD), M_SHARD),
-                 CHUNKS * W_SHARDS * K)
+    held.require(("reservoir_fold", (W_SHARDS, K, S, N_SHARD),
+                  W_SHARDS * M_SHARD), CHUNKS)
     held.require(("one_shot_ingest", (W_SHARDS, K, S, N_SHARD),
                   W_SHARDS * M_SHARD), 2 * CHUNKS)
     onekernel = sum(r["launches"]["one_shot_ingest"] for r in runs.values())
@@ -5607,6 +5794,26 @@ SHARD_ONE_SHOT = (("paper", W_SHARDS, K, S, N_SHARD, M_SHARD),
 #: (:func:`shard_case`)
 SHARD_KINDS = {1: ("crossing",), 2: ("late", "crossing"),
                4: ("steady", "late", "crossing", "all_masked")}
+#: the fold batched over W·K folds (phase fold's ``fold_batches``): (case,
+#: W, K, S, N_max, items a shard, payload leaves): one fold, one shard's
+#: two slots and the paper's 4 workers' masked path (phase sharded's ring
+#: and chunks), the sliding deployment's 4 x 60 slots at its executor's
+#: chunk, each small-form ring also past the form's 1,025 strata
+FOLD_BATCHES = (("one", 1, 1, S, N_SHARD, M_SHARD, 1),
+                ("two", 1, 2, S, N_SHARD, M_SHARD, 1),
+                ("paper", W_SHARDS, K, S, N_SHARD, M_SHARD, 1),
+                ("paper", W_SHARDS, K, S, N_SHARD, M_SHARD, 2),
+                ("sliding", 4, 60, 64, 512, LK_M_SHARD, 1),
+                ("sliding", 4, 60, 64, 512, LK_M_SHARD, 2),
+                ("paper_parted", W_SHARDS, K, 1_025, 512, M_SHARD, 1),
+                ("paper_parted", W_SHARDS, K, 1_025, 512, M_SHARD, 2),
+                ("sliding_parted", 4, 60, 1_025, 8, LK_M_SHARD, 1))
+#: the batched fold's timed cases (``fold_batch_turns``): the paper's
+#: masked path and the sliding deployment's
+FOLD_BATCH_TURNS = (FOLD_BATCHES[2], FOLD_BATCHES[4])
+#: the states of a batched fold call's folds, fold ``b`` in
+#: ``FOLD_KINDS[b % 3]``
+FOLD_KINDS = ("replacement", "filling", "all_masked")
 
 
 def lk_timed(torch, tag, fn, need_bytes, reps: int = 5) -> dict:

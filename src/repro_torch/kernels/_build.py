@@ -126,9 +126,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_fold_tile_lists.restype = i
     lib.sa_parted_plan_ok.argtypes = [p, ll, i]
     lib.sa_parted_plan_ok.restype = i
-    lib.sa_reservoir_fold.argtypes = [p] * 16 + [i, i, i, p]
+    lib.sa_reservoir_fold.argtypes = [p] * 16 + [i] * 5 + [p]
     lib.sa_reservoir_fold.restype = i
-    lib.sa_reservoir_fold_rows.argtypes = [p] * 17 + [i] * 4 + [p]
+    lib.sa_reservoir_fold_rows.argtypes = [p] * 17 + [i] * 6 + [p]
     lib.sa_reservoir_fold_rows.restype = i
     lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p, p]
     lib.sa_stratified_stats.restype = i

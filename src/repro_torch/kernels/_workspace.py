@@ -45,8 +45,9 @@ All of it grows with the items and the cells, never with their product.
 A one-shot call batched over W shards keeps W of each of its arrays
 (winner table, look-back words, counters, lists, new counts and the
 parted form's), shard after shard, each the size of its unbatched call's
-(``Shards`` in ``csrc/fold_device.cuh``); what is 0 or -1 between calls
-stays so in every shard's.
+(``Shards`` in ``csrc/fold_device.cuh``); a fold call batched over W·K
+folds keeps W·K of each of its own, fold after fold. What is 0 or -1
+between calls stays so in every shard's and fold's.
 
 The large-key forms of the stats and the histogram (past the key counts
 shared memory holds) sort each item's key stably and keep:

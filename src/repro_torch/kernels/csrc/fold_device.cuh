@@ -108,11 +108,17 @@ struct Leaves {
 // The shards of a call batched over a leading shard axis (the
 // reference's vmap of its kernel): a block works for shard
 // shard_index() of n, and each array of that shard starts its stride
-// (in elements, 64-bit) past the shard before's. A call of one shard
-// (every fold call) reads no stride.
+// (in elements, 64-bit) past the shard before's. The item arrays are
+// the exception: `row` shards read one item row (shard sh reads row
+// item_row(sh, sd)), so a fold call batched over W shards' K ring slots
+// (row = K) reads each shard's items and uniforms once, not K copies;
+// its masks are per fold (stride `mask`). The one-shot's row is 1. A
+// call of one shard reads no stride.
 struct Shards {
   int n;
-  long long items;     // [M] item arrays
+  int row;             // shards that read one item row
+  long long items;     // [M] item arrays, per item row
+  long long mask;      // the fold's [M] masks, per shard
   long long cells;     // [cells] arrays: counts, capacities, new counts
   long long table;     // ring cells: the winner table, each values leaf
   long long ctrs;      // counter words (the tile counter first)
@@ -142,7 +148,15 @@ inline dim3 shard_grid(int x, int n) {
 inline Shards one_shard() {
   Shards sd{};
   sd.n = 1;
+  sd.row = 1;
   return sd;
+}
+
+// The item row that shard sh reads. The item loads wait on it, so it is
+// no 64-bit division (a call's shards fit int32): none for a row of one.
+__device__ __forceinline__ long long item_row(long long sh,
+                                              const Shards& sd) {
+  return sd.row == 1 ? sh : (long long)((unsigned)sh / (unsigned)sd.row);
 }
 
 __device__ __forceinline__ void status_store(unsigned long long* p,
@@ -386,18 +400,27 @@ __device__ __forceinline__ void write_winners(
                           val_off);
 }
 
-// The fold's write pass: one block per tile of the claim, one leaf.
+// The fold's write pass: one block per tile of the claim, one leaf, over
+// the folds of sd (each its own lists, winner words, look-back words,
+// tile counter and ring; its payload its item row's).
 __global__ void __launch_bounds__(kThreads)
     fold_write(const int2* __restrict__ lists,
                const int32_t* __restrict__ list_n,
                const uint32_t* __restrict__ payload,
                int32_t* __restrict__ winner, uint32_t* __restrict__ values,
                unsigned long long* __restrict__ status, int cells,
-               int32_t* __restrict__ tile_ctr) {
+               int32_t* __restrict__ tile_ctr, const Shards sd) {
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  lists += sh * sd.lists;
+  list_n += sh * sd.list_n;
+  winner += sh * sd.table;
+  status += sh * sd.status;
+  tile_ctr += sh * sd.ctrs;
   const int tile = blockIdx.x;
   Leaves lv;
-  lv.payload[0] = payload;
-  lv.values[0] = values;
+  lv.payload[0] = payload + item_row(sh, sd) * sd.items;
+  lv.values[0] = values + sh * sd.table;
   lv.n = 1;
   write_winners(tile, lists, list_n, lv, winner);
   for (int c = threadIdx.x; c < cells; c += kThreads)

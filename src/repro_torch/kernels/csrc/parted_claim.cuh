@@ -48,9 +48,10 @@
 // of each part the claim tile that finishes its look-back last (by a
 // ticket a part) the part's own; the scan clears the totals.
 //
-// A call batched over shards (the one-shot's, fold_device.cuh's Shards)
-// runs each launch over a grid of shards: every shard with its own
-// items, cells, ring and scratch, under one plan (the same cells and M).
+// A call batched over shards (fold_device.cuh's Shards: the one-shot's
+// shards, the fold's W x K folds) runs each launch over a grid of shards:
+// every shard with its own cells, ring and scratch, its items its item
+// row's, under one plan (the same cells and M).
 
 #pragma once
 
@@ -475,8 +476,8 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ int32_t sm[];
   const long long sh = shard_index();
   if (sh >= sd.n) return;
-  u_accept += sh * sd.items;
-  u_slot += sh * sd.items;
+  u_accept += item_row(sh, sd) * sd.items;
+  u_slot += item_row(sh, sd) * sd.items;
   if (in) in += sh * sd.part;
   out += sh * sd.part;
   meta += sh * sd.meta;

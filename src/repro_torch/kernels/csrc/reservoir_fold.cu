@@ -60,6 +60,22 @@
 // runs of a part and the claim reads in order, rather than gather a
 // sector for each uniform. The only limit left is S * N_max + 1 < 2^31
 // (int32 ring index), which the wrapper checks.
+//
+// Batched folds. The reference's masked ingest vmaps this kernel over the
+// K ring slots of a chunk, and its sharded core vmaps that over the W
+// shards, which batches its pallas_call into one call over [W, K] folds
+// (fold (w, k): shard w's items under slot k's mask into slot k's
+// [S, N_max] ring). Here too one call takes w * k folds: each launch of
+// either form takes the fold as a grid axis (blockIdx.y, then z;
+// fold_device.cuh's Shards), and a block offsets every pointer by its
+// fold's stride in 64-bit arithmetic, into its fold's own scratch
+// (counters, look-back words, lists, new counts, winner table, the parted
+// form's scratch under one plan). The K folds of a shard read its item
+// row (sid, uniforms, payload: Shards::row = K), not K copies of it; the
+// masks are per fold. So a masked chunk is one call of 2 or 4 launches,
+// not W * K; the form is chosen by S for the whole call, and each fold's
+// bits are those of its unbatched call. The function needs every mask
+// byte of every fold and, per live item, what the single fold needs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,8 +96,23 @@ __global__ void __launch_bounds__(kThreads)
                int32_t* __restrict__ winner,
                unsigned long long* __restrict__ status,
                int2* __restrict__ lists, int32_t* __restrict__ list_n,
-               int32_t* __restrict__ tile_ctr) {
+               int32_t* __restrict__ tile_ctr, const Shards sd) {
   extern __shared__ int32_t sm[];
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  const long long row = item_row(sh, sd) * sd.items;
+  sid += row;
+  u_accept += row;
+  u_slot += row;
+  mask += sh * sd.mask;
+  counts += sh * sd.cells;
+  capacity += sh * sd.cells;
+  counts_out += sh * sd.cells;
+  winner += sh * sd.table;
+  status += sh * sd.status;
+  lists += sh * sd.lists;
+  list_n += sh * sd.list_n;
+  tile_ctr += sh * sd.ctrs;
   int32_t* wrun = sm;
   int32_t* agg = wrun + kWarps * (s_cnt + 1);
   int32_t* base = agg + s_cnt;
@@ -128,8 +159,8 @@ struct RowLeaves {
   int n;                                      // 1 <= n <= kMaxLeaves
 };
 
-__device__ __forceinline__ void copy_row(const RowLeaves& lv, int l, int j,
-                                         int cell) {
+__device__ __forceinline__ void copy_row(const RowLeaves& lv, int l,
+                                         long long j, long long cell) {
   const long long rb = lv.row_bytes[l];
   if (lv.words[l]) {
     const long long nw = rb >> 2;
@@ -149,14 +180,25 @@ __device__ __forceinline__ void copy_row(const RowLeaves& lv, int l, int j,
 // entry whose item still holds its cell copies its row of every leaf of
 // the group; in the last group it then resets the cell's winner word (a
 // cell has one winning entry, and a losing entry never finds its own
-// index there, before or after the reset).
+// index there, before or after the reset). Over the folds of sd: each its
+// own lists, winner words, look-back words, counter and ring rows, its
+// payload rows its item row's.
 __global__ void __launch_bounds__(kThreads)
     fold_write_rows(const int2* __restrict__ lists,
                     const int32_t* __restrict__ list_n,
                     const __grid_constant__ RowLeaves lv,
                     int32_t* __restrict__ winner,
                     unsigned long long* __restrict__ status, int cells,
-                    int last, int32_t* __restrict__ tile_ctr) {
+                    int last, int32_t* __restrict__ tile_ctr,
+                    const Shards sd) {
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  const long long j0 = item_row(sh, sd) * sd.items, c0 = sh * sd.table;
+  lists += sh * sd.lists;
+  list_n += sh * sd.list_n;
+  winner += c0;
+  status += sh * sd.status;
+  tile_ctr += sh * sd.ctrs;
   const int tile = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int2* list = lists + (size_t)tile * kTile + warp * kWarpItems;
@@ -164,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int q = lane; q < n; q += 32) {
     const int2 e = list[q];
     if (winner[e.y] != e.x) continue;
-    for (int l = 0; l < lv.n; ++l) copy_row(lv, l, e.x, e.y);
+    for (int l = 0; l < lv.n; ++l) copy_row(lv, l, j0 + e.x, c0 + e.y);
     if (last) winner[e.y] = -1;
   }
   if (!last) return;
@@ -174,14 +216,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The parted form's cells: an item's stratum, or -1 (none) when it is
-// masked out or its stratum is outside [0, S).
+// masked out or its stratum is outside [0, S). A fold of a batch reads
+// its item row's strata under its own mask.
 struct FoldCells {
   const int32_t* sid;
   const uint8_t* mask;
   int s_cnt;
   __device__ __forceinline__ FoldCells at(long long sh,
                                           const Shards& sd) const {
-    return FoldCells{sid + sh * sd.items, mask + sh * sd.items, s_cnt};
+    return FoldCells{sid + item_row(sh, sd) * sd.items, mask + sh * sd.mask,
+                     s_cnt};
   }
   __device__ __forceinline__ const FoldCells& begin() const { return *this; }
   __device__ __forceinline__ int cell(long long j) const {
@@ -192,13 +236,21 @@ struct FoldCells {
 
 // The parted form's counting launch: each block's live items per digit
 // (parted_claim.cuh), and every stratum's count copied to counts_out (the
-// claim then writes the strata that have items).
+// claim then writes the strata that have items); each fold of sd its own.
 __global__ void __launch_bounds__(kThreads)
-    fold_parts(const FoldCells src, int m, const PartedPlan p,
+    fold_parts(const FoldCells cells, int m, const PartedPlan p,
                const int32_t* __restrict__ counts,
                int32_t* __restrict__ counts_out,
-               int32_t* __restrict__ zeroed, int32_t* __restrict__ meta) {
+               int32_t* __restrict__ zeroed, int32_t* __restrict__ meta,
+               const Shards sd) {
   extern __shared__ int32_t cnt[];
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  const FoldCells src = cells.at(sh, sd);
+  counts += sh * sd.cells;
+  counts_out += sh * sd.cells;
+  zeroed += sh * sd.zeroed;
+  meta += sh * sd.meta;
   for (int i = threadIdx.x; i < sum_keys(p); i += kThreads) cnt[i] = 0;
   for (int c = blockIdx.x * kThreads + threadIdx.x; c < src.s_cnt;
        c += gridDim.x * kThreads)
@@ -219,14 +271,15 @@ __global__ void __launch_bounds__(kThreads)
   count_finish(cnt, p, zeroed, meta);
 }
 
-// The claim of the parted form: counts, partition, parted claim (the
-// scratch in the host array pt, parted_claim.cuh's slots).
+// The claim of the parted form: counts, partition, parted claim over the
+// folds of sd (the scratch in the host array pt, parted_claim.cuh's
+// slots, fold 0's).
 int launch_parted(const void* sid, const void* u_accept, const void* u_slot,
                   const void* mask, const void* counts, const void* capacity,
                   void* counts_out, void* winner, void* status, void* lists,
                   void* list_n, void* ctrs, const PartedPlan& p,
                   void* const* pt, int m, int s_cnt, int n_max,
-                  cudaStream_t stream) {
+                  const Shards& sd, cudaStream_t stream) {
   const FoldCells src{static_cast<const int32_t*>(sid),
                       static_cast<const uint8_t*>(mask), s_cnt};
   auto* st = static_cast<unsigned long long*>(status);
@@ -234,16 +287,16 @@ int launch_parted(const void* sid, const void* u_accept, const void* u_slot,
   const size_t smem = sizeof(int32_t) * count_smem_words(p, 0);
   cudaError_t e = allow_smem(fold_parts, smem);
   if (e != cudaSuccess) return (int)e;
-  fold_parts<<<count_grid(p), kThreads, smem, stream>>>(
+  fold_parts<<<shard_grid(count_grid(p), sd.n), kThreads, smem, stream>>>(
       src, m, p, static_cast<const int32_t*>(counts),
       static_cast<int32_t*>(counts_out), static_cast<int32_t*>(pt[kPtZeroed]),
-      static_cast<int32_t*>(pt[kPtMeta]));
+      static_cast<int32_t*>(pt[kPtMeta]), sd);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int err =
       launch_partition(src, static_cast<const float*>(u_accept),
                        static_cast<const float*>(u_slot), p, m, pt, st,
-                       tile_ctr, one_shard(), stream);
+                       tile_ctr, sd, stream);
   if (err != 0) return err;
   return launch_parted_claim(
       p, pt, s_cnt, n_max,
@@ -251,7 +304,7 @@ int launch_parted(const void* sid, const void* u_accept, const void* u_slot,
       static_cast<const int32_t*>(capacity),
       static_cast<int32_t*>(counts_out), static_cast<int32_t*>(winner),
       static_cast<int2*>(lists), static_cast<int32_t*>(list_n), st, tile_ctr,
-      one_shard(), stream);
+      sd, stream);
 }
 
 // The claim launch, shared by the scalar and the tree entry points.
@@ -259,18 +312,18 @@ int launch_claim(const void* sid, const void* u_accept, const void* u_slot,
                  const void* mask, const void* counts, const void* capacity,
                  void* counts_out, void* winner, void* status, void* lists,
                  void* list_n, void* ctrs, int m, int s_cnt, int n_max,
-                 int n_tiles, cudaStream_t stream) {
+                 int n_tiles, const Shards& sd, cudaStream_t stream) {
   const size_t smem = sizeof(int32_t) * claim_smem_words(s_cnt);
   cudaError_t err = allow_smem(fold_claim, smem);
   if (err != cudaSuccess) return (int)err;
-  fold_claim<<<n_tiles, kThreads, smem, stream>>>(
+  fold_claim<<<shard_grid(n_tiles, sd.n), kThreads, smem, stream>>>(
       static_cast<const int32_t*>(sid), static_cast<const uint8_t*>(mask),
       static_cast<const float*>(u_accept), static_cast<const float*>(u_slot),
       m, s_cnt, n_max, n_tiles, static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(capacity),
       static_cast<int32_t*>(counts_out), static_cast<int32_t*>(winner),
       static_cast<unsigned long long*>(status), static_cast<int2*>(lists),
-      static_cast<int32_t*>(list_n), static_cast<int32_t*>(ctrs));
+      static_cast<int32_t*>(list_n), static_cast<int32_t*>(ctrs), sd);
   return (int)cudaGetLastError();
 }
 
@@ -287,39 +340,77 @@ extern "C" int sa_parted_plan_ok(const int* plan, long long cells, int m) {
   return read_plan(plan, cells, m, &p) ? 1 : 0;
 }
 
-// Scratch (kept by the caller between calls): winner i32[S * N_max], all
-// -1; status u64[S * n_tiles] (small form) or the plan's look-back words
-// (parted form), all 0; ctrs i32[3], 0 (the tile counter first); lists
+// Scratch (kept by the caller between calls), for each of the w * k folds
+// of a call, fold after fold: winner i32[S * N_max], all -1; status
+// u64[S * n_tiles] (small form) or the plan's look-back words (parted
+// form), all 0; ctrs i32[3], 0 (the tile counter first); lists
 // int2[tiles * kTile] and list_n i32[tiles * kWarps] over the claim's
 // tiles, no state. The kernels leave winner, status and ctrs as they
 // found them. values and payload are 4-byte words (f32 or i32), copied
 // as bits. plan: null for the small form, else the parted form's
 // kPlanInts ints (kernels/_workspace.py::parted_plan), and pt its scratch
-// (parted_claim.cuh's slots kPtZeroed to kPtItemsB).
+// (parted_claim.cuh's slots kPtZeroed to kPtItemsB, each fold's
+// zeroed_words, meta_words rounded up to 4 and m (one pass) or 2 m int4
+// items after the fold before's).
+//
+// A call folds w item rows (sid, payload, u_accept, u_slot: [w, m]) into
+// w * k rings (values [w, k, S, N_max], counts and capacity [w, k, S]),
+// fold b = (row b / k, slot b % k) under its own mask [w, k, m]; w = k = 1
+// is one fold.
 namespace {
 
-// The claim of either form; *grid and *keys get the write launches' grid
-// and the look-back words per tile they clear (the small form's).
+constexpr int kFoldCtrWords = 3;              // a fold's counter words
+
+// The folds of a call and every array's stride, under the form's grid.
+Shards fold_shards(int w, int k, int m, int s_cnt, int n_max, int grid,
+                   const PartedPlan* p) {
+  Shards sd = one_shard();
+  sd.n = w * k;
+  sd.row = k;
+  sd.items = m;
+  sd.mask = m;
+  sd.cells = s_cnt;
+  sd.table = (long long)s_cnt * n_max;
+  sd.ctrs = kFoldCtrWords;
+  sd.status = p != nullptr ? (long long)pass_words(*p, p->passes)
+                           : (long long)s_cnt * grid;
+  sd.lists = (long long)grid * kTile;
+  sd.list_n = (long long)grid * kWarps;
+  if (p != nullptr) {
+    sd.zeroed = zeroed_words(*p);
+    sd.meta = (meta_words(*p) + 3) & ~3;  // the claim's map is read as int4
+    sd.part = (long long)m * (p->passes > 1 ? 2 : 1);
+  }
+  return sd;
+}
+
+// The claim of either form over the w * k folds; *grid, *keys and *sd get
+// the write launches' grid, the look-back words per tile they clear (the
+// small form's) and the folds' strides.
 int launch_either(const void* sid, const void* u_accept, const void* u_slot,
                   const void* mask, const void* counts, const void* capacity,
                   void* counts_out, void* winner, void* status, void* lists,
                   void* list_n, void* ctrs, const int* plan, void* const* pt,
-                  int m, int s_cnt, int n_max, cudaStream_t stream, int* grid,
-                  int* keys) {
+                  int m, int s_cnt, int n_max, int w, int k,
+                  cudaStream_t stream, int* grid, int* keys, Shards* sd) {
+  if (w < 1 || k < 1 || w > INT32_MAX / k) return (int)cudaErrorInvalidValue;
   *grid = m > 0 ? (m + kTile - 1) / kTile : 1;
   *keys = s_cnt;
-  if (plan == nullptr)
+  if (plan == nullptr) {
+    *sd = fold_shards(w, k, m, s_cnt, n_max, *grid, nullptr);
     return launch_claim(sid, u_accept, u_slot, mask, counts, capacity,
                         counts_out, winner, status, lists, list_n, ctrs, m,
-                        s_cnt, n_max, *grid, stream);
+                        s_cnt, n_max, *grid, *sd, stream);
+  }
   PartedPlan p;
   if (!read_plan(plan, s_cnt, m, &p) || pt == nullptr)
     return (int)cudaErrorInvalidValue;
   *grid = p.claim_grid;
   *keys = 0;                   // the parted claim clears its own words
+  *sd = fold_shards(w, k, m, s_cnt, n_max, *grid, &p);
   return launch_parted(sid, u_accept, u_slot, mask, counts, capacity,
                        counts_out, winner, status, lists, list_n, ctrs, p, pt,
-                       m, s_cnt, n_max, stream);
+                       m, s_cnt, n_max, *sd, stream);
 }
 
 }  // namespace
@@ -332,27 +423,28 @@ extern "C" int sa_reservoir_fold(const void* sid, const void* payload,
                                  void* status, void* lists, void* list_n,
                                  void* ctrs, const int* plan,
                                  void* const* pt, int m, int s_cnt,
-                                 int n_max, void* stream_ptr) {
+                                 int n_max, int w, int k, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int grid, keys;
+  Shards sd;
   const int err = launch_either(sid, u_accept, u_slot, mask, counts,
                                 capacity, counts_out, winner, status, lists,
-                                list_n, ctrs, plan, pt, m, s_cnt, n_max,
-                                stream, &grid, &keys);
+                                list_n, ctrs, plan, pt, m, s_cnt, n_max, w, k,
+                                stream, &grid, &keys, &sd);
   if (err != 0) return err;
-  fold_write<<<grid, kThreads, 0, stream>>>(
+  fold_write<<<shard_grid(grid, sd.n), kThreads, 0, stream>>>(
       static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
       static_cast<const uint32_t*>(payload), static_cast<int32_t*>(winner),
       static_cast<uint32_t*>(values),
       static_cast<unsigned long long*>(status), keys,
-      static_cast<int32_t*>(ctrs));
+      static_cast<int32_t*>(ctrs), sd);
   return (int)cudaGetLastError();
 }
 
 // The fold of a payload tree: payloads and values are host arrays of
-// n_leaves pointers (leaf l [M, *item] into [S, N_max, *item], row_bytes[l]
-// bytes an item), any dtype; the scratch, plan and pt as
-// sa_reservoir_fold's. The claim, then one write launch per group of
+// n_leaves pointers (leaf l [w, m, *item] into [w, k, S, N_max, *item],
+// row_bytes[l] bytes an item), any dtype; the scratch, plan, pt, w and k
+// as sa_reservoir_fold's. The claim, then one write launch per group of
 // kMaxLeaves leaves.
 extern "C" int sa_reservoir_fold_rows(
     const void* sid, const void* const* payloads, const void* u_accept,
@@ -360,14 +452,15 @@ extern "C" int sa_reservoir_fold_rows(
     const void* capacity, void* const* values, const long long* row_bytes,
     void* counts_out, void* winner, void* status, void* lists, void* list_n,
     void* ctrs, const int* plan, void* const* pt, int m, int s_cnt,
-    int n_max, int n_leaves, void* stream_ptr) {
+    int n_max, int n_leaves, int w, int k, void* stream_ptr) {
   if (n_leaves < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int grid, keys;
+  Shards sd;
   const int err = launch_either(sid, u_accept, u_slot, mask, counts,
                                 capacity, counts_out, winner, status, lists,
-                                list_n, ctrs, plan, pt, m, s_cnt, n_max,
-                                stream, &grid, &keys);
+                                list_n, ctrs, plan, pt, m, s_cnt, n_max, w, k,
+                                stream, &grid, &keys, &sd);
   if (err != 0) return err;
   for (int g = 0; g < n_leaves; g += kMaxLeaves) {
     RowLeaves lv;
@@ -383,11 +476,11 @@ extern "C" int sa_reservoir_fold_rows(
                     reinterpret_cast<uintptr_t>(lv.values[l]) % 4 == 0;
     }
     const int last = g + kMaxLeaves >= n_leaves;
-    fold_write_rows<<<grid, kThreads, 0, stream>>>(
+    fold_write_rows<<<shard_grid(grid, sd.n), kThreads, 0, stream>>>(
         static_cast<const int2*>(lists), static_cast<const int32_t*>(list_n),
         lv, static_cast<int32_t*>(winner),
         static_cast<unsigned long long*>(status), keys, last,
-        static_cast<int32_t*>(ctrs));
+        static_cast<int32_t*>(ctrs), sd);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

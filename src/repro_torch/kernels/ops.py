@@ -29,7 +29,10 @@ def reservoir_fold(stratum_ids, payload, u_accept, u_slot, mask, counts,
                    capacity, values) -> torch.Tensor:
     """Fold a chunk into ``values [S, N_max, ...]`` in place; new counts
     out. ``payload`` and ``values`` a tensor each or two trees of one
-    structure."""
+    structure. The call may be batched over W·K folds (``counts [W, K,
+    S]``, ``values [W, K, S, N_max, ...]``, ``mask [W, K, M]``, the
+    items ``[W, M]``, ``ref.fold_lead``): one call, each fold's result
+    its own unbatched call's."""
     leaves = tree_flatten(values)[0]
     if not leaves or _on_cpu(leaves[0], "reservoir_fold"):
         return ref.reservoir_fold(stratum_ids, payload, u_accept, u_slot,

@@ -65,12 +65,43 @@ def _write_winners(winner: torch.Tensor, payload: torch.Tensor,
                            src[torch.clamp(winner, min=0)], rows))
 
 
-def check_fold_payload(payload, values, m: int) -> list:
-    """The ``(payload, values)`` leaf pairs of one fold, as both versions
-    take them: ``values`` a tensor ``[S, N_max, *item]`` or a tree of
-    them (one ``S`` and ``N_max``), ``payload`` the same structure of
-    ``[M, *item]`` leaves. A structure mismatch raises ``ValueError``, as
-    the reference's ``jax.tree.map`` does."""
+def fold_lead(stratum_ids, u_accept, u_slot, mask, counts,
+              capacity) -> tuple:
+    """The leading batch of a fold call: ``()`` for one fold (``counts
+    [S]``), ``(W, K)`` for W·K folds (``counts [W, K, S]``, the
+    reference's nested ``vmap`` of its kernel over shards and ring
+    slots). A batched call takes ``stratum_ids``, ``u_accept`` and
+    ``u_slot`` ``[W, M]``, ``mask`` ``[W, K, M]`` and ``capacity`` ``[W,
+    K, S]``: the K folds of a shard read its item row. A shape that
+    disagrees raises ``ValueError``."""
+    if counts.ndim not in (1, 3):
+        raise ValueError(f"reservoir_fold: counts has shape "
+                         f"{tuple(counts.shape)}, expected [S] or "
+                         "[W, K, S]")
+    lead = tuple(counts.shape[:-1])
+    m = stratum_ids.shape[-1] if stratum_ids.ndim else 0
+    want = dict(stratum_ids=lead[:1] + (m,), u_accept=lead[:1] + (m,),
+                u_slot=lead[:1] + (m,), mask=lead + (m,),
+                capacity=tuple(counts.shape))
+    got = dict(stratum_ids=stratum_ids, u_accept=u_accept, u_slot=u_slot,
+               mask=mask, capacity=capacity)
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(
+                f"reservoir_fold: {name} has shape "
+                f"{tuple(got[name].shape)}, expected {shape} (the leading "
+                f"fold batch {lead} of counts {tuple(counts.shape)})")
+    return lead
+
+
+def check_fold_payload(payload, values, m: int, lead: tuple = ()) -> list:
+    """The ``(payload, values)`` leaf pairs of one fold call, as both
+    versions take them: ``values`` a tensor ``[S, N_max, *item]`` or a
+    tree of them (one ``S`` and ``N_max``), ``payload`` the same
+    structure of ``[M, *item]`` leaves; batched (``lead = (W, K)``,
+    :func:`fold_lead`), each values leaf ``[W, K, S, N_max, *item]`` and
+    each payload leaf ``[W, M, *item]``. A structure mismatch raises
+    ``ValueError``, as the reference's ``jax.tree.map`` does."""
     pay, pay_def = tree_flatten(payload)
     val, val_def = tree_flatten(values)
     if pay_def != val_def:
@@ -81,15 +112,18 @@ def check_fold_payload(payload, values, m: int) -> list:
     if not all(isinstance(t, torch.Tensor) for t in pay + val):
         raise TypeError("reservoir_fold: every payload and values leaf "
                         "must be a tensor")
-    lead = tuple(val[0].shape[:2])
+    n = len(lead)
+    ring = tuple(val[0].shape[:n + 2])
     for p, v in zip(pay, val):
-        if v.dim() < 2 or tuple(v.shape[:2]) != lead:
+        if (v.dim() < n + 2 or tuple(v.shape[:n + 2]) != ring
+                or tuple(v.shape[:n]) != lead):
             raise ValueError(f"values leaf {tuple(v.shape)} is not "
-                             f"[S, N_max, ...] with [S, N_max] = {lead}")
-        if tuple(p.shape) != (m,) + tuple(v.shape[2:]):
+                             f"{list(lead)} + [S, N_max, ...] with "
+                             f"[S, N_max] = {ring[n:]}")
+        if tuple(p.shape) != lead[:1] + (m,) + tuple(v.shape[n + 2:]):
             raise ValueError(f"payload leaf {tuple(p.shape)} does not "
-                             f"match items [{m}] of values leaf "
-                             f"{tuple(v.shape)}")
+                             f"match items {list(lead[:1] + (m,))} of "
+                             f"values leaf {tuple(v.shape)}")
     return list(zip(pay, val))
 
 
@@ -110,14 +144,42 @@ def reservoir_fold(stratum_ids: torch.Tensor, payload,
 
     ``values`` is updated IN PLACE (the ring is owned by the caller and
     never re-materialised); returns the new ``[S]`` int32 counts.
+
+    Batched over W·K folds (:func:`fold_lead`: ``counts [W, K, S]``,
+    ``values [W, K, S, N_max, ...]``, ``mask [W, K, M]``, the items
+    ``[W, M]``), fold ``(w, k)`` folds shard ``w``'s items under its own
+    mask into its own ``[S, N_max]`` slice: the reference's nested
+    ``vmap`` of its kernel. It is one flat fold over ``W·K·S`` cells of
+    ``W·K·M`` items, fold by fold, each fold's items in order: no cell
+    mixes folds and each fold's latest accepted item wins, so every fold
+    is bit for bit its unbatched call. Returns ``[W, K, S]`` counts.
     """
-    leaves = check_fold_payload(payload, values, stratum_ids.shape[0])
-    winner, new_counts = _fold_winners(stratum_ids, u_accept, u_slot, mask,
-                                       counts, capacity,
-                                       leaves[0][1].shape[1])
+    lead = fold_lead(stratum_ids, u_accept, u_slot, mask, counts, capacity)
+    m = stratum_ids.shape[-1]
+    leaves = check_fold_payload(payload, values, m, lead)
+    if not lead:                                  # a batch of one fold
+        return reservoir_fold(
+            stratum_ids[None], tree_map(lambda t: t[None], payload),
+            u_accept[None], u_slot[None], mask[None, None],
+            counts[None, None], capacity[None, None],
+            tree_map(lambda t: t[None, None], values))[0, 0]
+    w, k = lead
+    s_cnt = counts.shape[-1]
+    fold = torch.arange(w * k, dtype=torch.int32,
+                        device=counts.device).view(w, k, 1)
+    sid = stratum_ids.to(torch.int32)[:, None, :]
+    live = mask & (sid >= 0) & (sid < s_cnt)   # the kernel's "no cell"
+    winner, new_counts = _fold_winners(
+        (fold * s_cnt + sid).reshape(-1),
+        u_accept[:, None, :].expand(w, k, m).reshape(-1),
+        u_slot[:, None, :].expand(w, k, m).reshape(-1), live.reshape(-1),
+        counts.reshape(-1), capacity.reshape(-1), leaves[0][1].shape[3])
+    # Item b·M + j of the flat fold is item j of shard b // K.
+    row = torch.where(winner >= 0, winner // max(k * m, 1) * m
+                      + winner % max(m, 1), -1)
     for pay, val in leaves:
-        _write_winners(winner, pay, val)
-    return new_counts
+        _write_winners(row, pay.reshape((w * m,) + pay.shape[2:]), val)
+    return new_counts.view(w, k, s_cnt)
 
 
 def _window_level(v: torch.Tensor, sid: torch.Tensor, pos: torch.Tensor,

@@ -31,9 +31,10 @@ cells (Eq. 5). Two placements, bitwise interchangeable:
 * ``placement="vmap"`` — every state leaf has a leading ``[W]`` axis on
   one device, and one code path runs over that axis: the ``fused``
   ingest is ONE fold over the flattened ``[W·K·S]`` cells (no cell mixes
-  shards, so it is bitwise W separate folds), ``onekernel`` one call per
-  shard on that shard's views, ``masked`` one fold per (shard, slot);
-  the emission's merged view is a view of the ring. The oracle.
+  shards, so it is bitwise W separate folds), ``onekernel`` one call
+  batched over the W shards, ``masked`` one fold call batched over the
+  W·K (shard, slot) folds; the emission's merged view is a view of the
+  ring. The oracle.
 * ``placement="mesh"`` — one process per shard over ``torch.distributed``
   (``launch/mesh.make_stream_mesh``): rank ``r`` holds shard ``r`` as a
   ``[1]``-leading state, ``push`` takes the full ``[W, M]`` chunk and
@@ -165,7 +166,8 @@ def _check_kernel_limits(cfg: RuntimeConfig, n_max: int) -> None:
     same on every device, so that the CPU refuses what the card cannot
     run: the fused fold takes every cell of the state (all W shards' on
     the vmap placement, one shard's on a mesh rank), the one-shot one
-    shard's ``K·S``, the masked fold one slot's ``S``. Past the key counts
+    shard's ``K·S``, the masked path's one call each of its W·K folds'
+    ``S`` (a batched call's limit is its fold's). Past the key counts
     shared memory holds (the fold's and one-shot's 1,024 cells, the stats'
     512 rows, the histogram's 3,200 keys), each kernel takes its large-key
     form, so no other count is refused."""
@@ -368,12 +370,16 @@ def _ingest_chunk_fused(cfg: RuntimeConfig, state: RuntimeState,
 
 def _ingest_chunk_masked(cfg: RuntimeConfig, state: RuntimeState,
                          chunk: TimestampedChunk) -> RuntimeState:
-    """One fold per (shard, ring slot) over the slot's masked view of the
-    shard's chunk row (K folds of M items per shard), with the fused
-    path's uniforms: each item is masked into exactly one slot, so the
-    state is bitwise the fused path's. Each slot's ``[S, N_max]``
-    reservoir is a view of the ring, written in place (a slot's
-    ``[W, S, N_max]`` slice is strided, so it is no one flat fold)."""
+    """Fold every ring slot's masked view of the chunk: W·K folds of M
+    items (each shard's chunk row into each of its K slots), in ONE call
+    batched over the ``[W, K]`` folds, as the reference's nested ``vmap``
+    of its kernel over the slots and the shards is one program. Slot
+    ``j``'s mask is ``accept & (target == desired[j])``, as the
+    reference builds it, and the uniforms are the fused path's: each item
+    is masked into exactly one slot, so the state is bitwise the fused
+    path's. The call writes the ``[W, K, S, N_max]`` view of the ring in
+    place; an unsharded state is ``W = 1``, a mesh rank's
+    ``[1]``-leading state its own."""
     k, s_cnt = cfg.num_intervals, cfg.num_strata
     w = _shards(state)
     r, iv, desired = _route_and_reset(cfg, state, chunk)
@@ -383,23 +389,18 @@ def _ingest_chunk_masked(cfg: RuntimeConfig, state: RuntimeState,
 
     def rows(t, *tail):
         return t.reshape((w,) + tail)
-    values, counts = rows(iv.values, k, s_cnt, iv.max_capacity), rows(
-        iv.counts, k, s_cnt)
-    capacity, ring_keys = rows(iv.capacity, k, s_cnt), rows(iv.key, k, 2)
-    accept, tgt = rows(r.accept, m), rows(r.target_interval, m)
-    sid, vals = rows(chunk.stratum_ids, m), rows(chunk.values, m)
-    ua, us, want = rows(u_accept, m), rows(u_slot, m), rows(desired, k)
-    out = []
-    for i in range(w):
-        for j in range(k):
-            slot = oasrs.OASRSState(values=values[i, j], counts=counts[i, j],
-                                    capacity=capacity[i, j],
-                                    key=ring_keys[i, j])
-            slot_mask = accept[i] & (tgt[i] == want[i, j])
-            out.append(oasrs.apply_chunk_uniforms(
-                slot, sid[i], vals[i], slot_mask, ua[i], us[i]).counts)
-    iv = dataclasses.replace(
-        iv, counts=torch.stack(out).view(iv.counts.shape), key=keys)
+    slot_masks = (rows(r.accept, m)[:, None, :]
+                  & (rows(r.target_interval, m)[:, None, :]
+                     == rows(desired, k)[:, :, None]))        # [W, K, M]
+    ring = iv.values.view(w, k, s_cnt, iv.max_capacity)
+    folds = oasrs.OASRSState(values=ring, counts=rows(iv.counts, k, s_cnt),
+                             capacity=rows(iv.capacity, k, s_cnt),
+                             key=keys)
+    counts = oasrs.apply_chunk_uniforms(
+        folds, rows(chunk.stratum_ids, m), rows(chunk.values, m),
+        slot_masks, rows(u_accept, m), rows(u_slot, m)).counts
+    iv = dataclasses.replace(iv, counts=counts.view(iv.counts.shape),
+                             key=keys)
     return _finish_ingest(cfg, state, chunk, r, iv, desired, counts_before)
 
 

@@ -131,6 +131,54 @@ def shard_inputs(cases, seed, **kw):
             stack_shards([state for _, state in shards]))
 
 
+#: The states of a batched fold call's folds, fold ``b`` in
+#: ``FOLD_KINDS[b % 3]``: counts over random capacities, empty cells, every
+#: item masked out.
+FOLD_KINDS = ("replacement", "filling", "all_masked")
+
+
+def fold_batch_inputs(seed, w, k, s=4, n_max=64, m=300, leaves=1):
+    """numpy inputs of one fold call batched over ``w`` shards' ``k`` ring
+    slots, as the masked ingest makes them: items ``[w, m]``, each masked
+    into one slot of its shard (9 in 10 masked in at all), so mask ``[w,
+    k, m]``; counts, capacity ``[w, k, s]`` and ring ``[w, k, s, n_max]``
+    by ``FOLD_KINDS``. ``leaves=2``: payload and ring ``{"val": f32,
+    "key": i32}``."""
+    rng = np.random.default_rng(seed)
+    kinds = np.array([FOLD_KINDS[b % 3] for b in range(w * k)]).reshape(w, k)
+    slot = rng.integers(0, k, (w, m))
+    mask = ((slot[:, None, :] == np.arange(k)[None, :, None])
+            & (rng.random((w, m)) < 0.9)[:, None, :])
+    mask[kinds == "all_masked"] = False
+    counts = rng.integers(n_max, 4 * n_max, (w, k, s)).astype(np.int32)
+    counts[kinds == "filling"] = 0
+    out = dict(
+        stratum_ids=rng.integers(0, s, (w, m)).astype(np.int32),
+        payload=rng.normal(100.0, 30.0, (w, m)).astype(np.float32),
+        u_accept=rng.random((w, m), dtype=np.float32),
+        u_slot=rng.random((w, m), dtype=np.float32), mask=mask,
+        counts=counts,
+        capacity=rng.integers(1, n_max + 1, (w, k, s)).astype(np.int32),
+        values=rng.normal(0.0, 1.0, (w, k, s, n_max)).astype(np.float32))
+    if leaves == 2:
+        out["payload"] = {"val": out["payload"], "key": rng.integers(
+            0, 9999, (w, m)).astype(np.int32)}
+        out["values"] = {"val": out["values"], "key": rng.integers(
+            0, 9999, (w, k, s, n_max)).astype(np.int32)}
+    return out
+
+
+def fold_of(inp, i, j):
+    """Fold ``(i, j)`` of a batched call's inputs: shard ``i``'s items,
+    slot ``j``'s mask, counts, capacity and ring (views)."""
+    def at(v, lead):
+        if isinstance(v, dict):
+            return {n: at(x, lead) for n, x in v.items()}
+        return v[lead]
+    folds = ("mask", "counts", "capacity", "values")
+    return {n: at(v, (i, j) if n in folds else i) for n, v in inp.items()}
+
+
 def two_leaves(items, state, seed):
     """A one-shot case with a payload of two leaves, ``{"val": f32, "key":
     i32}`` (the heavy-hitter keys riding beside the values, as the
@@ -846,6 +894,53 @@ def test_cuda_batched_and_unbatched_one_shots_interleaved(cuda_device):
             assert_workspace_clean(cuda_device)
 
 
+#: The batched fold's cases: W·K -> (W, K, items a shard): one fold, two
+#: slots, the paper's 4 workers' K = 2 (phase sharded's masked path), the
+#: sliding deployment's 4 x 60 at its executor's chunk; and each form's
+#: ring (S, N_max).
+FOLD_BATCHES = {1: (1, 1, BIG_M), 2: (1, 2, BIG_M), 8: (4, 2, BIG_M),
+                240: (4, 60, 8_192)}
+FOLD_BATCH_FORMS = {"small": (4, 64), "parted": (1_025, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves", [1, 2])
+@pytest.mark.parametrize("form", sorted(FOLD_BATCH_FORMS))
+@pytest.mark.parametrize("folds", sorted(FOLD_BATCHES))
+def test_cuda_fold_batches_match_plain(cuda_device, folds, form, leaves):
+    """One fold call batched over W·K folds (replacement, filling and all
+    masked in turn) in each form: every fold's ring and counts bit for bit
+    the batched plain version's and its own unbatched kernel call's, one
+    launch and one call of the form counted per call whatever W·K is, the
+    scratch clean after each call."""
+    w, k, m = FOLD_BATCHES[folds]
+    s, n_max = FOLD_BATCH_FORMS[form]
+    inp = to_tree(cuda_device, fold_batch_inputs(
+        93 + folds, w, k, s=s, n_max=n_max, m=m, leaves=leaves))
+    start = inp.pop("values")
+    vk, vp, vu = (start.clone() if leaves == 1
+                  else {n: t.clone() for n, t in start.items()}
+                  for _ in range(3))
+    launches = reservoir.reservoir_fold.launches
+    forms = dict(reservoir.reservoir_fold.forms)
+    ck = reservoir.reservoir_fold(values=vk, **inp)
+    assert reservoir.reservoir_fold.launches == launches + 1
+    assert reservoir.reservoir_fold.forms[form] == forms[form] + 1
+    assert_workspace_clean(cuda_device)
+    cp = ref.reservoir_fold(values=vp, **inp)
+    assert torch.equal(ck, cp)
+    _tree_bits(vk, vp, "values")
+    for i in range(w):
+        for j in range(k):
+            one = fold_of(dict(inp, values=vu), i, j)
+            assert torch.equal(reservoir.reservoir_fold(**one), ck[i, j])
+    assert_workspace_clean(cuda_device)
+    _tree_bits(vu, vk, "unbatched")
+    for a, b in ([(vk, start)] if leaves == 1
+                 else [(vk[n], start[n]) for n in start]):
+        assert bool((a != b).any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("keys,m", [(1_025, 1000), (1_025, 200_003),
                                     (262_144, 4_194_304)])
@@ -922,8 +1017,9 @@ def test_cuda_fold_and_one_shot_interleaved(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_masked_path_folds_on_ring_views(cuda_device):
-    """The masked ingest's K folds per chunk, each into the [S, N_max]
-    view of one ring slot with that slot's mask: bitwise after each."""
+    """K unbatched folds of one chunk, each into the [S, N_max] view of
+    one ring slot with that slot's mask (the masked ingest's folds, one
+    call each): bitwise after each."""
     k, s, n_max = 3, 4, 4096
     rng = np.random.default_rng(32)
     base = _to(cuda_device, fold_inputs(33, BIG_M, [0] * s, [1] * s, s=s,
@@ -1688,9 +1784,9 @@ def _sharded_device_chunks(dev, shards=4, seed=8, n=12, m=128):
 def test_cuda_sharded_paths_match_cpu(cuda_device, mode, ingest, emission):
     """W = 4 on the card and on the CPU: the same state bit for bit, the
     same emissions (answers within rtol); per chunk ONE fold over the
-    ``W·K·S`` cells (``fused``), one per (shard, slot) (``masked``) or
-    ONE one-shot call batched over the W shards (``onekernel``); two
-    stats calls per emission."""
+    ``W·K·S`` cells (``fused``), ONE fold call batched over the ``W·K``
+    (shard, slot) folds (``masked``) or ONE one-shot call batched over
+    the W shards (``onekernel``); two stats calls per emission."""
     cfg = _sharded_cfg(ingest, emission)
     cls = tex.PipelinedExecutor if mode == "pipelined" else \
         tex.BatchedExecutor
@@ -1705,9 +1801,8 @@ def test_cuda_sharded_paths_match_cpu(cuda_device, mode, ingest, emission):
                      ops.launch_counts()))
     (ce, cs, cl), (ge, gs, gl) = runs
     assert not any(cl.values())
-    n, w, k = 12, 4, cfg.num_intervals
-    want = {"fused": (n, 0), "masked": (n * w * k, 0),
-            "onekernel": (0, n)}[ingest]
+    n = 12
+    want = {"fused": (n, 0), "masked": (n, 0), "onekernel": (0, n)}[ingest]
     assert (gl["reservoir_fold"], gl["one_shot_ingest"]) == want
     assert gl["stratified_stats"] == 2 * len(ge) > 0
     for part in ("window", "slot_interval", "open_interval", "wm",

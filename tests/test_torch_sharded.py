@@ -227,13 +227,14 @@ def test_threefry_calls_per_chunk_do_not_grow_with_shards(ingest,
 
 
 @pytest.mark.parametrize("ingest,folds,one_shots", [
-    ("fused", 1, 0), ("masked", 4 * 3, 0), ("onekernel", 0, 1)])
+    ("fused", 1, 0), ("masked", 1, 0), ("onekernel", 0, 1)])
 def test_kernel_calls_per_sharded_chunk(ingest, folds, one_shots,
                                         monkeypatch):
     """Per W = 4 chunk (K = 3): ``fused`` calls the fold once over the
-    ``W·K·S`` cells, ``masked`` once per (shard, slot), ``onekernel``
-    the one-shot ingest once, batched over the W shards (the reference's
-    vmapped kernel call)."""
+    ``W·K·S`` cells, ``masked`` once batched over its ``W·K`` folds (the
+    reference's nested vmap of its kernel), ``onekernel`` the one-shot
+    ingest once, batched over the W shards (the reference's vmapped
+    kernel call)."""
     calls = {"fold": 0, "one_shot": 0}
     fold, one_shot = ops.reservoir_fold, ops.one_shot_ingest
 
