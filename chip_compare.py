@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time chip_smoke.py's phases for two trees in turns on one NVIDIA
-card: serve and train, or the fold and one-shot rows of phase large_keys
-with the sliding deployment's onekernel executor.
+card: serve and train, or the rows of phase large_keys with the sliding
+deployment's onekernel executor.
 
     python3 chip_compare.py OTHER_TREE [--phases serve_train|large_keys]
 
@@ -13,7 +13,9 @@ the phases of its tree in a process of its own, which puts the tree's
 kernels. Each run prints one ``SUMMARY`` line of JSON (serve and train:
 the decode, prefill and step times, host ops, busy share, peak memory;
 large_keys: each case's device ms, kernels per call, per-launch split and
-bound, the small-form fold's split at the main path's chunk, the
+bound, the stats' and histogram's flat calls past their caps with row
+and random ids (``reduce_rows``), the small-form fold's split at the
+main path's chunk, the
 executor's device ms per chunk on its onekernel and masked
 paths (``lk_chunk_device_ms``) and, in a tree that batches the one-shot
 over shards, the batched call against W unbatched calls at each
@@ -42,6 +44,64 @@ TRAIN_KEYS = ("step_median_ms", "step_min_ms", "step_max_ms",
               "busy_share", "peak_bytes", "losses")
 LARGE_KEYS = ("kernel", "case", "shape", "device_ms", "events_ms",
               "kernels", "memsets", "split", "bound_ms", "bytes")
+REDUCE_KEYS = ("device_ms", "events_ms", "kernels", "memsets", "split",
+               "bound_ms", "bytes")
+
+
+def rel_err(a, b) -> float:
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def reduce_rows(torch, cs, dev) -> list:
+    """The stats' and histogram's flat calls at phase large_keys' cases
+    (``LK_STATS``, ``LK_WHIST``), past their caps, on the emission's view
+    with row ids and with ids drawn at random, each through the tree's
+    own wrapper (in a tree before the parted form, its radix-sorted
+    form): checked against the plain version (counts bit for bit, sums
+    within ``STATS_RTOL``) and timed (``lk_timed``), from one generator
+    seeded as the phase seeds it, so both trees see the same inputs."""
+    from repro_torch.core.quantile import _unit_edges
+    from repro_torch.kernels import ref, stratified_stats as sk
+    from repro_torch.kernels import weighted_hist as wk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.TIMING_SEED)
+    out = []
+
+    def row(kernel, case, ids, got, want, fn, need):
+        ci = 0 if kernel == "stats" else len(got) - 1
+        ok = torch.equal(got[ci], want[ci]) and all(
+            rel_err(a, b) <= cs.STATS_RTOL
+            for i, (a, b) in enumerate(zip(got, want)) if i != ci)
+        t = cs.lk_timed(torch, f"compare {kernel} {case} {ids}", fn, need)
+        out.append(dict(kernel=kernel, case=case, ids=ids, ok=ok,
+                        **{k: t[k] for k in REDUCE_KEYS}))
+        if not ok:
+            raise RuntimeError(f"{kernel} {case} {ids}: differs from its "
+                               "plain version")
+
+    for case, g, n in cs.LK_STATS:
+        x, sid, mask = cs.rows_view(torch, gen, g, n)
+        rand = torch.randint(0, g, sid.shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+        for ids, s in (("rows", sid), ("random", rand)):
+            row("stats", case, ids, sk.stratified_stats(x, s, mask, g),
+                ref.stratified_stats(x, s, mask, g),
+                lambda s=s: sk.stratified_stats(x, s, mask, g),
+                cs.stats_need(torch, x, s, mask, g)["bytes"])
+    for case, g, b, n in cs.LK_WHIST:
+        x, cell, mask = cs.rows_view(torch, gen, g, n)
+        rw = 1.0 + 3.0 * torch.rand(g, generator=gen, device=dev)
+        rand = torch.randint(0, g, cell.shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+        lo, hi = float(x[mask].min()), float(x[mask].max())
+        edges = lo + (hi - lo) * _unit_edges(b, dev)
+        for ids, c in (("rows", cell), ("random", rand)):
+            w = rw[c.long()]
+            row("whist", case, ids, wk.weighted_hist(x, c, w, mask, edges, g),
+                ref.weighted_hist(x, c, w, mask, edges, g),
+                lambda c=c, w=w: wk.weighted_hist(x, c, w, mask, edges, g),
+                cs.whist_need(torch, x, c, w, mask, edges, g)["bytes"])
+    return out
 ORDER = "ABBA"
 PHASES = ("serve_train", "large_keys")
 
@@ -50,7 +110,8 @@ def large_keys_rows(torch, cs, dev) -> dict:
     """The fold and one-shot rows of phase large_keys (``LK_FOLD``,
     ``LK_ONE_SHOT``): each checked against its plain version and timed by
     the tree's own ``large_fold`` / ``large_one_shot``, from one
-    generator seeded as the phase seeds it; the small-form fold at the
+    generator seeded as the phase seeds it; the stats' and histogram's
+    flat rows (:func:`reduce_rows`); the small-form fold at the
     main path's chunk (``fold_timing``); the sliding deployment's
     onekernel and masked executors, device ms per chunk
     (``lk_chunk_device_ms``); and where the tree has them, the batched
@@ -61,6 +122,8 @@ def large_keys_rows(torch, cs, dev) -> dict:
     rows = [cs.large_fold(torch, gen, *c) for c in cs.LK_FOLD]
     rows += [cs.large_one_shot(torch, gen, *c) for c in cs.LK_ONE_SHOT]
     out = dict(rows=[{k: r[k] for k in LARGE_KEYS} for r in rows])
+    torch.cuda.empty_cache()
+    out["reduce_rows"] = reduce_rows(torch, cs, dev)
     torch.cuda.empty_cache()
     small = cs.fold_timing(torch, dev)
     out["small_fold"] = dict(ms=small["ms"], split={
@@ -107,8 +170,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="the other tree (A)")
     ap.add_argument("--phases", choices=PHASES, default=PHASES[0],
-                    help="serve and train (default), or the fold and "
-                         "one-shot rows of phase large_keys")
+                    help="serve and train (default), or the rows of "
+                         "phase large_keys")
     ap.add_argument("--child", action="store_true",
                     help="run the phases of OTHER in this process")
     args = ap.parse_args(argv)

@@ -278,8 +278,14 @@ Phases (any failure ends the run with a non-zero exit):
              timed: device ms, kernels per call, bound by bytes; the
              stats and histogram cases also through their row form (the
              [G, N] view, one launch) against its plain version, the row
-             and sorted forms in turns (R S S R) with each one's bound,
-             and the library call at the same size; then a one-minute
+             and parted forms in turns (R P P R) with each one's bound,
+             and the library call at the same size; each stats and
+             histogram case also with ids drawn at random (the parted
+             form beside the library call on those ids); every parted
+             call in the plan's launches and no memset;
+             ``query.exact_stats`` and STS's ``baselines.sample_stats``
+             at S = 65,536 over 4,194,304 items, each held to its plain
+             version, in the parted form; then a one-minute
              window sliding every second over 64 sub-streams on 4 shards
              (K = 60, S = 64, W = 4, N_max = 512 a shard) through the
              pipelined fused and onekernel paths for two emissions (sum,
@@ -562,16 +568,15 @@ def listed_items(torch, m: int, cells: int = 0) -> int:
 
 def workspace_clean(torch) -> bool:
     """The kernels' kept scratch is as the next call needs it: the winner
-    table all -1, the look-back words, the counters, the tickets, the
-    large-key sort's totals and counters and the parted form's totals and
-    tickets all 0."""
+    table all -1, the look-back words, the counters, the tickets and the
+    parted forms' totals and tickets all 0."""
     from repro_torch.kernels import _workspace
     dev = torch.device("cuda", torch.cuda.current_device())
     ws = _workspace.get(dev, torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
     return bool((ws.winner == -1).all()) and not any(
         bool(t.any()) for t in (ws.status, ws.counters, ws.tickets,
-                                ws.sort_zeroed, ws.part_zeroed))
+                                ws.part_zeroed))
 
 
 def log_split(tag: str, split: dict, event_ms: float) -> None:
@@ -5962,48 +5967,99 @@ def rows_view(torch, gen, g, n):
 
 #: launches per call of the row forms
 ROW_FORM_LAUNCHES = 1
+#: the per-key stress's sub-streams and items: the flat callers of the
+#: stats (``query.exact_stats``, STS's ``baselines.sample_stats``) there
+LK_BASELINE_S, LK_BASELINE_M = 65_536, 4_194_304
 
 
-def row_turns(torch, kernel, case, row_fn, sorted_fn, row_bytes,
-              sorted_bytes, library_fn, **shape) -> dict:
-    """The row form and the sorted form of one case in turns (R S S R):
-    each turn's device ms, kernels per call and bound; one row-form call
-    is one kernel and no memset (:func:`row_timed`), a sorted call more;
-    the library call's events ms at the same size."""
+def parted_launches(kernel, keys, m) -> int:
+    """Launches per call of the stats' or the histogram's parted form over
+    ``keys`` keys and ``m`` items: the count, the plan's partition passes
+    and the sums."""
+    from repro_torch.kernels import _workspace, stratified_stats, weighted_hist
+    lo = (stratified_stats.MAX_STRATA if kernel == "stats"
+          else weighted_hist.PARTED_LO_KEYS)
+    return 2 + _workspace.parted_plan(keys, m, lo).passes
+
+
+def reduce_owner(kernel):
     from repro_torch.kernels import stratified_stats, weighted_hist
-    owner = (stratified_stats.stratified_stats if kernel == "stats"
-             else weighted_hist.weighted_hist)
+    return (stratified_stats.stratified_stats if kernel == "stats"
+            else weighted_hist.weighted_hist)
+
+
+def parted_timed(torch, kernel, tag, fn, need_bytes, launches) -> dict:
+    """:func:`lk_timed` of a parted-form call ``fn`` of the stats or the
+    histogram, its profiler split per launch logged; fails unless the
+    call ran the parted form (the wrapper's ``forms``), in ``launches``
+    kernels and no memset."""
+    owner = reduce_owner(kernel)
+    before = dict(owner.forms)
+    fn()
+    ran = {f: owner.forms[f] - before[f] for f in before}
+    t = lk_timed(torch, tag, fn, need_bytes)
+    log_split(tag, t["split"], t["events_ms"])
+    if ran != {"small": 0, "row": 0, "parted": 1}:
+        fail(f"{tag}: the call ran the forms {ran}, not the parted form")
+    if t["whole"] and (t["kernels"], t["memsets"]) != (launches, 0):
+        fail(f"{tag}: {t['kernels']:g} kernels and {t['memsets']:g} "
+             f"memsets per call, not the plan's {launches} and none")
+    return t
+
+
+def row_turns(torch, kernel, case, row_fn, parted_fn, row_bytes,
+              parted_bytes, library_fn, launches, **shape) -> dict:
+    """The row form and the parted form (the flat call with row ids) of
+    one case in turns (R P P R): each turn's device ms, kernels per call
+    and bound; one row-form call is one kernel and no memset
+    (:func:`row_timed`), a parted call the plan's ``launches`` and no
+    memset (:func:`parted_timed`); the library call's events ms at the
+    same size."""
+    owner = reduce_owner(kernel)
     turns = []
-    for form in ("row", "sorted", "sorted", "row"):
+    for form in ("row", "parted", "parted", "row"):
         tag = f"large_keys {kernel} {case} {form}"
         t = (row_timed(torch, tag, row_fn, row_bytes, owner)
-             if form == "row" else lk_timed(torch, tag, sorted_fn,
-                                            sorted_bytes))
+             if form == "row" else parted_timed(torch, kernel, tag,
+                                                parted_fn, parted_bytes,
+                                                launches))
         turns.append(dict(t, form=form))
         if form == "row" and (t["kernels"], t["memsets"]) != (
                 ROW_FORM_LAUNCHES, 0):
             fail(f"large_keys {kernel} {case}: the row form ran "
                  f"{t['kernels']:g} kernels, {t['memsets']:g} memsets")
-        if form == "sorted" and t["kernels"] <= SMALL_FORM_LAUNCHES[kernel]:
-            fail(f"large_keys {kernel} {case}: {t['kernels']:g} kernels "
-                 "per call, not the large-key form")
     library_ms = time_ms(library_fn, torch, reps=10, warm=2)
     row = [t for t in turns if t["form"] == "row"]
-    srt = [t for t in turns if t["form"] == "sorted"]
-    log(f"[large_keys] {kernel} {case} {shape} in turns R S S R: device "
+    par = [t for t in turns if t["form"] == "parted"]
+    log(f"[large_keys] {kernel} {case} {shape} in turns R P P R: device "
         + ", ".join(f"{t['form']} {t['device_ms']:.4f}" for t in turns)
-        + f" ms; kernels per call row {row[0]['kernels']:g}, sorted "
-        f"{srt[0]['kernels']:g}; bound row {row[0]['bound_ms']:.4f} ms "
-        f"({row[0]['bytes']} B), sorted {srt[0]['bound_ms']:.4f} ms "
-        f"({srt[0]['bytes']} B), by bytes; library {library_ms:.4f} ms; "
+        + f" ms; kernels per call row {row[0]['kernels']:g}, parted "
+        f"{par[0]['kernels']:g}; bound row {row[0]['bound_ms']:.4f} ms "
+        f"({row[0]['bytes']} B), parted {par[0]['bound_ms']:.4f} ms "
+        f"({par[0]['bytes']} B), by bytes; library {library_ms:.4f} ms; "
         f"{card()}")
     return dict(kernel=kernel, case=case, shape=shape, turns=turns,
                 library_ms=library_ms,
                 device_ms=min(t["device_ms"] for t in row),
-                sorted_device_ms=min(t["device_ms"] for t in srt),
+                parted_device_ms=min(t["device_ms"] for t in par),
                 kernels=row[0]["kernels"], memsets=row[0]["memsets"],
                 bound_ms=row[0]["bound_ms"], bytes=row[0]["bytes"],
-                sorted_bound_ms=srt[0]["bound_ms"])
+                parted_bound_ms=par[0]["bound_ms"],
+                parted_kernels=par[0]["kernels"])
+
+
+def flat_random(torch, kernel, case, fn, need_bytes, library_fn,
+                launches) -> dict:
+    """The flat call of a case with ids drawn at random (the parted form,
+    :func:`parted_timed`) beside the library call on the same ids."""
+    tag = f"large_keys {kernel} {case} random"
+    t = parted_timed(torch, kernel, tag, fn, need_bytes, launches)
+    library_ms = time_ms(library_fn, torch, reps=10, warm=2)
+    log(f"[large_keys] {kernel} {case} random ids: parted device "
+        f"{t['device_ms']:.4f} ms ({t['kernels']:g} kernels, "
+        f"{t['memsets']:g} memsets per call), bound {t['bound_ms']:.4f} ms "
+        f"({need_bytes} B); library {library_ms:.4f} ms; {card()}")
+    return dict(t, library_ms=library_ms)
 
 
 def check_rows(torch, kernel, case, got, again, want) -> None:
@@ -6026,13 +6082,25 @@ def check_rows(torch, kernel, case, got, again, want) -> None:
              "plain version")
 
 
+def stats_library(torch, x, sid, mask, g):
+    """Three ``index_add_`` over ``sid``: the counts, Σx and Σx²."""
+    srcs = (mask.float(), torch.where(mask, x, 0.0),
+            torch.where(mask, x * x, 0.0))
+    acc = torch.zeros((3, g), device=x.device)
+    ids = sid.long()
+
+    def library():
+        for a, v in zip(acc, srcs):
+            a.zero_().index_add_(0, ids, v)
+    return library
+
+
 def large_stats(torch, gen, case, g, n) -> dict:
     from repro_torch.kernels import ref, stratified_stats as sk
     x, sid, mask = rows_view(torch, gen, g, n)
-    if case == "past":                    # and random strata
-        rand = torch.randint(0, g, sid.shape, generator=gen,
-                             device=sid.device, dtype=torch.int32)
-        check_stats(torch, case + " random", x, rand, mask, g)
+    rand = torch.randint(0, g, sid.shape, generator=gen, device=sid.device,
+                         dtype=torch.int32)
+    check_stats(torch, case + " random", x, rand, mask, g)
     check_stats(torch, case, x, sid, mask, g)
     xv, mv = x.view(g, n), mask.view(g, n)
     if sk.stats_form(g) != "row":
@@ -6042,18 +6110,18 @@ def large_stats(torch, gen, case, g, n) -> dict:
                ref.stratified_stats_rows(xv, mv))
     need = stats_need(torch, x, sid, mask, g)
     live = need["live"]
-    srcs = (mask.float(), torch.where(mask, x, 0.0),
-            torch.where(mask, x * x, 0.0))
-    acc = torch.zeros((3, g), device=x.device)
-
-    def library():
-        for a, v in zip(acc, srcs):
-            a.zero_().index_add_(0, sid, v)
-    return row_turns(torch, "stats", case,
-                     lambda: sk.stratified_stats_rows(xv, mv),
-                     lambda: sk.stratified_stats(x, sid, mask, g),
-                     x.numel() + 4 * live + 12 * g, need["bytes"], library,
-                     rows=g, slots=x.numel(), live=live)
+    launches = parted_launches("stats", g, x.numel())
+    out = row_turns(torch, "stats", case,
+                    lambda: sk.stratified_stats_rows(xv, mv),
+                    lambda: sk.stratified_stats(x, sid, mask, g),
+                    x.numel() + 4 * live + 12 * g, need["bytes"],
+                    stats_library(torch, x, sid, mask, g), launches,
+                    rows=g, slots=x.numel(), live=live)
+    out["random"] = flat_random(
+        torch, "stats", case, lambda: sk.stratified_stats(x, rand, mask, g),
+        stats_need(torch, x, rand, mask, g)["bytes"],
+        stats_library(torch, x, rand, mask, g), launches)
+    return out
 
 
 def check_stats(torch, case, x, sid, mask, g) -> None:
@@ -6072,14 +6140,8 @@ def check_stats(torch, case, x, sid, mask, g) -> None:
         fail(f"large_keys stats {case}: differs from its plain version")
 
 
-def large_whist(torch, gen, case, g, b, n) -> dict:
-    from repro_torch.core.quantile import _unit_edges
+def check_whist(torch, case, x, cell, w, mask, edges, g) -> None:
     from repro_torch.kernels import ref, weighted_hist as wk
-    x, cell, mask = rows_view(torch, gen, g, n)
-    rw = 1.0 + 3.0 * torch.rand(g, generator=gen, device=x.device)
-    w = rw[cell.long()]
-    lo, hi = float(x[mask].min()), float(x[mask].max())
-    edges = lo + (hi - lo) * _unit_edges(b, x.device)
     kh, kc = wk.weighted_hist(x, cell, w, mask, edges, g)
     again = wk.weighted_hist(x, cell, w, mask, edges, g)
     ph, pc = ref.weighted_hist(x, cell, w, mask, edges, g)
@@ -6091,6 +6153,33 @@ def large_whist(torch, gen, case, g, b, n) -> dict:
         f"bits={same} scratch clean={clean} in bins {int(kc.sum())}")
     if not (torch.equal(kc, pc) and rel <= STATS_RTOL and same and clean):
         fail(f"large_keys whist {case}: differs from its plain version")
+
+
+def whist_library(torch, x, cell, w, mask, edges, g, b):
+    """``bucketize`` + ``index_add_`` of the live weights by key."""
+    key_base = cell.long() * b
+    w_live = torch.where(mask, w, 0.0)
+    acc = torch.zeros(g * b, device=x.device)
+
+    def library():
+        k = torch.bucketize(x, edges, right=True) - 1
+        acc.zero_().index_add_(0, key_base + k.clamp(0, b - 1), w_live)
+    return library
+
+
+def large_whist(torch, gen, case, g, b, n) -> dict:
+    from repro_torch.core.quantile import _unit_edges
+    from repro_torch.kernels import ref, weighted_hist as wk
+    x, cell, mask = rows_view(torch, gen, g, n)
+    rw = 1.0 + 3.0 * torch.rand(g, generator=gen, device=x.device)
+    w = rw[cell.long()]
+    rand = torch.randint(0, g, cell.shape, generator=gen, device=x.device,
+                         dtype=torch.int32)
+    w_rand = rw[rand.long()]
+    lo, hi = float(x[mask].min()), float(x[mask].max())
+    edges = lo + (hi - lo) * _unit_edges(b, x.device)
+    check_whist(torch, case, x, cell, w, mask, edges, g)
+    check_whist(torch, case + " random", x, rand, w_rand, mask, edges, g)
     xv, mv = x.view(g, n), mask.view(g, n)
     if wk.hist_form(g, b) != "row":
         fail(f"large_keys whist {case}: {g} x {b} keys do not take the row "
@@ -6099,20 +6188,84 @@ def large_whist(torch, gen, case, g, b, n) -> dict:
                wk.weighted_hist_rows(xv, rw, mv, edges),
                ref.weighted_hist_rows(xv, rw, mv, edges))
     need = whist_need(torch, x, cell, w, mask, edges, g)
-    key_base = cell.long() * b
-    w_live = torch.where(mask, w, 0.0)
-    acc = torch.zeros(g * b, device=x.device)
-
-    def library():
-        k = torch.bucketize(x, edges, right=True) - 1
-        acc.zero_().index_add_(0, key_base + k.clamp(0, b - 1), w_live)
     row_bytes = (x.numel() + 4 * need["live"] + 4 * g + 4 * (b + 1)
                  + 8 * g * b)
-    return row_turns(torch, "whist", case,
-                     lambda: wk.weighted_hist_rows(xv, rw, mv, edges),
-                     lambda: wk.weighted_hist(x, cell, w, mask, edges, g),
-                     row_bytes, need["bytes"], library, rows=g, bins=b,
-                     slots=x.numel(), live=need["live"])
+    launches = parted_launches("whist", g * b, x.numel())
+    out = row_turns(torch, "whist", case,
+                    lambda: wk.weighted_hist_rows(xv, rw, mv, edges),
+                    lambda: wk.weighted_hist(x, cell, w, mask, edges, g),
+                    row_bytes, need["bytes"],
+                    whist_library(torch, x, cell, w, mask, edges, g, b),
+                    launches, rows=g, bins=b, slots=x.numel(),
+                    live=need["live"])
+    out["random"] = flat_random(
+        torch, "whist", case,
+        lambda: wk.weighted_hist(x, rand, w_rand, mask, edges, g),
+        whist_need(torch, x, rand, w_rand, mask, edges, g)["bytes"],
+        whist_library(torch, x, rand, w_rand, mask, edges, g, b), launches)
+    return out
+
+
+@contextlib.contextmanager
+def plain_stats():
+    """``ops.stratified_stats`` replaced by its plain version, so that a
+    caller runs as on the CPU, on the card's tensors."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.stratified_stats
+    ops.stratified_stats = ref.stratified_stats
+    try:
+        yield
+    finally:
+        ops.stratified_stats = kernel
+
+
+def lk_baselines(torch, gen) -> dict:
+    """The flat callers of the stats at the per-key stress's S = 65,536
+    over its 4,194,304 items with random ids: ``query.exact_stats`` (the
+    native baseline's ground truth) and STS's ``baselines.sample_stats``
+    (pass-1 counts, a sample of 10%), each held to itself through the
+    plain stats (counts bit for bit, sums within STATS_RTOL); fails
+    unless each call ran the parted form."""
+    from repro_torch import prng
+    from repro_torch.core import baselines, query
+    from repro_torch.kernels import stratified_stats as sk
+    s, m, dev = LK_BASELINE_S, LK_BASELINE_M, gen.device
+    values = 100.0 + 10.0 * torch.randn(m, generator=gen, device=dev)
+    sid = torch.randint(0, s, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    counts = baselines.sts_counts(sid, s)
+    sample = baselines.sts_sample(prng.PRNGKey(5, dev), sid, counts, 0.1)
+    calls = {"exact_stats": lambda: query.exact_stats(values, sid, s),
+             "sts_sample_stats": lambda: baselines.sample_stats(
+                 values, sid, sample, s, counts)}
+    out = {}
+    for name, call in calls.items():
+        before = dict(sk.stratified_stats.forms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ran = {f: sk.stratified_stats.forms[f] - before[f] for f in before}
+        with plain_stats():
+            want = call()
+        exact = all(torch.equal(getattr(got, f), getattr(want, f))
+                    for f in ("counts", "taken"))
+        rel = max(float(((getattr(got, f) - getattr(want, f)).abs()
+                         / getattr(want, f).abs().clamp(min=1e-30)).max())
+                  for f in ("sums", "sumsqs"))
+        clean = workspace_clean(torch)
+        log(f"[large_keys] {name} at S = {s} over {m} items: counts "
+            f"bitwise={exact} sums rel err {rel:.3e} (rtol {STATS_RTOL}) "
+            f"forms {ran} scratch clean={clean} wall {wall:.3f} ms; "
+            f"{card()}")
+        if not (exact and rel <= STATS_RTOL and clean):
+            fail(f"large_keys {name}: differs from its plain version")
+        if ran != {"small": 0, "row": 0, "parted": 1}:
+            fail(f"large_keys {name}: the stats ran the forms {ran}, not "
+                 "the parted form")
+        out[name] = dict(forms=ran, rel_err=rel, wall_ms=wall)
+    return out
 
 
 def lk_registry():
@@ -6218,7 +6371,7 @@ def flat_route():
     """The emission's row entries (``ops.stratified_stats_rows``,
     ``ops.weighted_histogram_rows``) replaced by the flat calls with row
     ids and each row's weight on its slots, the route the emission took
-    before it had the row entries: past the caps, the sorted large-key
+    before it had the row entries: past the caps, the parted large-key
     forms."""
     from repro_torch.kernels import ops, ref
     rows = ops.stratified_stats_rows, ops.weighted_histogram_rows
@@ -6333,8 +6486,10 @@ def phase_large_keys(torch, dev) -> dict:
     versions at LK_FOLD / LK_ONE_SHOT / LK_STATS / LK_WHIST (bitwise, or
     counts bitwise and sums within STATS_RTOL, the same bits twice, the
     scratch clean), each timed with its launches and its bound by bytes,
-    the stats and histogram cases in turns with their row form; then the
-    sliding deployment's executor (:func:`lk_paths`);
+    the stats and histogram cases in turns with their row form and with
+    ids at random beside the library call; the stats' flat callers at
+    the per-key stress (:func:`lk_baselines`); then the sliding
+    deployment's executor (:func:`lk_paths`);
     ``chiprun_out/chip_smoke_large_keys.json``."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -6343,9 +6498,10 @@ def phase_large_keys(torch, dev) -> dict:
     rows += [large_one_shot(torch, gen, *c) for c in LK_ONE_SHOT]
     rows += [large_stats(torch, gen, *c) for c in LK_STATS]
     rows += [large_whist(torch, gen, *c) for c in LK_WHIST]
+    base = lk_baselines(torch, gen)
     torch.cuda.empty_cache()
     paths = lk_paths(torch, dev)
-    out = dict(rows=rows, executor=paths, card=card(),
+    out = dict(rows=rows, baselines=base, executor=paths, card=card(),
                phase_s=time.perf_counter() - t0)
     (ROOT / "chiprun_out" / "chip_smoke_large_keys.json").write_text(
         json.dumps(out, indent=1))

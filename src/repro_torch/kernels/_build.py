@@ -130,22 +130,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_reservoir_fold.restype = i
     lib.sa_reservoir_fold_rows.argtypes = [p] * 17 + [i] * 6 + [p]
     lib.sa_reservoir_fold_rows.restype = i
-    lib.sa_stratified_stats.argtypes = [p, p, p, ll, i, p, p, p, p, p, p]
+    lib.sa_stratified_stats.argtypes = [p, p, p, ll, i] + [p] * 7
     lib.sa_stratified_stats.restype = i
+    lib.sa_stats_partition.argtypes = [p] * 5 + [ll, i, i] + [p] * 3
+    lib.sa_stats_partition.restype = i
     lib.sa_stats_scratch_words.argtypes = [ll, i]
     lib.sa_stats_scratch_words.restype = ll
-    lib.sa_stats_part_words.argtypes = [ll]
-    lib.sa_stats_part_words.restype = ll
     lib.sa_one_shot_ingest.argtypes = ([p] * 27 + [i] * 6
                                        + [ctypes.c_float] * 2 + [p])
     lib.sa_one_shot_ingest.restype = i
     lib.sa_whist_scratch_words.argtypes = [ll, i]
     lib.sa_whist_scratch_words.restype = ll
-    lib.sa_whist_part_words.argtypes = [ll]
-    lib.sa_whist_part_words.restype = ll
     lib.sa_reduce_zeroed.argtypes = [i]
     lib.sa_reduce_zeroed.restype = i
-    lib.sa_weighted_hist.argtypes = [p] * 5 + [ll, i, i] + [p] * 6
+    lib.sa_weighted_hist.argtypes = [p] * 5 + [ll, i, i] + [p] * 7
     lib.sa_weighted_hist.restype = i
     lib.sa_stats_rows.argtypes = [p, p, ll, ll, p, p, p, p, p]
     lib.sa_stats_rows.restype = i
@@ -157,12 +155,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sa_whist_rows.restype = i
     lib.sa_whist_rows_zeroed.argtypes = [ll, ll, i]
     lib.sa_whist_rows_zeroed.restype = ll
-    lib.sa_sort_status_words.argtypes = [ll, i]
-    lib.sa_sort_status_words.restype = ll
-    lib.sa_sort_zeroed_words.argtypes = []
-    lib.sa_sort_zeroed_words.restype = i
-    lib.sa_key_sort.argtypes = [p, i, i, p, p, p, p]
-    lib.sa_key_sort.restype = i
 
 
 def check(status: int, name: str) -> None:

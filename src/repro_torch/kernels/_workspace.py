@@ -49,14 +49,14 @@ parted form's), shard after shard, each the size of its unbatched call's
 folds keeps W·K of each of its own, fold after fold. What is 0 or -1
 between calls stays so in every shard's and fold's.
 
-The large-key forms of the stats and the histogram (past the key counts
-shared memory holds) sort each item's key stably and keep:
-
-* ``sort_zeroed``: int32 digit totals and two counters of the sort, all 0
-  between calls (its last pass clears them).
-* ``keys``, ``sort_keys``, ``sort_idx``, ``sort_status``, ``head`` and
-  ``part``: written before they are read in every call; they grow with
-  the items and the keys, never with their product.
+The parted forms of the stats and the histogram (past the keys shared
+memory holds; :meth:`Workspace.parted_reduce`, ``csrc/parted_reduce.cuh``)
+keep the parted form's ``part_zeroed``, ``part_meta`` and ``part_items``
+(entries of 8 bytes, half the fold's), the partition's look-back words
+in ``status`` and its tile counter in ``counters`` (0 between calls), and
+a row of sums and counts per reduce tile in ``rows`` (written before it
+is read). They grow with the items and the keys, never with their
+product.
 
 So the table is filled once, when it is made or grown. There is one
 workspace per (device, stream): calls on one stream run in the order they
@@ -84,6 +84,10 @@ LOOKBACK_KEYS = 1024
 #: Partition passes at most (``kPartMaxPasses``): 10 low bits and three
 #: passes of 7 cover every int32 cell index.
 MAX_PASSES = 3
+#: int32 words of a partition entry: the fold's ``(item, cell, uniforms)``
+#: and the stats' and histogram's ``(key, value)`` (``Entry`` in
+#: ``csrc/parted_claim.cuh``).
+FOLD_ENTRY_WORDS, REDUCE_ENTRY_WORDS = 4, 2
 
 
 class PartedPlan(NamedTuple):
@@ -118,23 +122,31 @@ class PartedPlan(NamedTuple):
                 *self.keys, *pad)
 
 
-def parted_plan(cells: int, m: int) -> PartedPlan:
-    """The parted form's plan for ``cells`` cells and ``m`` items, a pure
-    function of the two.
+def parted_plan(cells: int, m: int,
+                lo_keys: int = LOOKBACK_KEYS) -> PartedPlan:
+    """The parted form's plan for ``cells`` cells (or keys) and ``m``
+    items, with at most ``lo_keys`` low keys, a pure function of the
+    three.
 
     The cell's bits are split into low bits and a part id as evenly as
     the look-back's LOOKBACK_KEYS allow: up to 2**20 cells half and half
     (7 + 7 bits at 15,360 cells, 9 + 9 at 262,144) in one partition pass;
     past that 10 low bits and one more pass for each further 10 bits or
-    fewer of the part id. Every look-back is over at most LOOKBACK_KEYS
-    keys; the scratch grows with ``m + cells``, never with tiles x cells.
+    fewer of the part id. ``lo_keys`` (a power of two up to LOOKBACK_KEYS:
+    the stats' parted form passes its small form's 512 strata) caps the
+    low bits. Every look-back is over at most LOOKBACK_KEYS keys; the
+    scratch grows with ``m + cells``, never with tiles x cells.
     """
     if cells < 2 or cells >= 2**31:
         raise ValueError(f"parted_plan: {cells} cells is not in [2, 2**31)")
     if m < 0 or m >= 2**31:
         raise ValueError(f"parted_plan: {m} items is not in [0, 2**31)")
+    if lo_keys < 2 or lo_keys > LOOKBACK_KEYS or lo_keys & (lo_keys - 1):
+        raise ValueError(f"parted_plan: {lo_keys} low keys is not a power "
+                         f"of two in [2, {LOOKBACK_KEYS}]")
     nbits = (cells - 1).bit_length()
-    lo_bits = (nbits + 1) // 2 if nbits <= 20 else 10
+    lo_bits = min((nbits + 1) // 2 if nbits <= 20 else 10,
+                  lo_keys.bit_length() - 1)
     parts = -(-cells >> lo_bits)
     hi_bits = max((parts - 1).bit_length(), 1)
     passes = -(-hi_bits // 10)
@@ -152,7 +164,7 @@ def parted_plan(cells: int, m: int) -> PartedPlan:
         status_words=2**lo_bits * claim_grid + tiles * nk,
         zeroed_words=nk + (parts if passes > 1 else 0) + 1 + parts,
         meta_words=4 * claim_grid + nk + parts + 1,
-        item_words=4 * m * (1 if passes == 1 else 2))
+        item_words=FOLD_ENTRY_WORDS * m * (1 if passes == 1 else 2))
 
 
 class Workspace:
@@ -169,13 +181,6 @@ class Workspace:
         self.aux = self._make(0)
         self.tickets = self._make(0, 0)
         self.rows = self._make(0, dtype=torch.float32)
-        self.keys = self._make(0)
-        self.sort_keys = self._make(0)
-        self.sort_idx = self._make(0)
-        self.sort_status = self._make(0, dtype=torch.int64)
-        self.sort_zeroed = self._make(0, 0)
-        self.head = self._make(0)
-        self.part = self._make(0, dtype=torch.float32)
         self.part_zeroed = self._make(0, 0)
         self.part_meta = self._make(0)
         self.part_items = self._make(0)
@@ -242,33 +247,35 @@ class Workspace:
             self.tickets = self._make(tickets, 0)
         return self
 
-    def large(self, lib, *, m: int, keys: int, part: int = 0):
-        """Grow the large-key scratch for ``m`` items over ``keys`` keys
-        (``part`` f32 words of tile parts); the host array of its pointers
-        that the kernels take (``LargeSlot`` in ``csrc/key_sort.cuh``)."""
-        grow = [("keys", m, None, _I32), ("sort_keys", 2 * m, None, _I32),
-                ("sort_idx", 2 * m, None, _I32),
-                ("sort_status", lib.sa_sort_status_words(m, key_bits(keys)),
-                 None, torch.int64),
-                ("sort_zeroed", lib.sa_sort_zeroed_words(), 0, _I32),
-                ("head", keys, None, _I32),
-                ("part", part, None, torch.float32)]
+    def parted_reduce(self, plan: PartedPlan, m: int, nf: int):
+        """Grow the scratch of the stats' (``nf = 2``) or the histogram's
+        (``nf = 1``) parted form for ``plan`` and ``m`` items: the parted
+        form's zeroed words, map and two buffers of ``(key, value)``
+        entries, the partition's look-back words (``status``, 0 between
+        calls), its tile counter (``counters[0]``) and a row of ``nf``
+        sums and the counts over the part's low keys per reduce tile
+        (``rows``); the plan's ints and the host array of pointers, as
+        the kernels take them (``ReduceSlot`` in
+        ``csrc/parted_reduce.cuh``)."""
+        per = REDUCE_ENTRY_WORDS * m              # one buffer's words
+        bufs = 1 if plan.passes == 1 else 2
+        grow = [("part_zeroed", plan.zeroed_words, 0, _I32),
+                ("part_meta", plan.meta_words, None, _I32),
+                ("part_items", bufs * per, None, _I32),
+                ("status", plan.tiles * sum(plan.keys), 0, torch.int64),
+                ("rows", plan.claim_grid * (nf + 1) << plan.lo_bits, None,
+                 torch.float32)]
         for name, n, fill, dtype in grow:
             if getattr(self, name).numel() < n:
                 setattr(self, name, self._make(n, fill, dtype))
-        half = 4 * m
-        ptrs = (self.keys.data_ptr(), self.sort_keys.data_ptr(),
-                self.sort_idx.data_ptr(), self.sort_keys.data_ptr() + half,
-                self.sort_idx.data_ptr() + half, self.sort_status.data_ptr(),
-                self.sort_zeroed.data_ptr(), self.head.data_ptr(),
-                self.part.data_ptr())
-        return (ctypes.c_void_p * len(ptrs))(*ptrs)
-
-
-def key_bits(keys: int) -> int:
-    """Bits of the sort keys ``[0, keys]`` (``keys`` is the sentinel of
-    an item with no key), as ``key_bits`` in ``csrc/key_sort.cuh``."""
-    return max(int(keys).bit_length(), 1)
+        items = self.part_items.data_ptr()
+        ptrs = (self.part_zeroed.data_ptr(), self.part_meta.data_ptr(),
+                items, items + 4 * per if bufs == 2 else None, None, None,
+                self.status.data_ptr(), self.counters.data_ptr(),
+                self.rows.data_ptr())
+        ints = plan.ints()
+        return ((ctypes.c_int * len(ints))(*ints),
+                (ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
 _SPACES: dict = {}

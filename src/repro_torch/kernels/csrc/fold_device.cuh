@@ -1,6 +1,9 @@
 // Device code of the OASRS reservoir fold, shared by reservoir_fold.cu and
 // one_shot_ingest.cu (each includes it into its own anonymous namespace,
-// so the two objects link without clashing symbols).
+// so the two objects link without clashing symbols). Its names live in
+// namespace fold there: stratified_stats.cu and weighted_hist.cu include
+// it (through parted_claim.cuh) beside masked_reduce.cuh, whose block
+// shape (kThreads, kItems, ...) is another.
 //
 // The fold is the parallel rank/scatter-max form of the reference's
 // core/oasrs.py::apply_chunk_uniforms, bitwise equal to the sequential
@@ -72,6 +75,7 @@
 #include "smem.cuh"
 
 namespace {
+namespace fold {
 
 constexpr int kThreads = 512;                 // threads per block
 constexpr int kWarps = kThreads / 32;
@@ -428,4 +432,5 @@ __global__ void __launch_bounds__(kThreads)
   if (tile == 0 && threadIdx.x == 0) *tile_ctr = 0;
 }
 
+}  // namespace fold
 }  // namespace

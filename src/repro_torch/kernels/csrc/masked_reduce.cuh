@@ -387,198 +387,4 @@ __device__ void finish(const float* rows, const int32_t* counts, int keys,
   if (threadIdx.x == 0) tickets[kMaxGroups] = 0;
 }
 
-// ---------------------------------------------------------------------
-// The large-key form, for more keys than a block's shared memory holds 8
-// warps' rows of (the wrappers' MAX_STRATA and MAX_CELLS_BINS), or than
-// the workspace should hold rows of per block (block rows x keys). The
-// caller writes each item's key (keys for none) and sorts them stably
-// (key_sort.cuh), so each key's items are one run of sorted positions in
-// item order; then three launches:
-//   seg_heads  every output set to 0, and head[k], the first sorted
-//              position of each key that has items;
-//   seg_tiles  tiles of kSegTile sorted positions: the tile's values, a
-//              segmented inclusive scan in shared memory (Hillis-Steele,
-//              its additions fixed by the positions alone), and at the
-//              last position of each run in the tile: a run wholly in the
-//              tile writes its key's sums and count; a run that began in
-//              an earlier tile and ends here writes its count and its
-//              part, the tile's first part; a run that goes on into the
-//              next tile writes the tile's last part (a tile wholly
-//              inside one run writes both);
-//   seg_spans  a warp per tile in which a run that began earlier ends:
-//              the run's first tile's last part and every later tile's
-//              first part, summed by a fixed tree (a lane's parts in
-//              order, then a butterfly).
-// Every sum's shape is fixed by the sorted positions, so by the data
-// alone: the same bits every call, whatever order the blocks run in.
-// Scratch grows with the items and the keys; no float atomics, no memset.
-// ---------------------------------------------------------------------
-
-constexpr int kSegItems = 8;                    // items per thread, tile
-constexpr int kSegTile = kThreads * kSegItems;  // 2,048 sorted positions
-
-__host__ __device__ inline int seg_tiles_of(long long m) {
-  return m > 0 ? (int)((m + kSegTile - 1) / kSegTile) : 1;
-}
-
-// f32 words of seg_tiles' parts: first and last, NF values, per tile.
-long long seg_part_words(long long m, int nf) {
-  return 2LL * nf * seg_tiles_of(m);
-}
-
-// The NF values of item j: (x, x*x) of the stats, (w) of the histogram.
-template <int NF>
-__device__ __forceinline__ void seg_values(const float* __restrict__ src,
-                                           int j, float (&v)[NF]) {
-  const float x = src[j];
-  v[0] = x;
-  if constexpr (NF == 2) v[1] = __fmul_rn(x, x);
-}
-
-template <int NF>
-__global__ void __launch_bounds__(kThreads)
-    seg_heads(const int32_t* __restrict__ skeys, int m, int keys,
-              int32_t* __restrict__ head, float* __restrict__ out_f,
-              float* __restrict__ out_c) {
-  const int stride = gridDim.x * kThreads;
-  const int first = blockIdx.x * kThreads + threadIdx.x;
-  for (int k = first; k < keys; k += stride) {
-    out_c[k] = 0.0f;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) out_f[(size_t)f * keys + k] = 0.0f;
-  }
-  for (int p = first; p < m; p += stride) {
-    const int k = skeys[p];
-    if (k < keys && (p == 0 || skeys[p - 1] != k)) head[k] = p;
-  }
-}
-
-// part layout: [which (0 first, 1 last)][NF][tiles].
-template <int NF>
-__global__ void __launch_bounds__(kThreads)
-    seg_tiles(const int32_t* __restrict__ skeys,
-              const int32_t* __restrict__ sidx,
-              const float* __restrict__ src, int m, int keys,
-              const int32_t* __restrict__ head, float* __restrict__ part,
-              float* __restrict__ out_f, float* __restrict__ out_c) {
-  __shared__ int32_t sk[kSegTile];
-  __shared__ int32_t start[kSegTile];   // the run's first position in tile
-  __shared__ float sv[NF][kSegTile];
-  const int n_tiles = gridDim.x;
-  const int t0 = blockIdx.x * kSegTile;
-  for (int i = threadIdx.x; i < kSegTile; i += kThreads) {
-    const int p = t0 + i;
-    int k = keys;
-    float v[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) v[f] = 0.0f;
-    if (p < m) {
-      k = skeys[p];
-      if (k < keys) seg_values<NF>(src, sidx[p], v);
-    }
-    sk[i] = k;
-    start[i] = k < keys ? max(head[k] - t0, 0) : i;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) sv[f][i] = v[f];
-  }
-  __syncthreads();
-  for (int d = 1; d < kSegTile; d <<= 1) {
-    float nv[kSegItems][NF];
-#pragma unroll
-    for (int q = 0; q < kSegItems; ++q) {
-      const int i = threadIdx.x + q * kThreads;
-      const bool add = i - d >= start[i];
-#pragma unroll
-      for (int f = 0; f < NF; ++f)
-        nv[q][f] = add ? __fadd_rn(sv[f][i - d], sv[f][i]) : sv[f][i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kSegItems; ++q)
-#pragma unroll
-      for (int f = 0; f < NF; ++f) sv[f][threadIdx.x + q * kThreads] = nv[q][f];
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < kSegTile; i += kThreads) {
-    const int k = sk[i];
-    const int p = t0 + i;
-    if (k >= keys) continue;
-    const bool tile_end = i == kSegTile - 1;
-    if (!tile_end && sk[i + 1] == k) continue;     // not the run's end here
-    const bool goes_on = tile_end && p + 1 < m && skeys[p + 1] == k;
-    const int h = head[k];
-    const bool began = h < t0;
-    if (goes_on) {
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        part[(size_t)(NF + f) * n_tiles + blockIdx.x] = sv[f][i];
-        if (began) part[(size_t)f * n_tiles + blockIdx.x] = sv[f][i];
-      }
-      continue;
-    }
-    out_c[k] = __int2float_rn(p - h + 1);
-    if (began) {
-#pragma unroll
-      for (int f = 0; f < NF; ++f)
-        part[(size_t)f * n_tiles + blockIdx.x] = sv[f][i];
-    } else {
-#pragma unroll
-      for (int f = 0; f < NF; ++f) out_f[(size_t)f * keys + k] = sv[f][i];
-    }
-  }
-}
-
-// A warp per tile t: if a run that began in an earlier tile ends in t,
-// its sums from the parts of its tiles, in a fixed tree.
-template <int NF>
-__global__ void __launch_bounds__(kThreads)
-    seg_spans(const int32_t* __restrict__ skeys, int m, int keys,
-              int n_tiles, const int32_t* __restrict__ head,
-              const float* __restrict__ part, float* __restrict__ out_f) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (t >= n_tiles) return;
-  const int t0 = t * kSegTile;
-  if (t0 >= m) return;
-  const int k = skeys[t0];
-  if (k >= keys) return;
-  const int h = head[k];
-  if (h >= t0) return;                                  // began here
-  const int t1 = t0 + kSegTile;
-  if (t1 < m && skeys[t1] == k) return;                 // ends later
-  const int th = h / kSegTile;
-  const int n = t - th + 1;            // parts: th's last, then firsts
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    float acc = 0.0f;
-    for (int i = lane; i < n; i += 32)
-      acc = __fadd_rn(acc, i == 0 ? part[(size_t)(NF + f) * n_tiles + th]
-                                  : part[(size_t)f * n_tiles + th + i]);
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, d));
-    if (lane == 0) out_f[(size_t)f * keys + k] = acc;
-  }
-}
-
-// The three launches after the sort; out_f: NF * keys sums, out_c: keys
-// counts; part: seg_part_words(m, NF) words.
-template <int NF>
-int seg_reduce(const int32_t* skeys, const int32_t* sidx, const float* src,
-               int m, int keys, int32_t* head, float* part, float* out_f,
-               float* out_c, cudaStream_t stream) {
-  const int tiles = seg_tiles_of(m);
-  seg_heads<NF><<<tiles, kThreads, 0, stream>>>(skeys, m, keys, head, out_f,
-                                                out_c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  seg_tiles<NF><<<tiles, kThreads, 0, stream>>>(skeys, sidx, src, m, keys,
-                                                head, part, out_f, out_c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  seg_spans<NF><<<(tiles + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      skeys, m, keys, tiles, head, part, out_f);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace

@@ -117,6 +117,8 @@
 #include "fold_device.cuh"
 #include "parted_claim.cuh"
 
+using namespace fold;
+
 namespace {
 
 constexpr float kNegTime = -3.0e38f;          // the reference's _NEG
@@ -920,8 +922,9 @@ extern "C" int sa_one_shot_ingest(
         static_cast<int32_t*>(pt[kPtMeta]), sd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    int e = launch_partition(src, ua_p, us_p, p, m, pt, status_p, tile_ctr,
-                             sd, stream);
+    int e = launch_partition(ClaimItems<IngestCells>{src, ua_p, us_p}, p, m,
+                             pt, status_p + claim_words(p), tile_ctr, sd,
+                             stream);
     if (e != 0) return e;
     e = launch_parted_claim(p, pt, cells, n_max, base_p, caps_p, new_counts,
                             win_p, lists_p, list_n_p, status_p, tile_ctr, sd,

@@ -1,6 +1,10 @@
 // The parted form of the fold's claim, shared by reservoir_fold.cu and
 // one_shot_ingest.cu past the cells a block's shared memory holds (each
 // includes it, after fold_device.cuh, into its own anonymous namespace).
+// Its counting and partition launches also serve the parted form of the
+// stats and the histogram (parted_reduce.cuh): the partition is generic
+// over what an entry carries (the fold's int4 (item, cell, uniforms), the
+// reductions' int2 (key, value)), read from an item source (Items below).
 //
 // The small form ranks a tile's items by cell and looks back over every
 // cell of every earlier tile, so its shared tables and look-back words
@@ -58,6 +62,7 @@
 #include "fold_device.cuh"
 
 namespace {
+namespace fold {
 
 constexpr int kPartMaxPasses = 3;
 constexpr int kPartMaxKeys = 1024;            // keys of one look-back
@@ -149,9 +154,16 @@ __host__ __device__ __forceinline__ size_t claim_words(const PartedPlan& p) {
   return ((size_t)1 << p.lo_bits) * p.claim_grid;
 }
 
+// The partition's look-back words before pass `pass` (a tile's words,
+// its keys', tile-major).
+__host__ __device__ __forceinline__ size_t partition_words(
+    const PartedPlan& p, int pass) {
+  return (size_t)p.tiles * keys_before(p, pass);
+}
+
 __host__ __device__ __forceinline__ size_t pass_words(const PartedPlan& p,
                                                       int pass) {
-  return claim_words(p) + (size_t)p.tiles * keys_before(p, pass);
+  return claim_words(p) + partition_words(p, pass);
 }
 
 // The plan from the wrapper's ints, or false if it is not one this code
@@ -454,30 +466,81 @@ __device__ void part_lookback(int tile, int first, int keys,
   __syncthreads();
 }
 
-// One partition pass, the stable scatter of the live items by the digit
-// of `pass` of their part: pass 0 takes each item's cell from src
-// (src.at(shard, sd).begin(), then .cell(j): -1 for none) and its
-// uniforms, a later pass the items the pass before wrote to `in`. A
-// tile's place for digit d is d's offset + the earlier tiles' items of d
-// (look-back) + its rank. The items carry their uniforms, so the claim
-// reads them in order rather than gather a sector for each. Tiles are
-// taken in launch order; the block that takes the last ticket puts the
-// counter back. Each shard of sd partitions its own items into its own
-// scratch.
+// An item source of the partition (and of parted_count): what an entry
+// carries and how pass 0 reads it.
+//   Items::Entry        the entry type;
+//   Items::key_of(e)    an entry's cell (-1: none), Items::none() one with
+//                       none;
+//   src.smem_words()    int32 shared words its reader takes (host too);
+//   src.at(sh, sd)      shard sh's source;
+//   .begin(extra)       the block's reader, given its shared words (every
+//                       thread calls it; it may synchronise);
+//   reader.cell(q)      item q's cell, -1 for none (parted_count);
+//   reader.entry(q)     item q's entry (the first pass).
+// The fold's source: its cells (src.at(shard, sd).begin(), then .cell(j))
+// and both uniforms, each carried in the entry so that the claim reads
+// them in order rather than gather a sector for each.
+template <class R>
+struct ClaimReader {
+  R cells;
+  const float* u_accept;
+  const float* u_slot;
+  __device__ __forceinline__ int cell(long long q) const {
+    return cells.cell(q);
+  }
+  __device__ __forceinline__ int4 entry(long long q) const {
+    return part_item((int)q, cells.cell(q), u_accept[q], u_slot[q]);
+  }
+};
+
+template <class R>
+__device__ __forceinline__ ClaimReader<R> claim_reader(const R& cells,
+                                                       const float* ua,
+                                                       const float* us) {
+  return ClaimReader<R>{cells, ua, us};
+}
+
 template <class Cells>
+struct ClaimItems {
+  using Entry = int4;
+  Cells cells;
+  const float* u_accept;
+  const float* u_slot;
+  __host__ __device__ int smem_words() const { return 0; }
+  __device__ __forceinline__ ClaimItems at(long long sh,
+                                           const Shards& sd) const {
+    const long long off = item_row(sh, sd) * sd.items;
+    return ClaimItems{cells.at(sh, sd), u_accept + off, u_slot + off};
+  }
+  __device__ __forceinline__ auto begin(int32_t*) const {
+    return claim_reader(cells.begin(), u_accept, u_slot);
+  }
+  __device__ static __forceinline__ int key_of(const int4& e) { return e.y; }
+  __device__ static __forceinline__ int4 none() {
+    return make_int4(0, -1, 0, 0);
+  }
+};
+
+// One partition pass, the stable scatter of the live items by the digit
+// of `pass` of their part: pass 0 reads each item's entry from src, a
+// later pass the entries the pass before wrote to `in`. A tile's place
+// for digit d is d's offset + the earlier tiles' items of d (look-back)
+// + its rank. Tiles are taken in launch order; the block that takes the
+// last ticket puts the counter back. status: the partition's look-back
+// words (partition_words past it for each pass). Each shard of sd
+// partitions its own items into its own scratch.
+template <class Items>
 __global__ void __launch_bounds__(kThreads)
-    parted_partition(const Cells src, const float* __restrict__ u_accept,
-                     const float* __restrict__ u_slot, const PartedPlan p,
-                     int pass, int m, const int4* __restrict__ in,
-                     int4* __restrict__ out,
+    parted_partition(const Items src, const PartedPlan p, int pass, int m,
+                     const typename Items::Entry* __restrict__ in,
+                     typename Items::Entry* __restrict__ out,
                      const int32_t* __restrict__ meta,
                      unsigned long long* __restrict__ status,
                      int32_t* __restrict__ tile_ctr, const Shards sd) {
+  using Entry = typename Items::Entry;
   extern __shared__ int32_t sm[];
   const long long sh = shard_index();
   if (sh >= sd.n) return;
-  u_accept += item_row(sh, sd) * sd.items;
-  u_slot += item_row(sh, sd) * sd.items;
   if (in) in += sh * sd.part;
   out += sh * sd.part;
   meta += sh * sd.meta;
@@ -491,23 +554,30 @@ __global__ void __launch_bounds__(kThreads)
   if (tile == (int)gridDim.x - 1 && threadIdx.x == 0) *tile_ctr = 0;
   const int n = in ? part_first(p, meta)[p.parts] : m;
   if ((long long)tile * kTile >= n) return;
-  const auto cells = src.at(sh, sd).begin();
   int key[kItems], rank[kItems];
-  int4 e[kItems];
+  Entry e[kItems];
+  if (in) {
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {    // all loads independent: one trip
-    const long long q = item_index(tile, r);
-    e[r] = make_int4(0, -1, 0, 0);
-    if (q < n)
-      e[r] = in ? in[q]
-                : part_item((int)q, cells.cell(q), u_accept[q], u_slot[q]);
+    for (int r = 0; r < kItems; ++r) {  // all loads independent: one trip
+      const long long q = item_index(tile, r);
+      e[r] = q < n ? in[q] : Items::none();
+    }
+  } else {
+    const auto rd = src.at(sh, sd).begin(base + keys);
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      const long long q = item_index(tile, r);
+      e[r] = q < n ? rd.entry(q) : Items::none();
+    }
   }
 #pragma unroll
-  for (int r = 0; r < kItems; ++r)
-    key[r] = e[r].y >= 0 ? digit_of(p, e[r].y >> p.lo_bits, pass) : keys;
+  for (int r = 0; r < kItems; ++r) {
+    const int c = Items::key_of(e[r]);
+    key[r] = c >= 0 ? digit_of(p, c >> p.lo_bits, pass) : keys;
+  }
   const int32_t* off = meta + meta_map_words(p) + keys_before(p, pass);
   for (int k = threadIdx.x; k < keys; k += kThreads) base[k] = off[k];
-  unsigned long long* st = status + pass_words(p, pass);
+  unsigned long long* st = status + partition_words(p, pass);
   part_ranks(key, rank, keys, wrun, agg, st + (size_t)tile * keys, 1,
              tile == 0);
   part_lookback(tile, 0, keys, agg, base, st, 1, keys);
@@ -520,6 +590,39 @@ __global__ void __launch_bounds__(kThreads)
 __host__ __device__ __forceinline__ int partition_smem_words(
     const PartedPlan& p, int pass) {
   return kWarps * (p.keys[pass] + 1) + 2 * p.keys[pass];
+}
+
+// The counting launch of a source's items: each block's live items per
+// digit of each pass (count_part), over every gridDim.x-th tile, then the
+// last block's scan (count_finish). Shared memory: count_smem_words(p,
+// src.smem_words()). (The fold and the one-shot count in launches of
+// their own, which do more.)
+template <class Items>
+__global__ void __launch_bounds__(kThreads)
+    parted_count(const Items src, int m, const PartedPlan p,
+                 int32_t* __restrict__ zeroed, int32_t* __restrict__ meta,
+                 const Shards sd) {
+  extern __shared__ int32_t cnt[];
+  const long long sh = shard_index();
+  if (sh >= sd.n) return;
+  zeroed += sh * sd.zeroed;
+  meta += sh * sd.meta;
+  for (int i = threadIdx.x; i < sum_keys(p); i += kThreads) cnt[i] = 0;
+  __syncthreads();
+  const auto rd = src.at(sh, sd).begin(cnt + sum_keys(p));
+  int32_t* ptot = part_totals(p, zeroed);
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    int cell[kItems];
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {  // all loads independent: one trip
+      const long long j = item_index(tile, r);
+      cell[r] = j < m ? rd.cell(j) : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) count_part(cell[r], p, cnt, ptot);
+  }
+  __syncthreads();
+  count_finish(cnt, p, zeroed, meta);
 }
 
 __host__ __device__ __forceinline__ int parted_claim_smem_words(
@@ -662,8 +765,8 @@ __host__ __device__ __forceinline__ int count_smem_words(const PartedPlan& p,
 enum PartedSlot {
   kPtZeroed,   // int32: digit and part totals, the ticket; 0 between calls
   kPtMeta,     // int32: the claim's map, offsets, first items
-  kPtItemsA,   // int4 [M]: the partition's output (pass 0, 2)
-  kPtItemsB,   // int4 [M]: pass 1's output (null for one pass)
+  kPtItemsA,   // Entry [M]: the partition's output (pass 0, 2)
+  kPtItemsB,   // Entry [M]: pass 1's output (null for one pass)
   kPtBase,     // int32 [cells]: one-shot, a cell's count after the reset
   kPtCap,      // int32 [cells]: one-shot, its capacity after the reset
   kPtSlots
@@ -675,28 +778,44 @@ inline int4* parted_items(const PartedPlan& p, void* const* pt) {
 }
 
 // Launches the partition passes after the counting launch, each over
-// the shards of sd (pt: shard 0's scratch).
-template <class Cells>
-int launch_partition(const Cells& src, const float* u_accept,
-                     const float* u_slot, const PartedPlan& p, int m,
+// the shards of sd (pt: shard 0's scratch; status: its partition's
+// look-back words).
+template <class Items>
+int launch_partition(const Items& src, const PartedPlan& p, int m,
                      void* const* pt, unsigned long long* status,
                      int32_t* tile_ctr, const Shards& sd,
                      cudaStream_t stream) {
+  using Entry = typename Items::Entry;
   const int32_t* meta = static_cast<const int32_t*>(pt[kPtMeta]);
-  const int4* in = nullptr;
+  const Entry* in = nullptr;
   for (int d = 0; d < p.passes; ++d) {
-    int4* out = static_cast<int4*>(pt[d % 2 ? kPtItemsB : kPtItemsA]);
-    const size_t smem = sizeof(int32_t) * partition_smem_words(p, d);
-    cudaError_t e = allow_smem(parted_partition<Cells>, smem);
+    Entry* out = static_cast<Entry*>(pt[d % 2 ? kPtItemsB : kPtItemsA]);
+    const size_t smem =
+        sizeof(int32_t) * (partition_smem_words(p, d) + src.smem_words());
+    cudaError_t e = allow_smem(parted_partition<Items>, smem);
     if (e != cudaSuccess) return (int)e;
-    parted_partition<Cells><<<shard_grid(p.tiles, sd.n), kThreads, smem,
-                              stream>>>(src, u_accept, u_slot, p, d, m, in,
-                                        out, meta, status, tile_ctr, sd);
+    parted_partition<Items><<<shard_grid(p.tiles, sd.n), kThreads, smem,
+                              stream>>>(src, p, d, m, in, out, meta, status,
+                                        tile_ctr, sd);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     in = out;
   }
   return 0;
+}
+
+// Launches parted_count over the shards of sd.
+template <class Items>
+int launch_count(const Items& src, const PartedPlan& p, int m,
+                 void* const* pt, const Shards& sd, cudaStream_t stream) {
+  const size_t smem = sizeof(int32_t) * count_smem_words(p, src.smem_words());
+  cudaError_t e = allow_smem(parted_count<Items>, smem);
+  if (e != cudaSuccess) return (int)e;
+  parted_count<Items><<<shard_grid(count_grid(p), sd.n), kThreads, smem,
+                        stream>>>(src, m, p,
+                                  static_cast<int32_t*>(pt[kPtZeroed]),
+                                  static_cast<int32_t*>(pt[kPtMeta]), sd);
+  return (int)cudaGetLastError();
 }
 
 // Launches the claim after the partition, over the shards of sd.
@@ -717,4 +836,5 @@ inline int launch_parted_claim(const PartedPlan& p, void* const* pt,
   return (int)cudaGetLastError();
 }
 
+}  // namespace fold
 }  // namespace

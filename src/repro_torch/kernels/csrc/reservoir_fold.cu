@@ -83,6 +83,8 @@
 #include "fold_device.cuh"
 #include "parted_claim.cuh"
 
+using namespace fold;
+
 namespace {
 
 __global__ void __launch_bounds__(kThreads)
@@ -293,10 +295,10 @@ int launch_parted(const void* sid, const void* u_accept, const void* u_slot,
       static_cast<int32_t*>(pt[kPtMeta]), sd);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int err =
-      launch_partition(src, static_cast<const float*>(u_accept),
-                       static_cast<const float*>(u_slot), p, m, pt, st,
-                       tile_ctr, sd, stream);
+  const int err = launch_partition(
+      ClaimItems<FoldCells>{src, static_cast<const float*>(u_accept),
+                            static_cast<const float*>(u_slot)},
+      p, m, pt, st + claim_words(p), tile_ctr, sd, stream);
   if (err != 0) return err;
   return launch_parted_claim(
       p, pt, s_cnt, n_max,

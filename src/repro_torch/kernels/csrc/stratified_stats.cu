@@ -49,11 +49,14 @@
 // Shared memory: 8 warps' rows of S (f32, f32) sums and one row of S
 // int32 counts, 34,816 B at S = 512; the workspace holds a row of S per
 // block and group. Past S = 512 (the wrapper's MAX_STRATA) the wrapper
-// asks for the large-key form instead: stats_keys writes each item's
-// stratum (S for a masked-out item or one outside [0, S)), key_sort sorts
-// them stably, and masked_reduce.cuh's segmented reduction sums each
-// stratum's run of sorted items in a fixed tree (2 + passes + 3
-// launches, scratch that grows with M + S).
+// asks for the parted form instead (parted_reduce.cuh over StatsItems: a
+// stratum is (part, low 9 bits or fewer), the live items' (stratum, x)
+// partitioned stably by part, each part's tiles summed over its low bits
+// by the small form's rows; 3 launches up to 2^19 strata, scratch that
+// grows with M + S). Sequential f32 additions per sum there: a thread's
+// fold and the butterfly (at most 13), its warp's row (one add per step
+// that meets the key, at most 8), the warps' tree (3), and for a part of
+// T > 1 tiles the cascade over its tiles (about log2 T).
 //
 // The row form (stats_rows_kernel, row_reduce.cuh), for a caller whose
 // strata are the rows of a [G, N] view (the emission's), past S = 512:
@@ -72,8 +75,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "key_sort.cuh"
 #include "masked_reduce.cuh"
+#include "parted_reduce.cuh"
 #include "row_reduce.cuh"
 
 namespace {
@@ -138,35 +141,37 @@ __global__ void __launch_bounds__(kThreads, 4)
   finish<2>(rows, cnt, s_cnt, red, zeroed, sums, counts);
 }
 
-// The large-key form's sort keys: each live item's stratum, else s_cnt.
-__global__ void __launch_bounds__(kThreads)
-    stats_keys(const int32_t* __restrict__ sid,
-               const uint8_t* __restrict__ mask, int m, int s_cnt,
-               int32_t* __restrict__ keys) {
-  for (int j = blockIdx.x * kThreads + threadIdx.x; j < m;
-       j += gridDim.x * kThreads) {
-    const int s = sid[j];
-    keys[j] = mask[j] != 0 && s >= 0 && s < s_cnt ? s : s_cnt;
+// The parted form's items (parted_claim.cuh's item source): a live item
+// is masked in with its stratum in [0, S); its key is the stratum and its
+// entry (stratum, x). The value is read beside the id and the mask, which
+// spares a dependent trip and, with a quarter of the items masked out,
+// next to no sectors.
+struct StatsItems {
+  using Entry = int2;
+  const float* values;
+  const int32_t* sid;
+  const uint8_t* mask;
+  int s_cnt;
+  __host__ __device__ int smem_words() const { return 0; }
+  __device__ __forceinline__ StatsItems at(long long,
+                                           const fold::Shards&) const {
+    return *this;
   }
-}
-
-int stats_large(const float* values, const int32_t* sid, const uint8_t* mask,
-                int m, int s_cnt, void* const* lg, float* counts, float* sums,
-                cudaStream_t stream) {
-  auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
-  stats_keys<<<seg_tiles_of(m), kThreads, 0, stream>>>(sid, mask, m, s_cnt,
-                                                       keys);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int32_t *skeys, *sidx;
-  const int err = ks_sort(keys, m, key_bits(s_cnt), sort_scratch(lg), &skeys,
-                          &sidx, stream);
-  if (err != 0) return err;
-  return seg_reduce<2>(skeys, sidx, values, m, s_cnt,
-                       static_cast<int32_t*>(lg[kLgHead]),
-                       static_cast<float*>(lg[kLgPart]), sums, counts,
-                       stream);
-}
+  __device__ __forceinline__ StatsItems begin(int32_t* = nullptr) const {
+    return *this;
+  }
+  __device__ __forceinline__ int cell(long long q) const {
+    const int s = sid[q];
+    return mask[q] != 0 && s >= 0 && s < s_cnt ? s : -1;
+  }
+  __device__ __forceinline__ int2 entry(long long q) const {
+    const float x = values[q];
+    const int s = cell(q);
+    return make_int2(s, s >= 0 ? __float_as_int(x) : 0);
+  }
+  __device__ static __forceinline__ int key_of(const int2& e) { return e.x; }
+  __device__ static __forceinline__ int2 none() { return make_int2(-1, 0); }
+};
 
 // The row form (row_reduce.cuh): the sums of each unit of a [G, N] view
 // (a row, or a part of a long row) by its tr = 2^tr_log threads. Part p's
@@ -297,6 +302,33 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// The count and partition launches alone, for tests: the live items'
+// entries partitioned stably by part into the scratch (plan and pt as
+// sa_stratified_stats takes them), the stats' (stratum, x) when entry is
+// 2, the fold's (item, stratum, u_accept, u_slot) when 4 (then the
+// scratch's buffers hold 4 words an item). The partition's look-back
+// words are left for the caller to clear (in a call the sums launch
+// clears them).
+extern "C" int sa_stats_partition(const void* values, const void* sid,
+                                  const void* mask, const void* u_accept,
+                                  const void* u_slot, long long m, int s_cnt,
+                                  int entry, const int* plan,
+                                  void* const* pt, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const StatsItems items{static_cast<const float*>(values),
+                         static_cast<const int32_t*>(sid),
+                         static_cast<const uint8_t*>(mask), s_cnt};
+  fold::PartedPlan p;
+  if (entry == 2)
+    return launch_parted_items(items, s_cnt, (int)m, plan, pt, stream, &p);
+  if (entry != 4) return (int)cudaErrorInvalidValue;
+  return launch_parted_items(
+      fold::ClaimItems<StatsItems>{items,
+                                   static_cast<const float*>(u_accept),
+                                   static_cast<const float*>(u_slot)},
+      s_cnt, (int)m, plan, pt, stream, &p);
+}
+
 // f32 words of the row form's part sums for a [g, n] view (0: no row is
 // cut into parts).
 extern "C" long long sa_stats_rows_part_words(long long g, long long n) {
@@ -329,11 +361,6 @@ extern "C" int sa_stats_rows(const void* values, const void* mask,
   return (int)cudaGetLastError();
 }
 
-// f32 words of the large-key form's tile parts for m items.
-extern "C" long long sa_stats_part_words(long long m) {
-  return seg_part_words(m, 2);
-}
-
 // Words (f32) of the workspace rows a call of m items over S strata
 // needs; the zeroed words are sa_reduce_zeroed(S) int32.
 extern "C" long long sa_stats_scratch_words(long long m, int s_cnt) {
@@ -342,21 +369,23 @@ extern "C" long long sa_stats_scratch_words(long long m, int s_cnt) {
 
 // Outputs: counts f32 [S], then sums and sumsqs f32 [S] contiguous
 // (sums[0..S) and sums[S..2S)). red and zeroed are the caller's
-// workspace; the kernel leaves the zeroed words 0. lg: null for the
-// one-launch form, else the large-key form's scratch (key_sort.cuh's
-// slots kLgKeys to kLgHead and kLgPart).
+// workspace; the kernel leaves the zeroed words 0. plan: null for the
+// one-launch form, else the parted form's plan (kPlanInts ints,
+// kernels/_workspace.py::parted_plan) and pt its scratch (kRdSlots
+// pointers, parted_reduce.cuh), whose zeroed words it leaves 0.
 extern "C" int sa_stratified_stats(const void* values, const void* sid,
                                    const void* mask, long long m, int s_cnt,
                                    void* red, void* zeroed, void* counts,
-                                   void* sums, void* const* lg,
-                                   void* stream_ptr) {
+                                   void* sums, const int* plan,
+                                   void* const* pt, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (lg)
-    return stats_large(static_cast<const float*>(values),
-                       static_cast<const int32_t*>(sid),
-                       static_cast<const uint8_t*>(mask), (int)m, s_cnt, lg,
-                       static_cast<float*>(counts), static_cast<float*>(sums),
-                       stream);
+  if (plan)
+    return launch_parted_reduce<2>(
+        StatsItems{static_cast<const float*>(values),
+                   static_cast<const int32_t*>(sid),
+                   static_cast<const uint8_t*>(mask), s_cnt},
+        s_cnt, (int)m, plan, pt, static_cast<float*>(sums),
+        static_cast<float*>(counts), stream);
   const size_t smem = (size_t)(2 * kWarps + 1) * s_cnt * 4;
   const cudaError_t err = allow_smem(stats_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -65,17 +65,20 @@
 // Shared memory: 8 warps' rows of G*B f32 sums, one row of G*B int32
 // counts, the bin table, the edges and their padded copy: 150,024 B of
 // the 227 KB a block can use at G*B = 3200. Past that (the wrapper's
-// MAX_CELLS_BINS) the wrapper asks for the large-key form instead:
-// whist_keys finds each item's bin as above (the same bin table) and
-// writes its key cell * B + bin (G*B for none), key_sort sorts the keys
-// stably, and masked_reduce.cuh's segmented reduction sums each key's
-// run of sorted weights in a fixed tree (2 + passes + 3 launches, scratch
-// that grows with M + G*B; the cap is on G*B, not on B).
+// MAX_CELLS_BINS) the wrapper asks for the parted form instead
+// (parted_reduce.cuh over HistItems: each item's bin found as above, per
+// item, with the same bin table; a key cell * B + bin is (part, low 10
+// bits or fewer), the items in a bin partitioned stably by part as
+// (key, w), each part's tiles summed over its low bits by the small
+// form's rows; 3 launches up to 2^20 keys, 4 at the per-key stress's
+// 2^23; scratch that grows with M + G*B; the cap is on G*B, not on B,
+// but the bin table and edges must fit a block's shared memory beside
+// the partition's words).
 //
 // The row form (whist_rows_kernel, row_reduce.cuh), for a caller whose
 // cells are the rows of a [G, N] view with one weight a row (the
 // emission's), past G*B = 3200 and up to B = 4,096 (kMaxRowBins; past it
-// the large-key form): one launch, no sort, no ids, no per-slot weights.
+// the parted form): one launch, no sort, no ids, no per-slot weights.
 // The function needs every mask byte, the value of each live slot, the
 // G row weights, the edges and the two [G, B] outputs. No f32 addition:
 // a (row, bin) mass is its integer count times the row's weight, taken in
@@ -85,13 +88,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "key_sort.cuh"
 #include "masked_reduce.cuh"
+#include "parted_reduce.cuh"
 #include "row_reduce.cuh"
 
 namespace {
 
 constexpr int kLut = kThreads;   // buckets of the bin table
+
+// The largest power of two at most nb - 1 (0 for one bin): the first
+// step of the binary lifting over the bins.
+__host__ __device__ __forceinline__ int bin_top(int nb) {
+  int top = nb > 1 ? 1 : 0;
+  while (2 * top <= nb - 1) top *= 2;
+  return top;
+}
+
+// Shared words of the bin table (kLut + 1), the edges (nb + 1) and their
+// padded copy (nb + top).
+__host__ __device__ __forceinline__ int edge_words(int nb) {
+  return kLut + 1 + nb + 1 + nb + bin_top(nb);
+}
 
 // A float as an int of the same order (-0 first made +0, so equal floats
 // give equal ints).
@@ -168,16 +185,17 @@ __device__ __forceinline__ int last_edge_at_most(const float* e, int nb,
 }
 
 // The bin table over the edges e (their padded copy es) in shared
-// memory, after a barrier: each thread builds entries k and k + 1 of the
-// table (kLut == kThreads) and the widest bucket comes from a warp max,
-// one barrier in all. *s_width is 0 on entry.
+// memory, after a barrier: each of the first kLut threads builds entries
+// k and k + 1 of the table (kLut == kThreads; the parted form's blocks
+// are wider) and the widest bucket comes from a warp max, one barrier in
+// all. *s_width is 0 on entry.
 __device__ __forceinline__ Edges bin_table(const float* e, const float* es,
                                            int* lut, int nb, int top,
                                            int* s_width) {
   Edges ed{e, es, lut, nb, ordered(e[0]), 0, 0, e[0], e[nb]};
   const unsigned range = (unsigned)ordered(ed.hi) - (unsigned)ed.base;
   while ((range >> ed.shift) >= (unsigned)kLut) ++ed.shift;
-  {
+  if (threadIdx.x < kLut) {         // whole warps: a wider block's rest wait
     int entry[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -211,8 +229,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_width;
   const int keys = g_cnt * nb;
-  int top = nb > 1 ? 1 : 0;
-  while (2 * top <= nb - 1) top *= 2;
+  const int top = bin_top(nb);
   float* rows = reinterpret_cast<float*>(smem);                // [kWarps][keys]
   int32_t* cnt = reinterpret_cast<int32_t*>(rows + kWarps * keys);  // [keys]
   int* lut = cnt + keys;                                       // [kLut + 1]
@@ -275,83 +292,102 @@ __global__ void __launch_bounds__(kThreads, 4)
 }
 
 size_t smem_bytes(int g_cnt, int nb) {
-  int top = nb > 1 ? 1 : 0;
-  while (2 * top <= nb - 1) top *= 2;
-  return (size_t)(kWarps + 1) * g_cnt * nb * 4 +
-         (size_t)(kLut + 1 + nb + 1 + nb + top) * 4;
+  return (size_t)(kWarps + 1) * g_cnt * nb * 4 + (size_t)edge_words(nb) * 4;
 }
 
-// The large-key form's sort keys: cell * nb + bin for each item in a bin
-// (the bins found as weighted_hist_kernel finds them), g_cnt * nb for the
-// others. Shared memory: the bin table and the edges, smem_bytes(0, nb).
-__global__ void __launch_bounds__(kThreads, 4)
-    whist_keys(const float* __restrict__ values,
-               const int32_t* __restrict__ cell_ids,
-               const uint8_t* __restrict__ mask,
-               const float* __restrict__ edges, Span sp, int g_cnt, int nb,
-               int32_t* __restrict__ keys) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_width;
-  int top = nb > 1 ? 1 : 0;
-  while (2 * top <= nb - 1) top *= 2;
-  int* lut = reinterpret_cast<int*>(smem);                     // [kLut + 1]
-  float* e = reinterpret_cast<float*>(lut + kLut + 1);         // [nb + 1]
-  float* es = e + nb + 1;                                      // [nb + top]
-  for (int k = threadIdx.x; k <= nb; k += kThreads) e[k] = edges[k];
-  for (int k = threadIdx.x; k < nb + top; k += kThreads)
-    es[k] = k < nb ? edges[k] : __int_as_float(0x7fffffff);
-  if (threadIdx.x == 0) s_width = 0;
-  __syncthreads();
-  const Edges ed = bin_table(e, es, lut, nb, top, &s_width);
-  const int none = g_cnt * nb;
-  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const long long n_tiles = ((sp.m + sp.d + 3) / 4 + kTileVecs - 1) /
-                            kTileVecs;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    uint32_t mk[kVecs], in_bin[kVecs];
-    float4 x[kVecs];
-    int4 c[kVecs];
-    int bin[kItems];
-    load_masks(mask, sp, tile, mk);
-    load_tile(values, sp, tile, mk, true, zero4, x);
-    find_bins(ed, x, mk, bin, in_bin);
-    load_tile(cell_ids, sp, tile, in_bin, sp.vec & kIdsVec,
-              make_int4(-1, -1, -1, -1), c);
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long s = vec_start(sp, tile, k) + i;
-        if (s < 0 || s >= sp.m) continue;
-        const int ci = lane_of(c[k], i), b = bin[4 * k + i];
-        keys[s] = b >= 0 && ci >= 0 && ci < g_cnt ? ci * nb + b : none;
-      }
+// A block's bin table (Edges) with the table and the padded edges as
+// shared-memory addresses, read by lds32. The parted form's readers carry
+// it out of begin() and through the partition's code: held there as
+// generic pointers, the table's loads were compiled as global loads (LDG
+// from the shared offset, seen in the SASS), which faulted.
+struct SharedEdges {
+  size_t lut, es;
+  int nb, base, shift, steps;
+  float lo, hi;
+};
+
+__device__ __forceinline__ SharedEdges shared_edges(const Edges& ed) {
+  return SharedEdges{__cvta_generic_to_shared(ed.lut),
+                     __cvta_generic_to_shared(ed.es), ed.nb, ed.base,
+                     ed.shift, ed.steps, ed.lo, ed.hi};
+}
+
+// The 4-byte word at shared address a.
+__device__ __forceinline__ int32_t lds32(size_t a) {
+  int32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"((unsigned)a));
+  return v;
+}
+
+// The bin of x (-1 outside [e_0, e_B] or NaN): find_bins for one item.
+__device__ __forceinline__ int bin_of(const SharedEdges& ed, float x) {
+  if (!(ed.lo <= x && x <= ed.hi)) return -1;
+  const unsigned u = ((unsigned)ordered(x) - (unsigned)ed.base) >> ed.shift;
+  int b = lds32(ed.lut + 4 * min(u, (unsigned)(kLut - 1)));
+  for (int step = ed.steps; step > 0; step >>= 1)
+    if (__int_as_float(lds32(ed.es + 4 * (b + step))) <= x) b += step;
+  return b;
+}
+
+// The parted form's items (parted_claim.cuh's item source): a live item
+// is masked in, in a bin, with its cell in [0, G); its key is cell * B +
+// bin and its entry (key, w). begin() builds the bin table and the edges
+// in the block's shared words (edge_words(B), then the widest bucket's
+// word), as weighted_hist_kernel does. The mask, value and cell id (and
+// in the entry the weight) are read together: one trip, and in the
+// large-key calls nearly every item is in a bin.
+struct HistItems {
+  using Entry = int2;
+  const float* values;
+  const int32_t* cell_ids;
+  const float* weights;
+  const uint8_t* mask;
+  const float* edges;
+  int g_cnt, nb;
+
+  struct Reader {
+    SharedEdges ed;
+    const float* values;
+    const int32_t* cell_ids;
+    const float* weights;
+    const uint8_t* mask;
+    int g_cnt;
+    __device__ __forceinline__ int cell(long long q) const {
+      const bool live = mask[q] != 0;
+      const float x = values[q];
+      const int c = cell_ids[q];
+      const int b = bin_of(ed, x);
+      return live && b >= 0 && c >= 0 && c < g_cnt ? c * ed.nb + b : -1;
+    }
+    __device__ __forceinline__ int2 entry(long long q) const {
+      const float w = weights[q];
+      const int k = cell(q);
+      return make_int2(k, k >= 0 ? __float_as_int(w) : 0);
+    }
+  };
+
+  __host__ __device__ int smem_words() const { return edge_words(nb) + 1; }
+  __device__ __forceinline__ HistItems at(long long,
+                                          const fold::Shards&) const {
+    return *this;
   }
-}
-
-int whist_large(const float* values, const int32_t* cell_ids,
-                const float* weights, const uint8_t* mask, const float* edges,
-                int m, int g_cnt, int nb, void* const* lg, float* whist,
-                float* counts, cudaStream_t stream) {
-  auto* keys = static_cast<int32_t*>(lg[kLgKeys]);
-  const size_t smem = smem_bytes(0, nb);
-  cudaError_t e = allow_smem(whist_keys, smem);
-  if (e != cudaSuccess) return (int)e;
-  whist_keys<<<grid_blocks(m), kThreads, smem, stream>>>(
-      values, cell_ids, mask, edges,
-      make_span(m, values, mask, cell_ids, nullptr), g_cnt, nb, keys);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n_keys = g_cnt * nb;
-  const int32_t *skeys, *sidx;
-  const int err = ks_sort(keys, m, key_bits(n_keys), sort_scratch(lg), &skeys,
-                          &sidx, stream);
-  if (err != 0) return err;
-  return seg_reduce<1>(skeys, sidx, weights, m, n_keys,
-                       static_cast<int32_t*>(lg[kLgHead]),
-                       static_cast<float*>(lg[kLgPart]), whist, counts,
-                       stream);
-}
+  __device__ __forceinline__ Reader begin(int32_t* sm) const {
+    const int top = bin_top(nb);
+    int* lut = sm;                                            // [kLut + 1]
+    float* e = reinterpret_cast<float*>(lut + kLut + 1);      // [nb + 1]
+    float* es = e + nb + 1;                                   // [nb + top]
+    int* width = reinterpret_cast<int*>(es + nb + top);       // [1]
+    for (int k = threadIdx.x; k <= nb; k += blockDim.x) e[k] = edges[k];
+    for (int k = threadIdx.x; k < nb + top; k += blockDim.x)
+      es[k] = k < nb ? edges[k] : __int_as_float(0x7fffffff);
+    if (threadIdx.x == 0) *width = 0;
+    __syncthreads();
+    return Reader{shared_edges(bin_table(e, es, lut, nb, top, width)),
+                  values, cell_ids, weights, mask, g_cnt};
+  }
+  __device__ static __forceinline__ int key_of(const int2& e) { return e.x; }
+  __device__ static __forceinline__ int2 none() { return make_int2(-1, 0); }
+};
 
 // The row form (row_reduce.cuh): each block counts the items of its
 // whole rows (or of its part of one long row) per (row, bin) in shared
@@ -371,8 +407,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_width;
   __shared__ int s_last;
-  int top = nb > 1 ? 1 : 0;
-  while (2 * top <= nb - 1) top *= 2;
+  const int top = bin_top(nb);
   const long long row0 =
       parts == 1 ? (long long)blockIdx.x * rows : blockIdx.x / parts;
   const long long j = parts == 1 ? 0 : blockIdx.x - row0 * parts;
@@ -501,11 +536,6 @@ extern "C" int sa_whist_rows(const void* values, const void* mask,
   return (int)cudaGetLastError();
 }
 
-// f32 words of the large-key form's tile parts for m items.
-extern "C" long long sa_whist_part_words(long long m) {
-  return seg_part_words(m, 1);
-}
-
 // Words (f32) of the workspace rows a call of m items over G*B keys
 // needs.
 extern "C" long long sa_whist_scratch_words(long long m, int keys) {
@@ -518,23 +548,26 @@ extern "C" int sa_reduce_zeroed(int keys) { return kTickets + keys; }
 
 // Outputs whist and counts are f32 [G, B]. red and zeroed are the
 // caller's workspace (sa_whist_scratch_words, sa_reduce_zeroed); the
-// kernel leaves the zeroed words 0. lg: null for the one-launch form,
-// else the large-key form's scratch (key_sort.cuh's slots kLgKeys to
-// kLgHead and kLgPart).
+// kernel leaves the zeroed words 0. plan: null for the one-launch form,
+// else the parted form's plan (kPlanInts ints,
+// kernels/_workspace.py::parted_plan) and pt its scratch (kRdSlots
+// pointers, parted_reduce.cuh), whose zeroed words it leaves 0.
 extern "C" int sa_weighted_hist(const void* values, const void* cell_ids,
                                 const void* weights, const void* mask,
                                 const void* edges, long long m, int g_cnt,
                                 int nb, void* red, void* zeroed, void* whist,
-                                void* counts, void* const* lg,
-                                void* stream_ptr) {
+                                void* counts, const int* plan,
+                                void* const* pt, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (lg)
-    return whist_large(
-        static_cast<const float*>(values),
-        static_cast<const int32_t*>(cell_ids),
-        static_cast<const float*>(weights), static_cast<const uint8_t*>(mask),
-        static_cast<const float*>(edges), (int)m, g_cnt, nb, lg,
-        static_cast<float*>(whist), static_cast<float*>(counts), stream);
+  if (plan)
+    return launch_parted_reduce<1>(
+        HistItems{static_cast<const float*>(values),
+                  static_cast<const int32_t*>(cell_ids),
+                  static_cast<const float*>(weights),
+                  static_cast<const uint8_t*>(mask),
+                  static_cast<const float*>(edges), g_cnt, nb},
+        (long long)g_cnt * nb, (int)m, plan, pt, static_cast<float*>(whist),
+        static_cast<float*>(counts), stream);
   const size_t smem = smem_bytes(g_cnt, nb);
   const cudaError_t err = allow_smem(weighted_hist_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -106,7 +106,7 @@ def launch_counts() -> dict:
 
 def form_counts() -> dict:
     """Launches of each form of every wrapper since the last reset: the
-    stats and histogram ``small``, ``row`` and ``sorted``, the fold and
+    stats and histogram ``small``, ``row`` and ``parted``, the fold and
     one-shot ``small`` and ``parted``."""
     return {name: dict(fn.forms) for name, fn in _WRAPPERS.items()}
 

@@ -11,10 +11,14 @@ tickets of the cross-block sum and the count totals are kept in
 between calls), not allocated per call.
 
 Past :data:`MAX_STRATA` strata a block's shared memory no longer holds
-its warps' rows, and the wrapper takes the kernel's large-key form: each
-live item's stratum sorted stably (``csrc/key_sort.cu``), then each
-stratum's run of sorted items summed by a fixed tree, with scratch that
-grows with ``M + S``. Its sums' order is fixed by the data alone.
+its warps' rows, and the wrapper takes the kernel's parted form
+(``csrc/parted_reduce.cuh``): a stratum is (part, low bits), the low bits
+at most :data:`MAX_STRATA` keys (:func:`_workspace.parted_plan`), the live
+items' ``(stratum, x)`` partitioned stably by part, each part's tiles
+summed over its low bits as the one-launch form sums its strata, in 2 +
+the plan's partition passes launches (3 up to 2**19 strata) and scratch
+that grows with ``M + S``. Its sums' order is fixed by the data and
+``M`` alone.
 
 The order of the small-key form's f32 sums is fixed by ``M`` and by where
 ``values`` starts within 16 bytes (the kernel's 4-item vectors are aligned to that
@@ -28,24 +32,22 @@ whose strata are its rows, and picks one of three forms by ``G`` alone
 (:func:`stats_form`): up to :data:`MAX_STRATA` rows the one-launch form
 above on the flat view with row ids (the bits of a flat call); past it
 the row form, one launch that sums each row where it lies (no sort, no
-ids, no cap on ``G``; ``csrc/row_reduce.cuh``). The sorted large-key
-form stays for flat callers whose ids are arbitrary.
+ids, no cap on ``G``; ``csrc/row_reduce.cuh``). The parted form serves
+flat callers whose ids are arbitrary (``query.exact_stats``, SRS / STS).
 """
 from __future__ import annotations
 
 import torch
-
-import ctypes
 
 from repro_torch.kernels import _build, _workspace
 from repro_torch.kernels.ref import row_ids
 
 #: The most strata of the one-launch form, which keeps 8 warps' rows of S
 #: (f32, f32) sums and S int32 counts in shared memory; past it, the
-#: large-key form.
+#: parted form.
 MAX_STRATA = 512
-#: Items of the large-key forms of the stats and the histogram: their
-#: sorted positions and tiles are int32.
+#: Items of the parted forms of the stats and the histogram: their
+#: partitioned positions and tiles are int32.
 LARGE_MAX_ITEMS = 2**31 - 4096
 
 
@@ -61,6 +63,24 @@ def check_inputs(fn: str, shape: tuple, device, *named) -> None:
                              f"{device}, got {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def flat_form(num_strata: int) -> str:
+    """The form a flat stats call over ``num_strata`` strata takes:
+    ``"small"`` up to :data:`MAX_STRATA`, else ``"parted"``. ``M`` and
+    the ids do not enter."""
+    return "small" if num_strata <= MAX_STRATA else "parted"
+
+
+def parted_scratch(ws, m: int, keys: int, lo_keys: int, nf: int) -> tuple:
+    """The parted form's plan ints and scratch pointers (``ctypes``
+    arrays) for ``m`` items over ``keys`` keys and at most ``lo_keys``
+    low keys, ``ws``'s scratch grown for them; raises past
+    :data:`LARGE_MAX_ITEMS` items."""
+    if m > LARGE_MAX_ITEMS:
+        raise ValueError(f"M = {m} does not fit the parted form's int32 "
+                         "positions")
+    return ws.parted_reduce(_workspace.parted_plan(keys, m, lo_keys), m, nf)
 
 
 def stats_form(g: int) -> str:
@@ -84,30 +104,27 @@ def stratified_stats(values: torch.Tensor, stratum_ids: torch.Tensor,
                  ("mask", mask, torch.bool))
     if num_strata < 1:
         raise ValueError(f"S = {num_strata}: the stats need a stratum")
-    large = num_strata > MAX_STRATA
-    if large and m > LARGE_MAX_ITEMS:
-        raise ValueError(f"M = {m} does not fit the large-key form's int32 "
-                         "sort positions")
+    form = flat_form(num_strata)
     lib = _build.build().lib
     out = torch.empty((3, num_strata), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    small = form == "small"
     ws = _workspace.for_reduce(
         lib, dev, stream,
-        words=0 if large else lib.sa_stats_scratch_words(m, num_strata),
-        keys=0 if large else num_strata)
-    lg = ws.large(lib, m=m, keys=num_strata,
-                  part=lib.sa_stats_part_words(m)) if large else None
+        words=lib.sa_stats_scratch_words(m, num_strata) if small else 0,
+        keys=num_strata if small else 0)
+    parted = (None, None) if small else parted_scratch(
+        ws, m, num_strata, MAX_STRATA, 2)
     with torch.cuda.device(dev):
         status = lib.sa_stratified_stats(
             values.data_ptr(), stratum_ids.data_ptr(), mask.data_ptr(), m,
             num_strata, ws.rows.data_ptr(), ws.tickets.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(),
-            ctypes.addressof(lg) if large else None, stream)
+            out[0].data_ptr(), out[1].data_ptr(), *parted, stream)
     if status != 0:
         _workspace.drop(dev, stream)
     _build.check(status, "stratified_stats")
     stratified_stats.launches += 1
-    stratified_stats.forms["sorted" if large else "small"] += 1
+    stratified_stats.forms[form] += 1
     return out[0], out[1], out[2]
 
 
@@ -151,4 +168,4 @@ def stratified_stats_rows(values: torch.Tensor, mask: torch.Tensor):
 
 stratified_stats.launches = 0
 #: Launches of each form since the last reset.
-stratified_stats.forms = {"small": 0, "row": 0, "sorted": 0}
+stratified_stats.forms = {"small": 0, "row": 0, "parted": 0}

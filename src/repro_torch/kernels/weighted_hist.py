@@ -13,11 +13,14 @@ are kept in ``kernels/_workspace`` per device and stream (tickets and
 totals 0 between calls), not allocated per call.
 
 Past :data:`MAX_CELLS_BINS` keys ``G·B`` a block's shared memory no
-longer holds its warps' rows, and the wrapper takes the kernel's
-large-key form: each item's ``cell·B + bin`` (the same bin table) sorted
-stably (``csrc/key_sort.cu``), then each key's run of sorted weights
-summed by a fixed tree, with scratch that grows with ``M + G·B``. Its
-sums' order is fixed by the data alone.
+longer holds its warps' rows, and the wrapper takes the kernel's parted
+form (``csrc/parted_reduce.cuh``): each item's key ``cell·B + bin`` (the
+same bin table) is (part, low bits), the low bits at most
+:data:`PARTED_LO_KEYS` keys, the items in a bin partitioned stably by
+part as ``(key, w)``, each part's tiles summed over its low bits as the
+one-launch form sums its keys, in 2 + the plan's partition passes
+launches (3 up to 2**20 keys) and scratch that grows with ``M + G·B``.
+Its sums' order is fixed by the data and ``M`` alone.
 
 The order of the small-key form's f32 sums is fixed by ``M`` and by where
 ``values`` starts within 16 bytes (the kernel's 4-item vectors are aligned to that
@@ -34,38 +37,47 @@ with row ids and row weights (the bits of a flat call); past it, up to
 :data:`MAX_ROW_BINS` bins, the row form, one launch that counts each
 row's bins where the row lies and multiplies by its weight (no sort, no
 ids, no per-slot weights; ``csrc/row_reduce.cuh``); past that, whose
-counts no longer fit a block's shared memory, the sorted large-key form
-on the flat view.
+counts no longer fit a block's shared memory, the parted form on the
+flat view.
 """
 from __future__ import annotations
 
 import torch
 
-import ctypes
-
 from repro_torch.kernels import _build, _workspace
 from repro_torch.kernels.ref import row_ids
-from repro_torch.kernels.stratified_stats import LARGE_MAX_ITEMS, check_inputs
+from repro_torch.kernels.stratified_stats import check_inputs, parted_scratch
 
 #: The most keys G*B of the one-launch form, which keeps 8 warps' rows of
 #: G*B f32 sums, G*B int32 counts, the bin table and the edges in the
-#: shared memory of a block; past it, the large-key form.
+#: shared memory of a block; past it, the parted form.
 MAX_CELLS_BINS = 3200
 #: The most bins of the row form, whose block keeps a row's B int32
 #: counts, the bin table and the edges (about 82 KB at 4,096 bins) in
 #: shared memory (``kMaxRowBins`` in ``csrc/row_reduce.cuh``); past it,
-#: a ``[G, N]`` view takes the large-key form.
+#: a ``[G, N]`` view takes the parted form.
 MAX_ROW_BINS = 4096
+#: The most low keys of the parted form: a power of two whose 8 warps'
+#: rows fit a block as the one-launch form's MAX_CELLS_BINS do, at most
+#: the look-back's 1,024.
+PARTED_LO_KEYS = 1024
 
 
 def hist_form(g: int, nb: int) -> str:
     """The form a histogram call over a ``[G, N]`` row view and ``nb``
     bins takes: ``"small"`` up to :data:`MAX_CELLS_BINS` keys ``G·B``,
-    else ``"row"`` up to :data:`MAX_ROW_BINS` bins, else ``"sorted"``.
+    else ``"row"`` up to :data:`MAX_ROW_BINS` bins, else ``"parted"``.
     ``N`` does not enter."""
     if g * nb <= MAX_CELLS_BINS:
         return "small"
-    return "row" if nb <= MAX_ROW_BINS else "sorted"
+    return "row" if nb <= MAX_ROW_BINS else "parted"
+
+
+def flat_form(g: int, nb: int) -> str:
+    """The form a flat histogram call over ``g`` cells and ``nb`` bins
+    takes: ``"small"`` up to :data:`MAX_CELLS_BINS` keys, else
+    ``"parted"``."""
+    return "small" if g * nb <= MAX_CELLS_BINS else "parted"
 
 
 def _check_edges(edges: torch.Tensor, dev) -> int:
@@ -97,31 +109,31 @@ def weighted_hist(values: torch.Tensor, stratum_ids: torch.Tensor,
     keys = num_strata * nb
     if num_strata < 1:
         raise ValueError(f"G = {num_strata}: the histogram needs a cell")
-    large = keys > MAX_CELLS_BINS
-    if large and (m > LARGE_MAX_ITEMS or keys >= 2**31 - 1):
-        raise ValueError(f"M = {m} or G*B = {keys} does not fit the "
-                         "large-key form's int32 sort keys and positions")
+    form = flat_form(num_strata, nb)
+    small = form == "small"
+    if not small and keys >= 2**31 - 1:
+        raise ValueError(f"G*B = {keys} does not fit the parted form's "
+                         "int32 keys")
     lib = _build.build().lib
     out = torch.empty((2, num_strata, nb), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace.for_reduce(
         lib, dev, stream,
-        words=0 if large else lib.sa_whist_scratch_words(m, keys),
-        keys=0 if large else keys)
-    lg = ws.large(lib, m=m, keys=keys,
-                  part=lib.sa_whist_part_words(m)) if large else None
+        words=lib.sa_whist_scratch_words(m, keys) if small else 0,
+        keys=keys if small else 0)
+    parted = (None, None) if small else parted_scratch(
+        ws, m, keys, PARTED_LO_KEYS, 1)
     with torch.cuda.device(dev):
         status = lib.sa_weighted_hist(
             values.data_ptr(), stratum_ids.data_ptr(), weights.data_ptr(),
             mask.data_ptr(), edges.data_ptr(), m, num_strata, nb,
             ws.rows.data_ptr(), ws.tickets.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), ctypes.addressof(lg) if large else None,
-            stream)
+            out[1].data_ptr(), *parted, stream)
     if status != 0:
         _workspace.drop(dev, stream)
     _build.check(status, "weighted_hist")
     weighted_hist.launches += 1
-    weighted_hist.forms["sorted" if large else "small"] += 1
+    weighted_hist.forms[form] += 1
     return out[0], out[1]
 
 
@@ -171,4 +183,4 @@ def weighted_hist_rows(values: torch.Tensor, row_weights: torch.Tensor,
 
 weighted_hist.launches = 0
 #: Launches of each form since the last reset.
-weighted_hist.forms = {"small": 0, "row": 0, "sorted": 0}
+weighted_hist.forms = {"small": 0, "row": 0, "parted": 0}

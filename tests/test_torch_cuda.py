@@ -517,9 +517,9 @@ def _to(dev, arrays):
 
 def assert_workspace_clean(dev, stream=None):
     """The scratch the kernels keep is as the next call needs it: the
-    winner table all -1, the look-back words, counters and tickets, the
-    sort's totals and the parted form's totals and tickets all 0 (the
-    workspace of ``stream``, by default the current one)."""
+    winner table all -1, the look-back words, counters and tickets and
+    the parted form's totals and tickets all 0 (the workspace of
+    ``stream``, by default the current one)."""
     torch.cuda.synchronize()
     stream = stream or torch.cuda.current_stream(dev)
     ws = _workspace.get(dev, stream.cuda_stream)
@@ -527,7 +527,6 @@ def assert_workspace_clean(dev, stream=None):
     assert not bool(ws.status.any())
     assert not bool(ws.counters.any())
     assert not bool(ws.tickets.any())
-    assert not bool(ws.sort_zeroed.any())
     assert not bool(ws.part_zeroed.any())
 
 
@@ -942,28 +941,168 @@ def test_cuda_fold_batches_match_plain(cuda_device, folds, form, leaves):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("keys,m", [(1_025, 1000), (1_025, 200_003),
-                                    (262_144, 4_194_304)])
-def test_cuda_key_sort_is_stable(cuda_device, keys, m):
-    """The large-key forms' radix sort: keys and item indices equal a
-    stable sort's, the sort's zeroed words 0 after it."""
+@pytest.mark.parametrize("entry", [2, 4])
+@pytest.mark.parametrize("keys,m", [(513, 1_000), (4_096, 200_003),
+                                    (2**19 + 1, 1_048_583)])
+def test_cuda_partition_is_stable(cuda_device, keys, m, entry):
+    """The parted forms' shared count and partition launches alone
+    (``sa_stats_partition``) with both payloads: the stats' ``(stratum,
+    x)`` (``entry`` 2) and the fold's ``(item, stratum, u_accept,
+    u_slot)`` (4). The last pass's entries are the live items' in a
+    stable order by part (item order inside a part), every other zeroed
+    word 0 after it (the look-back words, which the sums launch clears
+    in a call, cleared here)."""
     from repro_torch.kernels import _build
     lib = _build.build().lib
     dev = cuda_device
-    k = torch.randint(0, keys + 1, (m,), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(keys + entry)
+    sid = rng.integers(-3, keys + 3, m).astype(np.int32)
+    mask = rng.random(m) < 0.8
+    x, ua, us = (rng.random(m).astype(np.float32) for _ in range(3))
+    plan = _workspace.parted_plan(keys, m, stratified_stats.MAX_STRATA)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace.get(dev, stream)
-    lg = ws.large(lib, m=m, keys=keys)
-    ks = torch.empty_like(k)
-    ix = torch.empty_like(k)
-    import ctypes
-    assert lib.sa_key_sort(k.data_ptr(), m, _workspace.key_bits(keys),
-                           ctypes.addressof(lg), ks.data_ptr(),
-                           ix.data_ptr(), stream) == 0
-    want, order = torch.sort(k.long(), stable=True)
-    assert torch.equal(ks.long(), want)
-    assert torch.equal(ix.long(), order)
+    # room for entries of `entry` words: m * entry / 2 entries of two
+    ints, pt = ws.parted_reduce(plan, m * entry // 2, 2)
+    t = [torch.from_numpy(a).to(dev) for a in (x, sid, mask, ua, us)]
+    assert lib.sa_stats_partition(*(a.data_ptr() for a in t), m, keys,
+                                  entry, ints, pt, stream) == 0
+    torch.cuda.synchronize()
+    live = np.flatnonzero(mask & (sid >= 0) & (sid < keys))
+    order = live[np.argsort(sid[live] >> plan.lo_bits, kind="stable")]
+    first = entry * m if plan.passes % 2 == 0 else 0
+    got = ws.part_items[first:first + entry * len(order)].view(
+        -1, entry).cpu().numpy()
+    bits = [a.view(np.int32) for a in (x, ua, us)]
+    want = (np.stack([sid[order], bits[0][order]], 1) if entry == 2 else
+            np.stack([order.astype(np.int32), sid[order], bits[1][order],
+                      bits[2][order]], 1))
+    np.testing.assert_array_equal(got, want)
+    ws.status.zero_()
     assert_workspace_clean(dev)
+
+
+#: The parted stats' cases: (strata, items); 2**19 + 1 strata take two
+#: partition passes.
+PARTED_STATS = {"past": (513, 200_003), "4096": (4_096, 200_003),
+                "two_passes": (2**19 + 1, 1_048_583)}
+#: The parted histogram's cases: (cells, bins, items).
+PARTED_HIST = {"past": (97, 33, 200_003), "sliding": (15_360, 32, 1_048_583)}
+#: The keys of a parted case: in row order (each key's items one run, as
+#: the emission's view), at random, or every item masked out.
+PARTED_IDS = ("rows", "random", "all_masked")
+
+
+def parted_ids(rng, ids, keys, m):
+    """``m`` int32 ids of ``keys`` keys, and a mask (0.8 live, or none)."""
+    sid = (np.arange(m) * keys // m if ids == "rows"
+           else rng.integers(0, keys, m)).astype(np.int32)
+    return sid, rng.random(m) < (0.0 if ids == "all_masked" else 0.8)
+
+
+#: The parted form's launches, by the kernels' names.
+PARTED_KERNELS = ("parted_count", "parted_partition", "parted_sums")
+
+
+def launches_per_call(fn, tries=4, calls=3):
+    """Device activities per call of ``fn``, by kind (each of
+    PARTED_KERNELS, ``"memset"``, ``"other"``), from a ``torch.profiler``
+    trace of ``calls`` calls after a warm-up step of as many (the tracer
+    can drop a trace's first events); a window whose counts are not whole
+    multiples of the calls is traced again."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kinds = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA or \
+                    e.name.startswith("ProfilerStep"):
+                continue
+            kind = ("memset" if "Memset" in e.name else next(
+                (k for k in PARTED_KERNELS if k in e.name), "other"))
+            kinds[kind] = kinds.get(kind, 0) + 1
+        if kinds and all(n % calls == 0 for n in kinds.values()):
+            return {k: n // calls for k, n in kinds.items()}
+    raise AssertionError(f"no whole trace of {calls} calls: {kinds}")
+
+
+def parted_launches(passes):
+    """The parted form's launches a call over a plan of ``passes``."""
+    return {"parted_count": 1, "parted_partition": passes, "parted_sums": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", PARTED_IDS)
+@pytest.mark.parametrize("case", sorted(PARTED_STATS))
+def test_cuda_stats_parted_matches_plain(cuda_device, case, ids):
+    """Past MAX_STRATA the parted form: counts bit for bit, sums within
+    1e-5 of the f64-summed plain version, a second call the same bits,
+    the scratch clean; 2 + the plan's passes kernels a call, no memset."""
+    s, m = PARTED_STATS[case]
+    rng = np.random.default_rng(s)
+    sid, mask = parted_ids(rng, ids, s, m)
+    vals = rng.normal(100.0, 10.0, m).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (vals, sid, mask)]
+    forms = dict(stratified_stats.stratified_stats.forms)
+    kc, _, _ = _stats_call(*args, s)
+    assert stratified_stats.stratified_stats.forms["parted"] == \
+        forms["parted"] + 2
+    assert float(kc.sum()) == float(mask.sum())
+    plan = _workspace.parted_plan(s, m, stratified_stats.MAX_STRATA)
+    assert launches_per_call(lambda: stratified_stats.stratified_stats(
+        *args, s)) == parted_launches(plan.passes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", PARTED_IDS)
+@pytest.mark.parametrize("case", sorted(PARTED_HIST))
+def test_cuda_weighted_hist_parted_matches_plain(cuda_device, case, ids):
+    """Past MAX_CELLS_BINS the parted form, as the stats' (the mass
+    within 1e-5 of the f64-summed plain version)."""
+    g, b, m = PARTED_HIST[case]
+    rng = np.random.default_rng(g * b)
+    cell, mask = parted_ids(rng, ids, g, m)
+    x = rng.uniform(0.0, 100.0, m).astype(np.float32)
+    w = rng.uniform(1.0, 5.0, g).astype(np.float32)[cell]
+    e = np.linspace(10.0, 90.0, b + 1).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (x, cell, w, mask,
+                                                          e)]
+    forms = dict(weighted_hist.weighted_hist.forms)
+    _, kc = _whist_call(*args, g)
+    assert weighted_hist.weighted_hist.forms["parted"] == forms["parted"] + 2
+    assert float(kc.sum()) == float((mask & (x >= 10.0) & (x <= 90.0)).sum())
+    plan = _workspace.parted_plan(g * b, m, weighted_hist.PARTED_LO_KEYS)
+    assert launches_per_call(lambda: weighted_hist.weighted_hist(
+        *args, g)) == parted_launches(plan.passes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["prefix", "random", "none"])
+def test_cuda_weighted_hist_view_past_row_bins(cuda_device, mask):
+    """A ``[G, N]`` view over 4,097 bins takes the parted form on the flat
+    view: held to the plain row version, the same bits twice, its 3
+    kernels a call (beside the row ids and weights the wrapper builds)."""
+    g, n, bins = 5, 3_000, weighted_hist.MAX_ROW_BINS + 1
+    x, w, live, e = (torch.from_numpy(a).to(cuda_device)
+                     for a in rows_inputs(66, g, n, mask, bins=bins))
+    got, want = _rows_calls(weighted_hist.weighted_hist_rows,
+                            ref.weighted_hist_rows, [x, w, live, e],
+                            "parted")
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    got = launches_per_call(lambda: weighted_hist.weighted_hist_rows(
+        x, w, live, e))
+    assert {k: got.get(k) for k in PARTED_KERNELS} == parted_launches(1)
 
 
 @pytest.mark.cuda
@@ -1071,7 +1210,7 @@ def test_cuda_weighted_hist_matches_plain(cuda_device, case, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [100, 200_003])
 def test_cuda_weighted_hist_many_cells_bins_matches_plain(cuda_device, m):
-    """G*B = 101 x 100, past MAX_CELLS_BINS: the large-key form, held to
+    """G*B = 101 x 100, past MAX_CELLS_BINS: the parted form, held to
     the plain version as the one-launch form is, the same bits twice."""
     assert 101 * 100 > weighted_hist.MAX_CELLS_BINS
     x, cell, w, mask, e = (torch.from_numpy(a).to(cuda_device)
@@ -1176,7 +1315,7 @@ def test_cuda_weighted_hist_layouts_match_plain(cuda_device, layout, edges):
 
 
 #: Strata of the stats limit cases: the one-launch form's most, the
-#: large-key form past it and at 65,536, and an all-masked call.
+#: parted form past it and at 65,536, and an all-masked call.
 STATS_LIMITS = {"max_strata": 512, "past_max": 513, "many": 65_536,
                 "all_masked": 4}
 
@@ -1185,7 +1324,7 @@ STATS_LIMITS = {"max_strata": 512, "past_max": 513, "many": 65_536,
 @pytest.mark.parametrize("case", sorted(STATS_LIMITS))
 @pytest.mark.parametrize("m", [1000, 200_003])
 def test_cuda_stats_limits_match_plain(cuda_device, case, m):
-    """S = MAX_STRATA strata, past it (the large-key form), and a call
+    """S = MAX_STRATA strata, past it (the parted form), and a call
     with every slot masked out."""
     rng = np.random.default_rng(45)
     s = STATS_LIMITS[case]
@@ -1202,8 +1341,8 @@ def test_cuda_stats_limits_match_plain(cuda_device, case, m):
                                     "weighted_hist_large"])
 def test_cuda_fifty_calls_give_the_same_bits(cuda_device, kernel):
     """50 back-to-back calls over 2**21 + 5 items (all 512 blocks, their
-    last tickets taken in whatever order they finish; the large-key
-    forms' sort and segment tiles likewise): one result."""
+    last tickets taken in whatever order they finish; the parted forms'
+    partition and part tiles likewise): one result."""
     m = 2**21 + 5
     if kernel.startswith("stats"):
         s = 600 if kernel.endswith("large") else 4
@@ -1379,12 +1518,12 @@ def test_cuda_weighted_hist_rows_edges(cuda_device, edges):
 @pytest.mark.parametrize("kernel,g,bins,form", [
     ("stats", 512, 32, "small"), ("stats", 513, 32, "row"),
     ("whist", 100, 32, "small"), ("whist", 101, 32, "row"),
-    ("whist", 1, 4_096, "row"), ("whist", 1, 4_097, "sorted")])
+    ("whist", 1, 4_096, "row"), ("whist", 1, 4_097, "parted")])
 def test_cuda_row_entries_take_their_form(cuda_device, kernel, g, bins,
                                           form):
     """Each row entry's form by shape: at the caps the one-launch form on
     the flat view with row ids, the bits of the flat call; past them the
-    row form; past MAX_ROW_BINS the sorted form; each held to its plain
+    row form; past MAX_ROW_BINS the parted form; each held to its plain
     version."""
     x, w, live, e = rows_inputs(64, g, 1_000, bins=bins)
     x, w, live, e = (torch.from_numpy(a).to(cuda_device)

@@ -5,7 +5,7 @@ the emission's ``[G, N]`` slot view (each row a cell, one weight a row).
 On the CPU they run the flat plain versions with row ids and each row's
 weight on its slots, so they give the bits of the flat calls the
 emission made before, at every ``G``; on the card the wrappers pick the
-one-launch form, the row form or the sorted form by shape alone
+one-launch form, the row form or the parted form by shape alone
 (``stats_form``, ``hist_form``), and ``test_torch_cuda.py`` holds each
 against these plain versions. Here: the bits of the flat calls, the
 reference's row sums and its histogram kernel in interpret mode, and the
@@ -109,11 +109,11 @@ def test_stats_form_by_shape(g, form):
 @pytest.mark.parametrize("g,bins,form", [
     (6, 32, "small"), (100, 32, "small"), (101, 32, "row"),
     (1, 3_200, "small"), (1, 3_201, "row"), (15_360, 32, "row"),
-    (1, 4_096, "row"), (1, 4_097, "sorted"), (9, 5_000, "sorted")])
+    (1, 4_096, "row"), (1, 4_097, "parted"), (9, 5_000, "parted")])
 def test_histogram_form_by_shape(g, bins, form):
     """The histogram's form is a function of (G, B) alone: the one-launch
     form up to MAX_CELLS_BINS keys, the row form up to MAX_ROW_BINS bins,
-    the sorted form past them; the limit is the CUDA source's."""
+    the parted form past them; the limit is the CUDA source's."""
     assert weighted_hist.hist_form(g, bins) == form
     src = (CSRC / "row_reduce.cuh").read_text()
     limit = re.search(r"kMaxRowBins = (\d+);", src)
